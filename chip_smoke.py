@@ -1,0 +1,612 @@
+"""Drive the PyTorch + CUDA port of the query engine end to end on one card.
+
+    python3 chip_smoke.py                 # the full run on a CUDA card
+    python3 chip_smoke.py --rehearse-cpu  # tiny sizes, plain versions, CPU
+
+Phases: (1) the card; (2) build the CUDA kernels from ``src/repro_torch/csrc``
+and print ptxas's report; (3) hold every kernel against its plain PyTorch
+version at main-path shapes (a 4,096-row slice of E1 against the full E2)
+under the rules of ``repro_torch.kernels.checks``, the fp32 sweep against
+the two-pass kernels bit for bit, and the fp32 sweep as the 3-way chain
+calls it (exponent 0.5, a per-row scale, walk sums at exponent 1); (4) the
+main path: ``JoinMLEngine.execute`` on 32,768 x 32,768 records at d = 384
+(COUNT, SUM, AVG; COUNT at bf16, at int8 and on the two-pass schedule; a
+catalog with canonical records that drives the raised-k top-k retry), a
+3-way chain through ``run_auto`` and a small dense-routed query, with launch
+counts read around the whole phase; (5) kernel times with CUDA events at
+the phase-4 shapes.
+
+Any failed phase exits non-zero.  The last lines are one JSON object of
+kernels, the card's name and power limit, and ``{"ok": true, ...}``.
+Without a card (or without the repository beside it) it exits non-zero and
+prints no result.  The rehearsal runs phase 4 at a tiny size on the CPU and
+exits 3.
+"""
+import argparse
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(HERE, "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+SOURCE = "src/repro_torch/csrc/sim_kernels.cu"
+REPLACES = {
+    "sim_sweep[fp32]": "src/repro/kernels/sim_sweep/kernel.py:150",
+    "sim_sweep[bf16]": "src/repro/kernels/sim_sweep/kernel.py:150",
+    "sim_sweep_q[int8]": "src/repro/kernels/sim_sweep/kernel.py:167",
+    "sim_topk[k=32]": "src/repro/kernels/sim_topk/kernel.py:23",
+    "sim_topk[k=128]": "src/repro/kernels/sim_topk/kernel.py:23",
+    "sim_hist": "src/repro/kernels/sim_hist/kernel.py:34",
+}
+# published H100 SXM peaks (dense): FP32 on the CUDA cores, bf16 and int8 on
+# the tensor cores, HBM3 bandwidth
+PEAK = {"fp32": 67e12, "bf16": 989e12, "int8": 1979e12}
+HBM = 3.35e12
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def fail(msg):
+    log(f"FAILED: {msg}")
+    sys.exit(1)
+
+
+@dataclasses.dataclass(frozen=True)
+class Size:
+    n: int          # records per table of the main catalog
+    d: int          # embedding width
+    slice: int      # rows of E1 that phase 3 holds against all of E2
+    budget: int     # oracle budget of a query
+    dense_cap: int  # BASConfig.max_dense_weight_bytes
+
+
+# the main path: two tables of 32,768 records at the embedder's width
+FULL = Size(n=32768, d=384, slice=4096, budget=20000, dense_cap=256 * 2**20)
+# the CPU rehearsal: the same phases at a size the CPU runs in seconds
+REHEARSAL = Size(n=1024, d=64, slice=256, budget=4000, dense_cap=2**16)
+SEED = 0
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the main path
+# ---------------------------------------------------------------------------
+
+def make_catalogs(n, d, seed):
+    from repro_torch.core import Catalog, Table
+    from repro_torch.core.similarity import normalize
+    from repro_torch.data import make_clustered_tables
+
+    ds = make_clustered_tables(n, n, d=d, n_entities=512, noise=0.35, seed=seed)
+    main = Catalog()
+    main.register(Table("a", ds.emb1, ds.columns1))
+    main.register(Table("b", ds.emb2, ds.columns2))
+    # a catalog whose first left records are canonical descriptions of their
+    # entity (the mean of its right records): those rows clear the top-m
+    # threshold with far more than 32 partners, which drives the raised-k
+    # top-k retry of the collection
+    hot = make_clustered_tables(max(n // 8, 64), n, d=d,
+                                n_entities=max(n // 512, 2),
+                                noise=0.35, seed=seed + 1)
+    e1 = hot.emb1.copy()
+    for i in range(8):
+        e1[i] = normalize(hot.emb2[hot.truth[i] > 0].mean(axis=0, keepdims=True))[0]
+    hcat = Catalog()
+    hcat.register(Table("h", e1, hot.columns1))
+    hcat.register(Table("b", hot.emb2, hot.columns2))
+    return ds, main, hot, hcat
+
+
+def make_chain(size):
+    """The 3-way chain of phase 4: 64 x 512 x 32,768 at the full size."""
+    from repro_torch.data import make_chain_dataset
+
+    n = size.n
+    return make_chain_dataset([max(n // 512, 4), max(n // 64, 8), n], d=size.d,
+                              n_entities=256, noise=0.3, seed=SEED + 2)
+
+
+def run_phase4(size, device, launches):
+    from repro_torch.core import Agg, JoinMLEngine, Query, run_auto
+    from repro_torch.core import similarity
+    from repro_torch.core.oracle import ArrayOracle
+    from repro_torch.core.types import BASConfig
+    from repro_torch.data import make_clustered_tables
+
+    n, d, budget = size.n, size.d, size.budget
+    t0 = time.perf_counter()
+    ds, main, hot, hcat = make_catalogs(n, d, SEED)
+    chain = make_chain(size)
+    small = make_clustered_tables(max(n // 32, 64), max(n // 32, 64), d=d,
+                                  n_entities=128, noise=0.35, seed=SEED + 3)
+    log(f"data: {time.perf_counter() - t0:.1f} s")
+
+    row_t = ds.truth.sum(axis=1, dtype=np.int64)
+    col_t = ds.truth.sum(axis=0, dtype=np.int64)
+    count = float(row_t.sum())
+    truths = {
+        "count": count,
+        "sum": float(ds.columns1["value"] @ row_t),
+        "avg": float(ds.columns2["value"] @ col_t) / count,
+    }
+    sql = {
+        "count": "SELECT COUNT(*) FROM a JOIN b ON NL('same entity') "
+                 f"ORACLE BUDGET {budget} WITH PROBABILITY 0.95",
+        "sum": "SELECT SUM(a.value) FROM a JOIN b ON NL('same entity') "
+               f"ORACLE BUDGET {budget} WITH PROBABILITY 0.95",
+        "avg": "SELECT AVG(b.value) FROM a JOIN b ON NL('same entity') "
+               f"ORACLE BUDGET {budget} WITH PROBABILITY 0.95",
+        "hot": "SELECT COUNT(*) FROM h JOIN b ON NL('same entity') "
+               f"ORACLE BUDGET {budget} WITH PROBABILITY 0.95",
+    }
+    oracle = lambda nl, names: ArrayOracle(ds.truth)  # noqa: E731
+    cfg = BASConfig(max_dense_weight_bytes=size.dense_cap)
+    runs = [
+        ("COUNT", main, oracle, cfg, sql["count"], truths["count"]),
+        ("SUM", main, oracle, cfg, sql["sum"], truths["sum"]),
+        ("AVG", main, oracle, cfg, sql["avg"], truths["avg"]),
+        ("COUNT bf16", main, oracle, dataclasses.replace(cfg, sweep_precision="bf16"),
+         sql["count"], truths["count"]),
+        ("COUNT int8", main, oracle, dataclasses.replace(cfg, sweep_precision="int8"),
+         sql["count"], truths["count"]),
+        ("COUNT two-pass", main, oracle, dataclasses.replace(cfg, use_sweep=False),
+         sql["count"], truths["count"]),
+        ("COUNT hot rows", hcat, lambda nl, names: ArrayOracle(hot.truth), cfg,
+         sql["hot"], float(hot.truth.sum(dtype=np.int64))),
+    ]
+    results = []
+    for name, cat, orc, c, q, truth in runs:
+        eng = JoinMLEngine(cat, orc, cfg=c, device=device)
+        results.append(_timed(name, truth, launches, device,
+                              lambda: eng.execute(q, method="auto", seed=SEED)))
+    # 3-way chain, streaming through run_auto (prefix sweeps with a per-row
+    # scale and the walk sums at the raw exponent)
+    t1, t2 = chain.edge_truth
+    chain_truth = float(t1.sum(axis=0, dtype=np.int64) @ t2.sum(axis=1, dtype=np.int64))
+    results.append(_timed(
+        "3-way chain COUNT", chain_truth, launches, device,
+        lambda: run_auto(Query(spec=chain.spec(), agg=Agg.COUNT,
+                               oracle=chain.oracle(), budget=budget),
+                         cfg, seed=SEED, device=device)))
+    results.append(_timed(
+        "dense COUNT", float(small.truth.sum()), launches, device,
+        lambda: run_auto(Query(spec=small.spec(), agg=Agg.COUNT,
+                               oracle=small.oracle(), budget=budget // 4),
+                         cfg, seed=SEED, device=device)))
+    # agreement with the plain versions on the CPU, on a small input
+    agree = {}
+    for dev in ("cpu", device):
+        q = Query(spec=small.spec(), agg=Agg.COUNT, oracle=small.oracle(),
+                  budget=budget // 4)
+        agree[dev] = run_auto(q, dataclasses.replace(cfg, max_dense_weight_bytes=0),
+                              seed=SEED, device=dev)
+    a, b = agree["cpu"], agree[device]
+    rel = max(abs(b.estimate - a.estimate) / abs(a.estimate),
+              abs(b.ci.lo - a.ci.lo) / abs(a.ci.lo), abs(b.ci.hi - a.ci.hi) / abs(a.ci.hi))
+    log(json.dumps({"check": "small streaming COUNT, card vs CPU plain versions",
+                    "estimate": [a.estimate, b.estimate], "max_rel_diff": rel}))
+    if rel > 1e-6:
+        fail("the card's estimate disagrees with the CPU's beyond 1e-6")
+    for r in results:
+        res = r["result"]
+        if not (np.isfinite(res.estimate) and res.ci.lo <= res.estimate <= res.ci.hi):
+            fail(f"{r['name']}: estimate {res.estimate} outside its CI {res.ci}")
+        if res.error_ratio(r["truth"]) > 3.0:
+            fail(f"{r['name']}: |estimate - truth| is {res.error_ratio(r['truth']):.2f} "
+                 "CI half-widths")
+    paths = {r["name"]: r["path"] for r in results}
+    if paths["dense COUNT"] != "dense" or any(
+            p != "streaming" for k, p in paths.items() if k != "dense COUNT"):
+        fail(f"unexpected dispatch paths {paths}")
+    fused = [r for r in results if r["stratify"].get("walk_setup") == "fused"]
+    if any(sum(r["pass_counts"].values()) for r in fused):
+        fail("the fused path launched a standalone pass")
+    if similarity.PASS_COUNTS["edge_row_sums"] == 0 and any(
+            r["name"] == "COUNT two-pass" for r in results):
+        fail("the two-pass run should recompute its walk sums")
+    return results, hot, (ds, main)
+
+
+def _timed(name, truth, launches, device, fn):
+    from repro_torch.core import similarity
+    from repro_torch.kernels import cuda_lib
+
+    before = dict(cuda_lib.LAUNCHES)
+    passes0 = dict(similarity.PASS_COUNTS)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    delta = {k: v - before.get(k, 0) for k, v in cuda_lib.LAUNCHES.items()
+             if v - before.get(k, 0)}
+    passes = {k: similarity.PASS_COUNTS[k] - passes0[k] for k in passes0}
+    st = res.telemetry.stratify
+    stratify = {"path": st.path, **st.extra} if st is not None else {}
+    disp = res.telemetry.dispatch
+    row = {
+        "name": name, "result": res, "truth": truth, "path": disp.path,
+        "launches": delta, "pass_counts": passes, "stratify": stratify,
+    }
+    log(json.dumps({
+        "query": name, "estimate": res.estimate, "truth": truth,
+        "ci": [res.ci.lo, res.ci.hi], "covers": res.ci.contains(truth),
+        "path": disp.path, "launches": delta, "PASS_COUNTS": passes,
+        "topk_retry_rows": _stat(res, "topk_retry_rows"),
+        "dense_rescan_rows": _stat(res, "dense_rescan_rows"),
+        "oracle_calls": res.oracle_calls, "wall_s": wall,
+        "timings_s": res.telemetry.timings,
+    }))
+    return row
+
+
+def _stat(res, key):
+    st = res.telemetry.stratify
+    return None if st is None else st.extra.get(key)
+
+
+def _busy_ms(events):
+    """Length of the union of the device events' spans (kernels, copies,
+    and the annotations that mirror host ops on the device timeline and
+    overlap them), without CUPTI's own buffer requests."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == DeviceType.CUDA
+                   and e.name != "Activity Buffer Request")
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3
+
+
+def profile_query(size, catalogs):
+    """One more COUNT on the main catalog under torch.profiler: the device's
+    busy time (the union of the device events' spans) against the query's
+    wall time, and the device events by their summed self time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import JoinMLEngine
+    from repro_torch.core.oracle import ArrayOracle
+
+    ds, main = catalogs
+    eng = JoinMLEngine(main, lambda nl, names: ArrayOracle(ds.truth), device="cuda")
+    sql = ("SELECT COUNT(*) FROM a JOIN b ON NL('same entity') "
+           f"ORACLE BUDGET {size.budget} WITH PROBABILITY 0.95")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = eng.execute(sql, seed=SEED + 1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:  # host ops: their kernels count below
+            continue
+        us = e.self_device_time_total
+        if us > 0:
+            rows.append((e.key, us / 1e3, e.count))
+    rows.sort(key=lambda r: -r[1])
+    busy = _busy_ms(prof.events())
+    if busy <= 0:
+        fail("the profiler saw no device event in a query on the card")
+    log(json.dumps({"profile": "COUNT on the main catalog", "wall_ms": wall * 1e3,
+                    "device_busy_ms": busy, "idle_share": 1.0 - busy / (wall * 1e3),
+                    "timings_s": res.telemetry.timings,
+                    "top_device_events": [[k[:60], ms, n] for k, ms, n in rows[:8]]}))
+
+
+# ---------------------------------------------------------------------------
+# phases 3 and 5: kernels against their plain versions, and their times
+# ---------------------------------------------------------------------------
+
+def _events_ms(fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def kernel_inputs(ds, rows, precision):
+    from repro_torch.core.similarity import quantize_rows_int8
+
+    dev = torch.device("cuda")
+    e1 = ds.emb1[:rows]
+    e2 = ds.emb2
+    if precision == "int8":
+        q1, r1 = quantize_rows_int8(e1)
+        q2, r2 = quantize_rows_int8(e2)
+        return [torch.from_numpy(x).to(dev) for x in
+                (q1, q2, r1.reshape(-1), r2.reshape(-1))]
+    return [torch.from_numpy(e1).to(dev), torch.from_numpy(e2).to(dev), None, None]
+
+
+def sweep_fns(ds, rows, precision, k=32):
+    from repro_torch.kernels.sim_sweep.kernel import kernel_operand, sim_sweep_cuda
+    from repro_torch.kernels.sim_sweep.ref import sim_sweep_ref
+
+    a, b, rs1, rs2 = kernel_inputs(ds, rows, precision)
+    m, n = a.shape[0], b.shape[0]
+    scale = torch.ones(m, device="cuda")
+    v = torch.ones(n, device="cuda")
+    ka, kb = kernel_operand(a, precision), kernel_operand(b, precision)
+    kw = dict(n_bins=4096, exponent=1.0, floor=1e-3, k=k, bm=256,
+              precision=precision, rs1=rs1, rs2=rs2)
+    kern = lambda: sim_sweep_cuda(ka, kb, scale, v, **kw)  # noqa: E731
+    plain = lambda: sim_sweep_ref(a, b, scale, v, **kw)  # noqa: E731
+    return kern, plain, (a, b, rs1, rs2, scale, v)
+
+
+def phase3(ds, rows):
+    from repro_torch.kernels import checks
+    from repro_torch.kernels.sim_hist.kernel import sim_hist_cuda
+    from repro_torch.kernels.sim_hist.ref import sim_hist_ref
+    from repro_torch.kernels.sim_sweep.kernel import kernel_operand
+    from repro_torch.kernels.sim_topk.kernel import sim_topk_cuda
+    from repro_torch.kernels.sim_topk.ref import sim_topk_ref
+
+    errs = {}
+    for precision, name in (("fp32", "sim_sweep[fp32]"), ("bf16", "sim_sweep[bf16]"),
+                            ("int8", "sim_sweep_q[int8]")):
+        kern, plain, (a, b, rs1, rs2, scale, v) = sweep_fns(ds, rows, precision)
+        kb, kv, ki, ks = kern()
+        torch.cuda.synchronize()
+        pb, pv, pi, ps = plain()
+        s64, bound = checks.exact_scores(a, b, precision, rs1, rs2)
+        c = checks.check_counts([kb, pb], s64, bound, n_bins=4096, exponent=1.0,
+                                floor=1e-3, bm=256, scale=scale)
+        t = checks.check_topk(kv, ki, pv, pi, s64, bound)
+        rel = checks.check_sums(ks, s64, exponent=1.0, floor=1e-3, v=v)
+        rel_plain = checks.check_sums(ps, s64, exponent=1.0, floor=1e-3, v=v)
+        errs[name] = float((kv.double() - pv.double()).abs().max())
+        log(json.dumps({"check": name, "rows": rows, "cols": b.shape[0],
+                        "uncertain_elements": c["uncertain"],
+                        "count_mismatch": c["mismatch"], "topk_mismatch": t["mismatch"],
+                        "sum_rel_err": rel, "plain_sum_rel_err": rel_plain,
+                        "max_abs_err_vals": errs[name]}))
+        if precision == "int8" and not (torch.equal(kb, pb) and torch.equal(kv, pv)
+                                        and torch.equal(ki, pi)):
+            fail("int8 sweep is not bit-identical to its plain version")
+        if precision == "fp32":
+            fp32 = (a, b, kb, kv, ki, s64, bound)
+        del s64, bound
+        torch.cuda.empty_cache()
+    a, b, kb, kv, ki, s64, bound = fp32
+    a4, b4 = kernel_operand(a, "fp32"), kernel_operand(b, "fp32")
+    ones = torch.ones(a.shape[0], device="cuda")
+    hist = sim_hist_cuda(a4, b4, ones, n_bins=4096)
+    tv, ti = sim_topk_cuda(a4, b4, k=32)
+    torch.cuda.synchronize()
+    identical = bool(torch.equal(kb.sum(dim=0), hist) and torch.equal(kv, tv)
+                     and torch.equal(ki, ti))
+    log(json.dumps({"check": "fp32 sweep == sim_hist + sim_topk[k=32]",
+                    "bit_identical": identical}))
+    if not identical:
+        fail("fp32 sweep differs from the two-pass kernels")
+    ph = sim_hist_ref(a, b, ones, n_bins=4096)
+    c = checks.check_counts([hist[None], ph[None]], s64, bound, n_bins=4096,
+                            exponent=1.0, floor=1e-3, bm=a.shape[0])
+    errs["sim_hist"] = float((hist - ph).abs().max())
+    log(json.dumps({"check": "sim_hist", "uncertain_elements": c["uncertain"],
+                    "count_mismatch": c["mismatch"]}))
+    for k in (32, 128):
+        kv2, ki2 = sim_topk_cuda(a4, b4, k=k)
+        torch.cuda.synchronize()
+        pv2, pi2 = sim_topk_ref(a, b, k=k)
+        t = checks.check_topk(kv2, ki2, pv2, pi2, s64, bound)
+        errs[f"sim_topk[k={k}]"] = float((kv2.double() - pv2.double()).abs().max())
+        log(json.dumps({"check": f"sim_topk[k={k}]", "topk_mismatch": t["mismatch"],
+                        "max_abs_err_vals": errs[f"sim_topk[k={k}]"]}))
+    del s64, bound
+    torch.cuda.empty_cache()
+    return errs
+
+
+def chain_check(chain):
+    """The 3-way chain's first prefix block as ``sweep_pass_chain`` sweeps it
+    on the main path: the prefix rows ``e_prev[i_last]`` against the last
+    table, binned at ``exponent * root`` = 0.5 (the powf branch) with the
+    per-row scale ``wp**0.5``, walk sums at the raw exponent 1, top-1."""
+    from repro_torch.core.stratify import _prefix_chain_weights
+    from repro_torch.kernels import checks
+    from repro_torch.kernels.sim_sweep.kernel import kernel_operand, sim_sweep_cuda
+    from repro_torch.kernels.sim_sweep.ref import sim_sweep_ref
+
+    embs = chain.embeddings
+    root = 1.0 / (len(embs) - 1)
+    rows = min(4096, embs[0].shape[0] * embs[1].shape[0])  # the sweep's block
+    wp, i_last = _prefix_chain_weights(embs, 0, rows, 1.0, 1e-3)
+    a = torch.from_numpy(np.ascontiguousarray(embs[-2][i_last])).cuda()
+    b = torch.from_numpy(embs[-1]).cuda()
+    scale = torch.from_numpy((wp**root).astype(np.float32)).cuda()
+    v = torch.ones(b.shape[0], device="cuda")
+    kw = dict(n_bins=4096, exponent=root, rs_exponent=1.0, floor=1e-3, k=1, bm=256)
+    kb, kv, ki, ks = sim_sweep_cuda(kernel_operand(a, "fp32"),
+                                    kernel_operand(b, "fp32"), scale, v, **kw)
+    torch.cuda.synchronize()
+    pb, pv, pi, ps = sim_sweep_ref(a, b, scale, v, **kw)
+    s64, bound = checks.exact_scores(a, b)
+    c = checks.check_counts([kb, pb], s64, bound, n_bins=4096, exponent=root,
+                            floor=1e-3, bm=256, scale=scale)
+    t = checks.check_topk(kv, ki, pv, pi, s64, bound)
+    rel = checks.check_sums(ks, s64, exponent=1.0, floor=1e-3, v=v)
+    rel_plain = checks.check_sums(ps, s64, exponent=1.0, floor=1e-3, v=v)
+    err = float((kv.double() - pv.double()).abs().max())
+    log(json.dumps({"check": "sim_sweep[fp32], 3-way chain prefix block",
+                    "rows": rows, "cols": b.shape[0], "exponent": root,
+                    "rs_exponent": 1.0, "uncertain_elements": c["uncertain"],
+                    "count_mismatch": c["mismatch"], "topk_mismatch": t["mismatch"],
+                    "sum_rel_err": rel, "plain_sum_rel_err": rel_plain,
+                    "max_abs_err_vals": err}))
+    del s64, bound
+    torch.cuda.empty_cache()
+    return err
+
+
+def phase5(ds, retry_rows, hot):
+    """Times at the phase-4 shapes: every sweep and the two-pass kernels on
+    the full product; the k=128 retry on the hot catalog's retried rows."""
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels.sim_hist.kernel import sim_hist_cuda
+    from repro_torch.kernels.sim_hist.ref import sim_hist_ref
+    from repro_torch.kernels.sim_sweep.kernel import kernel_operand
+    from repro_torch.kernels.sim_topk.kernel import sim_topk_cuda
+    from repro_torch.kernels.sim_topk.ref import sim_topk_ref
+
+    n = ds.emb1.shape[0]
+    d = ds.emb1.shape[1]
+    times = {}
+    for precision, name in (("fp32", "sim_sweep[fp32]"), ("bf16", "sim_sweep[bf16]"),
+                            ("int8", "sim_sweep_q[int8]")):
+        kern, plain, (a, b, *_rest) = sweep_fns(ds, n, precision)
+        m = a.shape[0]
+        ms = _events_ms(kern, 3)
+        pms = _events_ms(plain, 1)
+        elt = 1 if precision == "int8" else (2 if precision == "bf16" else 4)
+        byts = (m + n) * d * elt + (m + n) * 4 + (m // 256) * 4096 * 4 + m * 32 * 8 + m * 4
+        if precision == "int8":
+            byts += (m + n) * 4
+        times[name] = _row(ms, pms, 2.0 * m * n * d, byts, PEAK[precision])
+        del kern, plain, a, b
+        torch.cuda.empty_cache()
+    e1 = torch.from_numpy(ds.emb1).cuda()
+    e2 = torch.from_numpy(ds.emb2).cuda()
+    a4, b4 = kernel_operand(e1, "fp32"), kernel_operand(e2, "fp32")
+    ones = torch.ones(n, device="cuda")
+    flops = 2.0 * n * n * d
+    inb = 2 * n * d * 4
+    times["sim_hist"] = _row(_events_ms(lambda: sim_hist_cuda(a4, b4, ones, n_bins=4096), 3),
+                             _events_ms(lambda: sim_hist_ref(e1, e2, ones, n_bins=4096), 1),
+                             flops, inb + n * 4 + 4096 * 4, PEAK["fp32"])
+    times["sim_topk[k=32]"] = _row(_events_ms(lambda: sim_topk_cuda(a4, b4, k=32), 3),
+                                   _events_ms(lambda: sim_topk_ref(e1, e2, k=32), 1),
+                                   flops, inb + n * 32 * 8, PEAK["fp32"])
+    # the retry's shape: the rows the hot query retried, against the full E2
+    r = max(int(retry_rows or 0), 1)
+    h1 = torch.from_numpy(hot.emb1[:r]).cuda()
+    hb = torch.from_numpy(hot.emb2).cuda()
+    h1p = torch.nn.functional.pad(h1, (0, 0, 0, (-r) % 8))
+    h14, hb4 = kernel_operand(h1p, "fp32"), kernel_operand(hb, "fp32")
+    times["sim_topk[k=128]"] = _row(
+        _events_ms(lambda: sim_topk_cuda(h14, hb4, k=128), 10),
+        _events_ms(lambda: sim_topk_ref(h1p, hb, k=128), 3),
+        2.0 * h1p.shape[0] * n * d, (h1p.shape[0] + n) * d * 4 + h1p.shape[0] * 128 * 8,
+        PEAK["fp32"])
+    times["sim_topk[k=128]"]["rows"] = int(h1p.shape[0])
+    times["sim_topk[k=128]"]["column_ranges"] = cuda_lib.topk_splits(
+        h1p.shape[0], n, torch.cuda.get_device_properties(0).multi_processor_count)
+    matmul_ms = _events_ms(lambda: torch.matmul(e1, e2.T), 3)
+    log(json.dumps({"context": "torch.matmul of the bare fp32 score product",
+                    "shape": [n, n, d], "matmul_ms": matmul_ms}))
+    return times
+
+
+def _row(ms, plain_ms, flops, byts, peak):
+    t_ops, t_bytes = flops / peak * 1e3, byts / HBM * 1e3
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None}
+
+
+# ---------------------------------------------------------------------------
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--rehearse-cpu", action="store_true",
+                    help="run phase 4 at a tiny size on the CPU (exits 3)")
+    if ap.parse_args().rehearse_cpu:
+        from repro_torch.kernels import cuda_lib
+
+        results, _, _ = run_phase4(REHEARSAL, "cpu", cuda_lib.LAUNCHES)
+        log(f"rehearsal complete: {len(results)} queries on the CPU (no result)")
+        sys.exit(3)
+    if not torch.cuda.is_available():
+        log("no CUDA card: nothing to measure")
+        sys.exit(2)
+
+    # phase 1: the card
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True,
+    ).stdout.strip().splitlines()[0]
+    log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    # phase 2: build
+    from repro_torch.kernels import cuda_lib
+
+    cuda_lib.build()
+    info = cuda_lib.BUILD_INFO
+    log(f"build: {info['seconds']:.1f} s -> {info['path']}")
+    for line in info["log"].splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            log("  " + line.strip())
+    smem = cuda_lib.lib().repro_sim_smem_bytes
+    HIST, TOPK, SUMS = cuda_lib.HIST, cuda_lib.TOPK, cuda_lib.SUMS
+    log(json.dumps({"dynamic_smem_bytes_per_cta": {
+        f"sim_sweep[{p}] k=32": smem(cuda_lib.MODES[p], HIST | TOPK | SUMS, 4096, 32)
+        for p in ("fp32", "bf16", "int8")} | {
+        "sim_hist": smem(0, HIST, 4096, 1),
+        "sim_topk[k=32]": smem(0, TOPK, 1, 32),
+        "sim_topk[k=128]": smem(0, TOPK, 1, 128)}}))
+
+    from repro_torch.data import make_clustered_tables
+
+    t0 = time.perf_counter()
+    ds = make_clustered_tables(FULL.n, FULL.n, d=FULL.d, n_entities=512,
+                               noise=0.35, seed=SEED)
+    chain = make_chain(FULL)
+    log(f"phase 3 data: {time.perf_counter() - t0:.1f} s")
+    # phase 3: kernels against their plain versions at main-path shapes
+    errs = phase3(ds, FULL.slice)
+    errs["sim_sweep[fp32]"] = max(errs["sim_sweep[fp32]"], chain_check(chain))
+    del ds, chain
+
+    # phase 4: the main path, counts read around the whole phase
+    cuda_lib.reset_launches()
+    results, hot, catalogs = run_phase4(FULL, "cuda", cuda_lib.LAUNCHES)
+    launches = dict(cuda_lib.LAUNCHES)
+    log(json.dumps({"main_path_launches": launches}))
+    for name in REPLACES:
+        if launches.get(name, 0) <= 0:
+            fail(f"kernel {name} was not launched on the main path")
+    retry = next(r for r in results if r["name"] == "COUNT hot rows")
+    retry_rows = _stat(retry["result"], "topk_retry_rows")
+    profile_query(FULL, catalogs)
+    del catalogs
+
+    # phase 5: times at the phase-4 shapes
+    ds = make_clustered_tables(FULL.n, FULL.n, d=FULL.d, n_entities=512,
+                               noise=0.35, seed=SEED)
+    times = phase5(ds, retry_rows, hot)
+    rows = []
+    for name, rep in REPLACES.items():
+        rows.append({"name": name, "route": "cuda", "source": SOURCE,
+                     "replaces": rep, "launches": launches[name],
+                     "max_abs_err": errs[name], **times[name]})
+    log(json.dumps({"kernels": rows}))
+    log(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

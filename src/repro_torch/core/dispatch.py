@@ -1,0 +1,90 @@
+"""Memory-aware BAS engine dispatcher.
+
+The dense path (``bas.run_bas``) materialises the flat chain-weight array —
+(N1*...*Nk,) float64 — which is the fastest route while it fits in memory but
+silently pays for the full cross product when it does not.  The streaming
+path (``bas_streaming.run_bas_streaming``) keeps O(sum N_i + alpha*b) memory
+at higher constant cost (one fused similarity pass on the device,
+walk+rejection D_0 sampling).  ``run_auto`` estimates the dense footprint
+from the :class:`~repro_torch.core.types.JoinSpec` alone and routes
+accordingly:
+
+    dense      iff  n_tuples * 8 bytes <= cfg.max_dense_weight_bytes
+    streaming  otherwise
+
+Both paths share the estimator assembly (``bas.run_stratified_pipeline``),
+so estimates and CIs are statistically interchangeable — dispatch is purely
+a resource decision.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+
+from ..device import resolve_device
+from ..obs import DispatchTelemetry
+from .bas import run_bas
+from .bas_streaming import run_bas_streaming
+from .types import BASConfig, JoinSpec, Query, QueryResult
+
+_WEIGHT_BYTES = np.dtype(np.float64).itemsize
+
+
+def dense_weight_bytes(spec: JoinSpec) -> int:
+    """Bytes the dense path would allocate for the flat chain weights."""
+    return spec.n_tuples * _WEIGHT_BYTES
+
+
+def choose_path(spec: JoinSpec, cfg: Optional[BASConfig] = None) -> str:
+    """'dense' | 'streaming' for a join spec under the configured memory cap."""
+    cfg = cfg or BASConfig()
+    return (
+        "dense" if dense_weight_bytes(spec) <= cfg.max_dense_weight_bytes
+        else "streaming"
+    )
+
+
+def run_auto(
+    query: Query,
+    cfg: Optional[BASConfig] = None,
+    seed: int = 0,
+    n_bins: int = 4096,
+    index_store=None,
+    device="cuda",
+) -> QueryResult:
+    """Execute BAS on whichever path the memory model selects, on
+    ``device`` (default ``"cuda"``; raises without a card).
+
+    The decision is recorded in ``result.telemetry.dispatch``.  The index
+    store and the multi-fidelity cascade are not ported yet: an
+    ``index_store`` or ``cfg.cascade`` raises :class:`NotImplementedError`.
+    """
+    resolve_device(device)
+    cfg = cfg or BASConfig()
+    if index_store is not None:
+        raise NotImplementedError(
+            "index stores are not ported yet (ROADMAP queue 1, item 6)"
+        )
+    if cfg.cascade:
+        raise NotImplementedError(
+            "the multi-fidelity cascade is not ported yet (ROADMAP queue 1, "
+            "item 7)"
+        )
+    footprint = dense_weight_bytes(query.spec)
+    path = choose_path(query.spec, cfg)
+    if path == "dense":
+        res = run_bas(query, cfg, seed=seed, device=device)
+    else:
+        res = run_bas_streaming(query, cfg, seed=seed, n_bins=n_bins,
+                                device=device)
+    res.telemetry.dispatch = DispatchTelemetry(
+        path=path,
+        dense_weight_bytes=footprint,
+        max_dense_weight_bytes=cfg.max_dense_weight_bytes,
+        n_tuples=query.spec.n_tuples,
+        sweep=cfg.use_sweep,
+        sweep_precision=cfg.sweep_precision,
+        index_store=False,
+    )
+    return res

@@ -1,0 +1,42 @@
+"""Device resolution for the port.
+
+Every entry point takes ``device=`` and defaults to ``"cuda"``: the port is
+built to run on the card.  Without a card, ``"cuda"`` raises instead of
+quietly running on the CPU; only callers that ask for ``device="cpu"`` (the
+tests) get the plain PyTorch versions of the kernels.
+
+The fp32 sweep must not run in TF32: both switches are set off here, once,
+when the first device is resolved, and asserted on every resolution.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def _no_tf32() -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+_no_tf32()
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """``"cuda"`` / ``"cpu"`` / a :class:`torch.device` -> torch.device.
+
+    Raises :class:`RuntimeError` for a CUDA device when no card is present.
+    """
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "repro_torch runs on a CUDA card by default and none was "
+                "found; pass device='cpu' to run the plain PyTorch versions"
+            )
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {device!r}")
+    assert not torch.backends.cuda.matmul.allow_tf32, "TF32 matmul is on"
+    assert not torch.backends.cudnn.allow_tf32, "TF32 convolution is on"
+    return dev

@@ -1,0 +1,223 @@
+"""Build, load and launch the CUDA similarity kernels (``csrc/sim_kernels.cu``).
+
+The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
+with a plain C interface, at first use, and loaded with :mod:`ctypes`.  The
+library lands in ``build/repro_torch/`` at the root of the checkout (or in
+``$REPRO_TORCH_BUILD_DIR``), named by a hash of the source and the flags, so
+a changed source rebuilds and an unchanged one loads at once.
+
+Nothing here runs at import time: the CPU tests import every module of the
+port, and this machine may have no ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from collections import Counter
+from pathlib import Path
+
+import torch
+
+SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "sim_kernels.cu"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+# launch modes and epilogue flags of ``repro_sim_launch``
+MODES = {"fp32": 0, "bf16": 1, "int8": 2}
+HIST, TOPK, SUMS = 1, 2, 4
+
+# Launch counts, one per kernel: each wrapper adds one where it launches its
+# kernel and nowhere else.  Keys are the kernel names chip_smoke.py reports.
+LAUNCHES: Counter = Counter()
+
+_lock = threading.Lock()
+_lib = None
+BUILD_INFO: dict = {}
+
+
+def reset_launches() -> None:
+    LAUNCHES.clear()
+
+
+def build_dir() -> Path:
+    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
+    if env:
+        return Path(env)
+    return Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for cand in ("/usr/local/cuda/bin/nvcc",):
+        if os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def build() -> Path:
+    """Compile the library if it is not built yet; returns its path.
+    ``BUILD_INFO`` records the build seconds and the ptxas report."""
+    src = SOURCE.read_bytes()
+    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out_dir = build_dir()
+    out = out_dir / f"libreprosim_{tag}.so"
+    if out.exists():
+        BUILD_INFO.setdefault("seconds", 0.0)
+        BUILD_INFO.setdefault("log", "(cached build)")
+        BUILD_INFO["path"] = str(out)
+        return out
+    out_dir.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+        )
+    os.replace(tmp, out)
+    BUILD_INFO.update(seconds=secs, log=proc.stdout + proc.stderr,
+                      path=str(out), command=" ".join(cmd))
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded library (built on first use)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            so = ctypes.CDLL(str(build()))
+            vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            so.repro_sim_launch.argtypes = [
+                ci, ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, cf, cf, cf,
+                ci, ci, ci, vp, vp, vp, vp, vp, vp, vp,
+            ]
+            so.repro_sim_launch.restype = ci
+            so.repro_sim_smem_bytes.argtypes = [ci, ci, ci, ci]
+            so.repro_sim_smem_bytes.restype = ctypes.c_size_t
+            _lib = so
+        return _lib
+
+
+# rows and columns of one CTA tile (BM, BN in the source): a CTA's rows must
+# fall in one count tile
+CTA_ROWS = 64
+CTA_COLS = 64
+MAX_SMEM = 232448  # bytes of shared memory one block may use on Hopper
+MAX_SPLITS = 256   # column ranges a top-k merge takes (32 * MERGE_J)
+
+
+def topk_splits(m: int, n: int, sms: int) -> int:
+    """Column ranges of a top-k launch over ``m`` rows: enough CTAs for two
+    per SM, in whole ``CTA_COLS`` tiles, returned as the number of ranges
+    that ``ceil(tiles / splits)`` tiles each actually make (what the kernel
+    checks).  Launches with a CTA row per SM or more do not split."""
+    ctas = -(-m // CTA_ROWS)
+    tiles = -(-n // CTA_COLS)
+    want = max(1, min(-(-2 * sms // ctas), tiles, MAX_SPLITS))
+    per = -(-tiles // want)
+    return -(-tiles // per)
+
+
+def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+def _ptr(t):
+    return None if t is None else ctypes.c_void_p(t.data_ptr())
+
+
+def launch(mode: str, flags: int, e1: torch.Tensor, e2: torch.Tensor, *,
+           rs1=None, rs2=None, scale=None, v=None, n_bins: int = 1,
+           exponent: float = 1.0, rs_exponent: float = 1.0,
+           floor: float = 1e-3, k: int = 1, bm: int = 1):
+    """One launch of the fused kernel on the current stream.
+
+    ``e1`` (M, d) and ``e2`` (N, d) are float32, bfloat16 or int8 per
+    ``mode``, with d a multiple of 4 (16 for int8).  Returns
+    ``(block_counts, vals, idx, row_sums)``; entries whose epilogue is off
+    are None."""
+    dtype = {"fp32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}[mode]
+    m, d = e1.shape
+    n = e2.shape[0]
+    align = 16 if mode == "int8" else 4
+    if d % align:
+        raise ValueError(f"d={d} must be a multiple of {align} for {mode}")
+    _check(e1, "e1", dtype, (m, d))
+    _check(e2, "e2", dtype, (n, d))
+    dev = e1.device
+    f32, i32 = torch.float32, torch.int32
+    if mode == "int8":
+        _check(rs1, "rs1", f32, (m,))
+        _check(rs2, "rs2", f32, (n,))
+    block_counts = vals = idx = row_sums = None
+    if flags & HIST:
+        _check(scale, "scale", f32, (m,))
+        n_tiles = -(-m // bm)
+        if bm % CTA_ROWS and n_tiles > 1:
+            raise ValueError(f"block rows {bm} must be a multiple of {CTA_ROWS}")
+        block_counts = torch.zeros((n_tiles, n_bins), dtype=i32, device=dev)
+    splits, part_vals, part_idx = 1, None, None
+    if flags & TOPK:
+        if not 1 <= k <= n:
+            raise ValueError(f"k={k} must lie in [1, {n}]")
+        vals = torch.empty((m, k), dtype=f32, device=dev)
+        idx = torch.empty((m, k), dtype=i32, device=dev)
+        if flags == TOPK:
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            splits = topk_splits(m, n, sms)
+        if splits > 1:
+            # per-range lists for the merge kernel; freed after the call,
+            # which is safe because the allocator reuses memory in stream
+            # order and both kernels run on the current stream
+            part_vals = torch.empty((m, splits, k), dtype=f32, device=dev)
+            part_idx = torch.empty((m, splits, k), dtype=i32, device=dev)
+    if flags & SUMS:
+        _check(v, "v", f32, (n,))
+        row_sums = torch.empty((m,), dtype=f32, device=dev)
+    so = lib()
+    smem = so.repro_sim_smem_bytes(MODES[mode], flags, n_bins, k)
+    if smem > MAX_SMEM:
+        raise ValueError(f"launch needs {smem} B of shared memory (> {MAX_SMEM})")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = so.repro_sim_launch(
+            MODES[mode], flags, _ptr(e1), _ptr(e2), _ptr(rs1), _ptr(rs2),
+            _ptr(scale), _ptr(v), m, n, d, n_bins, float(exponent),
+            float(rs_exponent), float(floor), k, bm, splits, _ptr(part_vals),
+            _ptr(part_idx), _ptr(block_counts),
+            _ptr(vals), _ptr(idx), _ptr(row_sums), ctypes.c_void_p(stream),
+        )
+    if err != 0:
+        raise RuntimeError(f"repro_sim_launch(mode={mode}, flags={flags}) "
+                           f"failed with CUDA error {err}")
+    return block_counts, vals, idx, row_sums
+
+
+def pad_cols(t: torch.Tensor, mult: int) -> torch.Tensor:
+    """Zero-pad the embedding width to a multiple of ``mult`` (zero columns
+    add exact zeros to every dot product)."""
+    pad = (-t.shape[1]) % mult
+    if pad:
+        t = torch.nn.functional.pad(t, (0, pad))
+    return t.contiguous()

@@ -1,0 +1,16 @@
+"""CUDA launch wrapper of the per-row top-k (K3).
+
+Replaces the Pallas kernel ``_kernel`` of
+``src/repro/kernels/sim_topk/kernel.py``; the kernel is the top-k epilogue
+of ``csrc/sim_kernels.cu`` over the same fp32 score tile as the sweep."""
+from __future__ import annotations
+
+from .. import cuda_lib
+
+
+def sim_topk_cuda(e1, e2, k=8):
+    """(vals (M, k) f32, idx (M, k) int32) for f32 inputs with the width
+    padded to a multiple of 4."""
+    _, vals, idx, _ = cuda_lib.launch("fp32", cuda_lib.TOPK, e1, e2, k=k)
+    cuda_lib.LAUNCHES[f"sim_topk[k={k}]"] += 1
+    return vals, idx

@@ -1,0 +1,180 @@
+"""The CUDA similarity kernels against their plain PyTorch versions, on the
+card (marker ``cuda``; run with ``pytest -m cuda tests/test_torch_cuda.py``).
+
+Whether a card is present is decided inside the ``card`` fixture, so every
+worker collects the same tests; without a card they skip.
+
+Tolerances (see ``repro_torch.kernels.checks``): counts under the edge rule,
+top-k under the near-tie rule, walk sums within 1e-6 relative of f64; the
+fp32 sweep equals the two-pass kernels bit for bit; int8 at exponent 1
+equals its plain version bit for bit (integer sums, two f32 products in a
+fixed order).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import checks, cuda_lib
+from repro_torch.kernels.sim_hist.kernel import sim_hist_cuda
+from repro_torch.kernels.sim_hist.ref import sim_hist_ref
+from repro_torch.kernels.sim_sweep.kernel import kernel_operand, sim_sweep_cuda
+from repro_torch.kernels.sim_sweep.ref import sim_sweep_ref
+from repro_torch.kernels.sim_topk.kernel import sim_topk_cuda
+from repro_torch.kernels.sim_topk.ref import sim_topk_ref
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _unit(rng, n, d):
+    e = rng.standard_normal((n, d)).astype(np.float32)
+    return e / np.linalg.norm(e, axis=1, keepdims=True)
+
+
+def _inputs(card, m, n, d, precision, seed=0):
+    from repro_torch.core.similarity import quantize_rows_int8
+
+    rng = np.random.default_rng(seed)
+    e1, e2 = _unit(rng, m, d), _unit(rng, n, d)
+    if precision == "int8":
+        q1, r1 = quantize_rows_int8(e1)
+        q2, r2 = quantize_rows_int8(e2)
+        t = [torch.from_numpy(x).to(card) for x in (q1, q2, r1.reshape(-1), r2.reshape(-1))]
+        return t[0], t[1], t[2], t[3]
+    return (torch.from_numpy(e1).to(card), torch.from_numpy(e2).to(card),
+            None, None)
+
+
+SHAPES = [(64, 64, 16, 4), (100, 70, 16, 8), (256, 300, 48, 32), (130, 65, 48, 8)]
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("m,n,d,k", SHAPES)
+@pytest.mark.parametrize("exponent", [1.0, 2.5])
+def test_sweep_matches_plain(card, precision, m, n, d, k, exponent):
+    a, b, rs1, rs2 = _inputs(card, m, n, d, precision)
+    rng = np.random.default_rng(1)
+    scale = torch.from_numpy(rng.random(m).astype(np.float32)).to(card)
+    v = torch.from_numpy((10.0 ** rng.uniform(-2, 2, n)).astype(np.float32)).to(card)
+    bm = 64 if m > 64 else m
+    kw = dict(n_bins=256, exponent=exponent, floor=1e-3, k=k, bm=bm,
+              precision=precision, rs1=rs1, rs2=rs2)
+    kb, kv, ki, ks = sim_sweep_cuda(kernel_operand(a, precision),
+                                    kernel_operand(b, precision), scale, v, **kw)
+    torch.cuda.synchronize()
+    pb, pv, pi, ps = sim_sweep_ref(a, b, scale, v, **kw)
+    s64, bound = checks.exact_scores(a, b, precision, rs1, rs2)
+    checks.check_counts([kb, pb], s64, bound, n_bins=256, exponent=exponent,
+                        floor=1e-3, bm=bm, scale=scale)
+    checks.check_topk(kv, ki, pv, pi, s64, bound)
+    checks.check_sums(ks, s64, exponent=exponent, floor=1e-3, v=v)
+    assert int(kb.sum()) == m * n
+    if precision == "int8" and exponent == 1.0:
+        assert torch.equal(kb, pb) and torch.equal(kv, pv) and torch.equal(ki, pi)
+
+
+@pytest.mark.parametrize("m,n,d,k", SHAPES)
+def test_fp32_sweep_bit_identical_to_two_pass(card, m, n, d, k):
+    a, b, _, _ = _inputs(card, m, n, d, "fp32", seed=2)
+    scale = torch.ones(m, device=card)
+    v = torch.ones(n, device=card)
+    a4, b4 = kernel_operand(a, "fp32"), kernel_operand(b, "fp32")
+    bc, vals, idx, _ = sim_sweep_cuda(a4, b4, scale, v, n_bins=512, k=k,
+                                      bm=m if m <= 64 else 64)
+    hist = sim_hist_cuda(a4, b4, scale, n_bins=512)
+    tv, ti = sim_topk_cuda(a4, b4, k=k)
+    torch.cuda.synchronize()
+    assert torch.equal(bc.sum(dim=0), hist)
+    assert torch.equal(vals, tv) and torch.equal(idx, ti)
+    # and the plain two-pass pair holds the same rules
+    s64, bound = checks.exact_scores(a, b)
+    checks.check_counts([hist[None], sim_hist_ref(a, b, scale, n_bins=512)[None]],
+                        s64, bound, n_bins=512, exponent=1.0, floor=1e-3, bm=m)
+
+
+@pytest.mark.parametrize("k", [32, 128])
+def test_topk_wide_k_matches_plain(card, k):
+    a, b, _, _ = _inputs(card, 96, 1000, 64, "fp32", seed=3)
+    # duplicated right rows force exact ties: the lower column must win
+    b = torch.cat([b, b[:200]]).contiguous()
+    kv, ki = sim_topk_cuda(kernel_operand(a, "fp32"), kernel_operand(b, "fp32"), k=k)
+    torch.cuda.synchronize()
+    pv, pi = sim_topk_ref(a, b, k=k)
+    s64, bound = checks.exact_scores(a, b)
+    checks.check_topk(kv, ki, pv, pi, s64, bound)
+    assert (torch.sort(ki, dim=1).values.diff(dim=1) > 0).all()
+
+
+def test_sweep_chain_prefix_matches_plain(card):
+    """The fp32 sweep as a 3-way chain calls it: binned at exponent 0.5 with
+    a per-row scale, walk sums at the raw exponent 1, top-1."""
+    a, b, _, _ = _inputs(card, 300, 700, 48, "fp32", seed=6)
+    scale = torch.from_numpy(
+        np.random.default_rng(7).random(300).astype(np.float32) ** 0.5).to(card)
+    v = torch.ones(700, device=card)
+    kw = dict(n_bins=512, exponent=0.5, rs_exponent=1.0, floor=1e-3, k=1, bm=64)
+    kb, kv, ki, ks = sim_sweep_cuda(kernel_operand(a, "fp32"),
+                                    kernel_operand(b, "fp32"), scale, v, **kw)
+    torch.cuda.synchronize()
+    pb, pv, pi, _ = sim_sweep_ref(a, b, scale, v, **kw)
+    s64, bound = checks.exact_scores(a, b)
+    checks.check_counts([kb, pb], s64, bound, n_bins=512, exponent=0.5,
+                        floor=1e-3, bm=64, scale=scale)
+    checks.check_topk(kv, ki, pv, pi, s64, bound)
+    checks.check_sums(ks, s64, exponent=1.0, floor=1e-3, v=v)
+
+
+@pytest.mark.parametrize("m", [1, 8, 70])
+def test_topk_few_rows_split_matches_unsplit(card, m):
+    """A few-row top-k launch splits its columns across CTAs and merges the
+    lists; the result equals the unsplit sweep's top-k bit for bit."""
+    a, b, _, _ = _inputs(card, m, 5000, 64, "fp32", seed=8)
+    a = torch.cat([b[:4], a]).contiguous()  # rows with exact duplicates in b
+    b = torch.cat([b, b[:300]]).contiguous()  # exact ties across the ranges
+    a4, b4 = kernel_operand(a, "fp32"), kernel_operand(b, "fp32")
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert cuda_lib.topk_splits(a.shape[0], b.shape[0], sms) > 1
+    kv, ki = sim_topk_cuda(a4, b4, k=128)
+    ones = torch.ones(a.shape[0], device=card)
+    _, sv, si, _ = sim_sweep_cuda(a4, b4, ones, torch.ones(b.shape[0], device=card),
+                                  n_bins=64, k=128, bm=64)
+    torch.cuda.synchronize()
+    assert torch.equal(kv, sv) and torch.equal(ki, si)
+    pv, pi = sim_topk_ref(a, b, k=128)
+    s64, bound = checks.exact_scores(a, b)
+    checks.check_topk(kv, ki, pv, pi, s64, bound)
+
+
+def test_launch_checks_raise(card):
+    a, b, _, _ = _inputs(card, 64, 64, 16, "fp32")
+    with pytest.raises(ValueError):
+        sim_topk_cuda(kernel_operand(a, "fp32").double(), kernel_operand(b, "fp32"), k=4)
+    with pytest.raises(ValueError):  # k beyond the columns
+        sim_topk_cuda(kernel_operand(a, "fp32"), kernel_operand(b, "fp32"), k=65)
+
+
+def test_query_on_card_matches_cpu(card):
+    from repro_torch.core import Agg, Query, run_bas_streaming
+    from repro_torch.data import make_clustered_tables
+
+    ds = make_clustered_tables(300, 280, n_entities=120, noise=0.4, seed=5)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        cuda_lib.reset_launches()
+        q = Query(spec=ds.spec(), agg=Agg.COUNT, oracle=ds.oracle(), budget=1500)
+        res[dev] = run_bas_streaming(q, seed=0, device=dev)
+        if dev == "cuda":
+            assert cuda_lib.LAUNCHES["sim_sweep[fp32]"] == 1
+        else:
+            assert sum(cuda_lib.LAUNCHES.values()) == 0
+    a, b = res["cpu"], res["cuda"]
+    assert a.telemetry.stratify is not None
+    assert b.estimate == pytest.approx(a.estimate, rel=1e-6)
+    assert b.ci.lo == pytest.approx(a.ci.lo, rel=1e-6)
+    assert b.ci.hi == pytest.approx(a.ci.hi, rel=1e-6)

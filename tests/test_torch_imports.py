@@ -1,0 +1,104 @@
+"""The port stands alone: importing ``repro_torch`` and running a query loads
+neither JAX nor the reference package, and its entry points run on the card
+unless the caller asks for the CPU."""
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+SCRIPT = r"""
+import sys
+import repro_torch
+from repro_torch.core import Agg, Catalog, JoinMLEngine, Query, Table, run_auto
+from repro_torch.core.oracle import ArrayOracle
+from repro_torch.core.types import BASConfig
+from repro_torch.data import make_chain_dataset, make_clustered_tables
+
+ds = make_clustered_tables(120, 110, n_entities=60, seed=3)
+cat = Catalog()
+cat.register(Table("a", ds.emb1, ds.columns1))
+cat.register(Table("b", ds.emb2, ds.columns2))
+cfg = BASConfig(max_dense_weight_bytes=0, n_bootstrap=100)
+eng = JoinMLEngine(cat, lambda nl, names: ArrayOracle(ds.truth), cfg=cfg,
+                   device="cpu")
+res = eng.execute("SELECT SUM(a.value) FROM a JOIN b ON NL('x') "
+                  "ORACLE BUDGET 600 WITH PROBABILITY 0.9")
+assert res.telemetry.dispatch.path == "streaming"
+ch = make_chain_dataset([12, 14, 16], seed=1)
+run_auto(Query(spec=ch.spec(), agg=Agg.COUNT, oracle=ch.oracle(), budget=300),
+         cfg, device="cpu")
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
+             or m == "repro" or m.startswith("repro."))
+print("LOADED", bad)
+"""
+
+
+def test_port_imports_neither_jax_nor_reference():
+    env = dict(os.environ)
+    src = os.path.join(os.path.dirname(os.path.dirname(__file__)), "src")
+    env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
+    out = subprocess.run([sys.executable, "-c", SCRIPT], capture_output=True,
+                         text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+def _no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+
+
+def test_entry_points_default_to_the_card():
+    _no_card()
+    from repro_torch.core import Agg, Catalog, JoinMLEngine, Query, run_auto
+    from repro_torch.core import run_bas, run_bas_streaming
+    from repro_torch.core.similarity import pair_weights
+    from repro_torch.core.stratify import stratify_streaming
+    from repro_torch.core.types import BASConfig
+    from repro_torch.data import make_clustered_tables
+    from repro_torch.kernels.sim_hist import sim_hist
+    from repro_torch.kernels.sim_sweep import prepare_right, sim_sweep
+    from repro_torch.kernels.sim_topk import sim_topk
+
+    ds = make_clustered_tables(40, 30, seed=0)
+
+    def q():
+        return Query(spec=ds.spec(), agg=Agg.COUNT, oracle=ds.oracle(), budget=200)
+
+    calls = [
+        lambda: run_auto(q()),
+        lambda: run_bas(q()),
+        lambda: run_bas_streaming(q()),
+        lambda: JoinMLEngine(Catalog(), lambda nl, names: None),
+        lambda: stratify_streaming(ds.emb1, ds.emb2, 0.2, 200, BASConfig(),
+                                   use_kernel=True),
+        lambda: pair_weights(ds.emb1, ds.emb2),
+        lambda: sim_sweep(ds.emb1, ds.emb2),
+        lambda: prepare_right(ds.emb2),
+        lambda: sim_topk(ds.emb1, ds.emb2),
+        lambda: sim_hist(ds.emb1, ds.emb2),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA card"):
+            call()
+
+
+def test_cuda_tensor_never_falls_back():
+    """The kernel wrappers refuse CPU tensors instead of quietly running the
+    plain version: only the ops choose, by the tensors' device."""
+    from repro_torch.kernels.sim_topk.kernel import sim_topk_cuda
+
+    a = torch.zeros(8, 4)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        sim_topk_cuda(a, a, k=2)
+
+
+def test_tf32_is_off():
+    from repro_torch.device import resolve_device
+
+    resolve_device("cpu")
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
