@@ -1,26 +1,37 @@
-"""Drive the PyTorch + CUDA port of the query engine end to end on one card.
+"""Drive the PyTorch + CUDA port end to end on one card: the query engine
+with its similarity kernels, and the Oracle model stack with its kernels.
 
     python3 chip_smoke.py                 # the full run on a CUDA card
     python3 chip_smoke.py --rehearse-cpu  # tiny sizes, plain versions, CPU
 
 Phases: (1) the card; (2) build the CUDA kernels from ``src/repro_torch/csrc``
-and print ptxas's report; (3) hold every kernel against its plain PyTorch
-version at main-path shapes (a 4,096-row slice of E1 against the full E2)
-under the rules of ``repro_torch.kernels.checks``, the fp32 sweep against
-the two-pass kernels bit for bit, and the fp32 sweep as the 3-way chain
-calls it (exponent 0.5, a per-row scale, walk sums at exponent 1); (4) the
-main path: ``JoinMLEngine.execute`` on 32,768 x 32,768 records at d = 384
-(COUNT, SUM, AVG; COUNT at bf16, at int8 and on the two-pass schedule; a
-catalog with canonical records that drives the raised-k top-k retry), a
-3-way chain through ``run_auto`` and a small dense-routed query, with launch
-counts read around the whole phase; (5) kernel times with CUDA events at
-the phase-4 shapes.
+(every source at once) and print ptxas's report; (3) hold every similarity
+kernel against its plain PyTorch version at main-path shapes (a 4,096-row
+slice of E1 against the full E2) under the rules of
+``repro_torch.kernels.checks``, the fp32 sweep against the two-pass kernels
+bit for bit, and the fp32 sweep as the 3-way chain calls it (exponent 0.5, a
+per-row scale, walk sums at exponent 1); then flash attention and the two
+recurrent scans against theirs at the shapes the model paths give them and
+at one long shape each, with their times; (4) the query path:
+``JoinMLEngine.execute`` on 32,768 x 32,768 records at d = 384 (COUNT, SUM,
+AVG; COUNT at bf16, at int8 and on the two-pass schedule; a catalog with
+canonical records that drives the raised-k top-k retry), a 3-way chain
+through ``run_auto`` and a small dense-routed query, with launch counts read
+around the whole phase; (5) the similarity kernels' times with CUDA events
+at the phase-4 shapes; (6) the Oracle path: a COUNT join of two 256-record
+tables whose Oracle is the full ``joinml-oracle`` (12 layers, d 768, bf16,
+random weights from a seed) behind ``PairScorer`` and ``ModelOracle``, held
+against every pair scored by the same scorer, then profiled; (7) the
+scorer on the card against the CPU; (8) the recurrent paths:
+``rwkv6-1.6b`` at full size and ``recurrentgemma-9b`` at full width cut to
+8 layers score 2,048 pairs each.  Launch counts are set to 0 just before
+each path (4, 6, 8) and read just after it.
 
 Any failed phase exits non-zero.  The last lines are one JSON object of
 kernels, the card's name and power limit, and ``{"ok": true, ...}``.
 Without a card (or without the repository beside it) it exits non-zero and
-prints no result.  The rehearsal runs phase 4 at a tiny size on the CPU and
-exits 3.
+prints no result.  The rehearsal runs phases 4, 6, 7 and 8 at a tiny size on
+the CPU and exits 3.
 """
 import argparse
 import dataclasses
@@ -36,7 +47,8 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-SOURCE = "src/repro_torch/csrc/sim_kernels.cu"
+SIM_SOURCE = "src/repro_torch/csrc/sim_kernels.cu"
+MODEL_SOURCE = "src/repro_torch/csrc/model_kernels.cu"
 REPLACES = {
     "sim_sweep[fp32]": "src/repro/kernels/sim_sweep/kernel.py:150",
     "sim_sweep[bf16]": "src/repro/kernels/sim_sweep/kernel.py:150",
@@ -44,7 +56,12 @@ REPLACES = {
     "sim_topk[k=32]": "src/repro/kernels/sim_topk/kernel.py:23",
     "sim_topk[k=128]": "src/repro/kernels/sim_topk/kernel.py:23",
     "sim_hist": "src/repro/kernels/sim_hist/kernel.py:34",
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:21",
+    "rwkv6_scan": "src/repro/kernels/rwkv6_scan/kernel.py:26",
+    "rglru_scan": "src/repro/kernels/rglru_scan/kernel.py:24",
 }
+SIM_KERNELS = tuple(REPLACES)[:6]
+MODEL_KERNELS = tuple(REPLACES)[6:]
 # published H100 SXM peaks (dense): FP32 on the CUDA cores, bf16 and int8 on
 # the tensor cores, HBM3 bandwidth
 PEAK = {"fp32": 67e12, "bf16": 989e12, "int8": 1979e12}
@@ -74,6 +91,30 @@ FULL = Size(n=32768, d=384, slice=4096, budget=20000, dense_cap=256 * 2**20)
 # the CPU rehearsal: the same phases at a size the CPU runs in seconds
 REHEARSAL = Size(n=1024, d=64, slice=256, budget=4000, dense_cap=2**16)
 SEED = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelSize:
+    full: bool            # the configs at full width (else the reduced ones)
+    entities: int         # entities of the corpus, 8 records each, split in two tables
+    batch: int            # PairScorer batch size
+    budget: int           # the Oracle query's budget
+    sample: int           # pairs whose P(match) sets the threshold
+    cpu_pairs: int        # joinml-oracle pairs scored on the card and on the CPU
+    recurrent_pairs: int  # pairs each recurrent model scores
+
+
+# the Oracle paths: two tables of 256 records (65,536 pairs), batches of 256
+FULL_MODEL = ModelSize(full=True, entities=64, batch=256, budget=2000,
+                       sample=4096, cpu_pairs=64, recurrent_pairs=2048)
+REHEARSAL_MODEL = ModelSize(full=False, entities=8, batch=16, budget=300,
+                            sample=256, cpu_pairs=8, recurrent_pairs=32)
+RGEMMA_LAYERS = 8      # two (rec, rec, attn) blocks and a 2-layer rec tail
+EMBED_D = 384          # the embedder's width
+THRESHOLD_Q = 0.95     # the Oracle says yes to the top 5% of P(match)
+# P(match) on the card against the CPU, both in bf16: the two sides round
+# matmul sums to bf16 in other orders, layer after layer
+CARD_CPU_ATOL = 0.02
 
 
 # ---------------------------------------------------------------------------
@@ -272,26 +313,19 @@ def _busy_ms(events):
     return busy / 1e3
 
 
-def profile_query(size, catalogs):
-    """One more COUNT on the main catalog under torch.profiler: the device's
-    busy time (the union of the device events' spans) against the query's
-    wall time, and the device events by their summed self time."""
+def _profiled(fn):
+    """Run ``fn`` under torch.profiler; returns its result, the wall ms, the
+    device's busy ms (the union of its events' spans) and the device events
+    by their summed self time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core import JoinMLEngine
-    from repro_torch.core.oracle import ArrayOracle
-
-    ds, main = catalogs
-    eng = JoinMLEngine(main, lambda nl, names: ArrayOracle(ds.truth), device="cuda")
-    sql = ("SELECT COUNT(*) FROM a JOIN b ON NL('same entity') "
-           f"ORACLE BUDGET {size.budget} WITH PROBABILITY 0.95")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        res = eng.execute(sql, seed=SEED + 1)
+        res = fn()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        wall = (time.perf_counter() - t0) * 1e3
     rows = []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:  # host ops: their kernels count below
@@ -302,11 +336,25 @@ def profile_query(size, catalogs):
     rows.sort(key=lambda r: -r[1])
     busy = _busy_ms(prof.events())
     if busy <= 0:
-        fail("the profiler saw no device event in a query on the card")
-    log(json.dumps({"profile": "COUNT on the main catalog", "wall_ms": wall * 1e3,
-                    "device_busy_ms": busy, "idle_share": 1.0 - busy / (wall * 1e3),
-                    "timings_s": res.telemetry.timings,
-                    "top_device_events": [[k[:60], ms, n] for k, ms, n in rows[:8]]}))
+        fail("the profiler saw no device event in a run on the card")
+    return res, wall, busy, [[k[:60], ms, n] for k, ms, n in rows[:8]]
+
+
+def profile_query(size, catalogs):
+    """One more COUNT on the main catalog under torch.profiler: the device's
+    busy time against the query's wall time, and the device events by their
+    summed self time."""
+    from repro_torch.core import JoinMLEngine
+    from repro_torch.core.oracle import ArrayOracle
+
+    ds, main = catalogs
+    eng = JoinMLEngine(main, lambda nl, names: ArrayOracle(ds.truth), device="cuda")
+    sql = ("SELECT COUNT(*) FROM a JOIN b ON NL('same entity') "
+           f"ORACLE BUDGET {size.budget} WITH PROBABILITY 0.95")
+    res, wall, busy, top = _profiled(lambda: eng.execute(sql, seed=SEED + 1))
+    log(json.dumps({"profile": "COUNT on the main catalog", "wall_ms": wall,
+                    "device_busy_ms": busy, "idle_share": 1.0 - busy / wall,
+                    "timings_s": res.telemetry.timings, "top_device_events": top}))
 
 
 # ---------------------------------------------------------------------------
@@ -527,16 +575,360 @@ def _row(ms, plain_ms, flops, byts, peak):
 
 
 # ---------------------------------------------------------------------------
+# the Oracle model stack: K5-K7 against their plain versions, and the paths
+# ---------------------------------------------------------------------------
+
+def sync(device):
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def model_config(name, size, **over):
+    """``name`` at full width (the published config) or reduced for the CPU
+    rehearsal (with the byte tokenizer's vocabulary)."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data.pipeline import ByteTokenizer
+
+    if size.full:
+        return dataclasses.replace(get_config(name), **over)
+    return get_smoke_config(name, vocab_size=ByteTokenizer().vocab_size, **over)
+
+
+def entity_tables(size):
+    """Two record tables of the synthetic entity corpus: every entity's
+    even-numbered records on the left, its odd-numbered ones on the right."""
+    from repro_torch.data.pipeline import make_entity_corpus
+
+    records, _ = make_entity_corpus(size.entities, 8, noise=0.1, seed=SEED)
+    return records[0::2], records[1::2]
+
+
+def trigram_embeddings(records, d):
+    """Unit rows of byte-trigram counts, each trigram hashed to one of ``d``
+    columns by a fixed multiplicative hash (not Python's salted ``hash``)."""
+    out = np.zeros((len(records), d), np.float32)
+    for i, r in enumerate(records):
+        b = np.frombuffer(f"  {r} ".encode(), np.uint8).astype(np.uint64)
+        key = (b[:-2] << np.uint64(16)) | (b[1:-1] << np.uint64(8)) | b[2:]
+        col = ((key * np.uint64(2654435761)) % np.uint64(2**32)) % np.uint64(d)
+        np.add.at(out[i], col.astype(np.int64), 1.0)
+    return out / np.linalg.norm(out, axis=1, keepdims=True)
+
+
+def make_scorer(cfg, params, left, right, batch, device):
+    from repro_torch.data.pipeline import ByteTokenizer, pair_example
+    from repro_torch.serve import PairScorer
+
+    tok = ByteTokenizer()
+
+    def tok_pair(pair):
+        t, _ = pair_example(tok, left[pair[0]], right[pair[1]], None, 48)
+        return t[t != tok.PAD]
+
+    return PairScorer(cfg, params, tok_pair, tok.YES, tok.NO, max_len=48,
+                      batch_size=batch, device=device)
+
+
+class TimedScorer:
+    """A scorer whose ``score`` sums its wall time.  ``score`` ends in a copy
+    to the host, so the time includes the device's work."""
+
+    def __init__(self, scorer):
+        self.scorer = scorer
+        self.seconds = 0.0
+
+    def score(self, pairs):
+        t0 = time.perf_counter()
+        out = self.scorer.score(pairs)
+        self.seconds += time.perf_counter() - t0
+        return out
+
+
+def _all_pairs(n1, n2):
+    return np.stack(np.meshgrid(np.arange(n1), np.arange(n2), indexing="ij"),
+                    -1).reshape(-1, 2)
+
+
+def oracle_path(size, device):
+    """Phase 6, this slice's main path: a COUNT join whose Oracle is the full
+    joinml-oracle on ``device`` (``ModelOracle`` over ``PairScorer``), with
+    launch counts set to 0 just before ``execute`` and read just after.  The
+    truth is every pair scored by the same scorer.  On the card the query
+    runs once more under the profiler."""
+    from repro_torch.core import Catalog, JoinMLEngine, ModelOracle, Table
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.models import init_params
+
+    cfg = model_config("joinml-oracle", size)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=SEED, device=device)
+    left, right = entity_tables(size)
+    scorer = TimedScorer(make_scorer(cfg, params, left, right, size.batch, device))
+    rng = np.random.default_rng(SEED)
+    sample = np.stack([rng.integers(0, len(left), size.sample),
+                       rng.integers(0, len(right), size.sample)], 1)
+    thr = float(np.quantile(scorer.score(sample), THRESHOLD_Q))
+    cat = Catalog()
+    cat.register(Table("a", trigram_embeddings(left, EMBED_D)))
+    cat.register(Table("b", trigram_embeddings(right, EMBED_D)))
+    sql = ("SELECT COUNT(*) FROM a JOIN b ON NL('same entity') "
+           f"ORACLE BUDGET {size.budget} WITH PROBABILITY 0.95")
+    eng = JoinMLEngine(cat, lambda nl, names: ModelOracle(scorer, thr), device=device)
+    log(f"oracle path set-up: {time.perf_counter() - t0:.1f} s")
+
+    scorer.seconds = 0.0
+    batches0 = scorer.scorer.forward_batches
+    cuda_lib.reset_launches()
+    sync(device)
+    t0 = time.perf_counter()
+    res = eng.execute(sql, seed=SEED)
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches = dict(cuda_lib.LAUNCHES)
+    scoring_s, batches = scorer.seconds, scorer.scorer.forward_batches - batches0
+
+    t0 = time.perf_counter()
+    truth = float((scorer.score(_all_pairs(len(left), len(right))) >= thr).sum())
+    truth_s = time.perf_counter() - t0
+    log(json.dumps({
+        "query": "Oracle COUNT", "model": cfg.name, "layers": cfg.num_layers,
+        "d_model": cfg.d_model, "dtype": cfg.dtype, "pairs": len(left) * len(right),
+        "threshold": thr, "estimate": res.estimate, "truth": truth,
+        "ci": [res.ci.lo, res.ci.hi], "covers": res.ci.contains(truth),
+        "error_ratio": res.error_ratio(truth), "path": res.telemetry.dispatch.path,
+        "oracle_calls": res.oracle_calls, "forward_batches": batches,
+        "launches": launches, "wall_s": wall, "scoring_s": scoring_s,
+        "timings_s": res.telemetry.timings, "truth_scoring_s": truth_s}))
+    if not (np.isfinite(res.estimate) and res.ci.lo <= res.estimate <= res.ci.hi):
+        fail(f"Oracle COUNT: estimate {res.estimate} outside its CI {res.ci}")
+    if res.oracle_calls > size.budget:
+        fail(f"Oracle COUNT: {res.oracle_calls} Oracle calls over the budget")
+    if res.error_ratio(truth) > 3.0:
+        fail(f"Oracle COUNT: |estimate - truth| is {res.error_ratio(truth):.2f} "
+             "CI half-widths")
+    if device == "cuda":
+        if launches.get("flash_attention", 0) <= 0:
+            fail("flash_attention was not launched on the Oracle path")
+        scorer.seconds = 0.0
+        res2, wall_ms, busy, top = _profiled(lambda: eng.execute(sql, seed=SEED + 1))
+        log(json.dumps({"profile": "Oracle COUNT", "wall_ms": wall_ms,
+                        "device_busy_ms": busy, "idle_share": 1.0 - busy / wall_ms,
+                        "scoring_s": scorer.seconds, "timings_s": res2.telemetry.timings,
+                        "top_device_events": top}))
+    return launches
+
+
+def card_vs_cpu(size, device):
+    """Phase 7: ``PairScorer.score`` with the same bf16 parameters on the
+    card and on the CPU: joinml-oracle at full depth, and one pattern block
+    of rwkv6-1.6b and of recurrentgemma-9b at full width."""
+    from repro_torch.models import init_params
+
+    left, right = entity_tables(size)
+    rng = np.random.default_rng(SEED + 5)
+    for name, over, n in (("joinml-oracle", {}, size.cpu_pairs),
+                          ("rwkv6-1.6b", {"num_layers": 1}, 4),
+                          ("recurrentgemma-9b", {"num_layers": 3}, 4)):
+        cfg = model_config(name, size, **over)
+        params = init_params(cfg, seed=SEED + 1, device=device)
+        pairs = np.stack([rng.integers(0, len(left), n), rng.integers(0, len(right), n)], 1)
+        on_card = make_scorer(cfg, params, left, right, n, device).score(pairs)
+        params.to("cpu")
+        t0 = time.perf_counter()
+        on_cpu = make_scorer(cfg, params, left, right, n, "cpu").score(pairs)
+        diff = float(np.abs(on_card - on_cpu).max())
+        log(json.dumps({"check": f"{name}: P(match) on the card vs the CPU",
+                        "layers": cfg.num_layers, "pairs": n, "max_abs_diff": diff,
+                        "tolerance": CARD_CPU_ATOL,
+                        "p_range": [float(on_cpu.min()), float(on_cpu.max())],
+                        "cpu_s": time.perf_counter() - t0}))
+        if not diff <= CARD_CPU_ATOL:
+            fail(f"{name}: the card's P(match) differs from the CPU's by {diff}")
+        del params
+        torch.cuda.empty_cache()
+
+
+def recurrent_paths(size, device):
+    """Phase 8: rwkv6-1.6b (K6) and recurrentgemma-9b cut to 8 layers (K7,
+    and K5 in its local attention) score ``recurrent_pairs`` pairs each,
+    with launch counts set to 0 just before and read just after."""
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.models import init_params
+
+    left, right = entity_tables(size)
+    rng = np.random.default_rng(SEED + 6)
+    pairs = np.stack([rng.integers(0, len(left), size.recurrent_pairs),
+                      rng.integers(0, len(right), size.recurrent_pairs)], 1)
+    out = {}
+    for name, over, needs in (("rwkv6-1.6b", {}, ("rwkv6_scan",)),
+                              ("recurrentgemma-9b", {"num_layers": RGEMMA_LAYERS},
+                               ("rglru_scan", "flash_attention"))):
+        cfg = model_config(name, size, **over)
+        params = init_params(cfg, seed=SEED + 2, device=device)
+        scorer = make_scorer(cfg, params, left, right, size.batch, device)
+        cuda_lib.reset_launches()
+        sync(device)
+        t0 = time.perf_counter()
+        p = scorer.score(pairs)
+        sync(device)
+        wall = time.perf_counter() - t0
+        out[name] = launches = dict(cuda_lib.LAUNCHES)
+        log(json.dumps({
+            "path": f"{name} scores pairs", "layers": cfg.num_layers,
+            "layer_types": sorted(set(cfg.layer_types())),
+            "params": sum(x.numel() for x in params.parameters()),
+            "pairs": len(pairs), "forward_batches": scorer.forward_batches,
+            "wall_s": wall, "pairs_per_s": len(pairs) / wall, "launches": launches,
+            "p_range": [float(p.min()), float(p.max())]}))
+        if not (np.isfinite(p).all() and (p >= 0).all() and (p <= 1).all()):
+            fail(f"{name}: P(match) is not a probability")
+        if device == "cuda":
+            for k in needs:
+                if launches.get(k, 0) <= 0:
+                    fail(f"{k} was not launched on the {name} path")
+        del params, scorer
+        torch.cuda.empty_cache()
+    return out
+
+
+def _attention_pairs(sq, skv, causal, window):
+    """The (query, key) pairs the masks leave: the work a causal or windowed
+    attention needs."""
+    qp, kp = np.arange(sq)[:, None], np.arange(skv)[None, :]
+    ok = np.ones((sq, skv), bool)
+    if causal:
+        ok &= qp >= kp
+    if window:
+        ok &= qp - kp < window
+    return int(ok.sum())
+
+
+# (B, Hq, Hkv, S, d, causal, window), bf16 as the models run it.  The rows
+# named "path" are shapes the main paths give the kernel (the entity pairs
+# are 35-45 tokens, so every batch is padded to the 48-token bucket); the
+# scorer's 16-token bucket and the long shapes follow.
+FLASH_SHAPES = {
+    "joinml-oracle path": (256, 12, 12, 48, 64, True, 0),
+    "recurrentgemma-9b path": (256, 16, 1, 48, 256, True, 2048),
+    "joinml-oracle, 16-token bucket": (256, 12, 12, 16, 64, True, 0),
+    "llama3.2-1b heads, S 4096": (1, 32, 8, 4096, 64, True, 0),
+    "recurrentgemma heads, S 4096, window 2048": (1, 16, 1, 4096, 256, True, 2048),
+}
+RWKV_SHAPES = {"rwkv6-1.6b path": (256, 32, 48, 64), "T 4096": (1, 32, 4096, 64)}
+RGLRU_SHAPES = {"recurrentgemma-9b path": (256, 48, 4096), "T 4096": (1, 4096, 4096)}
+
+
+def _flash_case(gen, shape):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import checks
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    b, hq, hkv, s, d, causal, window = shape
+    bf = torch.bfloat16
+    q = torch.randn((b, hq, s, d), generator=gen, device="cuda").to(bf)
+    k = torch.randn((b, hkv, s, d), generator=gen, device="cuda").to(bf)
+    v = torch.randn((b, hkv, s, d), generator=gen, device="cuda").to(bf)
+    if window:
+        pos = torch.arange(s, device="cuda")
+        mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
+        library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, attn_mask=mask, enable_gqa=True)
+    else:
+        library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, is_causal=causal, enable_gqa=True)
+    flops = 4.0 * b * hq * d * _attention_pairs(s, s, causal, window)
+    byts = 2 * (2 * b * hq * s * d + 2 * b * hkv * s * d)
+    return (lambda: flash_attention_cuda(q, k, v, causal=causal, window=window),
+            lambda: flash_attention_ref(q, k, v, causal=causal, window=window),
+            lambda: checks.flash_attention_bound(q, k, v, causal=causal, window=window),
+            library, flops, byts, PEAK["bf16"])
+
+
+def _rwkv_case(gen, shape):
+    from repro_torch.kernels import checks
+    from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_cuda
+    from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
+
+    b, h, t, hd = shape
+    r, k, v = (torch.randn((b, h, t, hd), generator=gen, device="cuda") for _ in range(3))
+    # the model's decays: exp(-exp(w0 + ...)) with w0 = -6
+    w = torch.exp(-torch.exp(torch.empty((b, h, t, hd), device="cuda")
+                             .uniform_(-8.0, -4.0, generator=gen)))
+    u = 0.1 * torch.randn((h, hd), generator=gen, device="cuda")
+    flops = 6.0 * b * h * t * hd * hd
+    byts = 4 * (5 * b * h * t * hd + h * hd)
+    return (lambda: rwkv6_scan_cuda(r, k, v, w, u),
+            lambda: rwkv6_scan_ref(r, k, v, w, u),
+            lambda: checks.rwkv6_scan_bound(r, k, v, w, u),
+            None, flops, byts, PEAK["fp32"])
+
+
+def _rglru_case(gen, shape):
+    from repro_torch.kernels import checks
+    from repro_torch.kernels.rglru_scan.kernel import rglru_scan_cuda
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+
+    b, t, r = shape
+    # the model's gates: a in (0, 1), g scaled by sqrt(1 - a^2)
+    a = torch.empty((b, t, r), device="cuda").uniform_(0.5, 0.9999, generator=gen)
+    g = torch.sqrt(1 - a * a) * torch.randn((b, t, r), generator=gen, device="cuda")
+    return (lambda: rglru_scan_cuda(a, g), lambda: rglru_scan_ref(a, g),
+            lambda: checks.rglru_scan_bound(a, g),
+            None, 2.0 * b * t * r, 12 * b * t * r, PEAK["fp32"])
+
+
+def model_kernels():
+    """Phase 3b: K5-K7 against their plain versions under
+    ``checks.check_model_kernel`` (twice the f32 error bound of the
+    function, plus half a bf16 ulp on each side) at each shape, then their
+    times (CUDA events), beside the bound and, for attention, the yardstick
+    ``scaled_dot_product_attention`` (timed here only; the port never calls
+    it).  Returns {kernel: [row per shape]}, the first path shape first."""
+    from repro_torch.kernels import checks
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = {}
+    for name, shapes, case in (("flash_attention", FLASH_SHAPES, _flash_case),
+                               ("rwkv6_scan", RWKV_SHAPES, _rwkv_case),
+                               ("rglru_scan", RGLRU_SHAPES, _rglru_case)):
+        rows[name] = []
+        for label, shape in shapes.items():
+            kern, plain, bound, library, flops, byts, peak = case(gen, shape)
+            got = kern()
+            torch.cuda.synchronize()
+            rule = checks.check_model_kernel(got, plain(), bound())
+            del got
+            path = label.endswith("path")
+            row = _row(_events_ms(kern, 20 if path else 5), _events_ms(plain, 1),
+                       flops, byts, peak)
+            if library is not None:
+                row["library_ms"] = _events_ms(library, 20 if path else 5)
+            if library is None:
+                row["library_note"] = "no one PyTorch call computes the recurrence"
+            row.update(shape=label, dims=list(shape), **rule)
+            log(json.dumps({"check": name, **row}))
+            rows[name].append(row)
+            torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--rehearse-cpu", action="store_true",
-                    help="run phase 4 at a tiny size on the CPU (exits 3)")
+                    help="run phases 4, 6, 7 and 8 at a tiny size on the CPU (exits 3)")
     if ap.parse_args().rehearse_cpu:
         from repro_torch.kernels import cuda_lib
 
         results, _, _ = run_phase4(REHEARSAL, "cpu", cuda_lib.LAUNCHES)
-        log(f"rehearsal complete: {len(results)} queries on the CPU (no result)")
+        oracle_path(REHEARSAL_MODEL, "cpu")
+        card_vs_cpu(REHEARSAL_MODEL, "cpu")
+        recurrent_paths(REHEARSAL_MODEL, "cpu")
+        log(f"rehearsal complete: {len(results)} queries, the Oracle query and "
+            "the recurrent paths on the CPU (no result)")
         sys.exit(3)
     if not torch.cuda.is_available():
         log("no CUDA card: nothing to measure")
@@ -565,7 +957,9 @@ def main():
         for p in ("fp32", "bf16", "int8")} | {
         "sim_hist": smem(0, HIST, 4096, 1),
         "sim_topk[k=32]": smem(0, TOPK, 1, 32),
-        "sim_topk[k=128]": smem(0, TOPK, 1, 128)}}))
+        "sim_topk[k=128]": smem(0, TOPK, 1, 128)} | {
+        f"flash_attention d={d}": cuda_lib.lib().repro_flash_smem_bytes(d)
+        for d in (64, 256)}}))
 
     from repro_torch.data import make_clustered_tables
 
@@ -578,15 +972,16 @@ def main():
     errs = phase3(ds, FULL.slice)
     errs["sim_sweep[fp32]"] = max(errs["sim_sweep[fp32]"], chain_check(chain))
     del ds, chain
+    model_rows = model_kernels()
 
     # phase 4: the main path, counts read around the whole phase
     cuda_lib.reset_launches()
     results, hot, catalogs = run_phase4(FULL, "cuda", cuda_lib.LAUNCHES)
     launches = dict(cuda_lib.LAUNCHES)
     log(json.dumps({"main_path_launches": launches}))
-    for name in REPLACES:
+    for name in SIM_KERNELS:
         if launches.get(name, 0) <= 0:
-            fail(f"kernel {name} was not launched on the main path")
+            fail(f"kernel {name} was not launched on the query path")
     retry = next(r for r in results if r["name"] == "COUNT hot rows")
     retry_rows = _stat(retry["result"], "topk_retry_rows")
     profile_query(FULL, catalogs)
@@ -596,11 +991,29 @@ def main():
     ds = make_clustered_tables(FULL.n, FULL.n, d=FULL.d, n_entities=512,
                                noise=0.35, seed=SEED)
     times = phase5(ds, retry_rows, hot)
+    del ds, hot
+    torch.cuda.empty_cache()
+
+    # phases 6-8: the Oracle path, the card against the CPU, the recurrent
+    # paths; counts set to 0 just before each path and read just after
+    paths = {"Oracle COUNT": oracle_path(FULL_MODEL, "cuda")}
+    card_vs_cpu(FULL_MODEL, "cuda")
+    paths.update(recurrent_paths(FULL_MODEL, "cuda"))
+    main_path = {"flash_attention": "Oracle COUNT", "rwkv6_scan": "rwkv6-1.6b",
+                 "rglru_scan": "recurrentgemma-9b"}
+
     rows = []
-    for name, rep in REPLACES.items():
-        rows.append({"name": name, "route": "cuda", "source": SOURCE,
-                     "replaces": rep, "launches": launches[name],
+    for name in SIM_KERNELS:
+        rows.append({"name": name, "route": "cuda", "source": SIM_SOURCE,
+                     "replaces": REPLACES[name], "launches": launches[name],
                      "max_abs_err": errs[name], **times[name]})
+    for name in MODEL_KERNELS:
+        path_row, *other_rows = model_rows[name]
+        rows.append({"name": name, "route": "cuda", "source": MODEL_SOURCE,
+                     "replaces": REPLACES[name],
+                     "launches": paths[main_path[name]].get(name, 0), **path_row,
+                     "launches_by_path": {p: n.get(name, 0) for p, n in paths.items()},
+                     "other_shapes": other_rows})
     log(json.dumps({"kernels": rows}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

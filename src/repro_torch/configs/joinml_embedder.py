@@ -1,8 +1,15 @@
-"""Precision contract for exporting the embedder's record embeddings into the
-similarity kernels.  The embedder itself (a MiniLM-scale encoder, width 384)
-comes with the model stack; only the precision table is needed by the query
-engine."""
+"""The paper's embedding model: a small encoder-style LM whose mean-pooled
+hidden state is the record embedding (MiniLM-scale), plus the precision
+contract for exporting those embeddings into the similarity kernels."""
 import dataclasses
+
+from ..models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="joinml-embedder", family="dense",
+    num_layers=6, d_model=384, num_heads=6, num_kv_heads=6, head_dim=64,
+    d_ff=1536, vocab_size=32768, tied_embeddings=True, causal=False, act="silu",
+)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,0 +1,9 @@
+"""Mistral-Nemo-12B [hf:mistralai/Mistral-Nemo-Base-2407]: dense GQA, 128k ctx."""
+from ..models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="mistral-nemo-12b", family="dense",
+    num_layers=40, d_model=5120, num_heads=32, num_kv_heads=8, head_dim=128,
+    d_ff=14336, vocab_size=131072,
+    rope_theta=1e6, act="silu",
+)

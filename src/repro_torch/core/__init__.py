@@ -17,6 +17,7 @@ from .oracle import (  # noqa: F401
     FnOracle,
     LabelRequest,
     LabelResult,
+    ModelOracle,
     Oracle,
     OracleBatch,
     OracleRequest,

@@ -471,3 +471,26 @@ class PairChainOracle(Oracle):
         for e, m in enumerate(self.edge_truth):
             out *= m[idx[:, e], idx[:, e + 1]].astype(np.float64)
         return out
+
+
+class ModelOracle(Oracle):
+    """Oracle backed by a served model: scorer(idx) -> probability, thresholded.
+
+    ``scorer`` is the serving stack's batched pair scorer — either a
+    :class:`repro_torch.serve.PairScorer` instance or any vectorised
+    callable; this class only adds the ledger semantics.  Because callers
+    route through :class:`OracleBatch`, the scorer receives each pipeline
+    stage's deduped union as one large request and applies its own device
+    batching internally.  The reference's ``name`` (the key the oracle
+    service fuses named oracles under) comes with that service (ROADMAP
+    queue 1, item 9).
+    """
+
+    def __init__(self, scorer, threshold: float = 0.5):
+        super().__init__()
+        self.scorer = scorer.score if hasattr(scorer, "score") else scorer
+        self.threshold = threshold
+
+    def _label(self, idx: np.ndarray) -> np.ndarray:
+        probs = np.asarray(self.scorer(idx), dtype=np.float64)
+        return (probs >= self.threshold).astype(np.float64)

@@ -22,6 +22,29 @@ The score bound is the classical one for a length-d dot product in f32,
 int8 scores are exact integers scaled twice in f32 (``2u`` relative).
 Everything runs in torch on the tensors' device; tests and ``chip_smoke.py``
 use it at small and at main-path shapes.
+
+The model-stack kernels (flash attention and the two scans) are held by
+:func:`check_model_kernel` to a per-element bound on the error of any f32
+evaluation of their function, from the same classical lemma (a term that
+passes through n roundings is off by at most ``gamma_n`` of its size):
+
+* **Scans** (:func:`rwkv6_scan_bound`, :func:`rglru_scan_bound`).  The
+  output at step t is a sum of products, each through at most ``n_t``
+  roundings, so its error is at most ``gamma(n_t)`` times the same
+  recurrence run on absolute values: ``n_t = 2t + 2`` for the RG-LRU
+  (a multiply and an add per step) and ``2t + hd + 6`` for RWKV6 (the
+  state's steps, the bonus term and the length-hd read-out).
+* **Attention** (:func:`flash_attention_bound`).  Each score is a length-d
+  dot product (``gamma(d+1)`` of ``scale * |q| . |k|``); each weight
+  ``exp(s - max)`` carries its score's error (the max is a factor common to
+  the row and cancels), ``u |s - max|`` from the subtraction and a few ulps
+  of ``exp`` and of the rescale per tile of the online softmax; the two sums
+  over the keys add ``gamma(Skv + 2 tiles + 2)``.  Propagated through
+  ``sum p v / sum p`` in f64.
+
+The kernel and the plain version each lie within the bound of the exact
+value, so they may differ by twice it; an output stored in bf16 is rounded
+once on each side, half a bf16 ulp each.
 """
 from __future__ import annotations
 
@@ -146,3 +169,99 @@ def check_sums(row_sums, s64, *, exponent, floor, v=None, rtol=1e-6):
     rel = ((got - ref).abs() / ref.abs().clamp_min(1e-300)).max()
     assert rel <= rtol, f"walk sums off by {float(rel):.3g} relative"
     return float(rel)
+
+
+BF16_ULP = 2.0**-7   # a bf16 ulp is at most this much of the value
+
+
+def gamma(n):
+    """``n u / (1 - n u)``: the relative error bound after n f32 roundings."""
+    return n * U / (1 - n * U)
+
+
+def rglru_scan_bound(a, g):
+    """(B, T, R) bound on |an f32 evaluation of the RG-LRU scan - exact|."""
+    from .rglru_scan.ref import rglru_scan_ref
+
+    t = a.shape[1]
+    gam = gamma(2.0 * torch.arange(t, device=a.device, dtype=torch.float64) + 2)
+    mag = rglru_scan_ref(a.abs(), g.abs()).double()
+    # the magnitudes are themselves an f32 evaluation on nonnegative data:
+    # the exact ones are at most mag / (1 - gamma)
+    return (gam / (1 - gam))[None, :, None] * mag
+
+
+def rwkv6_scan_bound(r, k, v, w, u):
+    """(B, H, T, hd) bound on |an f32 evaluation of the RWKV6 scan - exact|."""
+    from .rwkv6_scan.ref import rwkv6_scan_ref
+
+    t, hd = r.shape[2], r.shape[3]
+    gam = gamma(2.0 * torch.arange(t, device=r.device, dtype=torch.float64) + hd + 6)
+    mag = rwkv6_scan_ref(r.abs(), k.abs(), v.abs(), w.abs(), u.abs()).double()
+    return (gam / (1 - gam))[:, None] * mag
+
+
+FA_TILE = 64   # the CUDA kernel's KV tile: each tile rescales the running sums
+
+
+def flash_attention_bound(q, k, v, causal=True, window=0):
+    """(B, Hq, Sq, d) bound on |an f32 evaluation of softmax attention -
+    exact|, for the online softmax over KV tiles of ``FA_TILE`` keys as
+    well as for one softmax over the whole row.  A row whose keys are all
+    masked averages every value (all its scores are the same -1e30)."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    tiles = -(-skv // FA_TILE)
+    scale = d**-0.5
+    g_dot = gamma(d + 1)
+    g_sum = gamma(skv + 2 * tiles + 2)
+    qp = torch.arange(sq, device=q.device)[:, None]
+    kp = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = qp >= kp
+    if window > 0:
+        mask = mask & (qp - kp < window)
+    empty = ~mask.any(-1, keepdim=True)
+    use = mask | empty
+    out = torch.empty((b, hq, sq, d), dtype=torch.float64, device=q.device)
+    for h in range(hq):   # one q head at a time: (B, Sq, Skv) temporaries
+        qh = q[:, h].double()
+        kh, vh = k[:, h // (hq // hkv)].double(), v[:, h // (hq // hkv)].double()
+        s = torch.where(mask, scale * qh @ kh.transpose(1, 2), 0.0)
+        ds = torch.where(mask, g_dot * scale * (qh.abs() @ kh.abs().transpose(1, 2)), 0.0)
+        s = torch.where(use, s, -torch.inf)
+        x = s - s.amax(-1, keepdim=True)
+        p = torch.exp(x)
+        x = torch.where(use, x, 0.0)
+        dmax = torch.where(use, ds, 0.0).amax(-1, keepdim=True)
+        # relative error of a weight: its score's (the row max is a common
+        # factor and cancels), the subtraction from the computed max, and
+        # exp plus one rescale per tile, a few ulps each
+        rho = torch.expm1(ds + U * (x.abs() + ds + dmax) + 5 * U * (tiles + 1))
+        e = torch.where(use, p * (rho + g_sum * (1 + rho)), 0.0)
+        den = p.sum(-1, keepdim=True)
+        o = (p @ vh) / den
+        err = (e @ vh.abs() + o.abs() * e.sum(-1, keepdim=True)) / (den - e.sum(-1, keepdim=True))
+        out[:, h] = err * (1 + U) + U * o.abs()
+    return out
+
+
+def check_model_kernel(got, want, bound):
+    """A model-stack kernel's output against its plain version's.  ``bound``
+    is the per-element bound on either side's error (``*_bound`` above);
+    the two may differ by twice it, plus half a bf16 ulp on each side for a
+    bf16 output.  Raises where an element differs by more; returns the
+    largest difference, the largest |want|, the largest tolerance and the
+    largest ratio of difference to tolerance (the margin is its inverse)."""
+    g, w = got.double(), want.to(got.device).double()
+    err = (g - w).abs()
+    tol = 2 * bound.to(got.device).double()
+    if got.dtype == torch.bfloat16:
+        tol = tol + BF16_ULP * torch.maximum(g.abs(), w.abs())
+    ratio = float((err / tol.clamp_min(1e-300)).max())
+    bad = int((err > tol).sum())
+    assert bad == 0, (f"{bad} elements differ beyond the bound (max {float(err.max()):.3g}, "
+                      f"{ratio:.3g} times the tolerance)")
+    return {"max_abs_err": float(err.max()), "max_abs_want": float(w.abs().max()),
+            "max_tolerance": float(tol.max()), "err_over_tol": ratio}

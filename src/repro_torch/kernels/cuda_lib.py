@@ -1,10 +1,12 @@
-"""Build, load and launch the CUDA similarity kernels (``csrc/sim_kernels.cu``).
+"""Build, load and launch the port's CUDA kernels (``csrc/*.cu``).
 
-The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface, at first use, and loaded with :mod:`ctypes`.  The
-library lands in ``build/repro_torch/`` at the root of the checkout (or in
-``$REPRO_TORCH_BUILD_DIR``), named by a hash of the source and the flags, so
-a changed source rebuilds and an unchanged one loads at once.
+Every source is compiled with ``nvcc`` for ``sm_90a`` into an object file,
+all of them at once in parallel, and the objects are linked into one shared
+library with a plain C interface, at first use, and loaded with
+:mod:`ctypes`.  The library lands in ``build/repro_torch/`` at the root of
+the checkout (or in ``$REPRO_TORCH_BUILD_DIR``), named by a hash over every
+source and the flags, so a changed source rebuilds and an unchanged tree
+loads at once.
 
 Nothing here runs at import time: the CPU tests import every module of the
 port, and this machine may have no ``nvcc``.
@@ -24,10 +26,10 @@ from pathlib import Path
 
 import torch
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "sim_kernels.cu"
+SOURCES = sorted((Path(__file__).resolve().parents[1] / "csrc").glob("*.cu"))
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 # launch modes and epilogue flags of ``repro_sim_launch``
@@ -67,30 +69,42 @@ def _nvcc() -> str:
 def build() -> Path:
     """Compile the library if it is not built yet; returns its path.
     ``BUILD_INFO`` records the build seconds and the ptxas report."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        digest.update(src.name.encode() + b"\0" + src.read_bytes())
     out_dir = build_dir()
-    out = out_dir / f"libreprosim_{tag}.so"
+    out = out_dir / f"librepro_{digest.hexdigest()[:16]}.so"
     if out.exists():
         BUILD_INFO.setdefault("seconds", 0.0)
         BUILD_INFO.setdefault("log", "(cached build)")
         BUILD_INFO["path"] = str(out)
         return out
     out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    secs = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
-    BUILD_INFO.update(seconds=secs, log=proc.stdout + proc.stderr,
-                      path=str(out), command=" ".join(cmd))
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in SOURCES]
+        procs = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                             text=True)
+            for src, obj in zip(SOURCES, objs)
+        ]
+        logs = [p.communicate()[0] for p in procs]
+        failed = [(src.name, p.returncode, log)
+                  for src, p, log in zip(SOURCES, procs, logs) if p.returncode]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{name} ({rc}):\n{log}" for name, rc, log in failed))
+        so = Path(tmp) / out.name
+        link = subprocess.run([nvcc, "-shared", "-o", str(so), *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}\n{link.stderr}")
+        os.replace(so, out)
+    BUILD_INFO.update(seconds=time.perf_counter() - t0, log="".join(logs),
+                      path=str(out), sources=[s.name for s in SOURCES])
     return out
 
 
@@ -108,6 +122,16 @@ def lib() -> ctypes.CDLL:
             so.repro_sim_launch.restype = ci
             so.repro_sim_smem_bytes.argtypes = [ci, ci, ci, ci]
             so.repro_sim_smem_bytes.restype = ctypes.c_size_t
+            so.repro_flash_attention.argtypes = [
+                ci, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, cf, vp,
+            ]
+            so.repro_flash_attention.restype = ci
+            so.repro_flash_smem_bytes.argtypes = [ci]
+            so.repro_flash_smem_bytes.restype = ctypes.c_size_t
+            so.repro_rwkv6_scan.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
+            so.repro_rwkv6_scan.restype = ci
+            so.repro_rglru_scan.argtypes = [vp, vp, vp, ci, ci, ci, vp]
+            so.repro_rglru_scan.restype = ci
             _lib = so
         return _lib
 
@@ -132,7 +156,7 @@ def topk_splits(m: int, n: int, sms: int) -> int:
     return -(-tiles // per)
 
 
-def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
+def check_operand(t: torch.Tensor, name: str, dtype, shape) -> None:
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor")
     if t.dtype != dtype:
@@ -143,7 +167,7 @@ def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def _ptr(t):
+def ptr(t):
     return None if t is None else ctypes.c_void_p(t.data_ptr())
 
 
@@ -163,16 +187,16 @@ def launch(mode: str, flags: int, e1: torch.Tensor, e2: torch.Tensor, *,
     align = 16 if mode == "int8" else 4
     if d % align:
         raise ValueError(f"d={d} must be a multiple of {align} for {mode}")
-    _check(e1, "e1", dtype, (m, d))
-    _check(e2, "e2", dtype, (n, d))
+    check_operand(e1, "e1", dtype, (m, d))
+    check_operand(e2, "e2", dtype, (n, d))
     dev = e1.device
     f32, i32 = torch.float32, torch.int32
     if mode == "int8":
-        _check(rs1, "rs1", f32, (m,))
-        _check(rs2, "rs2", f32, (n,))
+        check_operand(rs1, "rs1", f32, (m,))
+        check_operand(rs2, "rs2", f32, (n,))
     block_counts = vals = idx = row_sums = None
     if flags & HIST:
-        _check(scale, "scale", f32, (m,))
+        check_operand(scale, "scale", f32, (m,))
         n_tiles = -(-m // bm)
         if bm % CTA_ROWS and n_tiles > 1:
             raise ValueError(f"block rows {bm} must be a multiple of {CTA_ROWS}")
@@ -193,7 +217,7 @@ def launch(mode: str, flags: int, e1: torch.Tensor, e2: torch.Tensor, *,
             part_vals = torch.empty((m, splits, k), dtype=f32, device=dev)
             part_idx = torch.empty((m, splits, k), dtype=i32, device=dev)
     if flags & SUMS:
-        _check(v, "v", f32, (n,))
+        check_operand(v, "v", f32, (n,))
         row_sums = torch.empty((m,), dtype=f32, device=dev)
     so = lib()
     smem = so.repro_sim_smem_bytes(MODES[mode], flags, n_bins, k)
@@ -202,11 +226,11 @@ def launch(mode: str, flags: int, e1: torch.Tensor, e2: torch.Tensor, *,
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = so.repro_sim_launch(
-            MODES[mode], flags, _ptr(e1), _ptr(e2), _ptr(rs1), _ptr(rs2),
-            _ptr(scale), _ptr(v), m, n, d, n_bins, float(exponent),
-            float(rs_exponent), float(floor), k, bm, splits, _ptr(part_vals),
-            _ptr(part_idx), _ptr(block_counts),
-            _ptr(vals), _ptr(idx), _ptr(row_sums), ctypes.c_void_p(stream),
+            MODES[mode], flags, ptr(e1), ptr(e2), ptr(rs1), ptr(rs2),
+            ptr(scale), ptr(v), m, n, d, n_bins, float(exponent),
+            float(rs_exponent), float(floor), k, bm, splits, ptr(part_vals),
+            ptr(part_idx), ptr(block_counts),
+            ptr(vals), ptr(idx), ptr(row_sums), ctypes.c_void_p(stream),
         )
     if err != 0:
         raise RuntimeError(f"repro_sim_launch(mode={mode}, flags={flags}) "

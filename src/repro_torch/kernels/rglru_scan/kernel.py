@@ -1,0 +1,31 @@
+"""CUDA launch wrapper of the RG-LRU scan (K7).
+
+Replaces the Pallas kernel ``_kernel`` of
+``src/repro/kernels/rglru_scan/kernel.py``; the kernel is
+``rglru_scan_kernel`` in ``csrc/model_kernels.cu`` (its header gives the
+design and the bound)."""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import cuda_lib
+
+
+def rglru_scan_cuda(a, g):
+    """``h_t = a_t h_{t-1} + g_t`` from ``h = 0`` for contiguous float32
+    CUDA tensors a, g (B, T, R).  Returns (B, T, R) float32."""
+    b, t, r = a.shape
+    cuda_lib.check_operand(a, "a", torch.float32, (b, t, r))
+    cuda_lib.check_operand(g, "g", torch.float32, (b, t, r))
+    out = torch.empty_like(a)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    p = cuda_lib.ptr
+    with torch.cuda.device(a.device):
+        err = cuda_lib.lib().repro_rglru_scan(
+            p(a), p(g), p(out), b, t, r, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"repro_rglru_scan failed with CUDA error {err}")
+    cuda_lib.LAUNCHES["rglru_scan"] += 1
+    return out

@@ -1,0 +1,182 @@
+"""Recurrent sequence mixers: RWKV6 (Finch) time/channel mix and the RG-LRU
+(RecurrentGemma/Griffin) block (the reference's ``models/recurrent.py``).
+
+The full-sequence recurrences go through the scan ops, ``kernels.rwkv6_scan``
+(K6) and ``kernels.rglru_scan`` (K7), where the reference runs ``lax.scan``.
+Both kernels start from a zero state and return no final state, which is
+what ``forward`` needs: it starts every recurrent layer from zeros and
+discards the state.  Decode with a carried state (T = 1) is not ported yet
+(ROADMAP queue 1, item 10.3).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..kernels.rglru_scan import rglru_scan
+from ..kernels.rwkv6_scan import rwkv6_scan
+from .config import ModelConfig
+from .layers import dense_init, dtype_of, full, gelu, param
+
+
+# ----------------------------------------------------------------------------
+# RWKV6
+# ----------------------------------------------------------------------------
+
+class TimeMix(nn.Module):
+    """``rwkv_params()["time"]``."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator):
+        super().__init__()
+        dt, f32 = dtype_of(cfg), torch.float32
+        d, hd, lora = cfg.d_model, cfg.rwkv_head_dim, cfg.rwkv_decay_lora
+        for name in ("mu_r", "mu_k", "mu_v", "mu_g", "mu_w"):
+            setattr(self, name, param(full(gen, (d,), 0.5, dt)))
+        for name in ("w_r", "w_k", "w_v", "w_g", "w_o"):
+            setattr(self, name, param(dense_init(gen, (d, d), dt)))
+        # data-dependent decay (Finch): w = exp(-exp(w0 + tanh(x A) B))
+        self.decay_w0 = param(full(gen, (d,), -6.0, f32))
+        self.decay_a = param(dense_init(gen, (d, lora), dt))
+        self.decay_b = param(dense_init(gen, (lora, d), dt, scale=0.01))
+        self.bonus_u = param(dense_init(gen, (d // hd, hd), f32, scale=0.1))
+        self.ln_x = param(full(gen, (d,), 1.0, f32))
+
+
+class ChannelMix(nn.Module):
+    """``rwkv_params()["channel"]``."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator):
+        super().__init__()
+        dt, d = dtype_of(cfg), cfg.d_model
+        self.mu_k = param(full(gen, (d,), 0.5, dt))
+        self.mu_r = param(full(gen, (d,), 0.5, dt))
+        self.w_k = param(dense_init(gen, (d, cfg.d_ff), dt))
+        self.w_v = param(dense_init(gen, (cfg.d_ff, d), dt))
+        self.w_r = param(dense_init(gen, (d, d), dt))
+
+
+def _token_shift(x, last):
+    """x: (B, T, d); last: (B, d) value preceding x[:, 0]."""
+    return torch.cat([last[:, None, :], x[:, :-1, :]], dim=1)
+
+
+def rwkv_time_mix(p: TimeMix, cfg: ModelConfig, x, last_x):
+    """RWKV6 attention substitute over a full sequence from a zero state.
+
+    x: (B, T, d); last_x: (B, d).  Returns (out, new_last_x)."""
+    b, t, d = x.shape
+    hd = cfg.rwkv_head_dim
+    h = d // hd
+    prev = _token_shift(x, last_x)
+
+    def mix(mu):
+        return x + (prev - x) * mu
+
+    r = (mix(p.mu_r) @ p.w_r).reshape(b, t, h, hd)
+    k = (mix(p.mu_k) @ p.w_k).reshape(b, t, h, hd)
+    v = (mix(p.mu_v) @ p.w_v).reshape(b, t, h, hd)
+    g = F.silu(mix(p.mu_g) @ p.w_g)
+    dec = p.decay_w0 + torch.tanh(mix(p.mu_w) @ p.decay_a) @ p.decay_b
+    w = torch.exp(-torch.exp(dec.float())).reshape(b, t, h, hd)
+    # the kernel's layout is (B, H, T, hd)
+    out = rwkv6_scan(*(z.float().transpose(1, 2) for z in (r, k, v, w)), p.bonus_u)
+    out = out.transpose(1, 2)  # (B, T, H, hd)
+    # per-head group norm (ln_x), population variance as jnp.var
+    mu_ = out.mean(-1, keepdim=True)
+    var = out.var(-1, keepdim=True, correction=0)
+    out = (out - mu_) * torch.rsqrt(var + 1e-5)
+    out = out.reshape(b, t, d) * p.ln_x
+    out = (out.to(x.dtype) * g) @ p.w_o
+    return out, x[:, -1, :]
+
+
+def rwkv_channel_mix(p: ChannelMix, cfg: ModelConfig, x, last_x):
+    prev = _token_shift(x, last_x)
+    xk = x + (prev - x) * p.mu_k
+    xr = x + (prev - x) * p.mu_r
+    k = torch.square(F.relu(xk @ p.w_k))
+    return torch.sigmoid(xr @ p.w_r) * (k @ p.w_v), x[:, -1, :]
+
+
+def rwkv_state_init(cfg: ModelConfig, batch: int, device):
+    hd = cfg.rwkv_head_dim
+    h = cfg.d_model // hd
+    dt = dtype_of(cfg)
+    return {
+        "s": torch.zeros((batch, h, hd, hd), dtype=torch.float32, device=device),
+        "last_time": torch.zeros((batch, cfg.d_model), dtype=dt, device=device),
+        "last_chan": torch.zeros((batch, cfg.d_model), dtype=dt, device=device),
+    }
+
+
+# ----------------------------------------------------------------------------
+# RG-LRU (Griffin / RecurrentGemma)
+# ----------------------------------------------------------------------------
+
+RG_LRU_C = 8.0
+
+
+class RGLRU(nn.Module):
+    """``rglru_params``; the parameter the reference calls ``lambda`` is
+    registered under that name."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator):
+        super().__init__()
+        dt, f32 = dtype_of(cfg), torch.float32
+        d, r = cfg.d_model, cfg.rnn_width
+        self.w_x = param(dense_init(gen, (d, r), dt))
+        self.w_y = param(dense_init(gen, (d, r), dt))
+        self.conv_w = param(dense_init(gen, (cfg.conv_width, r), dt, scale=0.5))
+        self.conv_b = param(full(gen, (r,), 0.0, dt))
+        self.w_gate_a = param(dense_init(gen, (r, r), dt))
+        self.b_gate_a = param(full(gen, (r,), 0.0, f32))
+        self.w_gate_x = param(dense_init(gen, (r, r), dt))
+        self.b_gate_x = param(full(gen, (r,), 0.0, f32))
+        lam = torch.from_numpy(np.linspace(0.65, 0.999, r).astype(np.float32))
+        self.register_parameter("lambda", param(lam.to(gen.device)))
+        self.w_o = param(dense_init(gen, (r, d), dt))
+
+
+def _causal_conv(x, conv_w, conv_b, conv_state=None):
+    """Depthwise causal conv via shifted adds, in the reference's order.
+
+    x: (B, T, r); conv_w: (W, r); conv_state: (B, W-1, r) previous inputs.
+    Returns (out, new_conv_state)."""
+    b, t, r = x.shape
+    w = conv_w.shape[0]
+    if conv_state is None:
+        conv_state = torch.zeros((b, w - 1, r), dtype=x.dtype, device=x.device)
+    ext = torch.cat([conv_state, x], dim=1)  # (B, T+W-1, r)
+    out = torch.zeros_like(x)
+    for i in range(w):
+        out = out + ext[:, i:i + t, :] * conv_w[w - 1 - i]
+    new_state = ext[:, -(w - 1):, :] if w > 1 else conv_state
+    return out + conv_b, new_state
+
+
+def rglru_mix(p: RGLRU, cfg: ModelConfig, x, conv_state):
+    """Griffin recurrent block over a full sequence from h = 0.
+
+    x: (B, T, d); conv_state: (B, W-1, r).  Returns (out, new_conv_state)."""
+    y = gelu(x @ p.w_y)
+    u = x @ p.w_x
+    u, conv_state = _causal_conv(u, p.conv_w, p.conv_b, conv_state)
+    rg = torch.sigmoid((u @ p.w_gate_a).float() + p.b_gate_a)
+    ig = torch.sigmoid((u @ p.w_gate_x).float() + p.b_gate_x)
+    log_a = -RG_LRU_C * F.softplus(getattr(p, "lambda")) * rg  # (B, T, r) f32
+    a = torch.exp(log_a)
+    gated = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12)) * (
+        ig * u.float()
+    )
+    hs = rglru_scan(a, gated).to(x.dtype)  # (B, T, r)
+    return (y * hs) @ p.w_o, conv_state
+
+
+def rglru_state_init(cfg: ModelConfig, batch: int, device):
+    return {
+        "h": torch.zeros((batch, cfg.rnn_width), dtype=torch.float32, device=device),
+        "conv": torch.zeros((batch, cfg.conv_width - 1, cfg.rnn_width),
+                            dtype=dtype_of(cfg), device=device),
+    }

@@ -1,5 +1,7 @@
-"""The CUDA similarity kernels against their plain PyTorch versions, on the
-card (marker ``cuda``; run with ``pytest -m cuda tests/test_torch_cuda.py``).
+"""The CUDA kernels against their plain PyTorch versions, on the card
+(marker ``cuda``; run with ``pytest -m cuda tests/test_torch_cuda.py``): the
+similarity kernels K1-K4, then the model-stack kernels K5-K7 and the models
+that run them.
 
 Whether a card is present is decided inside the ``card`` fixture, so every
 worker collects the same tests; without a card they skip.
@@ -8,13 +10,24 @@ Tolerances (see ``repro_torch.kernels.checks``): counts under the edge rule,
 top-k under the near-tie rule, walk sums within 1e-6 relative of f64; the
 fp32 sweep equals the two-pass kernels bit for bit; int8 at exponent 1
 equals its plain version bit for bit (integer sums, two f32 products in a
-fixed order).
+fixed order).  The model-stack kernels follow
+``checks.check_model_kernel``: within twice the f32 error bound of their
+function (``checks.*_bound``), plus half a bf16 ulp on each side for a bf16
+output; a model's logits on the card against the
+CPU's at f32 within 2e-5 of the largest |logit| (the tolerance of
+``test_torch_models.py``).
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import checks, cuda_lib
+from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.rglru_scan.kernel import rglru_scan_cuda
+from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_cuda
+from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
 from repro_torch.kernels.sim_hist.kernel import sim_hist_cuda
 from repro_torch.kernels.sim_hist.ref import sim_hist_ref
 from repro_torch.kernels.sim_sweep.kernel import kernel_operand, sim_sweep_cuda
@@ -178,3 +191,108 @@ def test_query_on_card_matches_cpu(card):
     assert b.estimate == pytest.approx(a.estimate, rel=1e-6)
     assert b.ci.lo == pytest.approx(a.ci.lo, rel=1e-6)
     assert b.ci.hi == pytest.approx(a.ci.hi, rel=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the model-stack kernels: K5 flash attention, K6 RWKV6 scan, K7 RG-LRU scan
+# ---------------------------------------------------------------------------
+
+def _normal(card, rng, shape, dtype=torch.float32, scale=1.0):
+    x = (rng.standard_normal(shape) * scale).astype(np.float32)
+    return torch.from_numpy(x).to(card, dtype)
+
+
+# (B, Hq, Hkv, Sq, Skv, d, causal, window): MHA, GQA and MQA; lengths that
+# are not multiples of the 64-row tiles; windows; Sq < Skv; rows whose keys
+# the window masks entirely (Sq > Skv, not causal); d from 16 to 256
+FLASH_SHAPES = [
+    (2, 12, 12, 48, 48, 64, True, 0),
+    (3, 4, 4, 16, 16, 64, True, 0),
+    (1, 8, 2, 130, 130, 64, True, 0),
+    (2, 16, 1, 100, 100, 256, True, 40),
+    (1, 16, 1, 300, 300, 256, True, 128),
+    (1, 4, 1, 70, 200, 32, True, 0),
+    (2, 4, 2, 33, 33, 16, False, 0),
+    (1, 2, 1, 90, 90, 128, False, 17),
+    (1, 2, 1, 90, 40, 16, False, 10),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,window", FLASH_SHAPES)
+def test_flash_attention_matches_plain(card, dtype, b, hq, hkv, sq, skv, d,
+                                       causal, window):
+    rng = np.random.default_rng(sq * 7 + d)
+    q = _normal(card, rng, (b, hq, sq, d), dtype)
+    k = _normal(card, rng, (b, hkv, skv, d), dtype)
+    v = _normal(card, rng, (b, hkv, skv, d), dtype)
+    got = flash_attention_cuda(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    checks.check_model_kernel(
+        got, flash_attention_ref(q, k, v, causal=causal, window=window),
+        checks.flash_attention_bound(q, k, v, causal=causal, window=window))
+
+
+@pytest.mark.parametrize("b,h,t,hd", [(2, 3, 48, 64), (1, 2, 300, 64),
+                                      (2, 2, 333, 16), (1, 1, 70, 128),
+                                      (1, 4, 9, 32)])
+def test_rwkv6_scan_matches_plain(card, b, h, t, hd):
+    rng = np.random.default_rng(t + hd)
+    r, k, v = (_normal(card, rng, (b, h, t, hd), scale=0.5) for _ in range(3))
+    w = torch.from_numpy(rng.uniform(0.9, 0.999, (b, h, t, hd)).astype(np.float32)).to(card)
+    u = _normal(card, rng, (h, hd), scale=0.1)
+    got = rwkv6_scan_cuda(r, k, v, w, u)
+    torch.cuda.synchronize()
+    checks.check_model_kernel(got, rwkv6_scan_ref(r, k, v, w, u),
+                              checks.rwkv6_scan_bound(r, k, v, w, u))
+
+
+@pytest.mark.parametrize("b,t,r", [(4, 48, 4096), (1, 1000, 100), (3, 7, 65)])
+def test_rglru_scan_matches_plain(card, b, t, r):
+    rng = np.random.default_rng(t + r)
+    a = torch.from_numpy(rng.uniform(0.5, 0.999, (b, t, r)).astype(np.float32)).to(card)
+    g = _normal(card, rng, (b, t, r))
+    got = rglru_scan_cuda(a, g)
+    torch.cuda.synchronize()
+    checks.check_model_kernel(got, rglru_scan_ref(a, g), checks.rglru_scan_bound(a, g))
+
+
+def test_model_kernel_launch_checks_raise(card):
+    x = torch.zeros(1, 2, 8, 48, device=card)
+    with pytest.raises(ValueError, match="head width"):
+        flash_attention_cuda(x, x, x)
+    y = torch.zeros(1, 2, 8, 64, device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_cuda(y.transpose(1, 2), y.transpose(1, 2), y.transpose(1, 2))
+    with pytest.raises(ValueError, match="float32"):
+        rwkv6_scan_cuda(y.double(), y, y, y, torch.zeros(2, 64, device=card))
+    a = torch.zeros(1, 8, 16, device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="float32"):
+        rglru_scan_cuda(a, a)
+
+
+@pytest.mark.parametrize("arch,over,kernels", [
+    ("joinml-oracle", {}, {"flash_attention"}),
+    ("rwkv6-1.6b", {}, {"rwkv6_scan"}),
+    ("recurrentgemma-9b", {"num_layers": 5}, {"rglru_scan", "flash_attention"}),
+])
+def test_forward_on_card_matches_cpu(card, arch, over, kernels):
+    """The reduced models at f32: the card's forward (through the kernels)
+    against the CPU's (through their plain versions)."""
+    import copy
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import forward, init_params
+
+    cfg = get_smoke_config(arch, dtype="float32", **over)
+    params = init_params(cfg, seed=1, device="cpu")
+    tokens = torch.from_numpy(
+        np.random.default_rng(2).integers(0, cfg.vocab_size, (3, 45)).astype(np.int32))
+    want = forward(cfg, params, {"tokens": tokens})
+    cuda_lib.reset_launches()
+    got = forward(cfg, copy.deepcopy(params).to(card), {"tokens": tokens})
+    torch.cuda.synchronize()
+    assert {k for k, n in cuda_lib.LAUNCHES.items() if n} == kernels
+    err = float((got.cpu() - want).abs().max())
+    assert err <= 2e-5 * float(want.abs().max())

@@ -1,6 +1,7 @@
-"""The port stands alone: importing ``repro_torch`` and running a query loads
-neither JAX nor the reference package, and its entry points run on the card
-unless the caller asks for the CPU."""
+"""The port stands alone: importing ``repro_torch``, running a query and
+scoring pairs with the Oracle model loads neither JAX nor the reference
+package, and its entry points run on the card unless the caller asks for the
+CPU."""
 import os
 import subprocess
 import sys
@@ -29,6 +30,28 @@ assert res.telemetry.dispatch.path == "streaming"
 ch = make_chain_dataset([12, 14, 16], seed=1)
 run_auto(Query(spec=ch.spec(), agg=Agg.COUNT, oracle=ch.oracle(), budget=300),
          cfg, device="cpu")
+from repro_torch.configs import get_smoke_config
+from repro_torch.core import ModelOracle
+from repro_torch.data.pipeline import ByteTokenizer, pair_example
+from repro_torch.models import forward, init_params
+from repro_torch.serve import PairScorer
+
+tok = ByteTokenizer()
+mcfg = get_smoke_config("joinml-oracle", vocab_size=tok.vocab_size)
+recs = [f"acme unit {i}" for i in range(120)]
+
+def tok_pair(pair):
+    t, _ = pair_example(tok, recs[pair[0]], recs[pair[1] % 120], None, 48)
+    return t[t != tok.PAD]
+
+scorer = PairScorer(mcfg, init_params(mcfg, device="cpu"), tok_pair, tok.YES,
+                    tok.NO, max_len=48, batch_size=16, device="cpu")
+run_auto(Query(spec=ds.spec(), agg=Agg.COUNT, oracle=ModelOracle(scorer),
+               budget=200), cfg, device="cpu")
+assert scorer.pairs_scored > 0
+for arch in ("rwkv6-1.6b", "recurrentgemma-9b"):
+    c = get_smoke_config(arch)
+    forward(c, init_params(c, device="cpu"), {"tokens": [[1, 2, 3]]})
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
              or m == "repro" or m.startswith("repro."))
@@ -62,8 +85,14 @@ def test_entry_points_default_to_the_card():
     from repro_torch.kernels.sim_hist import sim_hist
     from repro_torch.kernels.sim_sweep import prepare_right, sim_sweep
     from repro_torch.kernels.sim_topk import sim_topk
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.interop import params_from_jax
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.serve import ContinuousBatcher, PairScorer
 
     ds = make_clustered_tables(40, 30, seed=0)
+    mcfg = get_smoke_config("joinml-oracle")
+    cpu_params = init_params(mcfg, device="cpu")
 
     def q():
         return Query(spec=ds.spec(), agg=Agg.COUNT, oracle=ds.oracle(), budget=200)
@@ -80,6 +109,11 @@ def test_entry_points_default_to_the_card():
         lambda: prepare_right(ds.emb2),
         lambda: sim_topk(ds.emb1, ds.emb2),
         lambda: sim_hist(ds.emb1, ds.emb2),
+        lambda: init_params(mcfg),
+        lambda: init_cache(mcfg, 2, 8),
+        lambda: params_from_jax(mcfg, {}),
+        lambda: PairScorer(mcfg, cpu_params, None, 5, 6),
+        lambda: ContinuousBatcher(mcfg, cpu_params),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA card"):

@@ -1,0 +1,201 @@
+"""The port's serving layer against the reference's on the CPU: the pair
+scorer (the Oracle endpoint), continuous-batching greedy decode, and a
+``run_bas`` COUNT whose Oracle is a ``ModelOracle`` over the scorer.
+
+Both packages hold the same parameters (``params_from_jax``) of a reduced
+``joinml-oracle`` at f32.  Tolerances:
+* P(match) within 1e-5 absolute: the logits agree within 2e-5 of their
+  largest magnitude (``test_torch_models.py``) and P moves by at most a
+  quarter of the yes/no margin's change;
+* greedy tokens equal (the top two logits of every step are further apart
+  than the f32 difference);
+* the query's labels are equal, because the threshold sits in the widest gap
+  between the reference's probabilities, so estimates and CIs agree within
+  1e-6 relative, the tolerance of ``test_torch_bas.py``.
+"""
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import repro.core as R
+import repro.data as RD
+import repro_torch.core as P
+import repro_torch.data as PD
+from repro.configs import get_smoke_config as jax_smoke_config
+from repro.data.pipeline import ByteTokenizer as JaxTokenizer
+from repro.data.pipeline import make_entity_corpus as jax_entity_corpus
+from repro.data.pipeline import pair_example as jax_pair_example
+from repro.models import init_params as jax_init_params
+from repro.serve.serve_loop import ContinuousBatcher as JaxBatcher
+from repro.serve.serve_loop import PairScorer as JaxScorer
+from repro.serve.serve_loop import Request as JaxRequest
+from repro_torch.configs import get_smoke_config
+from repro_torch.data.pipeline import ByteTokenizer, make_entity_corpus, pair_example
+from repro_torch.interop import bas_config_from_dict, params_from_jax
+from repro_torch.serve import ContinuousBatcher, PairScorer, Request
+
+N_SIDE = 40
+REC1 = [f"acme unit {i:03d}" for i in range(N_SIDE)]
+REC2 = [f"acme dept {j:03d} north" for j in range(N_SIDE)]
+
+
+def _tok_pair(tok, pair_example_fn):
+    def tok_pair(pair):
+        t, _ = pair_example_fn(tok, REC1[pair[0]], REC2[pair[1]], None, 48)
+        return t[t != tok.PAD]
+    return tok_pair
+
+
+@pytest.fixture(scope="module")
+def scorers():
+    """(reference scorer, port scorer) over the same f32 parameters."""
+    rtok, tok = JaxTokenizer(), ByteTokenizer()
+    over = dict(vocab_size=tok.vocab_size, dtype="float32")
+    rcfg = jax_smoke_config("joinml-oracle", **over)
+    rparams = jax_init_params(rcfg, jax.random.key(0))
+    cfg = get_smoke_config("joinml-oracle", **over)
+    params = params_from_jax(cfg, jax.tree.map(np.asarray, rparams), device="cpu")
+    ref = JaxScorer(rcfg, rparams, _tok_pair(rtok, jax_pair_example), rtok.YES,
+                    rtok.NO, max_len=48, batch_size=16)
+    port = PairScorer(cfg, params, _tok_pair(tok, pair_example), tok.YES, tok.NO,
+                      max_len=48, batch_size=16, device="cpu")
+    return ref, port
+
+
+def test_tokenizer_and_pair_example_match_reference():
+    rtok, tok = JaxTokenizer(), ByteTokenizer()
+    assert tok.vocab_size == rtok.vocab_size
+    for r1, r2, label in (("acme unit 7", "acme dept 7", 1), ("x" * 40, "y" * 40, None)):
+        for a, b in zip(pair_example(tok, r1, r2, label, 48),
+                        jax_pair_example(rtok, r1, r2, label, 48)):
+            np.testing.assert_array_equal(a, b)
+    recs, ids = make_entity_corpus(16, 3, noise=0.2, seed=4)
+    rrecs, rids = jax_entity_corpus(16, 3, noise=0.2, seed=4)
+    assert recs == rrecs
+    np.testing.assert_array_equal(ids, rids)
+
+
+def test_pair_scorer_matches_reference(scorers):
+    ref, port = scorers
+    # ragged lengths land in the 16/32/48 buckets; a partial tail batch pads
+    pairs = np.random.default_rng(0).integers(0, N_SIDE, size=(53, 2))
+    want = ref.score(pairs)
+    got = port.score(pairs)
+    assert got.dtype == np.float64 and got.shape == (53,)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    assert port.forward_batches == ref.forward_batches
+    assert port.pairs_scored == ref.pairs_scored == 53
+    assert port.score(np.zeros((0, 2), np.int64)).shape == (0,)
+
+
+def test_continuous_batcher_matches_reference():
+    """Two slots, five requests of different lengths: requests are admitted
+    mid-flight into freed slots, and every request's greedy tokens equal the
+    reference's."""
+    rtok, tok = JaxTokenizer(), ByteTokenizer()
+    over = dict(vocab_size=tok.vocab_size, dtype="float32")
+    rcfg = jax_smoke_config("llama3.2-1b", **over)
+    rparams = jax_init_params(rcfg, jax.random.key(1))
+    cfg = get_smoke_config("llama3.2-1b", **over)
+    params = params_from_jax(cfg, jax.tree.map(np.asarray, rparams), device="cpu")
+    rcb = JaxBatcher(rcfg, rparams, batch_size=2, max_len=32, eos_id=rtok.EOS)
+    cb = ContinuousBatcher(cfg, params, batch_size=2, max_len=32, eos_id=tok.EOS,
+                           device="cpu")
+    for i in range(5):
+        prompt = np.array([tok.BOS] + tok.encode(f"req {i}: " + "ab" * i)[:12], np.int32)
+        rcb.submit(JaxRequest(uid=i, prompt=prompt, max_new_tokens=3 + i))
+        cb.submit(Request(uid=i, prompt=prompt, max_new_tokens=3 + i))
+    want = {r.uid: r.out_tokens for r in rcb.run_until_done()}
+    got = {r.uid: r.out_tokens for r in cb.run_until_done()}
+    assert got == want and len(got) == 5
+
+
+def _threshold(probs: np.ndarray) -> float:
+    """The midpoint of the widest gap between sorted probabilities in their
+    middle half: a threshold no f32 difference can move a label across."""
+    p = np.sort(probs)
+    lo, hi = len(p) // 4, 3 * len(p) // 4
+    i = lo + int(np.argmax(np.diff(p[lo:hi])))
+    return float(p[i] + p[i + 1]) / 2
+
+
+def test_model_oracle_query_matches_reference(scorers):
+    ref, port = scorers
+    everything = np.stack(np.meshgrid(np.arange(N_SIDE), np.arange(N_SIDE),
+                                      indexing="ij"), -1).reshape(-1, 2)
+    thr = _threshold(ref.score(everything))
+    kw = dict(n1=N_SIDE, n2=N_SIDE, n_entities=60, noise=0.4, seed=11)
+    rds, pds = RD.make_clustered_tables(**kw), PD.make_clustered_tables(**kw)
+    rcfg = R.BASConfig(n_bootstrap=300)
+    pcfg = bas_config_from_dict(dataclasses.asdict(rcfg))
+    f0r, f0p = ref.forward_batches, port.forward_batches
+    s0r, s0p = ref.pairs_scored, port.pairs_scored
+    roracle = R.ModelOracle(ref, threshold=thr)
+    poracle = P.ModelOracle(port, threshold=thr)
+    want = R.run_bas(R.Query(spec=rds.spec(), agg=R.Agg.COUNT, oracle=roracle,
+                             budget=400), rcfg, seed=0)
+    got = P.run_bas(P.Query(spec=pds.spec(), agg=P.Agg.COUNT, oracle=poracle,
+                            budget=400), pcfg, seed=0, device="cpu")
+    assert got.estimate == pytest.approx(want.estimate, rel=1e-6)
+    assert got.ci.lo == pytest.approx(want.ci.lo, rel=1e-6, abs=1e-9)
+    assert got.ci.hi == pytest.approx(want.ci.hi, rel=1e-6, abs=1e-9)
+    assert poracle.calls == roracle.calls <= 400
+    # the reference's serving bounds: flushes are pre-deduped, a handful of
+    # pipeline-stage batches, ceil(unique / batch) device batches + <= 1
+    # tail pad per flush
+    assert poracle.calls == port.pairs_scored - s0p == ref.pairs_scored - s0r
+    assert poracle.batches <= 6
+    assert port.forward_batches - f0p <= (
+        int(np.ceil(poracle.calls / port.batch_size)) + poracle.batches)
+    assert port.forward_batches - f0p == ref.forward_batches - f0r
+
+
+def test_model_oracle_takes_a_callable():
+    oracle = P.ModelOracle(lambda idx: idx[:, 0] / 10.0, threshold=0.45)
+    got = oracle._label(np.array([[3, 0], [5, 1], [9, 2]]))
+    np.testing.assert_array_equal(got, [0.0, 1.0, 1.0])
+
+
+def test_scorer_refuses_parameters_on_another_device(scorers):
+    _, port = scorers
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the parameters could move there")
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        PairScorer(port.cfg, port.params, port.tokenize_pair, 5, 6)
+
+
+def test_launcher_scores_on_the_cpu_and_names_what_is_missing(capsys):
+    from repro_torch.launch.serve import main
+
+    main(["--arch", "joinml-oracle", "--mode", "score", "--pairs", "8",
+          "--device", "cpu"])
+    assert "scored 8 pairs" in capsys.readouterr().out
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 9"):
+        main(["--mode", "service", "--device", "cpu"])
+
+
+def test_oracle_path_pairs_fill_the_48_token_bucket():
+    """``chip_smoke.py`` checks and times K5 at S 48 as the Oracle path's
+    shape: every pair of that path's two tables pads to the 48-token bucket
+    (the pairs are 35 to 45 tokens long)."""
+    import importlib.util
+    from pathlib import Path
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    left, right = cs.entity_tables(cs.FULL_MODEL)
+    cfg = get_smoke_config("joinml-oracle")
+    scorer = cs.make_scorer(cfg, init_params(cfg, device="cpu"), left, right,
+                            cs.FULL_MODEL.batch, "cpu")
+    lens = np.array([len(t) for t in scorer._tokenize(cs._all_pairs(len(left), len(right)))])
+    assert len(lens) == 256 * 256
+    assert (lens.min(), lens.max()) == (35, 45)
+    assert set(scorer._buckets[np.searchsorted(scorer._buckets, lens)]) == {48}
