@@ -316,7 +316,7 @@ def _busy_ms(events):
 def _profiled(fn):
     """Run ``fn`` under torch.profiler; returns its result, the wall ms, the
     device's busy ms (the union of its events' spans) and the device events
-    by their summed self time."""
+    by their summed self time, largest first."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -337,7 +337,7 @@ def _profiled(fn):
     busy = _busy_ms(prof.events())
     if busy <= 0:
         fail("the profiler saw no device event in a run on the card")
-    return res, wall, busy, [[k[:60], ms, n] for k, ms, n in rows[:8]]
+    return res, wall, busy, [[k[:60], ms, n] for k, ms, n in rows]
 
 
 def profile_query(size, catalogs):
@@ -351,10 +351,10 @@ def profile_query(size, catalogs):
     eng = JoinMLEngine(main, lambda nl, names: ArrayOracle(ds.truth), device="cuda")
     sql = ("SELECT COUNT(*) FROM a JOIN b ON NL('same entity') "
            f"ORACLE BUDGET {size.budget} WITH PROBABILITY 0.95")
-    res, wall, busy, top = _profiled(lambda: eng.execute(sql, seed=SEED + 1))
+    res, wall, busy, events = _profiled(lambda: eng.execute(sql, seed=SEED + 1))
     log(json.dumps({"profile": "COUNT on the main catalog", "wall_ms": wall,
                     "device_busy_ms": busy, "idle_share": 1.0 - busy / wall,
-                    "timings_s": res.telemetry.timings, "top_device_events": top}))
+                    "timings_s": res.telemetry.timings, "top_device_events": events[:8]}))
 
 
 # ---------------------------------------------------------------------------
@@ -472,9 +472,11 @@ def chain_check(chain):
     """The 3-way chain's first prefix block as ``sweep_pass_chain`` sweeps it
     on the main path: the prefix rows ``e_prev[i_last]`` against the last
     table, binned at ``exponent * root`` = 0.5 (the powf branch) with the
-    per-row scale ``wp**0.5``, walk sums at the raw exponent 1, top-1."""
+    per-row scale ``wp**0.5``, walk sums at the raw exponent 1, top-1.  Its
+    32 CTAs of 128 rows split their columns; the split launch must equal an
+    unsplit one in counts and top-k, and both sums lie within 1e-6 of f64."""
     from repro_torch.core.stratify import _prefix_chain_weights
-    from repro_torch.kernels import checks
+    from repro_torch.kernels import checks, cuda_lib
     from repro_torch.kernels.sim_sweep.kernel import kernel_operand, sim_sweep_cuda
     from repro_torch.kernels.sim_sweep.ref import sim_sweep_ref
 
@@ -487,11 +489,24 @@ def chain_check(chain):
     scale = torch.from_numpy((wp**root).astype(np.float32)).cuda()
     v = torch.ones(b.shape[0], device="cuda")
     kw = dict(n_bins=4096, exponent=root, rs_exponent=1.0, floor=1e-3, k=1, bm=256)
-    kb, kv, ki, ks = sim_sweep_cuda(kernel_operand(a, "fp32"),
-                                    kernel_operand(b, "fp32"), scale, v, **kw)
+    ka, kb4 = kernel_operand(a, "fp32"), kernel_operand(b, "fp32")
+    kb, kv, ki, ks = sim_sweep_cuda(ka, kb4, scale, v, **kw)
+    ub, uv, ui, us = sim_sweep_cuda(ka, kb4, scale, v, splits=1, **kw)
     torch.cuda.synchronize()
+    rows_t = cuda_lib.tile_rows(a.shape[0], kw["bm"])
+    splits = cuda_lib.column_splits(a.shape[0], b.shape[0],
+                                    torch.cuda.get_device_properties(0).multi_processor_count,
+                                    rows_t)
+    same = bool(torch.equal(kb, ub) and torch.equal(kv, uv) and torch.equal(ki, ui))
     pb, pv, pi, ps = sim_sweep_ref(a, b, scale, v, **kw)
     s64, bound = checks.exact_scores(a, b)
+    rel_unsplit = checks.check_sums(us, s64, exponent=1.0, floor=1e-3, v=v)
+    log(json.dumps({"check": "split sweep == unsplit sweep, 3-way chain prefix block",
+                    "tile_rows": rows_t, "column_ranges": splits,
+                    "counts_and_topk_identical": same, "unsplit_sum_rel_err": rel_unsplit,
+                    "max_abs_sum_diff": float((ks.double() - us.double()).abs().max())}))
+    if not same or splits < 2:
+        fail("the split chain-prefix sweep differs from the unsplit one (or did not split)")
     c = checks.check_counts([kb, pb], s64, bound, n_bins=4096, exponent=root,
                             floor=1e-3, bm=256, scale=scale)
     t = checks.check_topk(kv, ki, pv, pi, s64, bound)
@@ -505,8 +520,14 @@ def chain_check(chain):
                     "sum_rel_err": rel, "plain_sum_rel_err": rel_plain,
                     "max_abs_err_vals": err}))
     del s64, bound
+    # the prefix launch's time, split as the main path runs it and unsplit
+    timing = {"chain_prefix_ms": _events_ms(lambda: sim_sweep_cuda(ka, kb4, scale, v, **kw), 20),
+              "chain_prefix_unsplit_ms": _events_ms(
+                  lambda: sim_sweep_cuda(ka, kb4, scale, v, splits=1, **kw), 20),
+              "chain_prefix_column_ranges": splits}
+    log(json.dumps({"time": "sim_sweep[fp32], 3-way chain prefix block", **timing}))
     torch.cuda.empty_cache()
-    return err
+    return err, timing
 
 
 def phase5(ds, retry_rows, hot):
@@ -710,11 +731,14 @@ def oracle_path(size, device):
         if launches.get("flash_attention", 0) <= 0:
             fail("flash_attention was not launched on the Oracle path")
         scorer.seconds = 0.0
-        res2, wall_ms, busy, top = _profiled(lambda: eng.execute(sql, seed=SEED + 1))
+        res2, wall_ms, busy, events = _profiled(lambda: eng.execute(sql, seed=SEED + 1))
+        flash = [e for e in events if "flash_attention" in e[0]]
         log(json.dumps({"profile": "Oracle COUNT", "wall_ms": wall_ms,
                         "device_busy_ms": busy, "idle_share": 1.0 - busy / wall_ms,
                         "scoring_s": scorer.seconds, "timings_s": res2.telemetry.timings,
-                        "top_device_events": top}))
+                        "flash_attention_device_ms": sum(e[1] for e in flash),
+                        "flash_attention_launches": sum(e[2] for e in flash),
+                        "top_device_events": events[:8]}))
     return launches
 
 
@@ -818,7 +842,7 @@ RWKV_SHAPES = {"rwkv6-1.6b path": (256, 32, 48, 64), "T 4096": (1, 32, 4096, 64)
 RGLRU_SHAPES = {"recurrentgemma-9b path": (256, 48, 4096), "T 4096": (1, 4096, 4096)}
 
 
-def _flash_case(gen, shape):
+def _flash_case(gen, shape, dtype=torch.bfloat16):
     import torch.nn.functional as F
 
     from repro_torch.kernels import checks
@@ -826,10 +850,9 @@ def _flash_case(gen, shape):
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
     b, hq, hkv, s, d, causal, window = shape
-    bf = torch.bfloat16
-    q = torch.randn((b, hq, s, d), generator=gen, device="cuda").to(bf)
-    k = torch.randn((b, hkv, s, d), generator=gen, device="cuda").to(bf)
-    v = torch.randn((b, hkv, s, d), generator=gen, device="cuda").to(bf)
+    q = torch.randn((b, hq, s, d), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((b, hkv, s, d), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((b, hkv, s, d), generator=gen, device="cuda").to(dtype)
     if window:
         pos = torch.arange(s, device="cuda")
         mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
@@ -839,11 +862,17 @@ def _flash_case(gen, shape):
         library = lambda: F.scaled_dot_product_attention(  # noqa: E731
             q, k, v, is_causal=causal, enable_gqa=True)
     flops = 4.0 * b * hq * d * _attention_pairs(s, s, causal, window)
-    byts = 2 * (2 * b * hq * s * d + 2 * b * hkv * s * d)
+    byts = q.element_size() * (2 * b * hq * s * d + 2 * b * hkv * s * d)
     return (lambda: flash_attention_cuda(q, k, v, causal=causal, window=window),
             lambda: flash_attention_ref(q, k, v, causal=causal, window=window),
             lambda: checks.flash_attention_bound(q, k, v, causal=causal, window=window),
-            library, flops, byts, PEAK["bf16"])
+            library, flops, byts, PEAK["bf16" if dtype == torch.bfloat16 else "fp32"])
+
+
+def _flash_f32_case(gen, shape):
+    """K5 at f32 (the SIMT kernel: no TF32 on an f32 path), against the f32
+    peak of the CUDA cores."""
+    return _flash_case(gen, shape, torch.float32)
 
 
 def _rwkv_case(gen, shape):
@@ -885,22 +914,30 @@ def model_kernels():
     function, plus half a bf16 ulp on each side) at each shape, then their
     times (CUDA events), beside the bound and, for attention, the yardstick
     ``scaled_dot_product_attention`` (timed here only; the port never calls
-    it).  Returns {kernel: [row per shape]}, the first path shape first."""
+    it).  K5 runs at every shape in bf16 (the tensor-core kernel, as the
+    models run it) and then in f32 (the SIMT kernel).  Returns {kernel: [row
+    per shape]}, the first path shape first."""
     from repro_torch.kernels import checks
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = {}
-    for name, shapes, case in (("flash_attention", FLASH_SHAPES, _flash_case),
-                               ("rwkv6_scan", RWKV_SHAPES, _rwkv_case),
-                               ("rglru_scan", RGLRU_SHAPES, _rglru_case)):
+    def cases(shapes, case):
+        return {label: (shape, case) for label, shape in shapes.items()}
+
+    f32_shapes = {f"{label}, f32": shape for label, shape in FLASH_SHAPES.items()}
+    for name, shape_cases in (
+            ("flash_attention", cases(FLASH_SHAPES, _flash_case)
+             | cases(f32_shapes, _flash_f32_case)),
+            ("rwkv6_scan", cases(RWKV_SHAPES, _rwkv_case)),
+            ("rglru_scan", cases(RGLRU_SHAPES, _rglru_case))):
         rows[name] = []
-        for label, shape in shapes.items():
+        for label, (shape, case) in shape_cases.items():
             kern, plain, bound, library, flops, byts, peak = case(gen, shape)
             got = kern()
             torch.cuda.synchronize()
             rule = checks.check_model_kernel(got, plain(), bound())
             del got
-            path = label.endswith("path")
+            path = "path" in label
             row = _row(_events_ms(kern, 20 if path else 5), _events_ms(plain, 1),
                        flops, byts, peak)
             if library is not None:
@@ -951,15 +988,17 @@ def main():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("  " + line.strip())
     smem = cuda_lib.lib().repro_sim_smem_bytes
+    fsmem = cuda_lib.lib().repro_flash_smem_bytes
     HIST, TOPK, SUMS = cuda_lib.HIST, cuda_lib.TOPK, cuda_lib.SUMS
     log(json.dumps({"dynamic_smem_bytes_per_cta": {
-        f"sim_sweep[{p}] k=32": smem(cuda_lib.MODES[p], HIST | TOPK | SUMS, 4096, 32)
-        for p in ("fp32", "bf16", "int8")} | {
-        "sim_hist": smem(0, HIST, 4096, 1),
-        "sim_topk[k=32]": smem(0, TOPK, 1, 32),
-        "sim_topk[k=128]": smem(0, TOPK, 1, 128)} | {
-        f"flash_attention d={d}": cuda_lib.lib().repro_flash_smem_bytes(d)
-        for d in (64, 256)}}))
+        f"sim_sweep k=32, {r}-row tile": smem(HIST | TOPK | SUMS, 4096, 32, r)
+        for r in (cuda_lib.WIDE_ROWS, cuda_lib.CTA_ROWS)} | {
+        "sim_hist": smem(HIST, 4096, 1, cuda_lib.WIDE_ROWS),
+        "sim_topk[k=32]": smem(TOPK, 1, 32, cuda_lib.WIDE_ROWS),
+        "sim_topk[k=128], 64-row tile": smem(TOPK, 1, 128, cuda_lib.CTA_ROWS)} | {
+        f"flash_attention f32 d={d}": fsmem(0, d, 1, 1, 1, 1) for d in (64, 256)} | {
+        f"flash_attention bf16 {label}": fsmem(1, sh[4], sh[1], sh[2], sh[3], sh[3])
+        for label, sh in FLASH_SHAPES.items()}}))
 
     from repro_torch.data import make_clustered_tables
 
@@ -970,7 +1009,8 @@ def main():
     log(f"phase 3 data: {time.perf_counter() - t0:.1f} s")
     # phase 3: kernels against their plain versions at main-path shapes
     errs = phase3(ds, FULL.slice)
-    errs["sim_sweep[fp32]"] = max(errs["sim_sweep[fp32]"], chain_check(chain))
+    chain_err, chain_timing = chain_check(chain)
+    errs["sim_sweep[fp32]"] = max(errs["sim_sweep[fp32]"], chain_err)
     del ds, chain
     model_rows = model_kernels()
 
@@ -991,6 +1031,7 @@ def main():
     ds = make_clustered_tables(FULL.n, FULL.n, d=FULL.d, n_entities=512,
                                noise=0.35, seed=SEED)
     times = phase5(ds, retry_rows, hot)
+    times["sim_sweep[fp32]"].update(chain_timing)
     del ds, hot
     torch.cuda.empty_cache()
 

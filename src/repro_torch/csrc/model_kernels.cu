@@ -4,8 +4,9 @@
 //   K5  src/repro/kernels/flash_attention/kernel.py  _kernel  (GQA flash attention)
 //   K6  src/repro/kernels/rwkv6_scan/kernel.py       _kernel  (RWKV6 recurrence)
 //   K7  src/repro/kernels/rglru_scan/kernel.py       _kernel  (RG-LRU recurrence)
-// Each one is a first, plain version on the CUDA cores: right and simple
-// first, fast in a later change.  None of them asserts a block multiple:
+// K6 and K7 are first, plain versions on the CUDA cores: right and simple
+// first, fast in a later change; K5 runs bf16 on the tensor cores.  None of
+// them asserts a block multiple:
 // every kernel masks its own ragged edge (the scorer's sequence buckets are
 // 16, 32 and 48 tokens).
 //
@@ -13,26 +14,51 @@
 // q head), with the q head's KV head h / (Hq / Hkv), so K and V are never
 // repeated.  Causal and sliding-window masks by position (q and k both
 // count from 0), masked scores set to -1e30 as in the TPU kernel, so a
-// masked row gives what the reference gives; the output is acc / max(l,
-// 1e-30) in q's type.  Scores, softmax and P.V are f32 (the TPU kernel
-// casts p to v's f32 type too).
-//   Bound: at the scorer's shapes (S = 48) bytes and launch; at long
-//   sequences operations (4 * Sq * Skv_eff * d per head).  This version does
-//   them as f32 FMAs on the CUDA cores, not on the tensor cores.
-//   Design: one CTA per (batch * q head, 64-row q tile), 256 threads as
-//   16 x 16; a thread owns 4 rows (ty + 16 i) and 4 score columns (tx + 16 j)
-//   of a 64 x 64 score tile, and 4 rows x d/16 columns of the output.  The
-//   CTA loops over the KV tiles itself (the TPU grid's sequential third
-//   dimension), keeping the running max, sum and accumulator of its rows in
-//   registers.  Q, K, V and P tiles sit in shared memory as f32 (213,760 B
-//   at d = 256, hence cudaFuncSetAttribute); Q and K rows are padded by one
-//   float so the 16 threads of a row group read 16 banks.  The 16 threads
-//   of a row are one half-warp, so row max and row sum are four xor
-//   shuffles.  Tiles wholly above the causal diagonal or wholly outside the
-//   window are skipped when Sq <= Skv: then every row has a valid key, the
-//   skipped tiles would add exactly 0 (after the diagonal) or be scaled
-//   away by alpha = exp(-1e30 - m) = 0 (before the window), so skipping
-//   changes no bit.
+// masked row gives what the reference gives; keys past Skv score -inf (no
+// part of the softmax); the output is acc / max(l, 1e-30) in q's type.
+// Scores, softmax and P.V are f32 (the TPU kernel casts p to v's f32 type
+// too), over KV tiles of 64 keys with the running max and sum per row.
+// Tiles wholly above the causal diagonal or wholly outside the window are
+// skipped when Sq <= Skv: then every row has a valid key, the skipped tiles
+// would add exactly 0 (after the diagonal) or be scaled away by alpha =
+// exp(-1e30 - m) = 0 (before the window), so skipping changes no bit.
+//   Bound: at the scorer's shapes (S 16 to 48) bytes; at long sequences
+//   operations (4 * Sq * Skv_eff * d per head).
+//   bf16 (flash_attention_bf16_kernel): the tensor cores, mma.sync
+//   m16n8k16 (bf16 x bf16 -> f32).  A unit is one 16-row q tile of one
+//   (batch, q head), a warp's mma rows, so the scorer's 16/32/48-token
+//   buckets waste no rows (wgmma's 64-row minimum would waste up to 75% at
+//   S 16).  A CTA of 4 warps takes 4 consecutive units in (batch, KV head,
+//   q head, q tile) order, so under GQA its warps share one KV head and K
+//   and V go to shared memory once for all of them (one slot per KV head
+//   the 4 units span: 1 for recurrentgemma's 16/1 heads, at most 2 at S 48
+//   under MHA).  Q, K and V stay bf16 in shared memory, copied by 16-byte
+//   cp.async with rows padded by 16 bytes (ldmatrix rows fall in distinct
+//   banks): 64 keys of K and V are 36,864 B at d 256, against 213,760 B of
+//   f32 tiles in the SIMT kernel; with more than one KV tile, two KV
+//   buffers where two CTAs still fit an SM, so the next tile's copies
+//   overlap this tile's mmas.  Q's A fragments stay in registers at d
+//   <= 128 and are read again by ldmatrix each tile at d 256, where the 16 x
+//   256 f32 accumulator takes 128 registers a thread.  S = Q K^T from
+//   ldmatrix'd K; the online softmax runs in the mma's C-fragment layout (a
+//   thread holds 2 rows x 16 keys; a row's max and sum are two quad
+//   shuffles), and a tile that no mask touches skips the masks.  P.V must compute what the TPU kernel computes, f32 P times
+//   V: each f32 p splits exactly into bf16 hi = bf16(p), mid = bf16(p - hi)
+//   and lo = p - hi - mid (24 bits in three 8-bit terms), and three mmas
+//   (lo, mid, hi) take them against V (exact in bf16, ldmatrix.trans) into
+//   the f32 accumulator.  One bf16 P would be off by 2^-9 of sum p|v| / l,
+//   beyond the bf16 rule wherever outputs cancel.  Where a CTA's KV slots
+//   would not fit (d 256, one unit per group), each (batch, KV head) group
+//   takes CTAs of its own and spare warps idle.
+//   f32 (flash_attention_kernel, SIMT; TF32 is not allowed on an f32
+//   path): one CTA per (batch * q head, 64-row q tile), 256 threads as 16 x
+//   16; a thread owns 4 rows (ty + 16 i) and 4 score columns (tx + 16 j) of
+//   a 64 x 64 score tile, and 4 rows x d/16 columns of the output, with the
+//   running max, sum and accumulator in registers.  Q, K, V and P tiles sit
+//   in shared memory as f32 (213,760 B at d = 256, hence
+//   cudaFuncSetAttribute); Q and K rows are padded by one float so the 16
+//   threads of a row group read 16 banks; the 16 threads of a row are one
+//   half-warp, so row max and row sum are four xor shuffles.
 //
 // K6, RWKV6 scan.  Per (batch, head), from S = 0 (hd x hd):
 //   out_t = r_t (S + u * k_t^T v_t),  S <- diag(w_t) S + k_t^T v_t.
@@ -61,6 +87,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -74,15 +101,8 @@ constexpr float FA_NEG = -1e30f;
 constexpr int FA_BQ = 64;    // q rows of a CTA
 constexpr int FA_BKV = 64;   // keys of a KV tile
 constexpr int FA_NT = 256;   // threads of a CTA: 16 x 16
+constexpr size_t FA_MAX_SMEM = 232448;  // shared memory a block may use
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 size_t fa_smem_bytes(int d) {
   // Q and K tiles with padded rows, V tile, P tile with padded rows
@@ -90,10 +110,10 @@ size_t fa_smem_bytes(int d) {
                           (size_t)FA_BKV * d + (size_t)FA_BQ * (FA_BKV + 1));
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(FA_NT)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int Hq,
+flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ o, int Hq,
                        int Hkv, int Sq, int Skv, int causal, int window,
                        float scale) {
   extern __shared__ float smem[];
@@ -113,14 +133,14 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = bh / Hq, h = bh % Hq;
   const int kvh = h / (Hq / Hkv);
   const int q0 = blockIdx.y * FA_BQ;
-  const T* qb = q + (size_t)bh * Sq * D;
-  const T* kb = k + (size_t)(b * Hkv + kvh) * Skv * D;
-  const T* vb = v + (size_t)(b * Hkv + kvh) * Skv * D;
-  T* ob = o + (size_t)bh * Sq * D;
+  const float* qb = q + (size_t)bh * Sq * D;
+  const float* kb = k + (size_t)(b * Hkv + kvh) * Skv * D;
+  const float* vb = v + (size_t)(b * Hkv + kvh) * Skv * D;
+  float* ob = o + (size_t)bh * Sq * D;
 
   for (int i = tid; i < FA_BQ * D; i += FA_NT) {
     const int r = i / D, c = i % D;
-    Qs[r * LDQ + c] = (q0 + r < Sq) ? to_f32(qb[(size_t)(q0 + r) * D + c]) : 0.f;
+    Qs[r * LDQ + c] = (q0 + r < Sq) ? qb[(size_t)(q0 + r) * D + c] : 0.f;
   }
 
   float m[RPT], l[RPT], acc[RPT][OPT];
@@ -145,8 +165,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = tid; i < FA_BKV * D; i += FA_NT) {
       const int r = i / D, c = i % D;
       const bool in = kv0 + r < Skv;
-      Ks[r * LDQ + c] = in ? to_f32(kb[(size_t)(kv0 + r) * D + c]) : 0.f;
-      Vs[r * D + c] = in ? to_f32(vb[(size_t)(kv0 + r) * D + c]) : 0.f;
+      Ks[r * LDQ + c] = in ? kb[(size_t)(kv0 + r) * D + c] : 0.f;
+      Vs[r * D + c] = in ? vb[(size_t)(kv0 + r) * D + c] : 0.f;
     }
     __syncthreads();
 
@@ -227,38 +247,418 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
       for (int jj = 0; jj < OPT; ++jj)
-        ob[(size_t)qp * D + tx + 16 * jj] = from_f32<T>(acc[i][jj] / den);
+        ob[(size_t)qp * D + tx + 16 * jj] = acc[i][jj] / den;
     }
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t fa_launch(const void* q, const void* k, const void* v, void* o,
                       int B, int Hq, int Hkv, int Sq, int Skv, int causal,
                       int window, float scale, cudaStream_t s) {
   const size_t smem = fa_smem_bytes(D);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)(B * Hq), (unsigned)((Sq + FA_BQ - 1) / FA_BQ));
-  flash_attention_kernel<T, D><<<grid, FA_NT, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Hq, Hkv, Sq, Skv, causal,
+  flash_attention_kernel<D><<<grid, FA_NT, smem, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), Hq, Hkv, Sq, Skv, causal,
       window, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t fa_dispatch(int d, const void* q, const void* k, const void* v,
                         void* o, int B, int Hq, int Hkv, int Sq, int Skv,
                         int causal, int window, float scale, cudaStream_t s) {
   switch (d) {
-    case 16: return fa_launch<T, 16>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, scale, s);
-    case 32: return fa_launch<T, 32>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, scale, s);
-    case 64: return fa_launch<T, 64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, scale, s);
-    case 128: return fa_launch<T, 128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, scale, s);
-    case 256: return fa_launch<T, 256>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, scale, s);
+    case 16: return fa_launch<16>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, scale, s);
+    case 32: return fa_launch<32>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, scale, s);
+    case 64: return fa_launch<64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, scale, s);
+    case 128: return fa_launch<128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, scale, s);
+    case 256: return fa_launch<256>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, scale, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// ---- K5 at bf16: mma.sync on the tensor cores -------------------------------
+
+constexpr int FB_BQ = 16;    // q rows of a unit: one warp's mma rows
+constexpr int FB_WARPS = 4;  // units of a CTA
+constexpr int FB_NT = 32 * FB_WARPS;
+
+__device__ __forceinline__ void fb_cp_async16(void* dst, const void* src, bool in) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  // src-size 0 zero-fills the 16 bytes (rows past Sq or Skv)
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(in ? 16 : 0));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
+}
+
+// c += a b for a 16 x 16 bf16 A (row-major fragment), a 16 x 8 bf16 B (column
+// fragment) and an f32 16 x 8 C
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// x = hi + mid + lo exactly, each term a bf16: hi = bf16(x), mid = bf16(x -
+// hi), lo = x - hi - mid (the residuals are exact in f32; 24 bits in three
+// 8-bit terms)
+__device__ __forceinline__ void split3(float x, float& hi, float& mid, float& lo) {
+  hi = __bfloat162float(__float2bfloat16_rn(x));
+  const float r = x - hi;
+  mid = __bfloat162float(__float2bfloat16_rn(r));
+  lo = r - mid;
+}
+
+// KV tiles a unit's 16 rows attend to, [begin, end), as in the f32 kernel
+__device__ __forceinline__ void fb_range(int q0, int Sq, int Skv, int causal,
+                                         int window, int& b, int& e) {
+  b = 0;
+  e = Skv;
+  if (Sq <= Skv) {
+    const int q_last = min(q0 + FB_BQ, Sq) - 1;
+    if (causal) e = min(Skv, q_last + 1);
+    if (window > 0) b = (max(0, q0 - window + 1) / FA_BKV) * FA_BKV;
+  }
+}
+
+size_t fb_smem_bytes(int d, int slots, int nbuf) {
+  const size_t ld = (size_t)d + 8;
+  return 2 * ld * ((size_t)FB_WARPS * FB_BQ + (size_t)nbuf * slots * 2 * FA_BKV);
+}
+
+// Units: (batch, KV head, q head of the group, 16-row q tile), in that order,
+// U = (Hq / Hkv) * ceil(Sq / 16) of them per (batch, KV head) group.  With
+// cpg == 0 CTA c takes units 4c .. 4c + 3 of the whole order and loads one
+// K/V slot per group they span; with cpg > 0 (where those slots would not
+// fit) a group owns cpg CTAs of its own and the last one's spare warps idle.
+template <int D>
+__global__ void __launch_bounds__(FB_NT)
+flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                            const __nv_bfloat16* __restrict__ k,
+                            const __nv_bfloat16* __restrict__ v,
+                            __nv_bfloat16* __restrict__ o, int Hq, int Hkv,
+                            int Sq, int Skv, int causal, int window,
+                            float scale, int n_units, int cpg, int slots,
+                            int nbuf) {
+  constexpr int LD = D + 8;  // smem row stride (bf16): rows 16 B apart in banks
+  constexpr int KD = D / 16;
+  extern __shared__ __align__(16) unsigned char fb_smem[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(fb_smem);
+  // buffer b, slot s: K at 2 (b slots + s), V after it
+  __nv_bfloat16* KVs = Qs + FB_WARPS * FB_BQ * LD;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int G = Hq / Hkv, nqt = (Sq + FB_BQ - 1) / FB_BQ, U = G * nqt;
+
+  // unit of warp w: its group and its index in the group (-1: none)
+  auto unit_of = [&](int w, int& grp, int& loc) {
+    if (cpg > 0) {
+      grp = blockIdx.x / cpg;
+      loc = (blockIdx.x % cpg) * FB_WARPS + w;
+      if (loc >= U) loc = -1;
+    } else {
+      const int u = blockIdx.x * FB_WARPS + w;
+      grp = u / U;
+      loc = u < n_units ? u % U : -1;
+    }
+  };
+  int grp0, loc0;
+  unit_of(0, grp0, loc0);
+  // the KV tiles the CTA loads (the union of its units'), and its slots
+  int cta_b = INT_MAX, cta_e = 0, n_slots = 1;
+  for (int w = 0; w < FB_WARPS; ++w) {
+    int g, l, b, e;
+    unit_of(w, g, l);
+    if (l < 0) continue;
+    fb_range((l % nqt) * FB_BQ, Sq, Skv, causal, window, b, e);
+    cta_b = min(cta_b, b);
+    cta_e = max(cta_e, e);
+    n_slots = g - grp0 + 1;
+  }
+  int grp, loc;
+  unit_of(warp, grp, loc);
+  const int slot = loc < 0 ? 0 : grp - grp0;
+  const int q0 = loc < 0 ? 0 : (loc % nqt) * FB_BQ;
+  const int h = (grp % Hkv) * G + (loc < 0 ? 0 : loc / nqt);
+  const size_t bh = (size_t)(grp / Hkv) * Hq + h;
+  int my_b = 0, my_e = 0;
+  if (loc >= 0) fb_range(q0, Sq, Skv, causal, window, my_b, my_e);
+
+  // this warp's 16 q rows
+  __nv_bfloat16* Qw = Qs + warp * FB_BQ * LD;
+  if (loc >= 0) {
+    const __nv_bfloat16* qb = q + bh * Sq * D;
+    for (int e = lane; e < FB_BQ * D / 8; e += 32) {
+      const int r = e / (D / 8), c = (e % (D / 8)) * 8;
+      const bool in = q0 + r < Sq;
+      fb_cp_async16(Qw + r * LD + c, in ? qb + (size_t)(q0 + r) * D + c : qb, in);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+
+  const int g4 = lane >> 2, t4 = lane & 3;
+  float m[2] = {FA_NEG, FA_NEG}, l[2] = {0.f, 0.f};
+  float acc[D / 8][4];
+#pragma unroll
+  for (int nb = 0; nb < D / 8; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nb][e] = 0.f;
+  // Q's A fragments in registers where they fit (d <= 128); at d = 256 they
+  // are read again from shared memory each tile, so that the 16 x 256 f32
+  // accumulator does not spill
+  constexpr bool QREG = D <= 128;
+  uint32_t qf[QREG ? KD : 1][4];
+  const int a_row = lane & 15, a_col = (lane >> 4) * 8;  // ldmatrix of A
+  bool q_ready = false;
+
+  // the KV tile at kv0 of every slot into buffer buf; with two buffers the
+  // next tile's copies overlap this tile's mmas
+  auto load_kv = [&](int kv0, int buf) {
+    for (int s = 0; s < n_slots; ++s) {
+      const size_t base = (size_t)(grp0 + s) * Skv * D;  // batch * Hkv + KV head
+      __nv_bfloat16* Ks = KVs + (2 * (buf * slots + s)) * FA_BKV * LD;
+      __nv_bfloat16* Vs = Ks + FA_BKV * LD;
+      for (int e = tid; e < FA_BKV * D / 8; e += FB_NT) {
+        const int r = e / (D / 8), c = (e % (D / 8)) * 8;
+        const bool in = kv0 + r < Skv;
+        const size_t off = base + (size_t)(kv0 + r) * D + c;
+        fb_cp_async16(Ks + r * LD + c, in ? k + off : k, in);
+        fb_cp_async16(Vs + r * LD + c, in ? v + off : v, in);
+      }
+    }
+  };
+  if (cta_b < cta_e) load_kv(cta_b, 0);
+  asm volatile("cp.async.commit_group;\n" ::);
+
+  int it = 0;
+  for (int kv0 = cta_b; kv0 < cta_e; kv0 += FA_BKV, ++it) {
+    const int buf = nbuf == 2 ? (it & 1) : 0;
+    if (it > 0) __syncthreads();  // the readers of the buffer loaded next are done
+    if (nbuf == 2) {
+      if (kv0 + FA_BKV < cta_e) load_kv(kv0 + FA_BKV, buf ^ 1);
+      asm volatile("cp.async.commit_group;\n" ::);
+      asm volatile("cp.async.wait_group 1;\n" ::);
+    } else {
+      if (it > 0) {
+        load_kv(kv0, 0);
+        asm volatile("cp.async.commit_group;\n" ::);
+      }
+      asm volatile("cp.async.wait_group 0;\n" ::);
+    }
+    __syncthreads();
+    if (loc < 0 || kv0 < my_b || kv0 >= my_e) continue;
+    if (QREG && !q_ready) {
+#pragma unroll
+      for (int ks = 0; ks < (QREG ? KD : 1); ++ks)
+        ldmatrix_x4(qf[ks], Qw + a_row * LD + ks * 16 + a_col);
+      q_ready = true;
+    }
+    const __nv_bfloat16* Ks = KVs + (2 * (buf * slots + slot)) * FA_BKV * LD;
+    const __nv_bfloat16* Vs = Ks + FA_BKV * LD;
+
+    // S = Q K^T: 16 rows x 64 keys, 8 blocks of 8 keys
+    float sc[8][4];
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[nb][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KD; ++ks) {
+      uint32_t a[4];
+      if (QREG) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = qf[QREG ? ks : 0][e];
+      } else {
+        ldmatrix_x4(a, Qw + a_row * LD + ks * 16 + a_col);
+      }
+#pragma unroll
+      for (int n2 = 0; n2 < 4; ++n2) {
+        uint32_t b[4];
+        const int key = n2 * 16 + (lane & 7) + ((lane >> 4) << 3);
+        ldmatrix_x4(b, Ks + key * LD + ks * 16 + ((lane >> 3) & 1) * 8);
+        mma_bf16(sc[2 * n2], a, b[0], b[1]);
+        mma_bf16(sc[2 * n2 + 1], a, b[2], b[3]);
+      }
+    }
+
+    // online softmax over rows g4 (e = 0, 1) and g4 + 8 (e = 2, 3); a tile
+    // that no mask touches for any of the 16 rows skips the masks
+    const bool whole = kv0 + FA_BKV <= Skv && (!causal || kv0 + FA_BKV - 1 <= q0) &&
+                       (window <= 0 || q0 + FB_BQ - 1 - kv0 < window);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kp = kv0 + nb * 8 + 2 * t4 + (e & 1);
+        const int qp = q0 + g4 + (e >> 1) * 8;
+        float x = sc[nb][e] * scale;
+        if (!whole) {
+          if (kp >= Skv) {
+            x = -INFINITY;  // past the keys: no part of the softmax
+          } else if ((causal && qp < kp) || (window > 0 && qp - kp >= window)) {
+            x = FA_NEG;
+          }
+        }
+        sc[nb][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      alpha[r] = expf(m[r] - m_new);
+      m[r] = m_new;
+    }
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(sc[nb][e] - m[e >> 1]);
+        sc[nb][e] = p;
+        sum[e >> 1] += p;
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+      l[r] = l[r] * alpha[r] + sum[r];
+    }
+#pragma unroll
+    for (int nb = 0; nb < D / 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nb][e] *= alpha[e >> 1];
+
+    // O += P V with the f32 P as three bf16 terms (V is exact in bf16), the
+    // smallest term first
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {  // 16 keys a step
+      uint32_t ph[4], pm[4], pl[4];
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        // A fragment f: rows g4 (f even) or g4 + 8, keys 2 t4 (+ 8 for f >= 2)
+        const int nb = 2 * kk + (f >> 1), e0 = (f & 1) * 2;
+        float h0, m0, l0, h1, m1, l1;
+        split3(sc[nb][e0], h0, m0, l0);
+        split3(sc[nb][e0 + 1], h1, m1, l1);
+        ph[f] = pack_bf16(h0, h1);
+        pm[f] = pack_bf16(m0, m1);
+        pl[f] = pack_bf16(l0, l1);
+      }
+#pragma unroll
+      for (int n2 = 0; n2 < D / 16; ++n2) {
+        uint32_t b[4];
+        const int key = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+        ldmatrix_x4_trans(b, Vs + key * LD + n2 * 16 + (lane >> 4) * 8);
+        mma_bf16(acc[2 * n2], pl, b[0], b[1]);
+        mma_bf16(acc[2 * n2], pm, b[0], b[1]);
+        mma_bf16(acc[2 * n2], ph, b[0], b[1]);
+        mma_bf16(acc[2 * n2 + 1], pl, b[2], b[3]);
+        mma_bf16(acc[2 * n2 + 1], pm, b[2], b[3]);
+        mma_bf16(acc[2 * n2 + 1], ph, b[2], b[3]);
+      }
+    }
+  }
+
+  if (loc < 0) return;
+  __nv_bfloat16* ob = o + bh * Sq * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = q0 + g4 + 8 * r;
+    if (qp >= Sq) continue;
+    const float den = fmaxf(l[r], 1e-30f);
+#pragma unroll
+    for (int nb = 0; nb < D / 8; ++nb)
+      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)qp * D + nb * 8 + 2 * t4) =
+          __floats2bfloat162_rn(acc[nb][2 * r] / den, acc[nb][2 * r + 1] / den);
+  }
+}
+
+// K/V slots a CTA of the flat order needs, for U units a group: 4
+// consecutive units span one group (U a multiple of 4), at most two (U >= 2),
+// or four (U = 1)
+int fb_slots(int U) { return U % FB_WARPS == 0 ? 1 : (U >= 2 ? 2 : FB_WARPS); }
+
+// (cpg, slots, nbuf, bytes) of a bf16 launch: the flat order where its
+// slots fit; two KV buffers where there is more than one KV tile and two
+// CTAs still fit an SM (228 KB, 1 KB reserved a CTA)
+void fb_plan(int d, int Hq, int Hkv, int Sq, int Skv, int& cpg, int& slots,
+             int& nbuf, size_t& bytes) {
+  const int U = (Hq / Hkv) * ((Sq + FB_BQ - 1) / FB_BQ);
+  slots = fb_slots(U);
+  cpg = 0;
+  nbuf = 1;
+  bytes = fb_smem_bytes(d, slots, 1);
+  if (bytes > FA_MAX_SMEM) {
+    cpg = (U + FB_WARPS - 1) / FB_WARPS;
+    slots = 1;
+    bytes = fb_smem_bytes(d, 1, 1);
+  }
+  if (Skv > FA_BKV && 2 * (fb_smem_bytes(d, slots, 2) + 1024) <= 233472) {
+    nbuf = 2;
+    bytes = fb_smem_bytes(d, slots, 2);
+  }
+}
+
+template <int D>
+cudaError_t fb_launch(const void* q, const void* k, const void* v, void* o,
+                      int B, int Hq, int Hkv, int Sq, int Skv, int causal,
+                      int window, float scale, cudaStream_t s) {
+  int cpg, slots, nbuf;
+  size_t smem;
+  fb_plan(D, Hq, Hkv, Sq, Skv, cpg, slots, nbuf, smem);
+  const long long U = (long long)(Hq / Hkv) * ((Sq + FB_BQ - 1) / FB_BQ);
+  const long long n_units = (long long)B * Hkv * U;
+  const long long ctas = cpg > 0 ? (long long)B * Hkv * cpg
+                                 : (n_units + FB_WARPS - 1) / FB_WARPS;
+  if (n_units > 0x7fffffffLL || ctas > 0x7fffffffLL) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  flash_attention_bf16_kernel<D><<<(unsigned)ctas, FB_NT, smem, s>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Hq,
+      Hkv, Sq, Skv, causal, window, scale, (int)n_units, cpg, slots, nbuf);
+  return cudaGetLastError();
+}
+
+cudaError_t fb_dispatch(int d, const void* q, const void* k, const void* v,
+                        void* o, int B, int Hq, int Hkv, int Sq, int Skv,
+                        int causal, int window, float scale, cudaStream_t s) {
+  switch (d) {
+    case 16: return fb_launch<16>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, scale, s);
+    case 32: return fb_launch<32>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, scale, s);
+    case 64: return fb_launch<64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, scale, s);
+    case 128: return fb_launch<128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, scale, s);
+    case 256: return fb_launch<256>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -343,12 +743,19 @@ rglru_scan_kernel(const float* __restrict__ a, const float* __restrict__ g,
 
 extern "C" {
 
-// Dynamic shared memory of one flash-attention CTA at head width d, in bytes.
-size_t repro_flash_smem_bytes(int d) { return fa_smem_bytes(d); }
+// Dynamic shared memory of one flash-attention CTA in bytes: dtype 0 (f32)
+// at head width d, dtype 1 (bf16) for Hq / Hkv heads, Sq and Skv too.
+size_t repro_flash_smem_bytes(int dtype, int d, int Hq, int Hkv, int Sq, int Skv) {
+  if (dtype == 0) return fa_smem_bytes(d);
+  int cpg, slots, nbuf;
+  size_t bytes;
+  fb_plan(d, Hq, Hkv, Sq, Skv, cpg, slots, nbuf, bytes);
+  return bytes;
+}
 
-// K5.  dtype: 0 float32, 1 bfloat16 (q, k, v and o alike).  q, o: (B, Hq,
-// Sq, d); k, v: (B, Hkv, Skv, d); Hq a multiple of Hkv; d in {16, 32, 64,
-// 128, 256}; window 0 for none.
+// K5.  dtype: 0 float32 (the SIMT kernel), 1 bfloat16 (the tensor-core
+// kernel); q, k, v and o alike.  q, o: (B, Hq, Sq, d); k, v: (B, Hkv, Skv,
+// d); Hq a multiple of Hkv; d in {16, 32, 64, 128, 256}; window 0 for none.
 int repro_flash_attention(int dtype, const void* q, const void* k,
                           const void* v, void* o, int B, int Hq, int Hkv,
                           int Sq, int Skv, int d, int causal, int window,
@@ -359,9 +766,9 @@ int repro_flash_attention(int dtype, const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)fa_dispatch<float>(d, q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, scale, s);
+    return (int)fa_dispatch(d, q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, scale, s);
   if (dtype == 1)
-    return (int)fa_dispatch<__nv_bfloat16>(d, q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, scale, s);
+    return (int)fb_dispatch(d, q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -16,38 +16,78 @@
 // so at the main-path shapes (32768 x 32768 x 384) it is about 8e11 FLOP
 // against ~100 MB of input: three orders of magnitude above the ridge
 // point.  The design keeps everything but the inputs out of device memory:
-// the (BM x BN) score tile lives in registers, the histogram of a CTA in
-// shared memory (int32, atomics), the running top-k lists in shared memory,
-// and the (hi, lo) walk-sum pairs in registers.  This first version is a
-// plain SIMT tile (64 x 64 per CTA, 4 x 4 per thread, no tensor cores, no
-// TMA or pipelining): right and simple first, fast in a later change.
+// the score tile lives in registers and then in shared memory, and the
+// histogram (int32, atomics), the running top-k lists and the (hi, lo)
+// walk-sum pairs of a CTA's rows in shared memory.
+//
+// The product (SIMT: the fp32 path may not use TF32, and must stay bit for
+// bit equal to the two-pass kernels).  A CTA owns a square tile of BM = BN =
+// 128 rows and columns, or 64 where the count tiles are not a multiple of
+// 128 rows.  Its 256 product threads (16 x 16; a warp is 4 x 8 of them) own
+// rows ty + 16 i and columns tx + 16 j each, an 8 x 8 block of scores (4 x 4
+// in the 64 tile).  Each 4-deep step a thread reads 8 A and 8 B float4 from
+// shared memory for 256 FMAs; a warp's A reads are broadcasts of 4 rows and
+// its B reads 8 rows 144 bytes apart, one wavefront each.  The k-slices
+// (128 bytes of a row: 32 f32, 64 bf16 or 128 int8) stream through a 2-stage
+// cp.async ring with one barrier of the product warps per slice, over the
+// flat sequence (column tile, k-slice), so the next slice's loads -- across
+// column tiles too -- overlap this slice's FMAs.  bf16 stays bf16 in shared
+// memory and is widened as it is read (a shift, exact).
+//
+// The epilogues run in warps of their own (warp specialization): when the
+// product warps finish a column tile they stage its scores in shared memory
+// (BM x (BN + 8) words) and go on with the next tile, while the epilogue
+// warps take the staged tile one warp a row (lane l has columns l, l + 32,
+// ...).  Two named barriers pass the tile: "free" (the epilogue warps are
+// done with it) and "full" (it is staged).  One CTA an SM of 512 threads:
+// 8 epilogue warps, as 4 fall behind the product with all three epilogues
+// on.  The CTA launches with 128 registers a thread, and setmaxnreg moves
+// them to where they are needed: the product's two warpgroups take 200 a
+// thread (the 64 accumulators and the fragments), the epilogue's two give
+// up all but 56.  Per-CTA shared memory in the 128 tile at k = 32 and
+// 4,096 bins: the ring 73,728 B, the scores 69,632 B, the rows' scales
+// 1,024 B, the walk sums 32,768 B, the histogram 16,384 B and the lists
+// 33,792 B: 227,328 B, of the 232,448 a block may use.  A wider top-k list
+// takes the 64 tile.  The epilogue warps issue only where the FFMA-bound
+// product warps leave a slot, so their instructions are kept few: a row
+// without candidates costs one warp vote.
 //
 // What the TPU design did that does not carry over:
 // * The TPU grid walks the column blocks in order and carries the running
 //   top-k and sums in scratch between grid steps.  Here blocks run in no
 //   order, so the loop over column blocks sits inside the CTA: each CTA owns
-//   BM rows for the whole width, and the summation order is fixed from run
+//   BM rows for its column range, and the summation order is fixed from run
 //   to run.
 // * TPUs have no scatter-add, so the Pallas epilogue bins with one-hot
-//   matmuls (kernels/binning.py).  Here each thread run-length encodes its
-//   bins (most pairs land in the floor bin) and adds runs into a shared
-//   int32 histogram with atomicAdd; the CTA then adds its histogram into the
-//   global count tile of its row group.  Integer atomics keep the counts
-//   deterministic.
-// * Top-k: candidates that beat a row's current k-th entry are buffered in
-//   shared memory and inserted into the row's sorted list by one warp (the
-//   slot by counting the entries that beat the candidate, then a parallel
-//   shift of the tail), so a wide list costs k / 32 steps a candidate.  The
-//   order is (value descending, column ascending), a total order, so the
-//   result does not depend on the order candidates arrive in, and ties go to
-//   the lower column as in the reference.
-// * Few rows, many columns: a top-k launch over few rows (the raised-k
-//   retry runs on a handful of rows) would fill one CTA and leave the other
-//   SMs idle.  Such a launch splits the columns across a second grid
-//   dimension; each CTA keeps the exact top-k of its column range, and a
-//   second kernel merges the per-range lists of a row (one warp a row).  The
+//   matmuls (kernels/binning.py).  Here each epilogue lane adds its
+//   elements' bins into a shared int32 histogram with atomicAdd; the CTA
+//   then adds its histogram into the global count tile of its row group.
+//   Integer atomics keep the counts deterministic.
+// * Top-k: a row's candidates (scores that beat its current k-th entry, one
+//   warp ballot per 32 columns) enter its sorted list one at a time.  For k
+//   <= 32 the warp holds the list in registers, entry l in lane l: the slot
+//   is the number of entries that beat the candidate (a ballot), and the
+//   lanes past it shift by one (a shuffle); an empty list (a range's first
+//   tile) takes the tile's top k by k warp-wide argmax steps instead.  Wider
+//   lists stay in shared memory, where the warp counts in 32-entry strides
+//   and shifts the tail.  The order is (value descending, column
+//   ascending), a total order, so the result does not depend on the order
+//   candidates arrive in, and ties go to the lower column as in the
+//   reference.
+// * Walk sums: each epilogue lane keeps a (hi, lo) pair per row in shared
+//   memory and adds its elements with two-sum steps, in column order; at
+//   the end one thread a row adds the 32 lanes' pairs in lane order.
+// * Few rows, many columns: a launch with fewer than two CTAs per SM would
+//   leave SMs idle (the 3-way chain's 4,096-row prefix is 32 CTAs of 128
+//   rows; the raised-k retry runs on a handful of rows).  Such a launch
+//   splits the columns across a second grid dimension, for about four CTAs
+//   per SM.  Count tiles merge by their integer atomics; each CTA keeps the
+//   exact top-k of its column range and the (hi, lo) walk sums of its
+//   columns, and a second kernel merges a row's lists (one warp a row: the
 //   top-k under a total order is unique, so the merged lists equal an
-//   unsplit launch's bit for bit.
+//   unsplit launch's bit for bit) and its sums, in range order by two-sum
+//   steps (deterministic; they differ from an unsplit launch's only in
+//   their last bits).
 //
 // Exactness: the fp32 score of a pair is one fmaf chain over k = 0..d-1 in
 // order, whatever the tile or launch it is computed in, so the fp32 sweep is
@@ -56,9 +96,10 @@
 // nvcc can neither contract nor reorder.  Never build with --use_fast_math.
 //
 // Interface: plain C, called through ctypes.  The wrapper allocates every
-// output (count tiles zeroed), pads d to a multiple of 4 (fp32, bf16) or 16
-// (int8) with zero columns, and passes PyTorch's current stream.  The
-// function returns cudaGetLastError() after the launch.
+// output (count tiles zeroed), pads d so that a row is a multiple of 16
+// bytes (4 f32, 8 bf16, 16 int8) with zero columns, picks the tile rows and
+// the column split, and passes PyTorch's current stream.  The function
+// returns cudaGetLastError() after the launch.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -67,11 +108,17 @@
 
 namespace {
 
-constexpr int BM = 64;      // rows of a CTA tile
-constexpr int BN = 64;      // columns of a CTA tile
-constexpr int NT = 256;     // threads of a CTA: 16 x 16, 4 x 4 pairs each
-constexpr int LDF = 36;     // smem row stride of a 32-deep f32 tile (floats)
-constexpr int LDI = 20;     // smem row stride of a 64-deep int8 tile (ints)
+constexpr int NT = 256;     // product threads of a CTA: 16 x 16
+constexpr int ET = 256;     // epilogue threads of a CTA: 8 warps
+// registers a thread of each side takes with setmaxnreg (the CTA launches
+// with 128 a thread, 65,536 in all)
+constexpr int REG_PRODUCT = 200;
+constexpr int REG_EPILOGUE = 56;
+static_assert(NT * REG_PRODUCT + ET * REG_EPILOGUE <= 65536, "the register file");
+constexpr int STAGES = 2;   // k-slices of the cp.async ring
+constexpr int ROWB = 128;   // bytes of a row in one k-slice
+constexpr int LDW = ROWB / 4 + 4;  // smem row stride of a k-slice, in 32-bit words
+constexpr int CH = ROWB / 16;      // 16-byte chunks of a row in one k-slice
 constexpr float NEG = -1e30f;
 
 enum Mode { F32 = 0, BF16 = 1, I8 = 2 };
@@ -94,7 +141,7 @@ struct Params {
   int* block_counts;    // (ceil(M / bm), n_bins), zeroed by the caller
   float* vals;          // (M, gridDim.y, k): one list per column range
   int* idx;             // (M, gridDim.y, k)
-  float* row_sums;      // (M)
+  float* row_sums;      // (M), or (M, gridDim.y, 2) (hi, lo) when split
 };
 
 __device__ __forceinline__ void two_sum(float a, float b, float& s, float& e) {
@@ -109,345 +156,507 @@ __device__ __forceinline__ bool beats(float x, int c, float y, int cy) {
   return x > y || (x == y && c < cy);
 }
 
+// ---- the cp.async ring -----------------------------------------------------
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  // src-size 0 zero-fills the 16 bytes (rows past M / N, columns past d)
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(in ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Issues the copies of one k-slice (bytes kb .. kb + ROWB - 1 of rows r0 .. r0 +
+// NR - 1) into dst, NR rows of LDW words.
+template <int NR>
+__device__ __forceinline__ void load_slice(const unsigned char* g, int rows,
+                                           int row_bytes, int r0, int kb,
+                                           uint32_t* dst, int tid) {
+#pragma unroll
+  for (int l = 0; l < NR * CH / NT; ++l) {
+    const int e = tid + l * NT;
+    const int row = e / CH, c = e % CH;
+    const int gr = r0 + row, gb = kb + 16 * c;
+    const bool in = gr < rows && gb < row_bytes;
+    cp_async16(dst + row * LDW + 4 * c,
+               in ? g + (size_t)gr * row_bytes + gb : g, in);
+  }
+}
+
 // ---- the score tile --------------------------------------------------------
-// Loads one k-slice of the A (rows r0..) and B (cols c0..) tiles into shared
-// memory, zero-filling rows past M / N and columns past d.
+// mma<RI>: the FMAs of one landed k-slice into the thread's RI x 4 block,
+// one fmaf (dp4a) chain per score in k order.
+
+__device__ __forceinline__ float bf_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
 
 template <int MODE>
 struct Tile;
 
 template <>
 struct Tile<F32> {
-  static constexpr int BK = 32;
+  static constexpr int ESIZE = 4;
   using Acc = float;
-  static __device__ __forceinline__ void load(const Params& p, const void* src,
-                                              int rows, int r0, int k0,
-                                              float* dst, int tid) {
-    const float* g = static_cast<const float*>(src);
+  template <int RI, int CJ>
+  static __device__ __forceinline__ void mma(const uint32_t* As, const uint32_t* Bs,
+                                             int ty, int tx, float (&acc)[RI][CJ]) {
+    const float* A = reinterpret_cast<const float*>(As);
+    const float* B = reinterpret_cast<const float*>(Bs);
 #pragma unroll
-    for (int l = 0; l < 2; ++l) {
-      int e = tid + l * NT;
-      int row = e >> 3, kq = (e & 7) << 2;
-      int gr = r0 + row, gk = k0 + kq;
-      float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (gr < rows && gk < p.d)
-        val = *reinterpret_cast<const float4*>(g + (size_t)gr * p.d + gk);
-      *reinterpret_cast<float4*>(dst + row * LDF + kq) = val;
-    }
-  }
-  static __device__ __forceinline__ void mma(const float* As, const float* Bs,
-                                             int ty, int tx, float acc[4][4]) {
+    for (int kk = 0; kk < ROWB / 4; kk += 4) {
+      float4 b[CJ];
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 4) {
-      float4 a[4], b[4];
+      for (int j = 0; j < CJ; ++j)
+        b[j] = *reinterpret_cast<const float4*>(B + (tx + 16 * j) * LDW + kk);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        a[i] = *reinterpret_cast<const float4*>(As + (ty + 16 * i) * LDF + kk);
+      for (int i = 0; i < RI; ++i) {
+        const float4 a = *reinterpret_cast<const float4*>(A + (ty + 16 * i) * LDW + kk);
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        b[j] = *reinterpret_cast<const float4*>(Bs + (tx + 16 * j) * LDF + kk);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
-          acc[i][j] = fmaf(a[i].y, b[j].y, acc[i][j]);
-          acc[i][j] = fmaf(a[i].z, b[j].z, acc[i][j]);
-          acc[i][j] = fmaf(a[i].w, b[j].w, acc[i][j]);
+        for (int j = 0; j < CJ; ++j) {
+          acc[i][j] = fmaf(a.x, b[j].x, acc[i][j]);
+          acc[i][j] = fmaf(a.y, b[j].y, acc[i][j]);
+          acc[i][j] = fmaf(a.z, b[j].z, acc[i][j]);
+          acc[i][j] = fmaf(a.w, b[j].w, acc[i][j]);
         }
+      }
     }
   }
 };
 
 template <>
 struct Tile<BF16> {
-  static constexpr int BK = 32;
+  static constexpr int ESIZE = 2;
   using Acc = float;
-  static __device__ __forceinline__ void load(const Params& p, const void* src,
-                                              int rows, int r0, int k0,
-                                              float* dst, int tid) {
-    const __nv_bfloat16* g = static_cast<const __nv_bfloat16*>(src);
+  template <int RI, int CJ>
+  static __device__ __forceinline__ void mma(const uint32_t* As, const uint32_t* Bs,
+                                             int ty, int tx, float (&acc)[RI][CJ]) {
 #pragma unroll
-    for (int l = 0; l < 2; ++l) {
-      int e = tid + l * NT;
-      int row = e >> 3, kq = (e & 7) << 2;
-      int gr = r0 + row, gk = k0 + kq;
-      float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (gr < rows && gk < p.d) {
-        const __nv_bfloat162* h =
-            reinterpret_cast<const __nv_bfloat162*>(g + (size_t)gr * p.d + gk);
-        float2 lo = __bfloat1622float2(h[0]);
-        float2 hi = __bfloat1622float2(h[1]);
-        val = make_float4(lo.x, lo.y, hi.x, hi.y);
+    for (int kw = 0; kw < ROWB / 4; kw += 4) {  // 8 bf16 a step
+      float b[CJ][8];
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) {
+        const uint4 w = *reinterpret_cast<const uint4*>(Bs + (tx + 16 * j) * LDW + kw);
+        b[j][0] = bf_lo(w.x); b[j][1] = bf_hi(w.x);
+        b[j][2] = bf_lo(w.y); b[j][3] = bf_hi(w.y);
+        b[j][4] = bf_lo(w.z); b[j][5] = bf_hi(w.z);
+        b[j][6] = bf_lo(w.w); b[j][7] = bf_hi(w.w);
       }
-      *reinterpret_cast<float4*>(dst + row * LDF + kq) = val;
+#pragma unroll
+      for (int i = 0; i < RI; ++i) {
+        const uint4 w = *reinterpret_cast<const uint4*>(As + (ty + 16 * i) * LDW + kw);
+        const float a[8] = {bf_lo(w.x), bf_hi(w.x), bf_lo(w.y), bf_hi(w.y),
+                            bf_lo(w.z), bf_hi(w.z), bf_lo(w.w), bf_hi(w.w)};
+#pragma unroll
+        for (int j = 0; j < CJ; ++j)
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[i][j] = fmaf(a[e], b[j][e], acc[i][j]);
+      }
     }
-  }
-  static __device__ __forceinline__ void mma(const float* As, const float* Bs,
-                                             int ty, int tx, float acc[4][4]) {
-    Tile<F32>::mma(As, Bs, ty, tx, acc);
   }
 };
 
 template <>
 struct Tile<I8> {
-  static constexpr int BK = 64;
+  static constexpr int ESIZE = 1;
   using Acc = int;
-  static __device__ __forceinline__ void load(const Params& p, const void* src,
-                                              int rows, int r0, int k0,
-                                              float* dst, int tid) {
-    const int8_t* g = static_cast<const int8_t*>(src);
-    int* di = reinterpret_cast<int*>(dst);
-    int row = tid >> 2, q = (tid & 3) << 4;  // 16 bytes a thread
-    int gr = r0 + row, gk = k0 + q;
-    int4 val = make_int4(0, 0, 0, 0);
-    if (gr < rows && gk < p.d)
-      val = *reinterpret_cast<const int4*>(g + (size_t)gr * p.d + gk);
-    *reinterpret_cast<int4*>(di + row * LDI + (q >> 2)) = val;
-  }
-  static __device__ __forceinline__ void mma(const float* As, const float* Bs,
-                                             int ty, int tx, int acc[4][4]) {
-    const int* Ai = reinterpret_cast<const int*>(As);
-    const int* Bi = reinterpret_cast<const int*>(Bs);
+  template <int RI, int CJ>
+  static __device__ __forceinline__ void mma(const uint32_t* As, const uint32_t* Bs,
+                                             int ty, int tx, int (&acc)[RI][CJ]) {
 #pragma unroll
-    for (int q = 0; q < BK / 4; q += 4) {
-      int4 a[4], b[4];
+    for (int kw = 0; kw < ROWB / 4; kw += 4) {  // 16 int8 a step
+      int4 b[CJ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        a[i] = *reinterpret_cast<const int4*>(Ai + (ty + 16 * i) * LDI + q);
+      for (int j = 0; j < CJ; ++j)
+        b[j] = *reinterpret_cast<const int4*>(Bs + (tx + 16 * j) * LDW + kw);
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        b[j] = *reinterpret_cast<const int4*>(Bi + (tx + 16 * j) * LDI + q);
+      for (int i = 0; i < RI; ++i) {
+        const int4 a = *reinterpret_cast<const int4*>(As + (ty + 16 * i) * LDW + kw);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          acc[i][j] = __dp4a(a[i].x, b[j].x, acc[i][j]);
-          acc[i][j] = __dp4a(a[i].y, b[j].y, acc[i][j]);
-          acc[i][j] = __dp4a(a[i].z, b[j].z, acc[i][j]);
-          acc[i][j] = __dp4a(a[i].w, b[j].w, acc[i][j]);
+        for (int j = 0; j < CJ; ++j) {
+          acc[i][j] = __dp4a(a.x, b[j].x, acc[i][j]);
+          acc[i][j] = __dp4a(a.y, b[j].y, acc[i][j]);
+          acc[i][j] = __dp4a(a.z, b[j].z, acc[i][j]);
+          acc[i][j] = __dp4a(a.w, b[j].w, acc[i][j]);
         }
+      }
     }
   }
 };
 
-// Shared-memory carve-up; the A/B tiles are reused for the final walk-sum
-// reduction (BM x 16 (hi, lo) pairs).
-__host__ __device__ inline size_t ab_bytes(int mode) {
-  size_t tiles = (mode == I8 ? 2u * BM * LDI : 2u * BM * LDF) * 4u;
-  size_t red = 2u * BM * 16u * 4u;
-  return tiles > red ? tiles : red;
+// Shared-memory carve-up: the ring, the staged
+// score tile (BM x (BN + 8) words), the rows' weight and int8 scales, the
+// (hi, lo) walk sums of each (row, epilogue lane), then the histogram and
+// the top-k lists.
+// CTA tiles are square: BM = BN = bm (128 or 64)
+__host__ __device__ inline size_t ring_bytes(int bm) {
+  return (size_t)STAGES * (2 * bm) * LDW * 4u;
 }
 
-__host__ __device__ inline size_t smem_bytes(int mode, int flags, int n_bins,
-                                             int k) {
-  size_t b = ab_bytes(mode);
+__host__ __device__ inline size_t smem_bytes(int flags, int n_bins, int k, int bm) {
+  size_t b = ring_bytes(bm) + (size_t)bm * (bm + 8) * 4u + 2u * bm * 4u;
+  if (flags & SUMS) b += (size_t)bm * 64u * 4u;
   if (flags & HIST) b += (size_t)n_bins * 4u;
-  if (flags & TOPK) b += (size_t)BM * (k + 1) * 8u + (size_t)BM * BN * 8u + BM * 4u;
+  if (flags & TOPK) b += (size_t)bm * (k + 1) * 8u;
   return b;
 }
 
-template <int MODE, bool HIST_ON, bool TOPK_ON, bool SUMS_ON>
-__global__ void __launch_bounds__(NT) sim_kernel(Params p) {
+// Named barriers: the product warps' own per-slice barrier, and the two
+// that pass the staged score tile between them and the epilogue warps.
+enum Barrier { BAR_PRODUCT = 1, BAR_FREE = 2, BAR_FULL = 3 };
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// One warp inserts candidate (x, c) into a row's sorted list (V, C) of k
+// entries in shared memory: its slot is the number of entries that beat it;
+// the entries from that slot on move down one place, 32 at a time from the
+// end of the list.
+__device__ __forceinline__ void list_insert(float* V, int* C, int k, float x, int c,
+                                            int lane) {
+  int above = 0;
+  for (int u = lane; u < k; u += 32) above += beats(V[u], C[u], x, c);
+  const int pos = __reduce_add_sync(0xffffffffu, above);
+  if (pos >= k) return;
+  for (int b = ((k - 2) / 32) * 32; b >= 0; b -= 32) {
+    const int u = b + lane;
+    const bool move = u >= pos && u < k - 1;
+    const float mv = move ? V[u] : 0.f;
+    const int mc = move ? C[u] : 0;
+    __syncwarp();
+    if (move) {
+      V[u + 1] = mv;
+      C[u + 1] = mc;
+    }
+    __syncwarp();
+  }
+  if (lane == 0) {
+    V[pos] = x;
+    C[pos] = c;
+  }
+  __syncwarp();
+}
+
+// One warp offers a row's candidates (NQ a lane; ok marks the real ones) to
+// its list (V, C): a warp ballot finds those that beat the k-th entry, and
+// they enter one at a time, each ballot dropping what the raised k-th entry
+// now beats.  For k <= 32 the list sits in registers while the warp works on
+// it, entry l in lane l: a candidate's slot is the number of entries that
+// beat it (a prefix, by ballot), and the lanes past it take their left
+// neighbour's entry (a shuffle).
+template <int NQ>
+__device__ __forceinline__ void offer_row(float* V, int* C, int k, const float (&sc)[NQ],
+                                          const int (&col)[NQ], const bool (&ok)[NQ],
+                                          int lane) {
+  {  // most rows of most tiles have no candidate: one vote says so
+    const float tv = V[k - 1];
+    const int tc = C[k - 1];
+    bool any = false;
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) any |= ok[q] && beats(sc[q], col[q], tv, tc);
+    if (!__any_sync(0xffffffffu, any)) return;
+  }
+  if (k <= 32 && V[0] == NEG && C[0] == INT_MAX) {
+    // an empty list (a range's first tile): its entries are the candidates'
+    // top k, picked by k warp-wide argmax steps
+    float cs[NQ];
+    int cc[NQ];
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      cs[q] = ok[q] ? sc[q] : NEG;
+      cc[q] = ok[q] ? col[q] : INT_MAX;
+    }
+    float vl = NEG;
+    int cl = INT_MAX;
+    for (int e = 0; e < k; ++e) {
+      float bv = cs[0];
+      int bc = cc[0];
+#pragma unroll
+      for (int q = 1; q < NQ; ++q)
+        if (beats(cs[q], cc[q], bv, bc)) {
+          bv = cs[q];
+          bc = cc[q];
+        }
+#pragma unroll
+      for (int off = 16; off >= 1; off >>= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
+        const int oc = __shfl_xor_sync(0xffffffffu, bc, off);
+        if (beats(ov, oc, bv, bc)) {
+          bv = ov;
+          bc = oc;
+        }
+      }
+      if (lane == e) {
+        vl = bv;
+        cl = bc;
+      }
+#pragma unroll
+      for (int q = 0; q < NQ; ++q)  // columns are distinct: drop the winner
+        if (cc[q] == bc) {
+          cs[q] = NEG;
+          cc[q] = INT_MAX;
+        }
+    }
+    if (lane < k) {
+      V[lane] = vl;
+      C[lane] = cl;
+    }
+  } else if (k <= 32) {
+    float vl = lane < k ? V[lane] : NEG;
+    int cl = lane < k ? C[lane] : INT_MAX;
+    float thr_v = __shfl_sync(0xffffffffu, vl, k - 1);
+    int thr_c = __shfl_sync(0xffffffffu, cl, k - 1);
+    bool dirty = false;
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      unsigned m = __ballot_sync(0xffffffffu, ok[q] && beats(sc[q], col[q], thr_v, thr_c));
+      while (m) {
+        const int src = __ffs(m) - 1;
+        const float x = __shfl_sync(0xffffffffu, sc[q], src);
+        const int c = __shfl_sync(0xffffffffu, col[q], src);
+        const int pos = __popc(__ballot_sync(0xffffffffu, lane < k && beats(vl, cl, x, c)));
+        const float pv = __shfl_up_sync(0xffffffffu, vl, 1);
+        const int pc = __shfl_up_sync(0xffffffffu, cl, 1);
+        if (lane > pos) {
+          vl = pv;
+          cl = pc;
+        } else if (lane == pos) {
+          vl = x;
+          cl = c;
+        }
+        thr_v = __shfl_sync(0xffffffffu, vl, k - 1);
+        thr_c = __shfl_sync(0xffffffffu, cl, k - 1);
+        dirty = true;
+        m &= ~(1u << src) &
+             __ballot_sync(0xffffffffu, ok[q] && beats(sc[q], col[q], thr_v, thr_c));
+      }
+    }
+    if (dirty && lane < k) {
+      V[lane] = vl;
+      C[lane] = cl;
+    }
+  } else {
+    float thr_v = V[k - 1];
+    int thr_c = C[k - 1];
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      unsigned m = __ballot_sync(0xffffffffu, ok[q] && beats(sc[q], col[q], thr_v, thr_c));
+      while (m) {
+        const int src = __ffs(m) - 1;
+        const float x = __shfl_sync(0xffffffffu, sc[q], src);
+        const int c = __shfl_sync(0xffffffffu, col[q], src);
+        list_insert(V, C, k, x, c, lane);
+        thr_v = V[k - 1];
+        thr_c = C[k - 1];
+        m &= ~(1u << src) &
+             __ballot_sync(0xffffffffu, ok[q] && beats(sc[q], col[q], thr_v, thr_c));
+      }
+    }
+  }
+  __syncwarp();
+}
+
+template <int MODE, int BM, bool HIST_ON, bool TOPK_ON, bool SUMS_ON>
+__global__ void __launch_bounds__(NT + ET, 1) sim_kernel(Params p) {
   using T = Tile<MODE>;
   using Acc = typename T::Acc;
+  constexpr int BN = BM;
+  constexpr int RI = BM / 16;          // rows of a product thread
+  constexpr int CJ = BN / 16;          // columns of a product thread
+  constexpr int CPL = BN / 32;         // columns of an epilogue lane
+  constexpr int STAGE_W = (BM + BN) * LDW;
+  constexpr int LDT = BN + 8;          // score-tile row stride (words)
   extern __shared__ __align__(16) unsigned char smem[];
-  float* As = reinterpret_cast<float*>(smem);
-  float* Bs = As + (MODE == I8 ? BM * LDI : BM * LDF);
-  unsigned char* cur = smem + ab_bytes(MODE);
+  uint32_t* ring = reinterpret_cast<uint32_t*>(smem);
+  Acc* St = reinterpret_cast<Acc*>(ring + STAGES * STAGE_W);
+  float* rscale = reinterpret_cast<float*>(St + BM * LDT);
+  float* rrs = rscale + BM;
+  float* psum = rrs + BM;  // (hi, lo) of each (row, epilogue lane)
+  unsigned char* cur = reinterpret_cast<unsigned char*>(psum + (SUMS_ON ? BM * 64 : 0));
   int* hist = reinterpret_cast<int*>(cur);
   if (HIST_ON) cur += (size_t)p.n_bins * 4u;
   const int KS = p.k + 1;  // top-k list stride (odd for k a power of two)
   float* lv = reinterpret_cast<float*>(cur);
   int* lc = reinterpret_cast<int*>(lv + BM * KS);
-  float* cv = reinterpret_cast<float*>(lc + BM * KS);
-  int* cc = reinterpret_cast<int*>(cv + BM * BN);
-  int* cn = cc + BM * BN;
 
   const int tid = threadIdx.x;
-  const int ty = tid >> 4, tx = tid & 15;
+  const int warp = tid >> 5, lane = tid & 31;
   const int r0 = blockIdx.x * BM;
   const int c_begin = blockIdx.y * p.split_cols;
   const int c_end = min(p.N, c_begin + p.split_cols);
+  const int n_ct = (c_end - c_begin + BN - 1) / BN;
 
   if (HIST_ON)
-    for (int b = tid; b < p.n_bins; b += NT) hist[b] = 0;
-  if (TOPK_ON) {
-    for (int e = tid; e < BM * KS; e += NT) {
+    for (int b = tid; b < p.n_bins; b += NT + ET) hist[b] = 0;
+  if (TOPK_ON)
+    for (int e = tid; e < BM * KS; e += NT + ET) {
       lv[e] = NEG;
       lc[e] = INT_MAX;
     }
-    for (int e = tid; e < BM; e += NT) cn[e] = 0;
+  if (SUMS_ON)
+    for (int e = tid; e < BM * 64; e += NT + ET) psum[e] = 0.f;
+  for (int rl = tid; rl < BM; rl += NT + ET) {
+    const int r = r0 + rl;
+    rscale[rl] = (HIST_ON && r < p.M) ? p.scale[r] : 0.f;
+    rrs[rl] = (MODE == I8 && r < p.M) ? p.rs1[r] : 0.f;
   }
-
-  float row_scale[4], row_rs[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    int r = r0 + ty + 16 * i;
-    row_scale[i] = (HIST_ON && r < p.M) ? p.scale[r] : 0.f;
-    row_rs[i] = (MODE == I8 && r < p.M) ? p.rs1[r] : 0.f;
-  }
-  float s_hi[4] = {0.f, 0.f, 0.f, 0.f};
-  float s_lo[4] = {0.f, 0.f, 0.f, 0.f};
-  int run_bin = -1, run_cnt = 0;
   __syncthreads();
 
-  for (int c0 = c_begin; c0 < c_end; c0 += BN) {
-    Acc acc[4][4];
+  if (tid < NT) {
+    // the product's warpgroups take the registers the epilogue's give up
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(REG_PRODUCT));
+    // ---- the product warps: the score tiles, staged in St one by one ----
+    // 16 x 16 threads: a warp is 4 rows x 8 columns of them, so its B reads
+    // are 8 rows (one wavefront) and its A reads 4 (a broadcast)
+    const int ty = (warp >> 1) * 4 + (lane >> 3), tx = (warp & 1) * 8 + (lane & 7);
+    const int row_bytes = p.d * T::ESIZE;
+    const int nks = (row_bytes + ROWB - 1) / ROWB;
+    const int total = n_ct * nks;
+    const unsigned char* g1 = static_cast<const unsigned char*>(p.e1);
+    const unsigned char* g2 = static_cast<const unsigned char*>(p.e2);
+    auto issue = [&](int t) {
+      uint32_t* st = ring + (t % STAGES) * STAGE_W;
+      const int ct = t / nks, kb = (t - ct * nks) * ROWB;
+      load_slice<BM>(g1, p.M, row_bytes, r0, kb, st, tid);
+      load_slice<BN>(g2, p.N, row_bytes, c_begin + ct * BN, kb, st + BM * LDW, tid);
+    };
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = Acc(0);
-
-    for (int k0 = 0; k0 < p.d; k0 += T::BK) {
-      __syncthreads();
-      T::load(p, p.e1, p.M, r0, k0, As, tid);
-      T::load(p, p.e2, p.N, c0, k0, Bs, tid);
-      __syncthreads();
-      T::mma(As, Bs, ty, tx, acc);
+    for (int s = 0; s < STAGES - 1; ++s) {
+      if (s < total) issue(s);
+      cp_async_commit();
     }
-
-    float thr_v[4];
-    int thr_c[4];
-    if (TOPK_ON) {
+    Acc acc[RI][CJ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        int rl = ty + 16 * i;
-        thr_v[i] = lv[rl * KS + p.k - 1];
-        thr_c[i] = lc[rl * KS + p.k - 1];
+    for (int i = 0; i < RI; ++i)
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) acc[i][j] = Acc(0);
+    for (int t = 0; t < total; ++t) {
+      cp_async_wait<STAGES - 2>();
+      // slice t has landed for every product thread, and every one is done
+      // with the stage that the next issue overwrites (read in step t - 1)
+      bar_sync(BAR_PRODUCT, NT);
+      if (t + STAGES - 1 < total) issue(t + STAGES - 1);
+      cp_async_commit();
+      const uint32_t* st = ring + (t % STAGES) * STAGE_W;
+      T::template mma<RI, CJ>(st, st + BM * LDW, ty, tx, acc);
+      if ((t + 1) % nks) continue;
+      bar_sync(BAR_FREE, NT + ET);  // the epilogue warps are done with St
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+#pragma unroll
+        for (int j = 0; j < CJ; ++j) {
+          St[(ty + 16 * i) * LDT + tx + 16 * j] = acc[i][j];
+          acc[i][j] = Acc(0);
+        }
+      bar_sync(BAR_FULL, NT + ET);  // St holds the tile's scores
+    }
+    cp_async_wait<0>();
+  } else {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(REG_EPILOGUE));
+    // ---- the epilogue warps: rows ew, ew + 4, ... of each staged tile;
+    // lane l takes columns l, l + 32, ... ----
+    const int ew = warp - NT / 32;
+    for (int ct = 0; ct < n_ct; ++ct) {
+      const int c0 = c_begin + ct * BN;
+      float vq[CPL], rsq[CPL];
+      int col[CPL];
+      bool ok[CPL];
+#pragma unroll
+      for (int q = 0; q < CPL; ++q) {
+        col[q] = c0 + lane + 32 * q;
+        ok[q] = col[q] < c_end;
+        vq[q] = (SUMS_ON && ok[q]) ? p.v[col[q]] : 0.f;
+        rsq[q] = (MODE == I8 && ok[q]) ? p.rs2[col[q]] : 0.f;
       }
-    }
-
+      bar_sync(BAR_FREE, NT + ET);
+      bar_sync(BAR_FULL, NT + ET);
+      for (int rl = ew; rl < BM && r0 + rl < p.M; rl += ET / 32) {
+        float sc[CPL];
+        float h = 0.f, lo = 0.f;
+        if (SUMS_ON) {
+          h = psum[(rl * 32 + lane) * 2];
+          lo = psum[(rl * 32 + lane) * 2 + 1];
+        }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      int col = c0 + tx + 16 * j;
-      if (col >= c_end) continue;
-      float cv_j = SUMS_ON ? p.v[col] : 0.f;
-      float crs = MODE == I8 ? p.rs2[col] : 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        int rl = ty + 16 * i;
-        if (r0 + rl >= p.M) continue;
-        float s;
-        if (MODE == I8)
-          s = __fmul_rn(__fmul_rn(__int2float_rn((int)acc[i][j]), row_rs[i]), crs);
-        else
-          s = (float)acc[i][j];
-        float sc = fminf(fmaxf(s, 0.f), 1.f);
-        float base = fmaxf(sc, p.floor_w);
-        if (HIST_ON) {
-          float w = p.pow1 ? base : powf(base, p.exponent);
-          w = __fmul_rn(w, row_scale[i]);
-          float x = __fmul_rn(w, (float)p.n_bins);
-          int b = (int)x;  // truncation, saturating
-          b = b < 0 ? 0 : (b > p.n_bins - 1 ? p.n_bins - 1 : b);
-          if (b == run_bin) {
-            ++run_cnt;
-          } else {
-            if (run_cnt) atomicAdd(&hist[run_bin], run_cnt);
-            run_bin = b;
-            run_cnt = 1;
+        for (int q = 0; q < CPL; ++q) {
+          float s;
+          if (MODE == I8)
+            s = __fmul_rn(__fmul_rn(__int2float_rn((int)St[rl * LDT + lane + 32 * q]), rrs[rl]),
+                          rsq[q]);
+          else
+            s = (float)St[rl * LDT + lane + 32 * q];
+          sc[q] = fminf(fmaxf(s, 0.f), 1.f);
+          if (!ok[q]) continue;
+          const float base = fmaxf(sc[q], p.floor_w);
+          if (HIST_ON) {
+            float w = p.pow1 ? base : powf(base, p.exponent);
+            w = __fmul_rn(w, rscale[rl]);
+            const float x = __fmul_rn(w, (float)p.n_bins);
+            int b = (int)x;  // truncation, saturating
+            b = b < 0 ? 0 : (b > p.n_bins - 1 ? p.n_bins - 1 : b);
+            atomicAdd(&hist[b], 1);
+          }
+          if (SUMS_ON) {
+            float wr = p.rs_pow1 ? base : powf(base, p.rs_exponent);
+            wr = __fmul_rn(wr, vq[q]);
+            float s2, e;
+            two_sum(h, wr, s2, e);
+            h = s2;
+            lo = __fadd_rn(lo, e);
           }
         }
         if (SUMS_ON) {
-          float wr = p.rs_pow1 ? base : powf(base, p.rs_exponent);
-          wr = __fmul_rn(wr, cv_j);
-          float t, e;
-          two_sum(s_hi[i], wr, t, e);
-          s_hi[i] = t;
-          s_lo[i] = __fadd_rn(s_lo[i], e);
+          psum[(rl * 32 + lane) * 2] = h;
+          psum[(rl * 32 + lane) * 2 + 1] = lo;
         }
-        if (TOPK_ON && beats(sc, col, thr_v[i], thr_c[i])) {
-          int slot = atomicAdd(&cn[rl], 1);
-          cv[rl * BN + slot] = sc;
-          cc[rl * BN + slot] = col;
-        }
+        if (TOPK_ON) offer_row<CPL>(lv + rl * KS, lc + rl * KS, p.k, sc, col, ok, lane);
       }
-    }
-
-    if (TOPK_ON) {
-      __syncthreads();
-      // one warp a row: a candidate's slot is the number of list entries
-      // that beat it; the entries from that slot on move down one place,
-      // 32 at a time from the end of the list, and the candidate goes in
-      const int warp = tid >> 5, lane = tid & 31;
-      for (int rl = warp; rl < BM; rl += NT / 32) {
-        float* V = lv + rl * KS;
-        int* C = lc + rl * KS;
-        int n = cn[rl];
-        for (int t = 0; t < n; ++t) {
-          float x = cv[rl * BN + t];
-          int c = cc[rl * BN + t];
-          int above = 0;
-          for (int q = lane; q < p.k; q += 32) above += beats(V[q], C[q], x, c);
-          int pos = __reduce_add_sync(0xffffffffu, above);
-          if (pos >= p.k) continue;
-          for (int b = ((p.k - 2) / 32) * 32; b >= 0; b -= 32) {
-            int q = b + lane;
-            bool move = q >= pos && q < p.k - 1;
-            float mv = move ? V[q] : 0.f;
-            int mc = move ? C[q] : 0;
-            __syncwarp();
-            if (move) {
-              V[q + 1] = mv;
-              C[q + 1] = mc;
-            }
-            __syncwarp();
-          }
-          if (lane == 0) {
-            V[pos] = x;
-            C[pos] = c;
-          }
-          __syncwarp();
-        }
-        if (lane == 0) cn[rl] = 0;
-      }
-      // the next block's threshold reads wait for the barrier at the top of
-      // its k loop
     }
   }
-
-  if (HIST_ON && run_cnt) atomicAdd(&hist[run_bin], run_cnt);
   __syncthreads();
 
   if (HIST_ON) {
     int* tile = p.block_counts + (size_t)(r0 / p.bm) * p.n_bins;
-    for (int b = tid; b < p.n_bins; b += NT)
+    for (int b = tid; b < p.n_bins; b += NT + ET)
       if (hist[b]) atomicAdd(&tile[b], hist[b]);
   }
 
   if (TOPK_ON) {
-    for (int e = tid; e < BM * p.k; e += NT) {
-      int rl = e / p.k, t = e - rl * p.k;
-      int r = r0 + rl;
+    for (int e = tid; e < BM * p.k; e += NT + ET) {
+      const int rl = e / p.k, q = e - rl * p.k;
+      const int r = r0 + rl;
       if (r < p.M) {
-        size_t o = ((size_t)r * gridDim.y + blockIdx.y) * p.k + t;
-        p.vals[o] = lv[rl * KS + t];
-        p.idx[o] = lc[rl * KS + t];
+        const size_t o = ((size_t)r * gridDim.y + blockIdx.y) * p.k + q;
+        p.vals[o] = lv[rl * KS + q];
+        p.idx[o] = lc[rl * KS + q];
       }
     }
   }
 
   if (SUMS_ON) {
-    // fixed-order reduction of the 16 per-thread (hi, lo) pairs of a row
-    float* red_hi = As;
-    float* red_lo = As + BM * 16;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      int rl = ty + 16 * i;
-      red_hi[rl * 16 + tx] = s_hi[i];
-      red_lo[rl * 16 + tx] = s_lo[i];
-    }
-    __syncthreads();
-    for (int rl = tid; rl < BM; rl += NT) {
+    // fixed-order reduction of the 32 per-lane (hi, lo) pairs of a row
+    for (int rl = tid; rl < BM; rl += NT + ET) {
+      const int r = r0 + rl;
+      if (r >= p.M) continue;
       float h = 0.f, l = 0.f;
-      for (int t = 0; t < 16; ++t) {
+      for (int q = 0; q < 32; ++q) {
         float s, e;
-        two_sum(h, red_hi[rl * 16 + t], s, e);
+        two_sum(h, psum[(rl * 32 + q) * 2], s, e);
         h = s;
-        l = __fadd_rn(l, __fadd_rn(red_lo[rl * 16 + t], e));
+        l = __fadd_rn(l, __fadd_rn(psum[(rl * 32 + q) * 2 + 1], e));
       }
-      if (r0 + rl < p.M) p.row_sums[r0 + rl] = __fadd_rn(h, l);
+      if (gridDim.y == 1) {
+        p.row_sums[r] = __fadd_rn(h, l);
+      } else {
+        float* o = p.row_sums + ((size_t)r * gridDim.y + blockIdx.y) * 2;
+        o[0] = h;
+        o[1] = l;
+      }
     }
   }
 }
@@ -461,15 +670,30 @@ __device__ __forceinline__ bool beats3(float x, int c, int s, float y, int cy,
 
 constexpr int MERGE_J = 8;  // lists a lane holds: at most 32 * MERGE_J ranges
 
-// Merges the S sorted per-range top-k lists of each row into its top-k.
-// One warp a row; lane l holds the heads of lists l, l + 32, ...; each step
-// takes the warp's best head under beats3 and advances that list.
-__global__ void __launch_bounds__(128) topk_merge(const float* pv, const int* pc,
-                                                  int M, int S, int k,
-                                                  float* vals, int* idx) {
+// Merges what the S column ranges of each row produced: their sorted top-k
+// lists (pv, pc: (M, S, k)) into the row's top-k, and their (hi, lo) walk
+// sums (ps: (M, S, 2)) into its sum.  One warp a row; lane l holds the heads
+// of lists l, l + 32, ...; each step takes the warp's best head under beats3
+// and advances that list.  Lane 0 adds the sums in range order.
+__global__ void __launch_bounds__(128) split_merge(const float* pv, const int* pc,
+                                                   const float* ps, int M, int S,
+                                                   int k, float* vals, int* idx,
+                                                   float* row_sums) {
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (row >= M) return;
+  if (ps && lane == 0) {
+    const float* P = ps + (size_t)row * S * 2;
+    float h = 0.f, l = 0.f;
+    for (int s = 0; s < S; ++s) {
+      float t, e;
+      two_sum(h, P[2 * s], t, e);
+      h = t;
+      l = __fadd_rn(l, __fadd_rn(P[2 * s + 1], e));
+    }
+    row_sums[row] = __fadd_rn(h, l);
+  }
+  if (!pv) return;
   const float* V = pv + (size_t)row * S * k;
   const int* C = pc + (size_t)row * S * k;
   float hv[MERGE_J];
@@ -518,43 +742,52 @@ __global__ void __launch_bounds__(128) topk_merge(const float* pv, const int* pc
   }
 }
 
-template <int MODE, bool H, bool K, bool S>
-cudaError_t launch(const Params& p, int splits, cudaStream_t stream) {
-  size_t bytes = smem_bytes(MODE, (H ? HIST : 0) | (K ? TOPK : 0) | (S ? SUMS : 0),
-                            p.n_bins, p.k);
-  auto fn = sim_kernel<MODE, H, K, S>;
+template <int MODE, int BM, bool H, bool K, bool S>
+cudaError_t launch_bm(const Params& p, int splits, cudaStream_t stream) {
+  const size_t bytes = smem_bytes((H ? HIST : 0) | (K ? TOPK : 0) | (S ? SUMS : 0),
+                                  p.n_bins, p.k, BM);
+  auto fn = sim_kernel<MODE, BM, H, K, S>;
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
-  dim3 grid((p.M + BM - 1) / BM, splits);
-  fn<<<grid, NT, bytes, stream>>>(p);
+  dim3 grid((p.M + BM - 1) / BM, splits);  // split_cols: whole BM-column tiles
+  fn<<<grid, NT + ET, bytes, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <int MODE, bool H, bool K, bool S>
+cudaError_t launch(const Params& p, int cta_rows, int splits, cudaStream_t stream) {
+  return cta_rows == 128 ? launch_bm<MODE, 128, H, K, S>(p, splits, stream)
+                         : launch_bm<MODE, 64, H, K, S>(p, splits, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory a launch of (mode, flags) needs, in bytes.
-size_t repro_sim_smem_bytes(int mode, int flags, int n_bins, int k) {
-  return smem_bytes(mode, flags, n_bins, k);
+// Shared memory a launch of (flags, tile rows) needs, in bytes.
+size_t repro_sim_smem_bytes(int flags, int n_bins, int k, int cta_rows) {
+  return smem_bytes(flags, n_bins, k, cta_rows);
 }
 
 // One launch.  mode: 0 fp32, 1 bf16, 2 int8.  flags: 1 histogram, 2 top-k,
 // 4 walk sums.  Supported: sweep (7) for every mode, histogram (1) and top-k
-// (2) for fp32.  A top-k launch with splits > 1 splits the columns into that
-// many ranges of whole BN-column tiles (splits must be the number of ranges
-// ceil(N / BN / splits) tiles each make), writes the per-range lists to
-// part_vals / part_idx (M, splits, k), and merges them into vals / idx.
-// Returns a cudaError_t (0 on success; cudaErrorInvalidValue for an
-// unsupported combination or bad arguments).
+// (2) for fp32.  cta_rows: 128 or 64, the rows of a CTA tile, which must
+// divide the count-tile rows bm when there is more than one count tile.  A
+// launch with splits > 1 splits the columns into that many ranges of whole
+// BN-column tiles (splits must be the number of ranges ceil(N / BN /
+// splits) tiles each make), writes the per-range top-k lists to part_vals /
+// part_idx (M, splits, k) and (hi, lo) walk sums to part_sums (M, splits,
+// 2), and merges them into vals / idx / row_sums.  Returns a cudaError_t (0
+// on success; cudaErrorInvalidValue for an unsupported combination or bad
+// arguments).
 int repro_sim_launch(int mode, int flags, const void* e1, const void* e2,
                      const float* rs1, const float* rs2, const float* scale,
                      const float* v, int M, int N, int d, int n_bins,
                      float exponent, float rs_exponent, float floor_w, int k,
-                     int bm, int splits, float* part_vals, int* part_idx,
-                     int* block_counts, float* vals, int* idx,
-                     float* row_sums, void* stream) {
+                     int bm, int cta_rows, int splits, float* part_vals,
+                     int* part_idx, float* part_sums, int* block_counts,
+                     float* vals, int* idx, float* row_sums, void* stream) {
   Params p;
   p.e1 = e1; p.e2 = e2; p.rs1 = rs1; p.rs2 = rs2; p.scale = scale; p.v = v;
   p.M = M; p.N = N; p.d = d; p.n_bins = n_bins;
@@ -563,38 +796,45 @@ int repro_sim_launch(int mode, int flags, const void* e1, const void* e2,
   p.k = k; p.bm = bm;
   p.block_counts = block_counts; p.vals = vals; p.idx = idx;
   p.row_sums = row_sums;
-  if (M <= 0 || N <= 0 || d <= 0 || bm <= 0) return (int)cudaErrorInvalidValue;
+  const int esize = mode == F32 ? 4 : (mode == BF16 ? 2 : 1);
+  if (M <= 0 || N <= 0 || d <= 0 || bm <= 0 || (d * esize) % 16)
+    return (int)cudaErrorInvalidValue;
+  if (cta_rows != 64 && cta_rows != 128) return (int)cudaErrorInvalidValue;
+  if ((flags & HIST) && (n_bins < 1 || (bm < M && bm % cta_rows)))
+    return (int)cudaErrorInvalidValue;
   if ((flags & TOPK) && (k < 1 || k > N || k > 1024)) return (int)cudaErrorInvalidValue;
-  if ((flags & HIST) && n_bins < 1) return (int)cudaErrorInvalidValue;
   if (splits < 1 || splits > 32 * MERGE_J) return (int)cudaErrorInvalidValue;
-  const int tiles = (N + BN - 1) / BN;
+  const int tiles = (N + cta_rows - 1) / cta_rows;  // column tiles (BN = BM)
   const int per = (tiles + splits - 1) / splits;
   if ((tiles + per - 1) / per != splits) return (int)cudaErrorInvalidValue;
-  if (splits > 1 && (flags != TOPK || !part_vals || !part_idx))
+  if (splits > 1 && (((flags & TOPK) && (!part_vals || !part_idx)) ||
+                     ((flags & SUMS) && !part_sums)))
     return (int)cudaErrorInvalidValue;
-  p.split_cols = per * BN;
+  p.split_cols = per * cta_rows;
   if (splits > 1) {
     p.vals = part_vals;
     p.idx = part_idx;
+    p.row_sums = part_sums;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (flags == (HIST | TOPK | SUMS)) {
-    if (mode == F32) err = launch<F32, true, true, true>(p, 1, s);
-    else if (mode == BF16) err = launch<BF16, true, true, true>(p, 1, s);
-    else if (mode == I8) err = launch<I8, true, true, true>(p, 1, s);
+    if (mode == F32) err = launch<F32, true, true, true>(p, cta_rows, splits, s);
+    else if (mode == BF16) err = launch<BF16, true, true, true>(p, cta_rows, splits, s);
+    else if (mode == I8) err = launch<I8, true, true, true>(p, cta_rows, splits, s);
     else return (int)cudaErrorInvalidValue;
   } else if (flags == HIST && mode == F32) {
-    err = launch<F32, true, false, false>(p, 1, s);
+    err = launch<F32, true, false, false>(p, cta_rows, splits, s);
   } else if (flags == TOPK && mode == F32) {
-    err = launch<F32, false, true, false>(p, splits, s);
-    if (err == cudaSuccess && splits > 1) {
-      topk_merge<<<(M + 3) / 4, 128, 0, s>>>(part_vals, part_idx, M, splits, k,
-                                             vals, idx);
-      err = cudaGetLastError();
-    }
+    err = launch<F32, false, true, false>(p, cta_rows, splits, s);
   } else {
     return (int)cudaErrorInvalidValue;
+  }
+  if (err == cudaSuccess && splits > 1 && (flags & (TOPK | SUMS))) {
+    split_merge<<<(M + 3) / 4, 128, 0, s>>>(
+        (flags & TOPK) ? part_vals : nullptr, part_idx,
+        (flags & SUMS) ? part_sums : nullptr, M, splits, k, vals, idx, row_sums);
+    err = cudaGetLastError();
   }
   return (int)err;
 }

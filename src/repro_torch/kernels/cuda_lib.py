@@ -117,7 +117,7 @@ def lib() -> ctypes.CDLL:
             vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             so.repro_sim_launch.argtypes = [
                 ci, ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, cf, cf, cf,
-                ci, ci, ci, vp, vp, vp, vp, vp, vp, vp,
+                ci, ci, ci, ci, vp, vp, vp, vp, vp, vp, vp, vp,
             ]
             so.repro_sim_launch.restype = ci
             so.repro_sim_smem_bytes.argtypes = [ci, ci, ci, ci]
@@ -126,7 +126,7 @@ def lib() -> ctypes.CDLL:
                 ci, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, cf, vp,
             ]
             so.repro_flash_attention.restype = ci
-            so.repro_flash_smem_bytes.argtypes = [ci]
+            so.repro_flash_smem_bytes.argtypes = [ci, ci, ci, ci, ci, ci]
             so.repro_flash_smem_bytes.restype = ctypes.c_size_t
             so.repro_rwkv6_scan.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
             so.repro_rwkv6_scan.restype = ci
@@ -136,24 +136,51 @@ def lib() -> ctypes.CDLL:
         return _lib
 
 
-# rows and columns of one CTA tile (BM, BN in the source): a CTA's rows must
-# fall in one count tile
+# Rows of a CTA tile (BM in the source; tiles are square, BN = BM).  A
+# launch takes the wide tile (WIDE_ROWS) where its CTAs' rows fall in one
+# count tile (``tile_rows``), else the narrow one (CTA_ROWS), whose rows
+# divide every count tile the wrapper accepts; CTA_COLS is the narrow
+# tile's columns.
 CTA_ROWS = 64
+WIDE_ROWS = 128
 CTA_COLS = 64
 MAX_SMEM = 232448  # bytes of shared memory one block may use on Hopper
-MAX_SPLITS = 256   # column ranges a top-k merge takes (32 * MERGE_J)
+MAX_SPLITS = 256   # column ranges a merge takes (32 * MERGE_J)
+# bytes a row of the kernel's operands must be a multiple of (16-byte
+# cp.async copies), in elements
+ALIGN = {"fp32": 4, "bf16": 8, "int8": 16}
 
 
-def topk_splits(m: int, n: int, sms: int) -> int:
-    """Column ranges of a top-k launch over ``m`` rows: enough CTAs for two
-    per SM, in whole ``CTA_COLS`` tiles, returned as the number of ranges
-    that ``ceil(tiles / splits)`` tiles each actually make (what the kernel
-    checks).  Launches with a CTA row per SM or more do not split."""
-    ctas = -(-m // CTA_ROWS)
-    tiles = -(-n // CTA_COLS)
-    want = max(1, min(-(-2 * sms // ctas), tiles, MAX_SPLITS))
+def tile_rows(m: int, bm: int) -> int:
+    """Rows of the CTA tile of a launch over ``m`` rows whose count tiles
+    hold ``bm`` rows each (one tile when ``bm >= m``; pass ``m`` for a
+    launch without count tiles): ``WIDE_ROWS`` where the launch has more
+    rows than a narrow tile and each count tile holds whole wide tiles,
+    else ``CTA_ROWS``."""
+    if m > CTA_ROWS and (bm >= m or bm % WIDE_ROWS == 0):
+        return WIDE_ROWS
+    return CTA_ROWS
+
+
+def column_splits(m: int, n: int, sms: int, rows: int = CTA_ROWS) -> int:
+    """Column ranges of a launch over ``m`` rows in square CTA tiles of
+    ``rows`` rows and columns.  A launch with fewer CTA rows than SMs splits
+    into enough ranges for four CTAs per SM (several waves, so the last
+    one's idle SMs cost little), in whole column tiles, returned as the
+    number of ranges that ``ceil(tiles / splits)`` tiles each actually make
+    (what the kernel checks).  A launch with a CTA row per SM or more does
+    not split: each range starts its top-k lists empty, and their first
+    tiles insert the most."""
+    ctas = -(-m // rows)
+    tiles = -(-n // rows)
+    if ctas >= sms:
+        return 1
+    want = max(1, min(-(-4 * sms // ctas), tiles, MAX_SPLITS))
     per = -(-tiles // want)
     return -(-tiles // per)
+
+
+topk_splits = column_splits  # the split of a top-k launch at CTA_ROWS rows
 
 
 def check_operand(t: torch.Tensor, name: str, dtype, shape) -> None:
@@ -174,19 +201,21 @@ def ptr(t):
 def launch(mode: str, flags: int, e1: torch.Tensor, e2: torch.Tensor, *,
            rs1=None, rs2=None, scale=None, v=None, n_bins: int = 1,
            exponent: float = 1.0, rs_exponent: float = 1.0,
-           floor: float = 1e-3, k: int = 1, bm: int = 1):
+           floor: float = 1e-3, k: int = 1, bm: int = 1, splits=None):
     """One launch of the fused kernel on the current stream.
 
     ``e1`` (M, d) and ``e2`` (N, d) are float32, bfloat16 or int8 per
-    ``mode``, with d a multiple of 4 (16 for int8).  Returns
+    ``mode``, with d a multiple of ``ALIGN[mode]``.  The tile rows
+    (:func:`tile_rows`, narrowed where the wide tile's shared memory does not
+    fit) and the column split (:func:`column_splits`, unless ``splits``
+    names one) are chosen here.  Returns
     ``(block_counts, vals, idx, row_sums)``; entries whose epilogue is off
     are None."""
     dtype = {"fp32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}[mode]
     m, d = e1.shape
     n = e2.shape[0]
-    align = 16 if mode == "int8" else 4
-    if d % align:
-        raise ValueError(f"d={d} must be a multiple of {align} for {mode}")
+    if d % ALIGN[mode]:
+        raise ValueError(f"d={d} must be a multiple of {ALIGN[mode]} for {mode}")
     check_operand(e1, "e1", dtype, (m, d))
     check_operand(e2, "e2", dtype, (n, d))
     dev = e1.device
@@ -195,41 +224,48 @@ def launch(mode: str, flags: int, e1: torch.Tensor, e2: torch.Tensor, *,
         check_operand(rs1, "rs1", f32, (m,))
         check_operand(rs2, "rs2", f32, (n,))
     block_counts = vals = idx = row_sums = None
+    rows = tile_rows(m, m)
     if flags & HIST:
         check_operand(scale, "scale", f32, (m,))
         n_tiles = -(-m // bm)
         if bm % CTA_ROWS and n_tiles > 1:
             raise ValueError(f"block rows {bm} must be a multiple of {CTA_ROWS}")
         block_counts = torch.zeros((n_tiles, n_bins), dtype=i32, device=dev)
-    splits, part_vals, part_idx = 1, None, None
+        rows = tile_rows(m, bm)
+    if flags & TOPK and not 1 <= k <= n:
+        raise ValueError(f"k={k} must lie in [1, {n}]")
+    so = lib()
+    smem = so.repro_sim_smem_bytes(flags, n_bins, k, rows)
+    if smem > MAX_SMEM and rows == WIDE_ROWS:
+        rows = CTA_ROWS
+        smem = so.repro_sim_smem_bytes(flags, n_bins, k, rows)
+    if smem > MAX_SMEM:
+        raise ValueError(f"launch needs {smem} B of shared memory (> {MAX_SMEM})")
+    if splits is None:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        splits = column_splits(m, n, sms, rows)
+    # per-range outputs for the merge kernel; freed after the call, which is
+    # safe because the allocator reuses memory in stream order and both
+    # kernels run on the current stream
+    part_vals = part_idx = part_sums = None
     if flags & TOPK:
-        if not 1 <= k <= n:
-            raise ValueError(f"k={k} must lie in [1, {n}]")
         vals = torch.empty((m, k), dtype=f32, device=dev)
         idx = torch.empty((m, k), dtype=i32, device=dev)
-        if flags == TOPK:
-            sms = torch.cuda.get_device_properties(dev).multi_processor_count
-            splits = topk_splits(m, n, sms)
         if splits > 1:
-            # per-range lists for the merge kernel; freed after the call,
-            # which is safe because the allocator reuses memory in stream
-            # order and both kernels run on the current stream
             part_vals = torch.empty((m, splits, k), dtype=f32, device=dev)
             part_idx = torch.empty((m, splits, k), dtype=i32, device=dev)
     if flags & SUMS:
         check_operand(v, "v", f32, (n,))
         row_sums = torch.empty((m,), dtype=f32, device=dev)
-    so = lib()
-    smem = so.repro_sim_smem_bytes(MODES[mode], flags, n_bins, k)
-    if smem > MAX_SMEM:
-        raise ValueError(f"launch needs {smem} B of shared memory (> {MAX_SMEM})")
+        if splits > 1:
+            part_sums = torch.empty((m, splits, 2), dtype=f32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = so.repro_sim_launch(
             MODES[mode], flags, ptr(e1), ptr(e2), ptr(rs1), ptr(rs2),
             ptr(scale), ptr(v), m, n, d, n_bins, float(exponent),
-            float(rs_exponent), float(floor), k, bm, splits, ptr(part_vals),
-            ptr(part_idx), ptr(block_counts),
+            float(rs_exponent), float(floor), k, bm, rows, splits,
+            ptr(part_vals), ptr(part_idx), ptr(part_sums), ptr(block_counts),
             ptr(vals), ptr(idx), ptr(row_sums), ctypes.c_void_p(stream),
         )
     if err != 0:

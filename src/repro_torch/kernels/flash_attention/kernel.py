@@ -1,9 +1,10 @@
 """CUDA launch wrapper of GQA flash attention (K5).
 
 Replaces the Pallas kernel ``_kernel`` of
-``src/repro/kernels/flash_attention/kernel.py``; the kernel is
-``flash_attention_kernel`` in ``csrc/model_kernels.cu`` (its header gives
-the design and the bound)."""
+``src/repro/kernels/flash_attention/kernel.py``; the kernels are in
+``csrc/model_kernels.cu`` (its header gives the design and the bound):
+``flash_attention_bf16_kernel`` on the tensor cores for bfloat16 and the
+SIMT ``flash_attention_kernel`` for float32."""
 from __future__ import annotations
 
 import ctypes

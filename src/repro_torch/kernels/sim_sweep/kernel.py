@@ -15,27 +15,26 @@ NAMES = {"fp32": "sim_sweep[fp32]", "bf16": "sim_sweep[bf16]",
 
 
 def kernel_operand(t: torch.Tensor, precision: str) -> torch.Tensor:
-    """A padded table in the form the kernel reads: f32 or bf16 (rounded to
-    nearest even) with the width padded to a multiple of 4, or int8 rows
-    padded to a multiple of 16."""
-    if precision == "int8":
-        return cuda_lib.pad_cols(t, 16)
+    """A padded table in the form the kernel reads: f32, bf16 (rounded to
+    nearest even) or int8 rows, the width padded with zero columns to a
+    multiple of 16 bytes (``cuda_lib.ALIGN``)."""
     if precision == "bf16":
         t = t.to(torch.bfloat16)
-    return cuda_lib.pad_cols(t, 4)
+    return cuda_lib.pad_cols(t, cuda_lib.ALIGN[precision])
 
 
 def sim_sweep_cuda(e1, e2, scale, v, *, n_bins=4096, exponent=1.0,
                    rs_exponent=None, floor=1e-3, k=8, bm=256,
-                   precision="fp32", rs1=None, rs2=None):
+                   precision="fp32", rs1=None, rs2=None, splits=None):
     """One launch over padded inputs already in kernel form
-    (:func:`kernel_operand`).  Returns (block_counts (M/bm, n_bins) int32,
-    vals (M, k) f32, idx (M, k) int32, row_sums (M,) f32)."""
+    (:func:`kernel_operand`), split into ``splits`` column ranges (by
+    default as ``cuda_lib.launch`` chooses).  Returns (block_counts (M/bm,
+    n_bins) int32, vals (M, k) f32, idx (M, k) int32, row_sums (M,) f32)."""
     rs_exp = exponent if rs_exponent is None else rs_exponent
     out = cuda_lib.launch(
         precision, cuda_lib.HIST | cuda_lib.TOPK | cuda_lib.SUMS, e1, e2,
         rs1=rs1, rs2=rs2, scale=scale, v=v, n_bins=n_bins, exponent=exponent,
-        rs_exponent=rs_exp, floor=floor, k=k, bm=bm,
+        rs_exponent=rs_exp, floor=floor, k=k, bm=bm, splits=splits,
     )
     cuda_lib.LAUNCHES[NAMES[precision]] += 1
     return out

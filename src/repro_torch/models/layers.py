@@ -148,7 +148,8 @@ def chunked_attention(p: Attention, cfg: ModelConfig, x, positions,
     the card, its plain version on the CPU), in the kernel's (B, H, S, d)
     layout.  The kernel masks by position counted from 0 in both q and k,
     which is what ``positions`` is on the forward path (an ``arange``);
-    ``positions`` feeds RoPE.  The kernel computes P.V in f32 where the
+    ``positions`` feeds RoPE.  The kernel computes P.V with f32 P (at bf16
+    on the tensor cores, each P as three exact bf16 terms) where the
     reference casts the probabilities to the model type first, so at bf16
     the two differ by bf16 rounding."""
     b, s, _ = x.shape

@@ -164,6 +164,72 @@ def test_topk_few_rows_split_matches_unsplit(card, m):
     checks.check_topk(kv, ki, pv, pi, s64, bound)
 
 
+@pytest.mark.parametrize("bm", [64, 192, 256])
+def test_fp32_sweep_wide_and_narrow_tiles_bit_identical(card, bm):
+    """M = 300 is not a multiple of 128: count tiles of 64 or 192 rows take
+    the 64-row tile, 256 the 128-row tile; the two-pass kernels (one count
+    tile, the 128-row tile) compute every score by the same fmaf chain, so
+    the sweep equals them bit for bit either way."""
+    a, b, _, _ = _inputs(card, 300, 1100, 96, "fp32", seed=9)
+    rows = cuda_lib.tile_rows(300, bm)
+    assert rows == (128 if bm == 256 else 64)
+    scale = torch.ones(300, device=card)
+    v = torch.ones(1100, device=card)
+    a4, b4 = kernel_operand(a, "fp32"), kernel_operand(b, "fp32")
+    bc, vals, idx, sums = sim_sweep_cuda(a4, b4, scale, v, n_bins=512, k=16, bm=bm)
+    hist = sim_hist_cuda(a4, b4, scale, n_bins=512)
+    tv, ti = sim_topk_cuda(a4, b4, k=16)
+    torch.cuda.synchronize()
+    assert bc.shape[0] == -(-300 // bm)
+    assert torch.equal(bc.sum(dim=0), hist)
+    assert torch.equal(vals, tv) and torch.equal(idx, ti)
+    s64, bound = checks.exact_scores(a, b)
+    pb, pv, pi, _ = sim_sweep_ref(a, b, scale, v, n_bins=512, k=16, bm=bm)
+    checks.check_counts([bc, pb], s64, bound, n_bins=512, exponent=1.0,
+                        floor=1e-3, bm=bm, scale=scale)
+    checks.check_topk(vals, idx, pv, pi, s64, bound)
+    checks.check_sums(sums, s64, exponent=1.0, floor=1e-3, v=v)
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16", "int8"])
+def test_split_sweep_matches_unsplit(card, precision):
+    """A sweep with too few CTAs for the card splits its columns: counts and
+    top-k equal an unsplit launch's, and both launches' walk sums lie within
+    1e-6 of f64 (the chain's prefix launch at a small size: exponent 0.5, a
+    per-row scale, sums at exponent 1)."""
+    a, b, rs1, rs2 = _inputs(card, 256, 9000, 64, precision, seed=10)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    splits = cuda_lib.column_splits(256, 9000, sms, cuda_lib.tile_rows(256, 256))
+    assert splits > 1
+    scale = torch.from_numpy(
+        np.random.default_rng(11).random(256).astype(np.float32) ** 0.5).to(card)
+    v = torch.from_numpy((10.0 ** np.random.default_rng(12).uniform(-1, 1, 9000))
+                         .astype(np.float32)).to(card)
+    kw = dict(n_bins=1024, exponent=0.5, rs_exponent=1.0, floor=1e-3, k=32, bm=256,
+              precision=precision, rs1=rs1, rs2=rs2)
+    ka, kb = kernel_operand(a, precision), kernel_operand(b, precision)
+    split = sim_sweep_cuda(ka, kb, scale, v, **kw)
+    whole = sim_sweep_cuda(ka, kb, scale, v, splits=1, **kw)
+    torch.cuda.synchronize()
+    for x, y in zip(split[:3], whole[:3]):
+        assert torch.equal(x, y)
+    s64, _ = checks.exact_scores(a, b, precision, rs1, rs2)
+    for sums in (split[3], whole[3]):
+        checks.check_sums(sums, s64, exponent=1.0, floor=1e-3, v=v)
+
+
+def test_tile_shared_memory(card):
+    """The sweep at k 32 and 4,096 bins: the 128 x 128 tile fits one CTA an
+    SM (227 KB a block), the 64 x 64 tile two (228 KB an SM, 1 KB reserved
+    a CTA); a k = 128 top-k launch takes the 64 tile, as the wrapper
+    narrows a tile whose shared memory does not fit."""
+    smem = cuda_lib.lib().repro_sim_smem_bytes
+    sweep = cuda_lib.HIST | cuda_lib.TOPK | cuda_lib.SUMS
+    assert smem(sweep, 4096, 32, 128) == 227328
+    assert 2 * (smem(sweep, 4096, 32, 64) + 1024) <= 233472
+    assert smem(cuda_lib.TOPK, 1, 128, 64) <= cuda_lib.MAX_SMEM < smem(cuda_lib.TOPK, 1, 128, 128)
+
+
 def test_launch_checks_raise(card):
     a, b, _, _ = _inputs(card, 64, 64, 16, "fp32")
     with pytest.raises(ValueError):
@@ -229,6 +295,29 @@ def test_flash_attention_matches_plain(card, dtype, b, hq, hkv, sq, skv, d,
     got = flash_attention_cuda(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == q.shape
+    checks.check_model_kernel(
+        got, flash_attention_ref(q, k, v, causal=causal, window=window),
+        checks.flash_attention_bound(q, k, v, causal=causal, window=window))
+
+
+# bf16 on the tensor cores at the scorer's buckets (S 16, 32, 48): MHA, GQA
+# and MQA at d 64 and 256, and ragged Skv (not a multiple of 16)
+BF16_SHORT = [(s, d, hq, hkv) for s in (16, 32, 48) for d in (64, 256)
+              for hq, hkv in ((4, 4), (8, 2), (6, 1))]
+
+
+@pytest.mark.parametrize("sq,skv,d,hq,hkv,causal,window",
+                         [(s, s, d, hq, hkv, True, 0) for s, d, hq, hkv in BF16_SHORT]
+                         + [(37, 37, 64, 4, 4, True, 0), (20, 37, 64, 8, 2, True, 0),
+                            (45, 45, 256, 16, 1, True, 2048), (37, 37, 256, 3, 3, False, 9)])
+def test_flash_attention_bf16_short_sequences(card, sq, skv, d, hq, hkv, causal, window):
+    rng = np.random.default_rng(sq * 13 + d + hq)
+    q = _normal(card, rng, (3, hq, sq, d), torch.bfloat16)
+    k = _normal(card, rng, (3, hkv, skv, d), torch.bfloat16)
+    v = _normal(card, rng, (3, hkv, skv, d), torch.bfloat16)
+    got = flash_attention_cuda(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
     checks.check_model_kernel(
         got, flash_attention_ref(q, k, v, causal=causal, window=window),
         checks.flash_attention_bound(q, k, v, causal=causal, window=window))

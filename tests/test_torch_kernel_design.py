@@ -1,0 +1,195 @@
+"""The arithmetic and launch policy of the redesigned kernels, on the CPU.
+
+* **K5 at bf16** runs on the tensor cores: q . k as bf16 products summed in
+  f32 (the products of two bf16 are exact in f32), the online softmax over
+  64-key tiles, and P . V with each f32 weight split exactly into three bf16
+  terms, each multiplied by V (exact in bf16) and summed in f32.
+  :func:`emulate_flash_bf16` repeats that arithmetic in plain PyTorch, and
+  it is held to ``checks.check_model_kernel`` (twice the f32 error bound of
+  attention plus half a bf16 ulp each side, the rule the card's kernel
+  meets) against ``flash_attention_ref`` at every ``chip_smoke.FLASH_SHAPES``
+  entry at a batch of 2, and against the reference's Pallas kernel in
+  interpret mode at a small shape.  The S 4096 shapes keep their batch,
+  heads and lengths; their check runs one (batch, q head) at a time for the
+  first and the last q head, so that the f64 bound's (S, S) temporaries
+  stay near 1 GB (every head computes alike).
+* **The similarity tile** is 128 x 128 where a launch's count tiles hold
+  whole 128-row tiles, else 64 x 64, and a launch with fewer CTA rows than
+  SMs splits its columns into ranges of whole column tiles, enough for
+  about four CTAs per SM
+  (``cuda_lib.tile_rows``, ``cuda_lib.column_splits``).
+"""
+import importlib.util
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention.kernel import flash_attention_pallas
+from repro_torch.kernels import checks, cuda_lib
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+TILE = checks.FA_TILE
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
+def split3(p):
+    """f32 ``p`` as three bf16 terms whose f32 sum is ``p`` exactly."""
+    hi = p.to(torch.bfloat16).float()
+    mid = (p - hi).to(torch.bfloat16).float()
+    lo = (p - hi - mid).to(torch.bfloat16).float()
+    return hi, mid, lo
+
+
+def emulate_flash_bf16(q, k, v, causal=True, window=0):
+    """The bf16 tensor-core kernel's arithmetic: (B, Hq, Sq, d) bf16 out."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    qf = q.float().reshape(b, hkv, g, sq, d)
+    kf, vf = k.float()[:, :, None], v.float()[:, :, None]
+    m = torch.full((b, hkv, g, sq, 1), -1e30)
+    l = torch.zeros((b, hkv, g, sq, 1))
+    acc = torch.zeros((b, hkv, g, sq, d))
+    qp = torch.arange(sq)[:, None]
+    for kv0 in range(0, skv, TILE):
+        kp = torch.arange(kv0, min(kv0 + TILE, skv))[None, :]
+        s = (qf @ kf[..., kv0:kv0 + TILE, :].transpose(-1, -2)) * d**-0.5
+        masked = torch.zeros((sq, kp.shape[1]), dtype=torch.bool)
+        if causal:
+            masked |= qp < kp
+        if window > 0:
+            masked |= qp - kp >= window
+        s = torch.where(masked, torch.tensor(-1e30), s)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        vt = vf[..., kv0:kv0 + TILE, :]
+        pv = torch.zeros_like(acc)
+        for term in reversed(split3(p)):  # the smallest term first
+            pv = pv + term @ vt
+        acc = acc * alpha + pv
+        m = m_new
+    o = acc / l.clamp_min(1e-30)
+    return o.reshape(b, hq, sq, d).to(torch.bfloat16)
+
+
+def _bf16(rng, shape):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(torch.bfloat16)
+
+
+def test_split3_is_exact():
+    rng = np.random.default_rng(0)
+    p = torch.from_numpy(np.concatenate([
+        rng.random(4096), np.exp(-rng.uniform(0, 60, 4096)), [0.0, 1.0, 2.0**-100]
+    ]).astype(np.float32))
+    hi, mid, lo = split3(p)
+    assert torch.equal(hi + mid + lo, p)
+    assert torch.equal((hi + mid) + lo, p)
+    for t in (hi, mid, lo):
+        assert torch.equal(t.to(torch.bfloat16).float(), t)
+
+
+@pytest.mark.parametrize("label", ["joinml-oracle path", "recurrentgemma-9b path",
+                                   "joinml-oracle, 16-token bucket"])
+def test_flash_bf16_emulation_holds_the_rule_at_path_shapes(label):
+    _, hq, hkv, s, d, causal, window = _chip_smoke().FLASH_SHAPES[label]
+    rng = np.random.default_rng(s + d)
+    q, k, v = (_bf16(rng, (2, h, s, d)) for h in (hq, hkv, hkv))
+    got = emulate_flash_bf16(q, k, v, causal, window)
+    res = checks.check_model_kernel(
+        got, flash_attention_ref(q, k, v, causal=causal, window=window),
+        checks.flash_attention_bound(q, k, v, causal=causal, window=window))
+    assert res["err_over_tol"] <= 1.0
+
+
+@pytest.mark.parametrize("label", ["llama3.2-1b heads, S 4096",
+                                   "recurrentgemma heads, S 4096, window 2048"])
+def test_flash_bf16_emulation_holds_the_rule_at_long_shapes(label):
+    _, hq, hkv, s, d, causal, window = _chip_smoke().FLASH_SHAPES[label]
+    rng = np.random.default_rng(s + d)
+    q, k, v = (_bf16(rng, (2, h, s, d)) for h in (hq, hkv, hkv))
+    for h in (0, hq - 1):
+        kvh = h // (hq // hkv)
+        for bi in range(2):
+            qh = q[bi:bi + 1, h:h + 1]
+            kh, vh = k[bi:bi + 1, kvh:kvh + 1], v[bi:bi + 1, kvh:kvh + 1]
+            got = emulate_flash_bf16(qh, kh, vh, causal, window)
+            checks.check_model_kernel(
+                got, flash_attention_ref(qh, kh, vh, causal=causal, window=window),
+                checks.flash_attention_bound(qh, kh, vh, causal=causal, window=window))
+
+
+def test_flash_bf16_emulation_matches_pallas():
+    """Against the reference's Pallas kernel in interpret mode (f32 P . V),
+    GQA, a ragged length and a window, at the rule the card is held to."""
+    b, hq, hkv, s, d, window = 2, 4, 2, 40, 16, 24
+    rng = np.random.default_rng(9)
+    xs = [rng.standard_normal((b, h, s, d)).astype(np.float32) for h in (hq, hkv, hkv)]
+    jx = [jnp.asarray(x, jnp.bfloat16) for x in xs]
+    q, k, v = (torch.from_numpy(np.array(jnp.asarray(x, jnp.float32))).to(torch.bfloat16)
+               for x in jx)
+    pallas = flash_attention_pallas(*jx, causal=True, window=window, bq=8, bkv=8,
+                                    interpret=True)
+    pallas = torch.from_numpy(np.array(jnp.asarray(pallas, jnp.float32))).to(torch.bfloat16)
+    got = emulate_flash_bf16(q, k, v, True, window)
+    checks.check_model_kernel(got, pallas,
+                              checks.flash_attention_bound(q, k, v, window=window))
+
+
+# ----------------------------------------------------------------------------
+# the similarity tile's launch policy
+# ----------------------------------------------------------------------------
+
+@pytest.mark.parametrize("m,bm,rows", [
+    (32768, 256, 128),   # the main path's sweep: count tiles of 256 rows
+    (4096, 256, 128),    # the chain's prefix block
+    (300, 64, 64),       # count tiles of 64 rows
+    (300, 192, 64),      # 192 is a multiple of 64, not of 128
+    (300, 300, 128),     # one count tile (the histogram launch: bm = M)
+    (300, 512, 128),     # one count tile, bm past M
+    (64, 64, 64),        # one narrow tile's rows
+    (8, 8, 64),          # the raised-k retry's few rows
+])
+def test_tile_rows(m, bm, rows):
+    assert cuda_lib.tile_rows(m, bm) == rows
+    # a CTA's rows always fall in one count tile
+    assert bm >= m or bm % rows == 0
+
+
+@pytest.mark.parametrize("rows", [cuda_lib.CTA_ROWS, cuda_lib.WIDE_ROWS])
+@pytest.mark.parametrize("sms", [1, 16, 132])
+def test_column_splits_are_ranges_the_kernel_accepts(rows, sms):
+    for m in (1, 8, 64, 65, 300, 4096, 32768):
+        for n in (1, 63, 64, 1000, 5000, 32768, 100000):
+            s = cuda_lib.column_splits(m, n, sms, rows)
+            tiles = -(-n // rows)  # square tiles
+            per = -(-tiles // s)
+            assert 1 <= s <= min(tiles, cuda_lib.MAX_SPLITS)
+            assert -(-tiles // per) == s  # repro_sim_launch's own check
+            ctas = -(-m // rows)
+            if ctas >= sms:
+                assert s == 1
+
+
+def test_chain_prefix_launch_fills_the_card():
+    """The 3-way chain's 4,096-row prefix block against 32,768 columns: 32
+    CTAs of 128 rows, split into column ranges for about 4 CTAs per SM of an
+    H100 (132 SMs)."""
+    rows = cuda_lib.tile_rows(4096, 256)
+    splits = cuda_lib.column_splits(4096, 32768, 132, rows)
+    assert rows == 128 and splits == 16  # 256 column tiles, 16 a range
+    assert -(-4096 // rows) * splits >= 2 * 132
+    # the main path's sweep has 256 CTAs of 128 rows: no split
+    assert cuda_lib.column_splits(32768, 32768, 132, 128) == 1
+
