@@ -8,11 +8,13 @@ Phases: (1) the card; (2) build the CUDA kernels from ``src/repro_torch/csrc``
 (every source at once) and print ptxas's report; (3) hold every similarity
 kernel against its plain PyTorch version at main-path shapes (a 4,096-row
 slice of E1 against the full E2) under the rules of
-``repro_torch.kernels.checks``, the fp32 sweep against the two-pass kernels
-bit for bit, and the fp32 sweep as the 3-way chain calls it (exponent 0.5, a
+``repro_torch.kernels.checks``, the fp32 and bf16 sweeps against their
+two-pass kernels bit for bit (with the largest bf16 score error over its
+bound), and the fp32 sweep as the 3-way chain calls it (exponent 0.5, a
 per-row scale, walk sums at exponent 1); then flash attention and the two
 recurrent scans against theirs at the shapes the model paths give them and
-at one long shape each, with their times; (4) the query path:
+at one long shape each, with their times (the RWKV6 scan in the model's
+layout and types, and on f32 operands); (4) the query path:
 ``JoinMLEngine.execute`` on 32,768 x 32,768 records at d = 384 (COUNT, SUM,
 AVG; COUNT at bf16, at int8 and on the two-pass schedule; a catalog with
 canonical records that drives the raised-k top-k retry), a 3-way chain
@@ -435,6 +437,8 @@ def phase3(ds, rows):
             fail("int8 sweep is not bit-identical to its plain version")
         if precision == "fp32":
             fp32 = (a, b, kb, kv, ki, s64, bound)
+        if precision == "bf16":
+            bf16_two_pass(a, b, kb, kv, ki, s64, bound)
         del s64, bound
         torch.cuda.empty_cache()
     a, b, kb, kv, ki, s64, bound = fp32
@@ -466,6 +470,35 @@ def phase3(ds, rows):
     del s64, bound
     torch.cuda.empty_cache()
     return errs
+
+
+def bf16_two_pass(a, b, kb, kv, ki, s64, bound):
+    """The bf16 sweep against the bf16 histogram and top-k launches (bit for
+    bit: every score takes the same mmas and flushes), and the largest error
+    of the scores it kept, |score - exact| / bound, under the rule's bound
+    gamma_d sum |a_i b_i| (the tensor cores' rounding inside an mma is not
+    documented; each 64-column slice is flushed into the f32 sum with
+    round-to-nearest)."""
+    from repro_torch.kernels.sim_hist.kernel import sim_hist_cuda
+    from repro_torch.kernels.sim_sweep.kernel import kernel_operand
+    from repro_torch.kernels.sim_topk.kernel import sim_topk_cuda
+
+    a2, b2 = kernel_operand(a, "bf16"), kernel_operand(b, "bf16")
+    ones = torch.ones(a.shape[0], device="cuda")
+    hist = sim_hist_cuda(a2, b2, ones, n_bins=4096, precision="bf16")
+    tv, ti = sim_topk_cuda(a2, b2, k=kv.shape[1], precision="bf16")
+    torch.cuda.synchronize()
+    identical = bool(torch.equal(kb.sum(dim=0), hist) and torch.equal(kv, tv)
+                     and torch.equal(ki, ti))
+    kept = torch.gather(s64, 1, ki.long()).clamp(0.0, 1.0)
+    ratio = float(((kv.double() - kept).abs() / torch.gather(bound, 1, ki.long())).max())
+    log(json.dumps({"check": "bf16 sweep == sim_hist + sim_topk[k=32] at bf16",
+                    "bit_identical": identical,
+                    "max_score_err_over_bound": ratio}))
+    if not identical:
+        fail("bf16 sweep differs from the bf16 two-pass launches")
+    if not ratio <= 1.0:
+        fail(f"a bf16 score is off by {ratio} times its bound")
 
 
 def chain_check(chain):
@@ -838,6 +871,8 @@ FLASH_SHAPES = {
     "llama3.2-1b heads, S 4096": (1, 32, 8, 4096, 64, True, 0),
     "recurrentgemma heads, S 4096, window 2048": (1, 16, 1, 4096, 256, True, 2048),
 }
+# (B, H, T, hd); K6 runs them on bf16 (B, T, H, hd) projections as the model
+# holds them, then on f32 (B, H, T, hd) operands
 RWKV_SHAPES = {"rwkv6-1.6b path": (256, 32, 48, 64), "T 4096": (1, 32, 4096, 64)}
 RGLRU_SHAPES = {"recurrentgemma-9b path": (256, 48, 4096), "T 4096": (1, 4096, 4096)}
 
@@ -875,23 +910,36 @@ def _flash_f32_case(gen, shape):
     return _flash_case(gen, shape, torch.float32)
 
 
-def _rwkv_case(gen, shape):
+def _rwkv_case(gen, shape, model_layout=True):
+    """K6 as the model calls it (bf16 r, k, v and f32 w as (B, H, T, hd)
+    views of (B, T, H, hd) projections), or on f32 (B, H, T, hd) operands.
+    Work: a multiply and two FMAs per state element and step (5 flops);
+    bytes: r, k, v at their size, w, out and u in f32."""
     from repro_torch.kernels import checks
     from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_cuda
     from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
 
     b, h, t, hd = shape
-    r, k, v = (torch.randn((b, h, t, hd), generator=gen, device="cuda") for _ in range(3))
+    dims = (b, t, h, hd) if model_layout else (b, h, t, hd)
+    view = (lambda z: z.transpose(1, 2)) if model_layout else (lambda z: z)  # noqa: E731
+    dtype = torch.bfloat16 if model_layout else torch.float32
+    r, k, v = (view(torch.randn(dims, generator=gen, device="cuda").to(dtype))
+               for _ in range(3))
     # the model's decays: exp(-exp(w0 + ...)) with w0 = -6
-    w = torch.exp(-torch.exp(torch.empty((b, h, t, hd), device="cuda")
-                             .uniform_(-8.0, -4.0, generator=gen)))
+    w = view(torch.exp(-torch.exp(torch.empty(dims, device="cuda")
+                                  .uniform_(-8.0, -4.0, generator=gen))))
     u = 0.1 * torch.randn((h, hd), generator=gen, device="cuda")
-    flops = 6.0 * b * h * t * hd * hd
-    byts = 4 * (5 * b * h * t * hd + h * hd)
+    n = b * h * t * hd
+    flops = 5.0 * n * hd
+    byts = 3 * n * r.element_size() + 4 * (2 * n + h * hd)
     return (lambda: rwkv6_scan_cuda(r, k, v, w, u),
             lambda: rwkv6_scan_ref(r, k, v, w, u),
             lambda: checks.rwkv6_scan_bound(r, k, v, w, u),
             None, flops, byts, PEAK["fp32"])
+
+
+def _rwkv_f32_case(gen, shape):
+    return _rwkv_case(gen, shape, model_layout=False)
 
 
 def _rglru_case(gen, shape):
@@ -925,10 +973,11 @@ def model_kernels():
         return {label: (shape, case) for label, shape in shapes.items()}
 
     f32_shapes = {f"{label}, f32": shape for label, shape in FLASH_SHAPES.items()}
+    rwkv_f32 = {f"{label}, f32 (B, H, T, hd)": shape for label, shape in RWKV_SHAPES.items()}
     for name, shape_cases in (
             ("flash_attention", cases(FLASH_SHAPES, _flash_case)
              | cases(f32_shapes, _flash_f32_case)),
-            ("rwkv6_scan", cases(RWKV_SHAPES, _rwkv_case)),
+            ("rwkv6_scan", cases(RWKV_SHAPES, _rwkv_case) | cases(rwkv_f32, _rwkv_f32_case)),
             ("rglru_scan", cases(RGLRU_SHAPES, _rglru_case))):
         rows[name] = []
         for label, (shape, case) in shape_cases.items():

@@ -4,11 +4,10 @@
 //   K5  src/repro/kernels/flash_attention/kernel.py  _kernel  (GQA flash attention)
 //   K6  src/repro/kernels/rwkv6_scan/kernel.py       _kernel  (RWKV6 recurrence)
 //   K7  src/repro/kernels/rglru_scan/kernel.py       _kernel  (RG-LRU recurrence)
-// K6 and K7 are first, plain versions on the CUDA cores: right and simple
-// first, fast in a later change; K5 runs bf16 on the tensor cores.  None of
-// them asserts a block multiple:
-// every kernel masks its own ragged edge (the scorer's sequence buckets are
-// 16, 32 and 48 tokens).
+// K7 is a plain version on the CUDA cores; K6 is a per-warp recurrence on the
+// CUDA cores redesigned for Hopper; K5 runs bf16 on the tensor cores.  None
+// of them asserts a block multiple: every kernel masks its own ragged edge
+// (the scorer's sequence buckets are 16, 32 and 48 tokens).
 //
 // K5, flash attention.  out = softmax(q k^T * d**-0.5 + mask) v per (batch,
 // q head), with the q head's KV head h / (Hq / Hkv), so K and V are never
@@ -60,18 +59,47 @@
 //   threads of a row group read 16 banks; the 16 threads of a row are one
 //   half-warp, so row max and row sum are four xor shuffles.
 //
-// K6, RWKV6 scan.  Per (batch, head), from S = 0 (hd x hd):
+// K6, RWKV6 scan.  Per (batch, head), from S = 0 (hd x hd), all in f32:
 //   out_t = r_t (S + u * k_t^T v_t),  S <- diag(w_t) S + k_t^T v_t.
-//   Bound: operations, ~6 * hd^2 f32 flops per (batch, head, step) against
-//   5 * hd floats moved.  Column j of S evolves on its own (it needs only
-//   v_t[j] and the k, w, r, u vectors), so thread j of a CTA of hd threads
-//   owns column j of S in registers: the state never leaves the chip, as
-//   the TPU kernel kept it in VMEM.  A chunk of r, k, v, w (2,048 / hd
-//   steps) is staged in shared memory, where every thread reads the same
-//   r_t[i], k_t[i], w_t[i] (broadcast) and its own v_t[j].  Time runs in
-//   order inside the CTA; the final state is not returned (forward discards
-//   it).
-//
+//   Bound: at the rwkv6-1.6b path (B 256, H 32, T 48, hd 64) operations
+//   and bytes about alike: a multiply and two FMAs per (row i, column j,
+//   step) of S against 5 values of hd moved per step (r, k, v read as the
+//   model holds them, bf16 or f32; w f32; out f32).  Column j of S evolves
+//   on its own and only the read-out sums over the rows i, so the state is
+//   cut by columns and never leaves the registers (the TPU kernel kept it
+//   in VMEM).
+//   * Per element: the bonus term is hoisted, out_j = sum_i r_i S_ij + v_j
+//     beta with beta = sum_i (r_i u_i) k_i once per step, so an element
+//     costs kv = k_i v_j (a multiply), acc += r_i S_ij and S_ij = w_i S_ij
+//     + kv (two FMAs).  The read-out keeps NP partial sums (rows i mod NP)
+//     so no chain is hd deep.  Rounding: a state term passes at most t + 1
+//     roundings in S, RPL / NP + 2 in its partial sums, log2(RG) in the
+//     row-group butterfly and 1 in the final fma; beta's terms 1 + hd / 32
+//     + 5 + 1.  Both stay within checks.rwkv6_scan_bound's 2t + hd + 6.
+//   * Layout: a CTA is one warp and owns one (batch, head, column slice);
+//     a lane holds RPL rows x CPL columns of S in registers.  What limits
+//     a step is the shared-memory reads of r, k and w (each serves CPL
+//     columns) and, with few warps, the latency of a step's loads and
+//     butterfly.  Per head (split 0, the scorer's 8,192 heads): at hd 64 a
+//     lane holds 32 rows of 4 columns (128 registers; two row groups meet
+//     by one shuffle), a warp a head; hd 32 and 128 likewise at 2 and 4
+//     columns (hd 128: 4 warps a head), hd 16 half the rows of 1 column.
+//     Column split (split 1, few heads, as at B 1, T 4096: 32 heads): 8
+//     columns a warp, 1 a lane, the rows in 4 groups, so a head takes hd /
+//     8 warps that share nothing; 4 steps are unrolled so one step's loads
+//     and FMAs overlap the previous one's butterfly and store, and the
+//     stores are unconditional (every row group holds the same sum) so no
+//     branch stops that.  Row groups are padded by 4 floats in shared
+//     memory, so their 16-byte loads fall in distinct banks.
+//   * Operands as the model holds them: r, k, v (bf16 or f32) and w (f32)
+//     are read through their strides, so the model's (B, T, H, hd)
+//     projections need no copy, and out is written through its own strides.
+//     A chunk of steps (8 per head at hd 64, 32 in the column split) is
+//     copied by 16-byte cp.async into a copy buffer while the previous
+//     chunk's steps run, then widened to f32 in one pass (as the TPU
+//     kernel's astype(float32)).  The chunk's beta_t come from one
+//     butterfly over the warp that halves the steps a lane carries at each
+//     level, so its shuffles are independent of each other.
 // K7, RG-LRU scan.  h_t = a_t * h_{t-1} + g_t from h = 0, per (batch,
 //   channel).  Bound: bytes (12 bytes per element: a, g read, h written, all
 //   f32).  One thread per (batch, channel) walks T, so neighbouring threads
@@ -81,7 +109,8 @@
 //   sums in another order).
 //
 // Interface: plain C, called through ctypes.  The wrappers allocate every
-// output and pass contiguous tensors and PyTorch's current stream; each
+// output and pass contiguous tensors (K6: strided views) and PyTorch's
+// current stream; each
 // function returns cudaGetLastError() after its launch (or
 // cudaErrorInvalidValue for arguments it does not take).
 
@@ -90,6 +119,8 @@
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -288,41 +319,6 @@ constexpr int FB_BQ = 16;    // q rows of a unit: one warp's mma rows
 constexpr int FB_WARPS = 4;  // units of a CTA
 constexpr int FB_NT = 32 * FB_WARPS;
 
-__device__ __forceinline__ void fb_cp_async16(void* dst, const void* src, bool in) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  // src-size 0 zero-fills the 16 bytes (rows past Sq or Skv)
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(in ? 16 : 0));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
-}
-
-// c += a b for a 16 x 16 bf16 A (row-major fragment), a 16 x 8 bf16 B (column
-// fragment) and an f32 16 x 8 C
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
 // x = hi + mid + lo exactly, each term a bf16: hi = bf16(x), mid = bf16(x -
 // hi), lo = x - hi - mid (the residuals are exact in f32; 24 bits in three
 // 8-bit terms)
@@ -415,7 +411,7 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     for (int e = lane; e < FB_BQ * D / 8; e += 32) {
       const int r = e / (D / 8), c = (e % (D / 8)) * 8;
       const bool in = q0 + r < Sq;
-      fb_cp_async16(Qw + r * LD + c, in ? qb + (size_t)(q0 + r) * D + c : qb, in);
+      cp_async16(Qw + r * LD + c, in ? qb + (size_t)(q0 + r) * D + c : qb, in);
     }
   }
   asm volatile("cp.async.commit_group;\n" ::);
@@ -446,8 +442,8 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
         const int r = e / (D / 8), c = (e % (D / 8)) * 8;
         const bool in = kv0 + r < Skv;
         const size_t off = base + (size_t)(kv0 + r) * D + c;
-        fb_cp_async16(Ks + r * LD + c, in ? k + off : k, in);
-        fb_cp_async16(Vs + r * LD + c, in ? v + off : v, in);
+        cp_async16(Ks + r * LD + c, in ? k + off : k, in);
+        cp_async16(Vs + r * LD + c, in ? v + off : v, in);
       }
     }
   };
@@ -667,55 +663,246 @@ cudaError_t fb_dispatch(int d, const void* q, const void* k, const void* v,
 // K6: RWKV6 scan
 // ----------------------------------------------------------------------------
 
-constexpr int RW_STAGE = 2048;  // floats of one staged array: CT = 2048 / hd steps
+// The operands by their strides: (batch, head, time) of r, k, v, w and out
+// in elements; the head width is contiguous.
+struct RwArgs {
+  const void* r;
+  const void* k;
+  const void* v;
+  const float* w;
+  const float* u;
+  float* out;
+  long long sr[3], sk[3], sv[3], sw[3], so[3];
+  int H, T, slices;
+};
 
-template <int HD>
-__global__ void __launch_bounds__(HD)
-rwkv6_scan_kernel(const float* __restrict__ r, const float* __restrict__ k,
-                  const float* __restrict__ v, const float* __restrict__ w,
-                  const float* __restrict__ u, float* __restrict__ out, int H,
-                  int T) {
-  constexpr int CT = RW_STAGE / HD;
-  __shared__ float rs[CT][HD], ks[CT][HD], vs[CT][HD], ws[CT][HD], us[HD];
-  const int bh = blockIdx.x;
-  const int j = threadIdx.x;
-  const size_t base = (size_t)bh * T * HD;
-  us[j] = u[(bh % H) * HD + j];
-  float S[HD];  // column j of the state
-#pragma unroll
-  for (int i = 0; i < HD; ++i) S[i] = 0.f;
+__device__ __forceinline__ float4 rw_load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+// four bf16 widened to f32 (a bf16 is the top half of its f32: exact)
+__device__ __forceinline__ float4 rw_load4(const __nv_bfloat16* p) {
+  const uint2 w = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(w.x << 16), __uint_as_float(w.x & 0xffff0000u),
+                     __uint_as_float(w.y << 16), __uint_as_float(w.y & 0xffff0000u));
+}
 
-  for (int t0 = 0; t0 < T; t0 += CT) {
-    const int n = min(CT, T - t0);
-    __syncthreads();  // the previous chunk's readers are done (and us is written)
-    for (int tt = 0; tt < n; ++tt) {
-      const size_t off = base + (size_t)(t0 + tt) * HD + j;
-      rs[tt][j] = r[off];
-      ks[tt][j] = k[off];
-      vs[tt][j] = v[off];
-      ws[tt][j] = w[off];
+// One warp (a CTA of 32 threads) owns one (batch, head, column slice of SW
+// columns).  Lane = (row group rg of RG, column lane cl of 32 / RG); it holds
+// rows rg * RPL .. + RPL - 1 of its CPL columns cl + (32 / RG) c of S.
+// In the widened chunk a step's rows are stored by row group, each group
+// padded by 4 floats when RG > 1, so that the groups' 16-byte loads fall in
+// distinct banks.
+template <int HD, int CPL, int RG, int CT_>
+struct RwLayout {
+  static constexpr int RPL = HD / RG;          // rows of S a lane holds
+  static constexpr int NCL = 32 / RG;          // lanes of a row group
+  static constexpr int SW = NCL * CPL;         // columns of S a warp owns
+  static constexpr int CT = CT_;               // steps of a staged chunk
+  static constexpr int GS = RPL + (RG > 1 ? 4 : 0);  // row-group stride
+  static constexpr int HDP = RG * GS;          // a widened step's stride
+  static_assert(RPL % 4 == 0 && SW <= HD && CT <= 32 && (CT & (CT - 1)) == 0,
+                "the lane layout");
+};
+
+// CT steps a chunk; NP partial sums of the read-out a column (rows i mod
+// NP); UNR steps unrolled
+template <int HD, int CPL, int RG, int CT_, int NP, int UNR, typename TIN>
+__global__ void __launch_bounds__(32) rwkv6_scan_kernel(RwArgs p) {
+  using L = RwLayout<HD, CPL, RG, CT_>;
+  constexpr int RPL = L::RPL, NCL = L::NCL, SW = L::SW, CT = L::CT;
+  constexpr int GS = L::GS, HDP = L::HDP;
+  constexpr int EPC = 16 / (int)sizeof(TIN);  // elements of a 16-byte copy
+  constexpr int UPL = (HD + 31) / 32;         // rows of the bonus scalar a lane sums
+  static_assert(SW % EPC == 0, "v's slice is whole 16-byte copies");
+  extern __shared__ __align__(16) unsigned char rw_smem[];
+  // the chunk as copied (r, k: CT x HD and v: CT x SW as TIN; w: CT x HD),
+  // then widened to f32 (R, K, W: CT x HDP; V: CT x SW) with each step's
+  // bonus scalar
+  TIN* cr = reinterpret_cast<TIN*>(rw_smem);
+  TIN* ck = cr + CT * HD;
+  TIN* cv = ck + CT * HD;
+  float* cw = reinterpret_cast<float*>(cv + CT * SW);
+  float* fr = cw + CT * HD;
+  float* fk = fr + CT * HDP;
+  float* fw = fk + CT * HDP;
+  float* fv = fw + CT * HDP;
+  float* beta = fv + CT * SW;
+
+  const int lane = threadIdx.x;
+  const int bh = blockIdx.x / p.slices, c0 = (blockIdx.x % p.slices) * SW;
+  const int b = bh / p.H, h = bh % p.H;
+  const int rg = lane / NCL, cl = lane % NCL;
+  const TIN* rb = static_cast<const TIN*>(p.r) + b * p.sr[0] + h * p.sr[1];
+  const TIN* kb = static_cast<const TIN*>(p.k) + b * p.sk[0] + h * p.sk[1];
+  const TIN* vb = static_cast<const TIN*>(p.v) + b * p.sv[0] + h * p.sv[1] + c0;
+  const float* wb = p.w + b * p.sw[0] + h * p.sw[1];
+  float* ob = p.out + b * p.so[0] + h * p.so[1] + c0;
+
+  // the copies of the chunk at t0: whole rows of r, k and w, v's slice;
+  // steps past T are zero-filled
+  auto copy = [&](auto* dst, const auto* src, long long stride, int per, int width, int t0) {
+    for (int e = lane; e < CT * per; e += 32) {
+      const int tt = e / per, c = (e - tt * per) * (16 / (int)sizeof(*src));
+      const bool in = t0 + tt < p.T;
+      cp_async16(dst + tt * width + c, src + (in ? t0 + tt : 0) * stride + c, in);
     }
-    __syncthreads();
-    for (int tt = 0; tt < n; ++tt) {
-      const float vj = vs[tt][j];
-      float acc = 0.f;
+  };
+  auto issue = [&](int t0) {
+    copy(cr, rb, p.sr[2], HD / EPC, HD, t0);
+    copy(ck, kb, p.sk[2], HD / EPC, HD, t0);
+    copy(cv, vb, p.sv[2], SW / EPC, SW, t0);
+    copy(cw, wb, p.sw[2], HD / 4, HD, t0);
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  // a row's place in a widened step
+  auto at = [](int i) { return (i / RPL) * GS + i % RPL; };
+
+  float uu[UPL];
 #pragma unroll
-      for (int i = 0; i < HD; ++i) {
-        const float kv = ks[tt][i] * vj;
-        acc = fmaf(rs[tt][i], fmaf(us[i], kv, S[i]), acc);
-        S[i] = fmaf(ws[tt][i], S[i], kv);
+  for (int m = 0; m < UPL; ++m) {
+    const int i = lane + 32 * m;
+    uu[m] = i < HD ? p.u[h * HD + i] : 0.f;
+  }
+  float S[RPL][CPL];
+#pragma unroll
+  for (int i = 0; i < RPL; ++i)
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) S[i][c] = 0.f;
+
+  issue(0);
+  for (int t0 = 0; t0 < p.T; t0 += CT) {
+    const int n = min(CT, p.T - t0);
+    asm volatile("cp.async.wait_group 0;\n" ::);
+    __syncwarp();
+    for (int e = lane; e < CT * HD / 4; e += 32) {
+      const int tt = e / (HD / 4), d = tt * HDP + at(4 * e - tt * HD);
+      *reinterpret_cast<float4*>(fr + d) = rw_load4(cr + 4 * e);
+      *reinterpret_cast<float4*>(fk + d) = rw_load4(ck + 4 * e);
+      *reinterpret_cast<float4*>(fw + d) = rw_load4(cw + 4 * e);
+    }
+    for (int e = lane; e < CT * SW / 4; e += 32)
+      *reinterpret_cast<float4*>(fv + 4 * e) = rw_load4(cv + 4 * e);
+    __syncwarp();
+    // the copy buffer is free: the next chunk's copies overlap these steps
+    if (t0 + CT < p.T) issue(t0 + CT);
+    // beta_t = sum_i (r_i u_i) k_i of the chunk's CT steps: lane l sums rows
+    // l, l + 32, ... of every step, then one butterfly over the warp halves
+    // the steps a lane carries at each level while it has more than one
+    // (so the shuffles of a level are independent) and sums across the
+    // lanes that share a step after
+    float part[CT];
+#pragma unroll
+    for (int tt = 0; tt < CT; ++tt) {
+      part[tt] = 0.f;
+#pragma unroll
+      for (int m = 0; m < UPL; ++m) {
+        const int i = lane + 32 * m;
+        if (i < HD)
+          part[tt] = fmaf(__fmul_rn(fr[tt * HDP + at(i)], uu[m]), fk[tt * HDP + at(i)], part[tt]);
       }
-      out[base + (size_t)(t0 + tt) * HD + j] = acc;
+    }
+    int step = 0;  // the step whose sum this lane ends with
+#pragma unroll
+    for (int lvl = 0; lvl < 5; ++lvl) {
+      const int o = 16 >> lvl, half = (CT >> lvl) / 2;
+      const bool up = lane & o;
+      if (half > 0) {
+#pragma unroll
+        for (int j = 0; j < half; ++j) {
+          const float send = up ? part[j] : part[j + half];
+          const float keep = up ? part[j + half] : part[j];
+          part[j] = __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, send, o));
+        }
+        step += up ? half : 0;
+      } else {
+        part[0] = __fadd_rn(part[0], __shfl_xor_sync(0xffffffffu, part[0], o));
+      }
+    }
+    beta[step] = part[0];  // the lanes of a step hold the same sum
+    __syncwarp();
+
+    const float* Rg = fr + rg * GS;
+    const float* Kg = fk + rg * GS;
+    const float* Wg = fw + rg * GS;
+#pragma unroll (UNR)
+    for (int tt = 0; tt < n; ++tt) {
+      float vj[CPL], acc[CPL][NP];
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) {
+        vj[c] = fv[tt * SW + cl + NCL * c];
+#pragma unroll
+        for (int e = 0; e < NP; ++e) acc[c][e] = 0.f;
+      }
+#pragma unroll
+      for (int q = 0; q < RPL / 4; ++q) {
+        const float4 r4 = rw_load4(Rg + tt * HDP + 4 * q);
+        const float4 k4 = rw_load4(Kg + tt * HDP + 4 * q);
+        const float4 w4 = rw_load4(Wg + tt * HDP + 4 * q);
+        const float rr[4] = {r4.x, r4.y, r4.z, r4.w};
+        const float kk[4] = {k4.x, k4.y, k4.z, k4.w};
+        const float ww[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+        for (int c = 0; c < CPL; ++c)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float& s = S[4 * q + e][c];
+            const float kv = __fmul_rn(kk[e], vj[c]);
+            acc[c][e % NP] = fmaf(rr[e], s, acc[c][e % NP]);
+            s = fmaf(ww[e], s, kv);
+          }
+      }
+      const float bt = beta[tt];
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) {
+        float s = NP == 4 ? __fadd_rn(__fadd_rn(acc[c][0], acc[c][1]),
+                                      __fadd_rn(acc[c][2], acc[c][NP - 1]))
+                          : __fadd_rn(acc[c][0], acc[c][NP - 1]);
+#pragma unroll
+        for (int off = NCL; off < 32; off <<= 1)
+          s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, off));
+        // every row group holds the same sum: all write it, with no branch
+        // to keep the next step's loads from moving up
+        ob[(t0 + tt) * p.so[2] + cl + NCL * c] = fmaf(vj[c], bt, s);
+      }
     }
   }
 }
 
-template <int HD>
-cudaError_t rw_launch(const float* r, const float* k, const float* v,
-                      const float* w, const float* u, float* out, int B, int H,
-                      int T, cudaStream_t s) {
-  rwkv6_scan_kernel<HD><<<(unsigned)(B * H), HD, 0, s>>>(r, k, v, w, u, out, H, T);
+template <int HD, int CPL, int RG, int CT, int NP, int UNR, typename TIN>
+cudaError_t rw_launch(RwArgs p, int B, cudaStream_t s) {
+  using L = RwLayout<HD, CPL, RG, CT>;
+  p.slices = HD / L::SW;
+  const long long units = (long long)B * p.H * p.slices;
+  if (units > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const size_t smem = (size_t)CT * ((2 * HD + L::SW) * sizeof(TIN) + 4 * HD +
+                                    4 * (3 * L::HDP + L::SW + 1));
+  auto fn = rwkv6_scan_kernel<HD, CPL, RG, CT, NP, UNR, TIN>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  fn<<<(unsigned)units, 32, smem, s>>>(p);
   return cudaGetLastError();
+}
+
+// The per-head layout (split 0) or the column split (split 1), as
+// (columns a lane, row groups, chunk steps, partial sums, unrolled steps).
+// At hd 64, timed on the H100 (scripts/compare_kernels.py shapes): the
+// per-head layout 4 columns x 32 rows a lane (2 row groups) and the column
+// split 1 column x 16 rows with 32-step chunks and 4 steps unrolled, so
+// that one warp an SM partition overlaps the steps' loads and butterflies.
+template <typename TIN>
+cudaError_t rw_dispatch(const RwArgs& p, int B, int hd, int split, cudaStream_t s) {
+  switch (hd) {
+    case 16: return split ? rw_launch<16, 1, 4, 32, 4, 4, TIN>(p, B, s)
+                          : rw_launch<16, 1, 2, 32, 4, 2, TIN>(p, B, s);
+    case 32: return split ? rw_launch<32, 1, 4, 32, 4, 4, TIN>(p, B, s)
+                          : rw_launch<32, 2, 2, 16, 4, 2, TIN>(p, B, s);
+    case 64: return split ? rw_launch<64, 1, 4, 32, 4, 4, TIN>(p, B, s)
+                          : rw_launch<64, 4, 2, 8, 2, 1, TIN>(p, B, s);
+    case 128: return split ? rw_launch<128, 1, 4, 16, 4, 4, TIN>(p, B, s)
+                           : rw_launch<128, 4, 4, 4, 4, 2, TIN>(p, B, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // ----------------------------------------------------------------------------
@@ -772,21 +959,28 @@ int repro_flash_attention(int dtype, const void* q, const void* k,
   return (int)cudaErrorInvalidValue;
 }
 
-// K6.  r, k, v, w, out: (B, H, T, hd) float32; u: (H, hd) float32; hd in
-// {16, 32, 64, 128}.
-int repro_rwkv6_scan(const float* r, const float* k, const float* v,
-                     const float* w, const float* u, float* out, int B, int H,
-                     int T, int hd, void* stream) {
-  if (B <= 0 || H <= 0 || T <= 0 || (long long)B * H > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
+// K6.  dtype 0: r, k, v float32; 1: bfloat16; w, u and out float32.  r, k,
+// v, w, out: (B, H, T, hd) by their strides (strides: (batch, head, time) of
+// r, k, v, w, out in that order, in elements, each a multiple of 16 bytes;
+// the head width contiguous); u: (H, hd) contiguous; hd in {16, 32, 64,
+// 128}; split 1 takes the column-split layout.
+int repro_rwkv6_scan(int dtype, const void* r, const void* k, const void* v,
+                     const float* w, const float* u, float* out,
+                     const long long* strides, int B, int H, int T, int hd,
+                     int split, void* stream) {
+  if (B <= 0 || H <= 0 || T <= 0 || !strides) return (int)cudaErrorInvalidValue;
+  RwArgs p;
+  p.r = r; p.k = k; p.v = v; p.w = w; p.u = u; p.out = out;
+  long long* dst[5] = {p.sr, p.sk, p.sv, p.sw, p.so};
+  for (int a = 0; a < 5; ++a)
+    for (int j = 0; j < 3; ++j) dst[a][j] = strides[3 * a + j];
+  p.H = H;
+  p.T = T;
+  p.slices = 1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-    case 16: return (int)rw_launch<16>(r, k, v, w, u, out, B, H, T, s);
-    case 32: return (int)rw_launch<32>(r, k, v, w, u, out, B, H, T, s);
-    case 64: return (int)rw_launch<64>(r, k, v, w, u, out, B, H, T, s);
-    case 128: return (int)rw_launch<128>(r, k, v, w, u, out, B, H, T, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (dtype == 0) return (int)rw_dispatch<float>(p, B, hd, split, s);
+  if (dtype == 1) return (int)rw_dispatch<__nv_bfloat16>(p, B, hd, split, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // K7.  a, g, out: (B, T, R) float32.

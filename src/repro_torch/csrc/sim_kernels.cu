@@ -11,28 +11,38 @@
 // sums -- switched on at compile time.
 //
 // What bounds it on this card: operations.  One pass does 2*M*N*d
-// multiply-adds on the CUDA cores (fp32 and bf16 inputs multiply in f32;
-// int8 uses __dp4a with int32 accumulation) and reads only the two tables,
-// so at the main-path shapes (32768 x 32768 x 384) it is about 8e11 FLOP
-// against ~100 MB of input: three orders of magnitude above the ridge
-// point.  The design keeps everything but the inputs out of device memory:
-// the score tile lives in registers and then in shared memory, and the
-// histogram (int32, atomics), the running top-k lists and the (hi, lo)
-// walk-sum pairs of a CTA's rows in shared memory.
+// multiply-adds (fp32 on the CUDA cores: the fp32 path may not use TF32;
+// bf16 on the tensor cores, bf16 x bf16 -> f32; int8 by __dp4a with int32
+// accumulation) and reads only the two tables, so at the main-path shapes
+// (32768 x 32768 x 384) it is about 8e11 FLOP against ~100 MB of input:
+// three orders of magnitude above the ridge point.  The design keeps
+// everything but the inputs out of device memory: the score tile lives in
+// registers and then in shared memory, and the histogram (int32, atomics),
+// the running top-k lists and the (hi, lo) walk-sum pairs of a CTA's rows
+// in shared memory.
 //
-// The product (SIMT: the fp32 path may not use TF32, and must stay bit for
-// bit equal to the two-pass kernels).  A CTA owns a square tile of BM = BN =
-// 128 rows and columns, or 64 where the count tiles are not a multiple of
-// 128 rows.  Its 256 product threads (16 x 16; a warp is 4 x 8 of them) own
-// rows ty + 16 i and columns tx + 16 j each, an 8 x 8 block of scores (4 x 4
-// in the 64 tile).  Each 4-deep step a thread reads 8 A and 8 B float4 from
-// shared memory for 256 FMAs; a warp's A reads are broadcasts of 4 rows and
-// its B reads 8 rows 144 bytes apart, one wavefront each.  The k-slices
+// The product.  A CTA owns a square tile of BM = BN = 128 rows and columns,
+// or 64 where the count tiles are not a multiple of 128 rows.  The k-slices
 // (128 bytes of a row: 32 f32, 64 bf16 or 128 int8) stream through a 2-stage
-// cp.async ring with one barrier of the product warps per slice, over the
-// flat sequence (column tile, k-slice), so the next slice's loads -- across
-// column tiles too -- overlap this slice's FMAs.  bf16 stays bf16 in shared
-// memory and is widened as it is read (a shift, exact).
+// cp.async ring, rows 144 bytes apart, with one barrier of the product
+// warps per slice, over the flat sequence (column tile, k-slice), so the
+// next slice's loads -- across column tiles too -- overlap this slice's
+// arithmetic.
+//   fp32, int8 (SIMT, and bit for bit equal to the two-pass kernels): 256
+//   product threads (16 x 16; a warp is 4 x 8 of them) own rows ty + 16 i
+//   and columns tx + 16 j each, an 8 x 8 block of scores (4 x 4 in the 64
+//   tile).  Each 4-deep step a thread reads 8 A and 8 B float4 from shared
+//   memory for 256 FMAs; a warp's A reads are broadcasts of 4 rows and its B
+//   reads 8 rows 144 bytes apart, one wavefront each.
+//   bf16 (Product<BF16>): mma.sync m16n8k16 from ldmatrix'd ring rows, the
+//   8 product warps as 4 x 2 warp tiles of 32 x 64 scores.  A k-slice
+//   accumulates into a zeroed fragment that is then added to the running
+//   f32 sum with __fadd_rn, which bounds the error however the tensor cores
+//   round inside an mma.  What bounds it is not the tensor cores: a CTA
+//   reads its 128 E1 rows again for every column tile (shared memory has no
+//   room to keep them), about 12.6 GB from L2 over a 32,768^2 x 384 sweep,
+//   so the product alone runs near the L2's rate and the epilogues take
+//   about as long again.
 //
 // The epilogues run in warps of their own (warp specialization): when the
 // product warps finish a column tile they stage its scores in shared memory
@@ -40,17 +50,23 @@
 // warps take the staged tile one warp a row (lane l has columns l, l + 32,
 // ...).  Two named barriers pass the tile: "free" (the epilogue warps are
 // done with it) and "full" (it is staged).  One CTA an SM of 512 threads:
-// 8 epilogue warps, as 4 fall behind the product with all three epilogues
-// on.  The CTA launches with 128 registers a thread, and setmaxnreg moves
-// them to where they are needed: the product's two warpgroups take 200 a
-// thread (the 64 accumulators and the fragments), the epilogue's two give
-// up all but 56.  Per-CTA shared memory in the 128 tile at k = 32 and
-// 4,096 bins: the ring 73,728 B, the scores 69,632 B, the rows' scales
-// 1,024 B, the walk sums 32,768 B, the histogram 16,384 B and the lists
-// 33,792 B: 227,328 B, of the 232,448 a block may use.  A wider top-k list
-// takes the 64 tile.  The epilogue warps issue only where the FFMA-bound
-// product warps leave a slot, so their instructions are kept few: a row
-// without candidates costs one warp vote.
+// 8 epilogue warps, as 4 fall behind the fp32 product with all three
+// epilogues on.  The CTA launches with 128 registers a thread, and
+// setmaxnreg moves them to where they are needed: the product's two
+// warpgroups take 200 a thread (the 64 accumulators and the fragments), the
+// epilogue's two give up all but 56.  At bf16 the product warps finish a
+// tile's mmas early: they then claim rows of the staged tile beside the
+// epilogue warps (a shared row counter; each row goes to one warp, so its
+// sums and top-k list take its columns in order and the results do not
+// depend on which warp ran it), and the bin of the floor's weight, where
+// most scores of a join land, is counted per warp and added with one atomic
+// a row instead of 32 that would serialize.  Per-CTA shared memory in the
+// 128 tile at k = 32 and 4,096 bins: the ring 73,728 B, the scores 69,632
+// B, the rows' scales 1,024 B, the walk sums 32,768 B, the histogram 16,384
+// B and the lists 33,792 B: 227,328 B, of the 232,448 a block may use.  A
+// wider top-k list takes the 64 tile.  The epilogue warps issue only where
+// the FFMA-bound fp32 product warps leave a slot, so their instructions are
+// kept few: a row without candidates costs one warp vote.
 //
 // What the TPU design did that does not carry over:
 // * The TPU grid walks the column blocks in order and carries the running
@@ -91,7 +107,9 @@
 //
 // Exactness: the fp32 score of a pair is one fmaf chain over k = 0..d-1 in
 // order, whatever the tile or launch it is computed in, so the fp32 sweep is
-// bit-identical to the two-pass (histogram, top-k) launches.  The walk sums
+// bit-identical to the two-pass (histogram, top-k) launches; a bf16 score
+// takes the same slices, mmas and flushes in every tile and launch, so the
+// bf16 sweep equals its two-pass launches and a split launch an unsplit one.  The walk sums
 // use error-free two-sum steps written with __fadd_rn / __fsub_rn, which
 // nvcc can neither contract nor reorder.  Never build with --use_fast_math.
 //
@@ -105,6 +123,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 #include <limits.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -158,12 +178,6 @@ __device__ __forceinline__ bool beats(float x, int c, float y, int cy) {
 
 // ---- the cp.async ring -----------------------------------------------------
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  // src-size 0 zero-fills the 16 bytes (rows past M / N, columns past d)
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(in ? 16 : 0));
-}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -190,11 +204,8 @@ __device__ __forceinline__ void load_slice(const unsigned char* g, int rows,
 }
 
 // ---- the score tile --------------------------------------------------------
-// mma<RI>: the FMAs of one landed k-slice into the thread's RI x 4 block,
-// one fmaf (dp4a) chain per score in k order.
-
-__device__ __forceinline__ float bf_lo(uint32_t w) { return __uint_as_float(w << 16); }
-__device__ __forceinline__ float bf_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+// SIMT (fp32, int8): mma<RI, CJ> takes one landed k-slice into the thread's
+// RI x CJ block, one fmaf (dp4a) chain per score in k order.
 
 template <int MODE>
 struct Tile;
@@ -229,36 +240,11 @@ struct Tile<F32> {
   }
 };
 
+// bf16: the element size and score type; the product is Product<BF16, BM>
 template <>
 struct Tile<BF16> {
   static constexpr int ESIZE = 2;
   using Acc = float;
-  template <int RI, int CJ>
-  static __device__ __forceinline__ void mma(const uint32_t* As, const uint32_t* Bs,
-                                             int ty, int tx, float (&acc)[RI][CJ]) {
-#pragma unroll
-    for (int kw = 0; kw < ROWB / 4; kw += 4) {  // 8 bf16 a step
-      float b[CJ][8];
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) {
-        const uint4 w = *reinterpret_cast<const uint4*>(Bs + (tx + 16 * j) * LDW + kw);
-        b[j][0] = bf_lo(w.x); b[j][1] = bf_hi(w.x);
-        b[j][2] = bf_lo(w.y); b[j][3] = bf_hi(w.y);
-        b[j][4] = bf_lo(w.z); b[j][5] = bf_hi(w.z);
-        b[j][6] = bf_lo(w.w); b[j][7] = bf_hi(w.w);
-      }
-#pragma unroll
-      for (int i = 0; i < RI; ++i) {
-        const uint4 w = *reinterpret_cast<const uint4*>(As + (ty + 16 * i) * LDW + kw);
-        const float a[8] = {bf_lo(w.x), bf_hi(w.x), bf_lo(w.y), bf_hi(w.y),
-                            bf_lo(w.z), bf_hi(w.z), bf_lo(w.w), bf_hi(w.w)};
-#pragma unroll
-        for (int j = 0; j < CJ; ++j)
-#pragma unroll
-          for (int e = 0; e < 8; ++e) acc[i][j] = fmaf(a[e], b[j][e], acc[i][j]);
-      }
-    }
-  }
 };
 
 template <>
@@ -286,6 +272,117 @@ struct Tile<I8> {
         }
       }
     }
+  }
+};
+
+// The product warps' share of a CTA's BM x BN score tile (BN = BM), one
+// landed k-slice at a time: slice() takes a slice, stage() writes the
+// tile's scores into the staged tile St (row stride BM + 8) and zeroes the
+// accumulators (keep: leaves them, for the epilogue-floor build).
+template <int MODE, int BM>
+struct Product {  // SIMT: 16 x 16 threads, rows ty + 16 i, columns tx + 16 j
+  using T = Tile<MODE>;
+  using Acc = typename T::Acc;
+  static constexpr int RI = BM / 16, CJ = BM / 16;
+  int ty, tx;
+  Acc acc[RI][CJ];
+  // a warp is 4 rows x 8 columns of threads, so its B reads are 8 rows
+  // (one wavefront) and its A reads 4 (a broadcast)
+  __device__ __forceinline__ Product(int warp, int lane)
+      : ty((warp >> 1) * 4 + (lane >> 3)), tx((warp & 1) * 8 + (lane & 7)) {
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) acc[i][j] = Acc(0);
+  }
+  __device__ __forceinline__ void slice(const uint32_t* st) {
+    T::template mma<RI, CJ>(st, st + BM * LDW, ty, tx, acc);
+  }
+  __device__ __forceinline__ void stage(Acc* St, bool keep) {
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) {
+        St[(ty + 16 * i) * (BM + 8) + tx + 16 * j] = acc[i][j];
+        if (!keep) acc[i][j] = Acc(0);
+      }
+  }
+};
+
+// bf16 on the tensor cores: mma.sync m16n8k16 (bf16 x bf16 -> f32) from
+// ldmatrix'd ring rows (144-byte stride: the 8 rows of an ldmatrix fall in
+// distinct banks).  The 8 product warps are 4 x 2, a warp's tile BM / 4 rows
+// x BM / 2 columns.  Each k-slice (64 columns: four k-steps) accumulates
+// into a zeroed fragment, which is then added to the running sum with
+// __fadd_rn: however the tensor cores round inside an mma (undocumented;
+// truncation has been measured on earlier cards), a score's error stays
+// within (2 * 64 + d / 64) u sum |a b|, inside checks.exact_scores' gamma_d.
+// Every score takes the same k order in every tile and launch.
+template <int BM>
+struct Product<BF16, BM> {
+  static constexpr int MI = BM / 64, NJ = BM / 16;  // 16-row and 8-column blocks
+  static constexpr int LDB = 2 * LDW;               // ring row stride in bf16
+  int r0, c0, lane;
+  float acc[MI][NJ][4];
+  __device__ __forceinline__ Product(int warp, int lane_)
+      : r0((warp >> 1) * (BM / 4)), c0((warp & 1) * (BM / 2)), lane(lane_) {
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  }
+  __device__ __forceinline__ void slice(const uint32_t* st) {
+    const __nv_bfloat16* A = reinterpret_cast<const __nv_bfloat16*>(st);
+    const __nv_bfloat16* B = A + BM * LDB;
+    float part[MI][NJ][4];
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[i][j][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < ROWB / 32; ++ks) {  // k-steps of 16 bf16
+      uint32_t a[MI][4];
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+        ldmatrix_x4(a[i], A + (r0 + 16 * i + (lane & 15)) * LDB + 16 * ks + (lane >> 4) * 8);
+#pragma unroll
+      for (int j2 = 0; j2 < NJ / 2; ++j2) {
+        uint32_t b[4];
+        const int col = c0 + 16 * j2 + (lane & 7) + ((lane >> 4) << 3);
+        ldmatrix_x4(b, B + col * LDB + 16 * ks + ((lane >> 3) & 1) * 8);
+#pragma unroll
+        for (int i = 0; i < MI; ++i) {
+          mma_bf16(part[i][2 * j2], a[i], b[0], b[1]);
+          mma_bf16(part[i][2 * j2 + 1], a[i], b[2], b[3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = __fadd_rn(acc[i][j][e], part[i][j][e]);
+  }
+  // the C fragment: lane (g, t) = (lane / 4, lane % 4) holds rows g and g + 8,
+  // columns 2t and 2t + 1 of each 16 x 8 block
+  __device__ __forceinline__ void stage(float* St, bool keep) {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        float* p = St + (r0 + 16 * i + g) * (BM + 8) + c0 + 8 * j + 2 * t;
+        *reinterpret_cast<float2*>(p) = make_float2(acc[i][j][0], acc[i][j][1]);
+        *reinterpret_cast<float2*>(p + 8 * (BM + 8)) = make_float2(acc[i][j][2], acc[i][j][3]);
+        if (!keep)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+      }
   }
 };
 
@@ -461,17 +558,43 @@ __device__ __forceinline__ void offer_row(float* V, int* C, int k, const float (
   __syncwarp();
 }
 
+template <bool B>
+struct BoolTag {
+  static constexpr bool value = B;
+};
+
+// The bin of weight w: truncation, saturating
+__device__ __forceinline__ int bin_of(float w, int n_bins) {
+  const int b = (int)__fmul_rn(w, (float)n_bins);
+  return b < 0 ? 0 : (b > n_bins - 1 ? n_bins - 1 : b);
+}
+
+// The epilogue-floor build (-DREPRO_SIM_EPILOGUE_FLOOR, scripts/
+// compare_kernels.py --epilogue-floor): the bf16 product warps compute a
+// CTA's first column tile only and stage its scores again for every other
+// column tile, so a launch times the epilogues with a product that costs
+// next to nothing.  Never the build the port runs.
+#ifdef REPRO_SIM_EPILOGUE_FLOOR
+constexpr bool EPILOGUE_FLOOR = true;
+#else
+constexpr bool EPILOGUE_FLOOR = false;
+#endif
+
 template <int MODE, int BM, bool HIST_ON, bool TOPK_ON, bool SUMS_ON>
 __global__ void __launch_bounds__(NT + ET, 1) sim_kernel(Params p) {
   using T = Tile<MODE>;
   using Acc = typename T::Acc;
+  // bf16's tensor-core product leaves its warps idle most of a tile: they
+  // claim rows of the staged tile beside the epilogue warps, and each row's
+  // hot bin is counted per warp
+  constexpr bool SHARE = MODE == BF16;
+  constexpr bool FLOOR = EPILOGUE_FLOOR && MODE == BF16;
   constexpr int BN = BM;
-  constexpr int RI = BM / 16;          // rows of a product thread
-  constexpr int CJ = BN / 16;          // columns of a product thread
   constexpr int CPL = BN / 32;         // columns of an epilogue lane
   constexpr int STAGE_W = (BM + BN) * LDW;
   constexpr int LDT = BN + 8;          // score-tile row stride (words)
   extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int row_next;             // the staged tile's next unclaimed row
   uint32_t* ring = reinterpret_cast<uint32_t*>(smem);
   Acc* St = reinterpret_cast<Acc*>(ring + STAGES * STAGE_W);
   float* rscale = reinterpret_cast<float*>(St + BM * LDT);
@@ -487,6 +610,7 @@ __global__ void __launch_bounds__(NT + ET, 1) sim_kernel(Params p) {
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int r0 = blockIdx.x * BM;
+  const int rows = min(BM, p.M - r0);  // the CTA's rows that exist
   const int c_begin = blockIdx.y * p.split_cols;
   const int c_end = min(p.N, c_begin + p.split_cols);
   const int n_ct = (c_end - c_begin + BN - 1) / BN;
@@ -505,18 +629,111 @@ __global__ void __launch_bounds__(NT + ET, 1) sim_kernel(Params p) {
     rscale[rl] = (HIST_ON && r < p.M) ? p.scale[r] : 0.f;
     rrs[rl] = (MODE == I8 && r < p.M) ? p.rs1[r] : 0.f;
   }
+  if (tid == 0) row_next = 0;
   __syncthreads();
+
+  // ---- the epilogues of one staged row rl; lane l takes columns l, l + 32,
+  // ... of column tile ct ----
+  struct Cols {
+    float vq[CPL], rsq[CPL];
+    int col[CPL];
+    bool ok[CPL];
+  };
+  auto cols_of = [&](int ct, Cols& c) {
+    const int c0 = c_begin + ct * BN;
+#pragma unroll
+    for (int q = 0; q < CPL; ++q) {
+      c.col[q] = c0 + lane + 32 * q;
+      c.ok[q] = c.col[q] < c_end;
+      c.vq[q] = (SUMS_ON && c.ok[q]) ? p.v[c.col[q]] : 0.f;
+      c.rsq[q] = (MODE == I8 && c.ok[q]) ? p.rs2[c.col[q]] : 0.f;
+    }
+  };
+  // pow1: exponent and rs_exponent both 1 (the tag makes it a constant of
+  // the element loop, so the loop has no per-element branch on it)
+  auto row_impl = [&](int rl, const Cols& c, auto pow1) {
+    constexpr bool POW1 = decltype(pow1)::value;
+    float sc[CPL];
+    float h = 0.f, lo = 0.f;
+    if (SUMS_ON) {
+      h = psum[(rl * 32 + lane) * 2];
+      lo = psum[(rl * 32 + lane) * 2 + 1];
+    }
+    // the bin of the floor's weight, where most scores of a join land: its
+    // elements are counted per warp, one atomic a row
+    int hot = 0, hot_bin = -1;
+    if (HIST_ON && SHARE)
+      hot_bin = bin_of(__fmul_rn(POW1 || p.pow1 ? p.floor_w : powf(p.floor_w, p.exponent),
+                                 rscale[rl]), p.n_bins);
+#pragma unroll
+    for (int q = 0; q < CPL; ++q) {
+      float s;
+      if (MODE == I8)
+        s = __fmul_rn(__fmul_rn(__int2float_rn((int)St[rl * LDT + lane + 32 * q]), rrs[rl]),
+                      c.rsq[q]);
+      else
+        s = (float)St[rl * LDT + lane + 32 * q];
+      sc[q] = fminf(fmaxf(s, 0.f), 1.f);
+      // SHARE: no branch per element; a column past the range adds nothing
+      // (its vq is 0, so its walk-sum term is an exact 0, and it is not
+      // binned)
+      if (!SHARE && !c.ok[q]) continue;
+      const float base = fmaxf(sc[q], p.floor_w);
+      if (HIST_ON) {
+        const float w = POW1 || p.pow1 ? base : powf(base, p.exponent);
+        const int b = bin_of(__fmul_rn(w, rscale[rl]), p.n_bins);
+        if (!SHARE) {
+          atomicAdd(&hist[b], 1);
+        } else {
+          hot += c.ok[q] && b == hot_bin;
+          if (c.ok[q] && b != hot_bin) atomicAdd(&hist[b], 1);
+        }
+      }
+      if (SUMS_ON) {
+        float wr = POW1 || p.rs_pow1 ? base : powf(base, p.rs_exponent);
+        wr = __fmul_rn(wr, c.vq[q]);
+        float s2, e;
+        two_sum(h, wr, s2, e);
+        h = s2;
+        lo = __fadd_rn(lo, e);
+      }
+    }
+    if (HIST_ON && SHARE) {
+      hot = __reduce_add_sync(0xffffffffu, hot);
+      if (lane == 0 && hot) atomicAdd(&hist[hot_bin], hot);
+    }
+    if (SUMS_ON) {
+      psum[(rl * 32 + lane) * 2] = h;
+      psum[(rl * 32 + lane) * 2 + 1] = lo;
+    }
+    if (TOPK_ON) offer_row<CPL>(lv + rl * KS, lc + rl * KS, p.k, sc, c.col, c.ok, lane);
+  };
+  auto row = [&](int rl, const Cols& c) {
+    if (SHARE && p.pow1 && p.rs_pow1)
+      row_impl(rl, c, BoolTag<true>());
+    else
+      row_impl(rl, c, BoolTag<false>());
+  };
+  // claims rows of the staged tile one at a time until none is left (each row
+  // is taken by one warp, so its sums and list see its columns in order)
+  auto claim_rows = [&](const Cols& c) {
+    for (;;) {
+      int rl = 0;
+      if (lane == 0) rl = atomicAdd(&row_next, 1);
+      rl = __shfl_sync(0xffffffffu, rl, 0);
+      if (rl >= rows) break;
+      row(rl, c);
+    }
+  };
 
   if (tid < NT) {
     // the product's warpgroups take the registers the epilogue's give up
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(REG_PRODUCT));
     // ---- the product warps: the score tiles, staged in St one by one ----
-    // 16 x 16 threads: a warp is 4 rows x 8 columns of them, so its B reads
-    // are 8 rows (one wavefront) and its A reads 4 (a broadcast)
-    const int ty = (warp >> 1) * 4 + (lane >> 3), tx = (warp & 1) * 8 + (lane & 7);
     const int row_bytes = p.d * T::ESIZE;
     const int nks = (row_bytes + ROWB - 1) / ROWB;
     const int total = n_ct * nks;
+    const int loads = FLOOR ? min(total, nks) : total;
     const unsigned char* g1 = static_cast<const unsigned char*>(p.e1);
     const unsigned char* g2 = static_cast<const unsigned char*>(p.e2);
     auto issue = [&](int t) {
@@ -527,94 +744,53 @@ __global__ void __launch_bounds__(NT + ET, 1) sim_kernel(Params p) {
     };
 #pragma unroll
     for (int s = 0; s < STAGES - 1; ++s) {
-      if (s < total) issue(s);
+      if (s < loads) issue(s);
       cp_async_commit();
     }
-    Acc acc[RI][CJ];
-#pragma unroll
-    for (int i = 0; i < RI; ++i)
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) acc[i][j] = Acc(0);
+    Product<MODE, BM> pr(warp, lane);
     for (int t = 0; t < total; ++t) {
-      cp_async_wait<STAGES - 2>();
-      // slice t has landed for every product thread, and every one is done
-      // with the stage that the next issue overwrites (read in step t - 1)
-      bar_sync(BAR_PRODUCT, NT);
-      if (t + STAGES - 1 < total) issue(t + STAGES - 1);
-      cp_async_commit();
-      const uint32_t* st = ring + (t % STAGES) * STAGE_W;
-      T::template mma<RI, CJ>(st, st + BM * LDW, ty, tx, acc);
+      if (t < loads) {
+        cp_async_wait<STAGES - 2>();
+        // slice t has landed for every product thread, and every one is
+        // done with the stage that the next issue overwrites (read in step
+        // t - 1)
+        bar_sync(BAR_PRODUCT, NT);
+        if (t + STAGES - 1 < loads) issue(t + STAGES - 1);
+        cp_async_commit();
+        pr.slice(ring + (t % STAGES) * STAGE_W);
+      }
       if ((t + 1) % nks) continue;
-      bar_sync(BAR_FREE, NT + ET);  // the epilogue warps are done with St
-#pragma unroll
-      for (int i = 0; i < RI; ++i)
-#pragma unroll
-        for (int j = 0; j < CJ; ++j) {
-          St[(ty + 16 * i) * LDT + tx + 16 * j] = acc[i][j];
-          acc[i][j] = Acc(0);
-        }
+      const int ct = t / nks;
+      if (SHARE && ct > 0) {
+        Cols c;
+        cols_of(ct - 1, c);
+        claim_rows(c);
+      }
+      bar_sync(BAR_FREE, NT + ET);  // every row of the previous tile is done
+      pr.stage(St, FLOOR);
+      if (SHARE && tid == 0) row_next = 0;
       bar_sync(BAR_FULL, NT + ET);  // St holds the tile's scores
     }
     cp_async_wait<0>();
+    if (SHARE && n_ct > 0) {
+      Cols c;
+      cols_of(n_ct - 1, c);
+      claim_rows(c);
+    }
   } else {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(REG_EPILOGUE));
-    // ---- the epilogue warps: rows ew, ew + 4, ... of each staged tile;
-    // lane l takes columns l, l + 32, ... ----
+    // ---- the epilogue warps: rows ew, ew + 8, ... of each staged tile, or
+    // (SHARE) the rows they claim ----
     const int ew = warp - NT / 32;
     for (int ct = 0; ct < n_ct; ++ct) {
-      const int c0 = c_begin + ct * BN;
-      float vq[CPL], rsq[CPL];
-      int col[CPL];
-      bool ok[CPL];
-#pragma unroll
-      for (int q = 0; q < CPL; ++q) {
-        col[q] = c0 + lane + 32 * q;
-        ok[q] = col[q] < c_end;
-        vq[q] = (SUMS_ON && ok[q]) ? p.v[col[q]] : 0.f;
-        rsq[q] = (MODE == I8 && ok[q]) ? p.rs2[col[q]] : 0.f;
-      }
+      Cols c;
+      cols_of(ct, c);
       bar_sync(BAR_FREE, NT + ET);
       bar_sync(BAR_FULL, NT + ET);
-      for (int rl = ew; rl < BM && r0 + rl < p.M; rl += ET / 32) {
-        float sc[CPL];
-        float h = 0.f, lo = 0.f;
-        if (SUMS_ON) {
-          h = psum[(rl * 32 + lane) * 2];
-          lo = psum[(rl * 32 + lane) * 2 + 1];
-        }
-#pragma unroll
-        for (int q = 0; q < CPL; ++q) {
-          float s;
-          if (MODE == I8)
-            s = __fmul_rn(__fmul_rn(__int2float_rn((int)St[rl * LDT + lane + 32 * q]), rrs[rl]),
-                          rsq[q]);
-          else
-            s = (float)St[rl * LDT + lane + 32 * q];
-          sc[q] = fminf(fmaxf(s, 0.f), 1.f);
-          if (!ok[q]) continue;
-          const float base = fmaxf(sc[q], p.floor_w);
-          if (HIST_ON) {
-            float w = p.pow1 ? base : powf(base, p.exponent);
-            w = __fmul_rn(w, rscale[rl]);
-            const float x = __fmul_rn(w, (float)p.n_bins);
-            int b = (int)x;  // truncation, saturating
-            b = b < 0 ? 0 : (b > p.n_bins - 1 ? p.n_bins - 1 : b);
-            atomicAdd(&hist[b], 1);
-          }
-          if (SUMS_ON) {
-            float wr = p.rs_pow1 ? base : powf(base, p.rs_exponent);
-            wr = __fmul_rn(wr, vq[q]);
-            float s2, e;
-            two_sum(h, wr, s2, e);
-            h = s2;
-            lo = __fadd_rn(lo, e);
-          }
-        }
-        if (SUMS_ON) {
-          psum[(rl * 32 + lane) * 2] = h;
-          psum[(rl * 32 + lane) * 2 + 1] = lo;
-        }
-        if (TOPK_ON) offer_row<CPL>(lv + rl * KS, lc + rl * KS, p.k, sc, col, ok, lane);
+      if (SHARE) {
+        claim_rows(c);
+      } else {
+        for (int rl = ew; rl < rows; rl += ET / 32) row(rl, c);
       }
     }
   }
@@ -772,7 +948,7 @@ size_t repro_sim_smem_bytes(int flags, int n_bins, int k, int cta_rows) {
 
 // One launch.  mode: 0 fp32, 1 bf16, 2 int8.  flags: 1 histogram, 2 top-k,
 // 4 walk sums.  Supported: sweep (7) for every mode, histogram (1) and top-k
-// (2) for fp32.  cta_rows: 128 or 64, the rows of a CTA tile, which must
+// (2) for fp32 and bf16.  cta_rows: 128 or 64, the rows of a CTA tile, which must
 // divide the count-tile rows bm when there is more than one count tile.  A
 // launch with splits > 1 splits the columns into that many ranges of whole
 // BN-column tiles (splits must be the number of ranges ceil(N / BN /
@@ -827,6 +1003,10 @@ int repro_sim_launch(int mode, int flags, const void* e1, const void* e2,
     err = launch<F32, true, false, false>(p, cta_rows, splits, s);
   } else if (flags == TOPK && mode == F32) {
     err = launch<F32, false, true, false>(p, cta_rows, splits, s);
+  } else if (flags == HIST && mode == BF16) {
+    err = launch<BF16, true, false, false>(p, cta_rows, splits, s);
+  } else if (flags == TOPK && mode == BF16) {
+    err = launch<BF16, false, true, false>(p, cta_rows, splits, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -26,7 +26,9 @@ from pathlib import Path
 
 import torch
 
-SOURCES = sorted((Path(__file__).resolve().parents[1] / "csrc").glob("*.cu"))
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+SOURCES = sorted(CSRC.glob("*.cu"))
+HEADERS = sorted(CSRC.glob("*.cuh"))
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -70,7 +72,7 @@ def build() -> Path:
     """Compile the library if it is not built yet; returns its path.
     ``BUILD_INFO`` records the build seconds and the ptxas report."""
     digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         digest.update(src.name.encode() + b"\0" + src.read_bytes())
     out_dir = build_dir()
     out = out_dir / f"librepro_{digest.hexdigest()[:16]}.so"
@@ -128,7 +130,10 @@ def lib() -> ctypes.CDLL:
             so.repro_flash_attention.restype = ci
             so.repro_flash_smem_bytes.argtypes = [ci, ci, ci, ci, ci, ci]
             so.repro_flash_smem_bytes.restype = ctypes.c_size_t
-            so.repro_rwkv6_scan.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
+            so.repro_rwkv6_scan.argtypes = [
+                ci, vp, vp, vp, vp, vp, vp, ctypes.POINTER(ctypes.c_longlong),
+                ci, ci, ci, ci, ci, vp,
+            ]
             so.repro_rwkv6_scan.restype = ci
             so.repro_rglru_scan.argtypes = [vp, vp, vp, ci, ci, ci, vp]
             so.repro_rglru_scan.restype = ci
@@ -192,6 +197,22 @@ def check_operand(t: torch.Tensor, name: str, dtype, shape) -> None:
         raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous() or t.data_ptr() % 16:
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+def check_strided(t: torch.Tensor, name: str, dtype, shape) -> None:
+    """An operand the kernel reads through its strides: the last dimension
+    contiguous, every other stride and the start 16-byte aligned."""
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
+    size = t.element_size()
+    if (t.stride(-1) != 1 or t.data_ptr() % 16
+            or any(st * size % 16 for st in t.stride()[:-1])):
+        raise ValueError(f"{name} must have a contiguous last dimension and "
+                         "16-byte aligned strides")
 
 
 def ptr(t):

@@ -13,25 +13,49 @@ import torch
 from .. import cuda_lib
 
 HEAD_DIMS = (16, 32, 64, 128)
+# warps a head takes in the per-head layout (a warp owns 64 columns of S at
+# hd 64, 32 at hd 32 and 128, 16 at hd 16) and in the column split (8
+# columns a warp), as rw_dispatch in csrc/model_kernels.cu lays them out
+HEAD_WARPS = {16: 1, 32: 1, 64: 1, 128: 4}
+SPLIT_COLS = 8
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def column_split(heads: int, hd: int, sms: int) -> bool:
+    """Whether a launch over ``heads`` (batch x head) pairs takes the column
+    split: where the per-head layout would give fewer than 4 warps an SM,
+    each head's columns spread over hd / 8 warps instead."""
+    return heads * HEAD_WARPS[hd] < 4 * sms
 
 
 def rwkv6_scan_cuda(r, k, v, w, u):
-    """Outputs of the RWKV6 recurrence from a zero state, for contiguous
-    float32 CUDA tensors r, k, v, w (B, H, T, hd) and u (H, hd), hd in
-    ``HEAD_DIMS``.  Returns (B, H, T, hd) float32."""
+    """Outputs of the RWKV6 recurrence from a zero state.  r, k, v: (B, H,
+    T, hd) CUDA tensors, all float32 or all bfloat16, widened as they are
+    read; w: (B, H, T, hd) float32; any strides with the head width
+    contiguous and 16-byte aligned rows (the model's (B, T, H, hd)
+    projections seen as (B, H, T, hd)); u: (H, hd) float32, contiguous; hd
+    in ``HEAD_DIMS``.  Returns (B, H, T, hd) float32 laid out as r is (a
+    dense r's strides, else contiguous)."""
     b, h, t, hd = r.shape
     if hd not in HEAD_DIMS:
         raise ValueError(f"head width {hd} is not one of {HEAD_DIMS}")
-    for name, x in (("r", r), ("k", k), ("v", v), ("w", w)):
-        cuda_lib.check_operand(x, name, torch.float32, (b, h, t, hd))
+    if not r.is_cuda:
+        raise ValueError("r must be a CUDA tensor")
+    if r.dtype not in DTYPES:
+        raise ValueError(f"r must be float32 or bfloat16, got {r.dtype}")
+    for name, x, dtype in (("r", r, r.dtype), ("k", k, r.dtype), ("v", v, r.dtype),
+                           ("w", w, torch.float32)):
+        cuda_lib.check_strided(x, name, dtype, (b, h, t, hd))
     cuda_lib.check_operand(u, "u", torch.float32, (h, hd))
-    out = torch.empty_like(r)
+    out = torch.empty_like(r, dtype=torch.float32)
+    strides = (ctypes.c_longlong * 15)(*(s for x in (r, k, v, w, out) for s in x.stride()[:3]))
+    sms = torch.cuda.get_device_properties(r.device).multi_processor_count
     stream = torch.cuda.current_stream(r.device).cuda_stream
     p = cuda_lib.ptr
     with torch.cuda.device(r.device):
         err = cuda_lib.lib().repro_rwkv6_scan(
-            p(r), p(k), p(v), p(w), p(u), p(out), b, h, t, hd,
-            ctypes.c_void_p(stream),
+            DTYPES[r.dtype], p(r), p(k), p(v), p(w), p(u), p(out), strides,
+            b, h, t, hd, int(column_split(b * h, hd, sms)), ctypes.c_void_p(stream),
         )
     if err != 0:
         raise RuntimeError(f"repro_rwkv6_scan failed with CUDA error {err}")

@@ -4,7 +4,8 @@ import torch
 
 
 def rwkv6_scan_ref(r, k, v, w, u):
-    """r, k, v, w: (B, H, T, hd); u: (H, hd).  Returns (B, H, T, hd) f32."""
+    """r, k, v, w: (B, H, T, hd) of any float type and strides, widened to
+    f32 as the kernel widens them; u: (H, hd).  Returns (B, H, T, hd) f32."""
     rf, kf, vf, wf = (x.float() for x in (r, k, v, w))
     b, h, t, hd = rf.shape
     uf = u.float()[None, :, :, None]

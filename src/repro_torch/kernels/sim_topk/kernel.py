@@ -2,15 +2,17 @@
 
 Replaces the Pallas kernel ``_kernel`` of
 ``src/repro/kernels/sim_topk/kernel.py``; the kernel is the top-k epilogue
-of ``csrc/sim_kernels.cu`` over the same fp32 score tile as the sweep."""
+of ``csrc/sim_kernels.cu`` over the same score tile as the sweep (fp32, or
+bf16 on the tensor cores)."""
 from __future__ import annotations
 
 from .. import cuda_lib
 
 
-def sim_topk_cuda(e1, e2, k=8):
-    """(vals (M, k) f32, idx (M, k) int32) for f32 inputs with the width
-    padded to a multiple of 4."""
-    _, vals, idx, _ = cuda_lib.launch("fp32", cuda_lib.TOPK, e1, e2, k=k)
+def sim_topk_cuda(e1, e2, k=8, precision="fp32"):
+    """(vals (M, k) f32, idx (M, k) int32) for inputs in kernel form
+    (``sim_sweep.kernel.kernel_operand``): f32, or bf16 with
+    ``precision="bf16"``."""
+    _, vals, idx, _ = cuda_lib.launch(precision, cuda_lib.TOPK, e1, e2, k=k)
     cuda_lib.LAUNCHES[f"sim_topk[k={k}]"] += 1
     return vals, idx

@@ -80,8 +80,10 @@ def rwkv_time_mix(p: TimeMix, cfg: ModelConfig, x, last_x):
     g = F.silu(mix(p.mu_g) @ p.w_g)
     dec = p.decay_w0 + torch.tanh(mix(p.mu_w) @ p.decay_a) @ p.decay_b
     w = torch.exp(-torch.exp(dec.float())).reshape(b, t, h, hd)
-    # the kernel's layout is (B, H, T, hd)
-    out = rwkv6_scan(*(z.float().transpose(1, 2) for z in (r, k, v, w)), p.bonus_u)
+    # (B, H, T, hd) views of the (B, T, H, hd) projections, in the model's
+    # type: the kernel reads them through their strides and widens to f32,
+    # and writes its output in r's layout
+    out = rwkv6_scan(*(z.transpose(1, 2) for z in (r, k, v, w)), p.bonus_u)
     out = out.transpose(1, 2)  # (B, T, H, hd)
     # per-head group norm (ln_x), population variance as jnp.var
     mu_ = out.mean(-1, keepdim=True)

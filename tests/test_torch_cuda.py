@@ -8,9 +8,9 @@ worker collects the same tests; without a card they skip.
 
 Tolerances (see ``repro_torch.kernels.checks``): counts under the edge rule,
 top-k under the near-tie rule, walk sums within 1e-6 relative of f64; the
-fp32 sweep equals the two-pass kernels bit for bit; int8 at exponent 1
-equals its plain version bit for bit (integer sums, two f32 products in a
-fixed order).  The model-stack kernels follow
+fp32 and bf16 sweeps equal their two-pass kernels bit for bit; int8 at
+exponent 1 equals its plain version bit for bit (integer sums, two f32
+products in a fixed order).  The model-stack kernels follow
 ``checks.check_model_kernel``: within twice the f32 error bound of their
 function (``checks.*_bound``), plus half a bf16 ulp on each side for a bf16
 output; a model's logits on the card against the
@@ -109,6 +109,49 @@ def test_fp32_sweep_bit_identical_to_two_pass(card, m, n, d, k):
     s64, bound = checks.exact_scores(a, b)
     checks.check_counts([hist[None], sim_hist_ref(a, b, scale, n_bins=512)[None]],
                         s64, bound, n_bins=512, exponent=1.0, floor=1e-3, bm=m)
+
+
+@pytest.mark.parametrize("m,n,d,k", SHAPES)
+def test_bf16_sweep_bit_identical_to_two_pass(card, m, n, d, k):
+    """The bf16 sweep, histogram and top-k launches take every score through
+    the same mmas and flushes: the sweep equals the two-pass launches."""
+    a, b, _, _ = _inputs(card, m, n, d, "bf16", seed=2)
+    scale = torch.ones(m, device=card)
+    v = torch.ones(n, device=card)
+    a2, b2 = kernel_operand(a, "bf16"), kernel_operand(b, "bf16")
+    bc, vals, idx, _ = sim_sweep_cuda(a2, b2, scale, v, n_bins=512, k=k,
+                                      bm=m if m <= 64 else 64, precision="bf16")
+    hist = sim_hist_cuda(a2, b2, scale, n_bins=512, precision="bf16")
+    tv, ti = sim_topk_cuda(a2, b2, k=k, precision="bf16")
+    torch.cuda.synchronize()
+    assert torch.equal(bc.sum(dim=0), hist)
+    assert torch.equal(vals, tv) and torch.equal(idx, ti)
+    s64, bound = checks.exact_scores(a, b, "bf16")
+    checks.check_counts([hist[None], sim_hist_ref(a.bfloat16(), b.bfloat16(), scale,
+                                                  n_bins=512)[None]],
+                        s64, bound, n_bins=512, exponent=1.0, floor=1e-3, bm=m)
+    checks.check_topk(tv, ti, *sim_topk_ref(a.bfloat16(), b.bfloat16(), k=k), s64, bound)
+
+
+@pytest.mark.parametrize("d", [40, 100])
+def test_bf16_sweep_padded_width(card, d):
+    """A width that is not a multiple of a 64-column ring slice: the slice's
+    tail is zero-filled (zero products add exact zeros)."""
+    a, b, _, _ = _inputs(card, 300, 700, d, "bf16", seed=13)
+    rng = np.random.default_rng(14)
+    scale = torch.from_numpy(rng.random(300).astype(np.float32)).to(card)
+    v = torch.from_numpy((10.0 ** rng.uniform(-1, 1, 700)).astype(np.float32)).to(card)
+    kw = dict(n_bins=256, exponent=1.0, floor=1e-3, k=16, bm=64, precision="bf16")
+    a2, b2 = kernel_operand(a, "bf16"), kernel_operand(b, "bf16")
+    kb, kv, ki, ks = sim_sweep_cuda(a2, b2, scale, v, **kw)
+    torch.cuda.synchronize()
+    pb, pv, pi, _ = sim_sweep_ref(a, b, scale, v, **kw)
+    s64, bound = checks.exact_scores(a, b, "bf16")
+    checks.check_counts([kb, pb], s64, bound, n_bins=256, exponent=1.0, floor=1e-3,
+                        bm=64, scale=scale)
+    checks.check_topk(kv, ki, pv, pi, s64, bound)
+    checks.check_sums(ks, s64, exponent=1.0, floor=1e-3, v=v)
+    assert int(kb.sum()) == 300 * 700
 
 
 @pytest.mark.parametrize("k", [32, 128])
@@ -335,6 +378,74 @@ def test_rwkv6_scan_matches_plain(card, b, h, t, hd):
     torch.cuda.synchronize()
     checks.check_model_kernel(got, rwkv6_scan_ref(r, k, v, w, u),
                               checks.rwkv6_scan_bound(r, k, v, w, u))
+
+
+def _rwkv_model_layout(card, rng, b, h, t, hd, dtype):
+    """r, k, v in ``dtype`` and w f32 laid out (B, T, H, hd) as the model's
+    projections are, returned as the (B, H, T, hd) views it passes; u (H,
+    hd)."""
+    r, k, v = (_normal(card, rng, (b, t, h, hd), dtype, scale=0.5).transpose(1, 2)
+               for _ in range(3))
+    w = torch.exp(-torch.exp(torch.from_numpy(
+        rng.uniform(-8.0, -1.0, (b, t, h, hd)).astype(np.float32)).to(card))).transpose(1, 2)
+    return r, k, v, w, _normal(card, rng, (h, hd), scale=0.1)
+
+
+def _check_rwkv6(card, xs, split):
+    from repro_torch.kernels.rwkv6_scan.kernel import column_split
+
+    r = xs[0]
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert column_split(r.shape[0] * r.shape[1], r.shape[3], sms) == split
+    got = rwkv6_scan_cuda(*xs)
+    torch.cuda.synchronize()
+    # r is a (B, T, H, hd) tensor seen as (B, H, T, hd): so is the output
+    assert got.dtype == torch.float32 and got.transpose(1, 2).is_contiguous()
+    return checks.check_model_kernel(got, rwkv6_scan_ref(*xs), checks.rwkv6_scan_bound(*xs))
+
+
+# (B, H): 768 heads take the per-head layout on an H100 (132 SMs), 8 the
+# column split
+RWKV_HEADS = {False: (24, 32), True: (2, 4)}
+
+
+@pytest.mark.parametrize("split", [False, True])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_rwkv6_scan_model_layout_bf16(card, hd, split):
+    """bf16 r, k, v and f32 w read through the strides of the model's (B, T,
+    H, hd) projections; the output comes back in r's layout."""
+    b, h = RWKV_HEADS[split]
+    xs = _rwkv_model_layout(card, np.random.default_rng(hd), b, h, 48, hd, torch.bfloat16)
+    _check_rwkv6(card, xs, split)
+
+
+@pytest.mark.parametrize("split", [False, True])
+@pytest.mark.parametrize("t", [23, 48, 100])
+def test_rwkv6_scan_ragged_steps(card, t, split):
+    """T not a multiple of the 8-step chunk at hd 64 (the last chunk's
+    steps past T are zero-filled and skipped)."""
+    b, h = RWKV_HEADS[split]
+    xs = _rwkv_model_layout(card, np.random.default_rng(t), b, h, t, 64, torch.bfloat16)
+    _check_rwkv6(card, xs, split)
+
+
+def test_rwkv6_scan_long_sequence_splits_columns(card):
+    """B 1, T 4096: 32 heads take the column split (8 warps a head)."""
+    xs = _rwkv_model_layout(card, np.random.default_rng(4096), 1, 32, 4096, 64,
+                            torch.bfloat16)
+    _check_rwkv6(card, xs, True)
+
+
+def test_rwkv6_scan_refuses_unaligned_layouts(card):
+    x = torch.zeros(1, 2, 8, 72, device=card, dtype=torch.bfloat16)
+    ok = torch.zeros(1, 2, 8, 64, device=card)
+    u = torch.zeros(2, 64, device=card)
+    with pytest.raises(ValueError, match="16-byte"):  # starts 8 bytes in
+        rwkv6_scan_cuda(x[..., 4:68], x[..., 8:72], x[..., 8:72], ok, u)
+    with pytest.raises(ValueError, match="contiguous last dimension"):
+        rwkv6_scan_cuda(ok, ok, ok, torch.zeros(1, 2, 64, 8, device=card).transpose(2, 3), u)
+    with pytest.raises(ValueError, match="bfloat16"):  # r, k, v of one type
+        rwkv6_scan_cuda(ok.bfloat16(), ok, ok.bfloat16(), ok, u)
 
 
 @pytest.mark.parametrize("b,t,r", [(4, 48, 4096), (1, 1000, 100), (3, 7, 65)])

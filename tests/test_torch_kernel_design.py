@@ -13,6 +13,12 @@
   heads and lengths; their check runs one (batch, q head) at a time for the
   first and the last q head, so that the f64 bound's (S, S) temporaries
   stay near 1 GB (every head computes alike).
+* **K1 at bf16** runs its product on the tensor cores: each 64-column ring
+  slice accumulates into a zeroed fragment that is added to the running
+  f32 sum with round-to-nearest.  :func:`emulate_bf16_scores` truncates
+  (rounds toward zero) after every product inside a slice, the worst
+  rounding an mma could do, and its scores stay inside
+  ``checks.exact_scores``' bf16 bound.
 * **The similarity tile** is 128 x 128 where a launch's count tiles hold
   whole 128-row tiles, else 64 x 64, and a launch with fewer CTA rows than
   SMs splits its columns into ranges of whole column tiles, enough for
@@ -193,3 +199,50 @@ def test_chain_prefix_launch_fills_the_card():
     # the main path's sweep has 256 CTAs of 128 rows: no split
     assert cuda_lib.column_splits(32768, 32768, 132, 128) == 1
 
+
+
+# ----------------------------------------------------------------------------
+# K1 at bf16: the accumulation schedule on the tensor cores
+# ----------------------------------------------------------------------------
+
+def _round_toward_zero(x64):
+    f = x64.float()
+    over = f.double().abs() > x64.abs()
+    return torch.where(over, torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def emulate_bf16_scores(a, b, slice_cols=64):
+    """Row-wise dot products of bf16 ``a`` and ``b`` (n, d) as the bf16
+    product accumulates them: within a slice of ``slice_cols`` columns every
+    product is added with truncation (the worst an mma may round), and each
+    slice's sum is added to the running f32 score with round-to-nearest."""
+    af, bf = a.float(), b.float()
+    acc = torch.zeros(a.shape[0])
+    for c0 in range(0, a.shape[1], slice_cols):
+        part = torch.zeros(a.shape[0])
+        for c in range(c0, min(c0 + slice_cols, a.shape[1])):
+            part = _round_toward_zero(part.double() + (af[:, c] * bf[:, c]).double())
+        acc = acc + part
+    return acc
+
+
+def test_bf16_tensor_core_schedule_holds_the_bound():
+    """At d 384 on 4,096 seeded pairs of unit rows (and their sign-flipped
+    halves, so scores cancel), the truncating schedule stays inside the
+    bound ``checks.exact_scores`` holds a bf16 score to."""
+    rng = np.random.default_rng(21)
+    e = rng.standard_normal((2, 4096, 384)).astype(np.float32)
+    e /= np.linalg.norm(e, axis=2, keepdims=True)
+    e[1, 2048:] = -e[0, 2048:] + 0.01 * e[1, 2048:]   # near-cancelling pairs
+    a, b = (torch.from_numpy(x).to(torch.bfloat16) for x in e)
+    got = emulate_bf16_scores(a, b).double()
+    exact = (a.double() * b.double()).sum(1)
+    d = a.shape[1]
+    gamma = d * checks.U / (1 - d * checks.U)
+    bound = gamma * (a.double() * b.double()).abs().sum(1) + 1e-30
+    ratio = float(((got - exact).abs() / bound).max())
+    print(f"bf16 schedule: worst |score - exact| / bound = {ratio:.4f}")
+    assert ratio <= 1.0
+    # the schedule's own estimate, (2 * 64 + d / 64) u sum |a b|, is about a
+    # third of gamma_384
+    assert ratio <= (2 * 64 + d / 64) / d

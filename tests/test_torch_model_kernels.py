@@ -14,6 +14,16 @@ The rule the kernels are held to on the card (``checks.check_model_kernel``
 with the ``checks.*_bound`` error bounds) is checked here too: the plain f32
 versions lie within the bound of an f64 evaluation, and an output off by
 more than the rule allows is refused.
+
+K6's CUDA kernel evaluates the recurrence in its own order: the bonus term
+hoisted into one scalar a step (``beta_t = sum_i (r_i u_i) k_i``, summed by a
+warp butterfly), the read-out in NP partial sums a column and RG row groups
+that meet by a butterfly; each state element takes a multiply and two FMAs.
+:func:`emulate_rwkv6_kernel` repeats that order in f32 (an FMA as one f64
+operation rounded to f32, which can differ from a true FMA in the last bit,
+well inside the bound) for the per-head and the column-split layouts, and is
+held to ``checks.rwkv6_scan_bound`` against the f64 recurrence and to twice
+that bound against the Pallas kernel in interpret mode.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -33,7 +43,7 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.rglru_scan import rglru_scan
 from repro_torch.kernels.rglru_scan.kernel import rglru_scan_cuda
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan
-from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_cuda
+from repro_torch.kernels.rwkv6_scan.kernel import HEAD_WARPS, column_split, rwkv6_scan_cuda
 
 BF16_ULP = 2.0**-7
 
@@ -120,6 +130,129 @@ def test_rwkv6_plain_matches_reference_and_pallas(b, h, t, hd):
     jx = [jnp.asarray(x) for x in xs]
     for want in (jax_rwkv6_ref(*jx), jax_rwkv6(*jx, ct=8, interpret=True)):
         np.testing.assert_allclose(got, _np(want), rtol=1e-5, atol=1e-6)
+
+
+def test_rwkv6_op_reads_the_model_layout_on_cpu():
+    """The op as the model calls it, on bf16 (B, T, H, hd) projections seen
+    as (B, H, T, hd) with f32 decays, equals the reference-layout call on
+    their f32 copies exactly (the plain version widens as the kernel does)."""
+    rng = np.random.default_rng(3)
+    b, t, h, hd = 2, 13, 3, 16
+    r, k, v = (torch.from_numpy(rng.standard_normal((b, t, h, hd)).astype(np.float32))
+               .to(torch.bfloat16) for _ in range(3))
+    w = torch.from_numpy(rng.uniform(0.8, 0.999, (b, t, h, hd)).astype(np.float32))
+    u = torch.from_numpy((rng.standard_normal((h, hd)) * 0.1).astype(np.float32))
+    got = rwkv6_scan(*(z.transpose(1, 2) for z in (r, k, v, w)), u)
+    want = rwkv6_scan(*(z.float().transpose(1, 2).contiguous() for z in (r, k, v, w)), u)
+    assert got.dtype == torch.float32 and got.shape == (b, h, t, hd)
+    assert torch.equal(got, want)
+
+
+# ----------------------------------------------------------------------------
+# K6: the kernel's evaluation order and layout policy
+# ----------------------------------------------------------------------------
+
+def _fma(a, b, c):
+    """a * b + c rounded once to f32 (a * b of two f32 is exact in f64)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _beta(r, k, u, ct):
+    """beta_t = sum_i (r_i u_i) k_i of each step as the kernel's warp sums it:
+    lane l takes rows l, l + 32, ..., then per chunk of ``ct`` steps a
+    butterfly that halves the steps a lane carries at each level, then sums
+    the lanes that share a step.  r, k: (B, H, T, hd); u: (H, hd)."""
+    b, h, t, hd = r.shape
+    lanes = torch.arange(32)
+    out = torch.empty((b, h, t))
+    for t0 in range(0, t, ct):
+        n = min(ct, t - t0)
+        part = torch.zeros((32, ct, b, h))
+        for m in range(-(-hd // 32)):
+            for ln in range(32):
+                i = ln + 32 * m
+                if i < hd:
+                    ru = (r[:, :, t0:t0 + n, i] * u[None, :, None, i]).permute(2, 0, 1)
+                    part[ln, :n] = _fma(ru, k[:, :, t0:t0 + n, i].permute(2, 0, 1),
+                                        part[ln, :n])
+        step = torch.zeros(32, dtype=torch.long)
+        for lvl in range(5):
+            o, half = 16 >> lvl, (ct >> lvl) // 2
+            up = (lanes & o) != 0
+            if half:
+                new = part.clone()
+                for j in range(half):
+                    send = torch.where(up[:, None, None], part[:, j], part[:, j + half])
+                    keep = torch.where(up[:, None, None], part[:, j + half], part[:, j])
+                    new[:, j] = keep + send[lanes ^ o]
+                part = new
+                step += up.long() * half
+            else:
+                part[:, 0] = part[:, 0] + part[lanes ^ o, 0]
+        for ln in range(32):
+            if step[ln] < n:
+                out[:, :, t0 + step[ln]] = part[ln, 0]
+    return out
+
+
+def emulate_rwkv6_kernel(r, k, v, w, u, rg, np_, ct):
+    """The kernel's arithmetic for a layout of ``rg`` row groups, ``np_``
+    partial sums a column and chunks of ``ct`` steps: (B, H, T, hd) f32."""
+    r, k, v, w, u = (x.float() for x in (r, k, v, w, u))
+    b, h, t, hd = r.shape
+    rpl = hd // rg
+    beta = _beta(r, k, u, ct)
+    s = torch.zeros((b, h, hd, hd))  # S[i, j]
+    outs = []
+    for step in range(t):
+        rt, kt, vt, wt = (x[:, :, step] for x in (r, k, v, w))  # (B, H, hd)
+        groups = []
+        for g in range(rg):
+            acc = [torch.zeros((b, h, hd)) for _ in range(np_)]
+            for i in range(g * rpl, (g + 1) * rpl):
+                e = (i - g * rpl) % np_
+                acc[e] = _fma(rt[:, :, i, None].expand(b, h, hd), s[:, :, i], acc[e])
+            groups.append((acc[0] + acc[1]) + (acc[2] + acc[3]) if np_ == 4
+                          else acc[0] + acc[1])
+        while len(groups) > 1:  # the row groups' butterfly
+            groups = [groups[2 * j] + groups[2 * j + 1] for j in range(len(groups) // 2)]
+        outs.append(_fma(vt, beta[:, :, step, None].expand(b, h, hd), groups[0]))
+        kv = kt[:, :, :, None] * vt[:, :, None, :]  # f32 multiply
+        s = _fma(wt[:, :, :, None].expand_as(s), s, kv)
+    return torch.stack(outs, dim=2)
+
+
+# (row groups, partial sums, chunk steps) of csrc/model_kernels.cu's
+# rw_dispatch: the per-head layout and the column split
+RWKV_LAYOUTS = {16: {"per head": (2, 4, 32), "column split": (4, 4, 32)},
+                64: {"per head": (2, 2, 8), "column split": (4, 4, 32)}}
+
+
+@pytest.mark.parametrize("layout", ["per head", "column split"])
+@pytest.mark.parametrize("b,h,t,hd", [(2, 2, 16, 16), (1, 3, 23, 16), (1, 2, 12, 64)])
+def test_rwkv6_kernel_order_holds_the_bound(b, h, t, hd, layout):
+    xs = _rwkv_inputs(np.random.default_rng(t + hd), b, h, t, hd)
+    tx = [torch.from_numpy(x) for x in xs]
+    rg, np_, ct = RWKV_LAYOUTS[hd][layout]
+    got = emulate_rwkv6_kernel(*tx, rg=rg, np_=np_, ct=ct)
+    bound = checks.rwkv6_scan_bound(*tx)
+    err = (got.double() - _rwkv6_f64(*tx)).abs()
+    assert (err <= bound).all(), float((err / bound).max())
+    pallas = jax_rwkv6(*(jnp.asarray(x) for x in xs), ct=8, interpret=True)
+    checks.check_model_kernel(got, torch.from_numpy(np.array(pallas)), bound)
+
+
+@pytest.mark.parametrize("heads,hd,split", [
+    (256 * 32, 64, False),   # the rwkv6-1.6b path: B 256, H 32
+    (1 * 32, 64, True),      # B 1, T 4096: 32 heads
+    (24 * 32, 128, False),   # 768 heads at hd 128: 4 warps a head
+    (8, 16, True),           # a test's few heads
+])
+def test_rwkv6_column_split_policy(heads, hd, split):
+    """The column split takes over where the per-head layout would give an
+    H100 (132 SMs) fewer than 4 warps an SM."""
+    assert column_split(heads, hd, 132) == split
+    assert (heads * HEAD_WARPS[hd] < 4 * 132) == split
 
 
 # ----------------------------------------------------------------------------
