@@ -10,7 +10,9 @@ kernel against its plain PyTorch version at main-path shapes (a 4,096-row
 slice of E1 against the full E2) under the rules of
 ``repro_torch.kernels.checks``, the fp32 and bf16 sweeps against their
 two-pass kernels bit for bit (with the largest bf16 score error over its
-bound), and the fp32 sweep as the 3-way chain calls it (exponent 0.5, a
+bound), the int8 sweep against its plain version bit for bit, the top-k of
+``HOT_ROWS`` rows at k 128 (the few-row kernels) against the fp32 sweep's
+lists, and the fp32 sweep as the 3-way chain calls it (exponent 0.5, a
 per-row scale, walk sums at exponent 1); then flash attention and the two
 recurrent scans against theirs at the shapes the model paths give them and
 at one long shape each, with their times (the RWKV6 scan in the model's
@@ -20,10 +22,12 @@ AVG; COUNT at bf16, at int8 and on the two-pass schedule; a catalog with
 canonical records that drives the raised-k top-k retry), a 3-way chain
 through ``run_auto`` and a small dense-routed query, with launch counts read
 around the whole phase; (5) the similarity kernels' times with CUDA events
-at the phase-4 shapes; (6) the Oracle path: a COUNT join of two 256-record
-tables whose Oracle is the full ``joinml-oracle`` (12 layers, d 768, bf16,
-random weights from a seed) behind ``PairScorer`` and ``ModelOracle``, held
-against every pair scored by the same scorer, then profiled; (7) the
+at the phase-4 shapes (and, for context, ``torch.matmul`` and
+``torch._int_mm`` of the bare fp32 and int8 products); (6) the Oracle path:
+a COUNT join of two 256-record tables whose Oracle is the full
+``joinml-oracle`` (12 layers, d 768, bf16, random weights from a seed)
+behind ``PairScorer`` and ``ModelOracle``, held against every pair scored
+by the same scorer, then profiled; (7) the
 scorer on the card against the CPU; (8) the recurrent paths:
 ``rwkv6-1.6b`` at full size and ``recurrentgemma-9b`` at full width cut to
 8 layers score 2,048 pairs each.  Launch counts are set to 0 just before
@@ -36,6 +40,7 @@ prints no result.  The rehearsal runs phases 4, 6, 7 and 8 at a tiny size on
 the CPU and exits 3.
 """
 import argparse
+import collections
 import dataclasses
 import json
 import os
@@ -93,6 +98,7 @@ FULL = Size(n=32768, d=384, slice=4096, budget=20000, dense_cap=256 * 2**20)
 # the CPU rehearsal: the same phases at a size the CPU runs in seconds
 REHEARSAL = Size(n=1024, d=64, slice=256, budget=4000, dense_cap=2**16)
 SEED = 0
+HOT_ROWS = 8  # canonical records of the hot catalog: the rows the k = 128 retry takes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,27 +131,42 @@ CARD_CPU_ATOL = 0.02
 
 def make_catalogs(n, d, seed):
     from repro_torch.core import Catalog, Table
-    from repro_torch.core.similarity import normalize
     from repro_torch.data import make_clustered_tables
 
     ds = make_clustered_tables(n, n, d=d, n_entities=512, noise=0.35, seed=seed)
     main = Catalog()
     main.register(Table("a", ds.emb1, ds.columns1))
     main.register(Table("b", ds.emb2, ds.columns2))
-    # a catalog whose first left records are canonical descriptions of their
-    # entity (the mean of its right records): those rows clear the top-m
-    # threshold with far more than 32 partners, which drives the raised-k
-    # top-k retry of the collection
-    hot = make_clustered_tables(max(n // 8, 64), n, d=d,
-                                n_entities=max(n // 512, 2),
-                                noise=0.35, seed=seed + 1)
-    e1 = hot.emb1.copy()
-    for i in range(8):
-        e1[i] = normalize(hot.emb2[hot.truth[i] > 0].mean(axis=0, keepdims=True))[0]
+    hot = make_hot(n, d, seed)
     hcat = Catalog()
-    hcat.register(Table("h", e1, hot.columns1))
+    hcat.register(Table("h", hot.emb1, hot.columns1))
     hcat.register(Table("b", hot.emb2, hot.columns2))
     return ds, main, hot, hcat
+
+
+def make_hot(n, d, seed):
+    """The hot catalog's tables: the first ``HOT_ROWS`` left records are
+    canonical descriptions of their entity (the mean of its right records),
+    so those rows clear the top-m threshold with far more than 32 partners,
+    which drives the raised-k top-k retry of the collection."""
+    from repro_torch.core.similarity import normalize
+    from repro_torch.data import make_clustered_tables
+
+    hot = make_clustered_tables(max(n // 8, 64), n, d=d, n_entities=max(n // 512, 2),
+                                noise=0.35, seed=seed + 1)
+    e1 = hot.emb1.copy()
+    for i in range(HOT_ROWS):
+        e1[i] = normalize(hot.emb2[hot.truth[i] > 0].mean(axis=0, keepdims=True))[0]
+    return dataclasses.replace(hot, emb1=e1)
+
+
+def retry_operands(hot, rows):
+    """The raised-k retry's operands as ``sim_topk`` pads them: the first
+    ``rows`` hot rows (padded with zero rows to a multiple of 8) and the
+    full right table, on the card in f32."""
+    h1 = torch.from_numpy(hot.emb1[:rows]).cuda()
+    return (torch.nn.functional.pad(h1, (0, 0, 0, (-rows) % 8)),
+            torch.from_numpy(hot.emb2).cuda())
 
 
 def make_chain(size):
@@ -375,6 +396,24 @@ def _events_ms(fn, reps):
     return a.elapsed_time(b) / reps
 
 
+def device_ms_by_kernel(fn, reps):
+    """Device time a call of ``fn`` spends in each kernel it launches
+    (torch.profiler), in ms, by the kernel's full name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = collections.Counter()
+    for e in prof.key_averages():
+        if e.self_device_time_total > 0:
+            out[e.key] += e.self_device_time_total / 1e3 / reps
+    return dict(out)
+
+
 def kernel_inputs(ds, rows, precision):
     from repro_torch.core.similarity import quantize_rows_int8
 
@@ -406,7 +445,7 @@ def sweep_fns(ds, rows, precision, k=32):
 
 
 def phase3(ds, rows):
-    from repro_torch.kernels import checks
+    from repro_torch.kernels import checks, cuda_lib
     from repro_torch.kernels.sim_hist.kernel import sim_hist_cuda
     from repro_torch.kernels.sim_hist.ref import sim_hist_ref
     from repro_torch.kernels.sim_sweep.kernel import kernel_operand
@@ -467,6 +506,22 @@ def phase3(ds, rows):
         errs[f"sim_topk[k={k}]"] = float((kv2.double() - pv2.double()).abs().max())
         log(json.dumps({"check": f"sim_topk[k={k}]", "topk_mismatch": t["mismatch"],
                         "max_abs_err_vals": errs[f"sim_topk[k={k}]"]}))
+    # the raised-k retry's shape: HOT_ROWS rows take the few-row kernels;
+    # the top 32 of their k-128 lists equal the fp32 sweep's k-32 lists
+    r = HOT_ROWS
+    fv, fi = sim_topk_cuda(kernel_operand(a[:r], "fp32"), b4, k=128)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(fv[:, :32], kv[:r]) and torch.equal(fi[:, :32], ki[:r]))
+    pv3, pi3 = sim_topk_ref(a[:r], b, k=128)
+    t = checks.check_topk(fv, fi, pv3, pi3, s64[:r], bound[:r])
+    err = float((fv.double() - pv3.double()).abs().max())
+    errs["sim_topk[k=128]"] = max(errs["sim_topk[k=128]"], err)
+    log(json.dumps({"check": f"sim_topk[k=128], {r} rows (the few-row kernels)",
+                    "few_row_kernels": cuda_lib.few_rows("fp32", cuda_lib.TOPK, r),
+                    "top32_equal_fp32_sweep": same, "topk_mismatch": t["mismatch"],
+                    "max_abs_err_vals": err}))
+    if not same:
+        fail("the few-row top-k's first 32 entries differ from the fp32 sweep's lists")
     del s64, bound
     torch.cuda.empty_cache()
     return errs
@@ -587,6 +642,8 @@ def phase5(ds, retry_rows, hot):
         if precision == "int8":
             byts += (m + n) * 4
         times[name] = _row(ms, pms, 2.0 * m * n * d, byts, PEAK[precision])
+        if precision == "int8":  # context only: no one call computes K2's outputs
+            int_mm_ms = _events_ms(lambda: torch._int_mm(a, b.T), 3)
         del kern, plain, a, b
         torch.cuda.empty_cache()
     e1 = torch.from_numpy(ds.emb1).cuda()
@@ -603,21 +660,27 @@ def phase5(ds, retry_rows, hot):
                                    flops, inb + n * 32 * 8, PEAK["fp32"])
     # the retry's shape: the rows the hot query retried, against the full E2
     r = max(int(retry_rows or 0), 1)
-    h1 = torch.from_numpy(hot.emb1[:r]).cuda()
-    hb = torch.from_numpy(hot.emb2).cuda()
-    h1p = torch.nn.functional.pad(h1, (0, 0, 0, (-r) % 8))
+    h1p, hb = retry_operands(hot, r)
     h14, hb4 = kernel_operand(h1p, "fp32"), kernel_operand(hb, "fp32")
+    # a call is short enough that the host's work between calls shows in
+    # its time (CUDA events, as for every kernel); beside it, the device
+    # time of the kernels a call launches
+    retry = lambda: sim_topk_cuda(h14, hb4, k=128)  # noqa: E731
     times["sim_topk[k=128]"] = _row(
-        _events_ms(lambda: sim_topk_cuda(h14, hb4, k=128), 10),
-        _events_ms(lambda: sim_topk_ref(h1p, hb, k=128), 3),
+        _events_ms(retry, 20), _events_ms(lambda: sim_topk_ref(h1p, hb, k=128), 3),
         2.0 * h1p.shape[0] * n * d, (h1p.shape[0] + n) * d * 4 + h1p.shape[0] * 128 * 8,
         PEAK["fp32"])
+    by_kernel = device_ms_by_kernel(retry, 20)
+    times["sim_topk[k=128]"].update(device_ms=sum(by_kernel.values()),
+                                    device_ms_by_kernel=by_kernel)
     times["sim_topk[k=128]"]["rows"] = int(h1p.shape[0])
-    times["sim_topk[k=128]"]["column_ranges"] = cuda_lib.topk_splits(
-        h1p.shape[0], n, torch.cuda.get_device_properties(0).multi_processor_count)
+    times["sim_topk[k=128]"]["kernel"] = (
+        "few-row" if cuda_lib.few_rows("fp32", cuda_lib.TOPK, h1p.shape[0]) else "tile")
     matmul_ms = _events_ms(lambda: torch.matmul(e1, e2.T), 3)
     log(json.dumps({"context": "torch.matmul of the bare fp32 score product",
                     "shape": [n, n, d], "matmul_ms": matmul_ms}))
+    log(json.dumps({"context": "torch._int_mm of the bare int8 score product",
+                    "shape": [n, n, d], "int_mm_ms": int_mm_ms}))
     return times
 
 
@@ -1044,7 +1107,11 @@ def main():
         for r in (cuda_lib.WIDE_ROWS, cuda_lib.CTA_ROWS)} | {
         "sim_hist": smem(HIST, 4096, 1, cuda_lib.WIDE_ROWS),
         "sim_topk[k=32]": smem(TOPK, 1, 32, cuda_lib.WIDE_ROWS),
-        "sim_topk[k=128], 64-row tile": smem(TOPK, 1, 128, cuda_lib.CTA_ROWS)} | {
+        "sim_topk[k=128], 64-row tile": smem(TOPK, 1, 128, cuda_lib.CTA_ROWS),
+        f"sim_topk, few-row kernels (<= {cuda_lib.FEW_ROWS} rows), scores":
+            cuda_lib.lib().repro_topk_few_rows_smem_bytes(0),
+        f"sim_topk, few-row kernels (<= {cuda_lib.FEW_ROWS} rows), selection":
+            cuda_lib.lib().repro_topk_few_rows_smem_bytes(1)} | {
         f"flash_attention f32 d={d}": fsmem(0, d, 1, 1, 1, 1) for d in (64, 256)} | {
         f"flash_attention bf16 {label}": fsmem(1, sh[4], sh[1], sh[2], sh[3], sh[3])
         for label, sh in FLASH_SHAPES.items()}}))

@@ -4,6 +4,7 @@ compared in one call (run them in turns: A, B, B, A):
     python scripts/compare_kernels.py --src src
     python scripts/compare_kernels.py --src build/parent/src
     python scripts/compare_kernels.py --src src --epilogue-floor
+    python scripts/compare_kernels.py --src src --few-row-cut
 
 ``--src`` is the ``src`` directory of the tree whose ``repro_torch`` is
 timed (another commit unpacked with ``git archive`` under ``build/``); its
@@ -14,6 +15,9 @@ kernels build into that tree's own ``build/``.  The inputs are those of
   bins, count tiles of 256 rows) on the clustered tables of seed 0, at fp32
   (K1), bf16 (K1 bf16) and int8 (K2), and the two-pass top-k (K3, k 32) and
   histogram (K4) at fp32;
+* the raised-k retry (K3, k 128) on its shape: ``chip_smoke.HOT_ROWS`` hot
+  rows against the hot catalog's 32,768 right rows, padded as
+  ``chip_smoke.retry_operands`` pads them;
 * the 3-way chain's first prefix launch (4,096 x 32,768 x 384, exponent 0.5
   with the per-row scale, walk sums at exponent 1, k 1);
 * flash attention in bf16 at ``chip_smoke.FLASH_SHAPES`` (causal, normal
@@ -24,13 +28,23 @@ kernels build into that tree's own ``build/``.  The inputs are those of
   copies its model made: ``.float().transpose(1, 2)`` and the op's
   ``.contiguous()``).
 
+``--few-row-cut`` times the fp32 top-k at k 128 against the hot catalog's
+32,768 right rows over 1, 8, 16, 24 and 32 of its rows (the few-row
+kernels' range), as ``cuda_lib.launch`` launches it and through the tile
+kernel's own launch (``cuda_lib._launch_tile``), which ``launch`` takes
+above the cut.
+
 ``--epilogue-floor`` builds the tree's kernels with
 ``-DREPRO_SIM_EPILOGUE_FLOOR`` (into its own library) and times the bf16
-sweep only: its product warps compute each CTA's first column tile and stage
-those scores again for every other tile, so the time is the epilogues' with
-a product that costs next to nothing.  Each time is the mean over
-CUDA-event-timed launches after a warm-up.  Prints one JSON line with the
-card's name and power limit.  Needs a CUDA card.
+and int8 sweeps only: their product warps compute each CTA's first column
+tile and stage those scores again for every other tile, so the time is the
+epilogues' with a product that costs next to nothing.
+
+Each time is the mean over CUDA-event-timed calls after a warm-up; for the
+top-k at k 128, whose calls are short enough that the host's work between
+them shows, also the device time of each kernel a call launches
+(torch.profiler).  Prints one JSON line with the card's name and power
+limit.  Needs a CUDA card.
 """
 import argparse
 import importlib.util
@@ -71,7 +85,7 @@ def sweeps(cs, floor_only):
     ones = torch.ones(e1.shape[0], device="cuda")
     kw = dict(n_bins=4096, k=32, bm=256)
     out = {}
-    for precision in ("bf16",) if floor_only else ("fp32", "bf16", "int8"):
+    for precision in ("bf16", "int8") if floor_only else ("fp32", "bf16", "int8"):
         rs1 = rs2 = None
         a, b = e1, e2
         if precision == "int8":
@@ -87,6 +101,41 @@ def sweeps(cs, floor_only):
         a4, b4 = kernel_operand(e1, "fp32"), kernel_operand(e2, "fp32")
         out["topk_k32_ms"] = events_ms(lambda: sim_topk_cuda(a4, b4, k=32), 3)
         out["hist_ms"] = events_ms(lambda: sim_hist_cuda(a4, b4, ones, n_bins=4096), 3)
+    return out
+
+
+def retry(cs):
+    """K3 at k 128 on the raised-k retry's shape: the time of a call, and
+    the device time of each kernel it launches."""
+    from repro_torch.kernels.sim_sweep.kernel import kernel_operand
+    from repro_torch.kernels.sim_topk.kernel import sim_topk_cuda
+
+    h1p, hb = cs.retry_operands(cs.make_hot(cs.FULL.n, cs.FULL.d, cs.SEED), cs.HOT_ROWS)
+    a4, b4 = kernel_operand(h1p, "fp32"), kernel_operand(hb, "fp32")
+    fn = lambda: sim_topk_cuda(a4, b4, k=128)  # noqa: E731
+    by_kernel = cs.device_ms_by_kernel(fn, 20)
+    return {"retry_topk_k128_ms": events_ms(fn, 50),
+            "retry_topk_k128_device_ms": sum(by_kernel.values()),
+            "retry_topk_k128_device_ms_by_kernel": by_kernel}
+
+
+def few_row_cut(cs):
+    """The top-k at k 128 over few rows: {rows: {kernel: ms a call, device
+    ms}} for the few-row kernels and the tile kernel."""
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels.sim_sweep.kernel import kernel_operand
+
+    hot = cs.make_hot(cs.FULL.n, cs.FULL.d, cs.SEED)
+    out = {}
+    for rows in (1, 8, 16, 24, 32):
+        h1p, hb = cs.retry_operands(hot, rows)
+        a4, b4 = kernel_operand(h1p[:rows], "fp32"), kernel_operand(hb, "fp32")
+        assert cuda_lib.few_rows("fp32", cuda_lib.TOPK, rows)
+        out[rows] = {}
+        for name, launch in (("few-row", cuda_lib.launch), ("tile", cuda_lib._launch_tile)):
+            fn = lambda: launch("fp32", cuda_lib.TOPK, a4, b4, k=128)  # noqa: E731
+            out[rows][name] = {"ms": events_ms(fn, 50),
+                               "device_ms": sum(cs.device_ms_by_kernel(fn, 20).values())}
     return out
 
 
@@ -144,8 +193,10 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", required=True, help="the src directory of the tree to time")
     ap.add_argument("--label", default=None)
+    ap.add_argument("--few-row-cut", action="store_true",
+                    help="time the few-row and the tile top-k over 1 to 32 rows")
     ap.add_argument("--epilogue-floor", action="store_true",
-                    help="time the bf16 sweep of the epilogue-floor build only")
+                    help="time the bf16 and int8 sweeps of the epilogue-floor build only")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
@@ -158,12 +209,15 @@ def main():
     from repro_torch.kernels import cuda_lib
 
     out = {"label": args.label or args.src}
-    if args.epilogue_floor:
+    if args.few_row_cut:
+        out["topk_k128_by_rows"] = few_row_cut(cs)
+    elif args.epilogue_floor:
         cuda_lib.NVCC_FLAGS = [*cuda_lib.NVCC_FLAGS, "-DREPRO_SIM_EPILOGUE_FLOOR"]
         out["epilogue_floor"] = True
         out.update(sweeps(cs, floor_only=True))
     else:
         out.update(sweeps(cs, floor_only=False))
+        out.update(retry(cs))
         out["chain_prefix_ms"] = chain_prefix_ms(cs)
         gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
         out["flash_bf16_ms"] = flash_ms(cs, gen)

@@ -12,8 +12,8 @@
 //
 // What bounds it on this card: operations.  One pass does 2*M*N*d
 // multiply-adds (fp32 on the CUDA cores: the fp32 path may not use TF32;
-// bf16 on the tensor cores, bf16 x bf16 -> f32; int8 by __dp4a with int32
-// accumulation) and reads only the two tables, so at the main-path shapes
+// bf16 on the tensor cores, bf16 x bf16 -> f32; int8 on the tensor cores,
+// s8 x s8 -> s32) and reads only the two tables, so at the main-path shapes
 // (32768 x 32768 x 384) it is about 8e11 FLOP against ~100 MB of input:
 // three orders of magnitude above the ridge point.  The design keeps
 // everything but the inputs out of device memory: the score tile lives in
@@ -28,21 +28,24 @@
 // warps per slice, over the flat sequence (column tile, k-slice), so the
 // next slice's loads -- across column tiles too -- overlap this slice's
 // arithmetic.
-//   fp32, int8 (SIMT, and bit for bit equal to the two-pass kernels): 256
+//   fp32 (SIMT, and bit for bit equal to the two-pass kernels): 256
 //   product threads (16 x 16; a warp is 4 x 8 of them) own rows ty + 16 i
 //   and columns tx + 16 j each, an 8 x 8 block of scores (4 x 4 in the 64
 //   tile).  Each 4-deep step a thread reads 8 A and 8 B float4 from shared
 //   memory for 256 FMAs; a warp's A reads are broadcasts of 4 rows and its B
 //   reads 8 rows 144 bytes apart, one wavefront each.
-//   bf16 (Product<BF16>): mma.sync m16n8k16 from ldmatrix'd ring rows, the
-//   8 product warps as 4 x 2 warp tiles of 32 x 64 scores.  A k-slice
+//   bf16 and int8 (TcProduct): mma.sync from ldmatrix'd ring rows, the 8
+//   product warps as 4 x 2 warp tiles of 32 x 64 scores; a k-step is 32
+//   bytes of a row (m16n8k16 bf16 -> f32, m16n8k32 s8 -> s32), whose A and
+//   B fragments have the same byte layout at both types.  At bf16 a k-slice
 //   accumulates into a zeroed fragment that is then added to the running
 //   f32 sum with __fadd_rn, which bounds the error however the tensor cores
-//   round inside an mma.  What bounds it is not the tensor cores: a CTA
-//   reads its 128 E1 rows again for every column tile (shared memory has no
-//   room to keep them), about 12.6 GB from L2 over a 32,768^2 x 384 sweep,
-//   so the product alone runs near the L2's rate and the epilogues take
-//   about as long again.
+//   round inside an mma; int8 sums are exact in s32 (|q| <= 127 cannot
+//   overflow below d = 133,144) and accumulate straight into the score.
+//   What bounds either is not the tensor cores: a CTA reads its 128 E1 rows
+//   again for every column tile (shared memory has no room to keep them),
+//   12.6 GB from L2 over a 32,768^2 x 384 sweep at bf16 and 6.3 GB at int8,
+//   and the epilogues take longer than the product.
 //
 // The epilogues run in warps of their own (warp specialization): when the
 // product warps finish a column tile they stage its scores in shared memory
@@ -54,9 +57,10 @@
 // epilogues on.  The CTA launches with 128 registers a thread, and
 // setmaxnreg moves them to where they are needed: the product's two
 // warpgroups take 200 a thread (the 64 accumulators and the fragments), the
-// epilogue's two give up all but 56.  At bf16 the product warps finish a
-// tile's mmas early: they then claim rows of the staged tile beside the
-// epilogue warps (a shared row counter; each row goes to one warp, so its
+// epilogue's two give up all but 56.  On the tensor cores (bf16, int8) the
+// product warps finish a tile's mmas early: they then claim rows of the
+// staged tile beside the epilogue warps (a shared row counter; each row
+// goes to one warp, so its
 // sums and top-k list take its columns in order and the results do not
 // depend on which warp ran it), and the bin of the floor's weight, where
 // most scores of a join land, is counted per warp and added with one atomic
@@ -95,34 +99,47 @@
 //   the end one thread a row adds the 32 lanes' pairs in lane order.
 // * Few rows, many columns: a launch with fewer than two CTAs per SM would
 //   leave SMs idle (the 3-way chain's 4,096-row prefix is 32 CTAs of 128
-//   rows; the raised-k retry runs on a handful of rows).  Such a launch
-//   splits the columns across a second grid dimension, for about four CTAs
-//   per SM.  Count tiles merge by their integer atomics; each CTA keeps the
-//   exact top-k of its column range and the (hi, lo) walk sums of its
-//   columns, and a second kernel merges a row's lists (one warp a row: the
-//   top-k under a total order is unique, so the merged lists equal an
-//   unsplit launch's bit for bit) and its sums, in range order by two-sum
-//   steps (deterministic; they differ from an unsplit launch's only in
-//   their last bits).
+//   rows).  Such a launch splits the columns across a second grid
+//   dimension, for about four CTAs per SM.  Count tiles merge by their
+//   integer atomics; each CTA keeps the exact top-k of its column range and
+//   the (hi, lo) walk sums of its columns, and a second kernel merges a
+//   row's lists (one warp a row: the top-k under a total order is unique,
+//   so the merged lists equal an unsplit launch's bit for bit) and its sums,
+//   in range order by two-sum steps (deterministic; they differ from an
+//   unsplit launch's only in their last bits).
+// * A top-k launch over few rows (the raised-k retry: 8 rows against 32,768
+//   at k 128) is bound by reading E2 once: 50 MB, 0.015 ms.  The tile
+//   kernel would compute 64 rows for 8, insert wide lists one candidate at
+//   a time and merge 256 partial lists.  At fp32 and at most FR_ROWS rows
+//   it takes two kernels of its own instead (fewrow_scores, fewrow_select
+//   below): one pass over E2 writes every clipped score as a sortable key,
+//   and one CTA a row radix-selects its k-th key and sorts the k above it.
+//   The order is the same total order, so the lists equal the tile
+//   kernel's bit for bit.
 //
 // Exactness: the fp32 score of a pair is one fmaf chain over k = 0..d-1 in
 // order, whatever the tile or launch it is computed in, so the fp32 sweep is
 // bit-identical to the two-pass (histogram, top-k) launches; a bf16 score
 // takes the same slices, mmas and flushes in every tile and launch, so the
-// bf16 sweep equals its two-pass launches and a split launch an unsplit one.  The walk sums
+// bf16 sweep equals its two-pass launches and a split launch an unsplit
+// one; an int8 score is an exact integer sum, scaled as the reference
+// scales it (two f32 products in a fixed order).  The walk sums
 // use error-free two-sum steps written with __fadd_rn / __fsub_rn, which
 // nvcc can neither contract nor reorder.  Never build with --use_fast_math.
 //
 // Interface: plain C, called through ctypes.  The wrapper allocates every
 // output (count tiles zeroed), pads d so that a row is a multiple of 16
-// bytes (4 f32, 8 bf16, 16 int8) with zero columns, picks the tile rows and
-// the column split, and passes PyTorch's current stream.  The function
-// returns cudaGetLastError() after the launch.
+// bytes (4 f32, 8 bf16, 16 int8) with zero columns, picks the kernel (a
+// fp32 top-k launch over at most FR_ROWS rows takes the few-row kernels),
+// the tile rows and the column split, and passes PyTorch's current stream.
+// Each function returns cudaGetLastError() after its launches.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 #include <limits.h>
+
+#include <type_traits>
 
 #include "mma_bf16.cuh"
 
@@ -204,8 +221,18 @@ __device__ __forceinline__ void load_slice(const unsigned char* g, int rows,
 }
 
 // ---- the score tile --------------------------------------------------------
-// SIMT (fp32, int8): mma<RI, CJ> takes one landed k-slice into the thread's
-// RI x CJ block, one fmaf (dp4a) chain per score in k order.
+// SIMT (fp32): mma<RI, CJ> takes one landed k-slice into the thread's RI x
+// CJ block, one fmaf chain per score in k order.
+
+// One 4-deep step of a fp32 score's fmaf chain, in k order.  Every fp32
+// score (the tile's and fewrow_scores') is a chain of these steps over the
+// same 128-byte slices, which is what makes them equal bit for bit.
+__device__ __forceinline__ float fma_step(const float4 a, const float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
 
 template <int MODE>
 struct Tile;
@@ -229,18 +256,14 @@ struct Tile<F32> {
       for (int i = 0; i < RI; ++i) {
         const float4 a = *reinterpret_cast<const float4*>(A + (ty + 16 * i) * LDW + kk);
 #pragma unroll
-        for (int j = 0; j < CJ; ++j) {
-          acc[i][j] = fmaf(a.x, b[j].x, acc[i][j]);
-          acc[i][j] = fmaf(a.y, b[j].y, acc[i][j]);
-          acc[i][j] = fmaf(a.z, b[j].z, acc[i][j]);
-          acc[i][j] = fmaf(a.w, b[j].w, acc[i][j]);
-        }
+        for (int j = 0; j < CJ; ++j) acc[i][j] = fma_step(a, b[j], acc[i][j]);
       }
     }
   }
 };
 
-// bf16: the element size and score type; the product is Product<BF16, BM>
+// bf16 and int8: the element size and score type; the product is
+// TcProduct<MODE, BM>
 template <>
 struct Tile<BF16> {
   static constexpr int ESIZE = 2;
@@ -251,34 +274,13 @@ template <>
 struct Tile<I8> {
   static constexpr int ESIZE = 1;
   using Acc = int;
-  template <int RI, int CJ>
-  static __device__ __forceinline__ void mma(const uint32_t* As, const uint32_t* Bs,
-                                             int ty, int tx, int (&acc)[RI][CJ]) {
-#pragma unroll
-    for (int kw = 0; kw < ROWB / 4; kw += 4) {  // 16 int8 a step
-      int4 b[CJ];
-#pragma unroll
-      for (int j = 0; j < CJ; ++j)
-        b[j] = *reinterpret_cast<const int4*>(Bs + (tx + 16 * j) * LDW + kw);
-#pragma unroll
-      for (int i = 0; i < RI; ++i) {
-        const int4 a = *reinterpret_cast<const int4*>(As + (ty + 16 * i) * LDW + kw);
-#pragma unroll
-        for (int j = 0; j < CJ; ++j) {
-          acc[i][j] = __dp4a(a.x, b[j].x, acc[i][j]);
-          acc[i][j] = __dp4a(a.y, b[j].y, acc[i][j]);
-          acc[i][j] = __dp4a(a.z, b[j].z, acc[i][j]);
-          acc[i][j] = __dp4a(a.w, b[j].w, acc[i][j]);
-        }
-      }
-    }
-  }
 };
 
 // The product warps' share of a CTA's BM x BN score tile (BN = BM), one
 // landed k-slice at a time: slice() takes a slice, stage() writes the
 // tile's scores into the staged tile St (row stride BM + 8) and zeroes the
-// accumulators (keep: leaves them, for the epilogue-floor build).
+// accumulators (keep: leaves them, for the epilogue-floor build).  Product
+// is the fp32 one, TcProduct (below) the tensor cores'.
 template <int MODE, int BM>
 struct Product {  // SIMT: 16 x 16 threads, rows ty + 16 i, columns tx + 16 j
   using T = Tile<MODE>;
@@ -298,7 +300,7 @@ struct Product {  // SIMT: 16 x 16 threads, rows ty + 16 i, columns tx + 16 j
   __device__ __forceinline__ void slice(const uint32_t* st) {
     T::template mma<RI, CJ>(st, st + BM * LDW, ty, tx, acc);
   }
-  __device__ __forceinline__ void stage(Acc* St, bool keep) {
+  __device__ __forceinline__ void stage(float* St, bool keep) {
 #pragma unroll
     for (int i = 0; i < RI; ++i)
 #pragma unroll
@@ -309,64 +311,118 @@ struct Product {  // SIMT: 16 x 16 threads, rows ty + 16 i, columns tx + 16 j
   }
 };
 
-// bf16 on the tensor cores: mma.sync m16n8k16 (bf16 x bf16 -> f32) from
-// ldmatrix'd ring rows (144-byte stride: the 8 rows of an ldmatrix fall in
-// distinct banks).  The 8 product warps are 4 x 2, a warp's tile BM / 4 rows
-// x BM / 2 columns.  Each k-slice (64 columns: four k-steps) accumulates
-// into a zeroed fragment, which is then added to the running sum with
-// __fadd_rn: however the tensor cores round inside an mma (undocumented;
-// truncation has been measured on earlier cards), a score's error stays
-// within (2 * 64 + d / 64) u sum |a b|, inside checks.exact_scores' gamma_d.
+// c += a b for a 16 x 32 s8 A (row-major fragment), a 32 x 8 s8 B (column
+// fragment) and an s32 16 x 8 C: the int8 counterpart of mma_bf16, whose
+// fragments hold the same bytes (a k-step is 32 bytes of a row at both)
+__device__ __forceinline__ void mma_tc(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ void mma_tc(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  mma_bf16(c, a, b0, b1);
+}
+
+// bf16 and int8 on the tensor cores: mma.sync from ldmatrix'd ring rows
+// (144-byte stride: the 8 rows of an ldmatrix fall in distinct banks).  The
+// 8 product warps are 4 x 2, a warp's tile BM / 4 rows x BM / 2 columns.  A
+// k-slice (128 bytes: 64 bf16 or 128 int8) is four k-steps of 32 bytes;
+// offsets are in bytes, so the addressing is the same at both types.
+//   bf16: each k-slice accumulates into a zeroed fragment, which is then
+//   added to the running sum with __fadd_rn: however the tensor cores round
+//   inside an mma (undocumented; truncation has been measured on earlier
+//   cards), a score's error stays within (2 * 64 + d / 64) u sum |a b|,
+//   inside checks.exact_scores' gamma_d.
+//   int8: integer sums are exact in any order, so the mmas accumulate
+//   straight into the s32 sum.  The score is (float(sum) * rs1_i) * rs2_j,
+//   as the reference scales it, and the product warps scale while they
+//   stage, so the staged tile holds f32 scores at every type and the
+//   epilogues do not depend on it.  The rows' scales are read once, the
+//   tile's columns' (0 past the range) before each staging.
 // Every score takes the same k order in every tile and launch.
-template <int BM>
-struct Product<BF16, BM> {
+template <int MODE, int BM>
+struct TcProduct {
+  using Acc = typename Tile<MODE>::Acc;
   static constexpr int MI = BM / 64, NJ = BM / 16;  // 16-row and 8-column blocks
-  static constexpr int LDB = 2 * LDW;               // ring row stride in bf16
+  static constexpr int LDB = 4 * LDW;               // ring row stride in bytes
   int r0, c0, lane;
-  float acc[MI][NJ][4];
-  __device__ __forceinline__ Product(int warp, int lane_)
+  Acc acc[MI][NJ][4];
+  float rsr[MI][2], rsc[NJ][2];  // int8: the fragment's rows' and columns' scales
+  __device__ __forceinline__ TcProduct(int warp, int lane_)
       : r0((warp >> 1) * (BM / 4)), c0((warp & 1) * (BM / 2)), lane(lane_) {
-#pragma unroll
-    for (int i = 0; i < MI; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+    zero(acc);
   }
-  __device__ __forceinline__ void slice(const uint32_t* st) {
-    const __nv_bfloat16* A = reinterpret_cast<const __nv_bfloat16*>(st);
-    const __nv_bfloat16* B = A + BM * LDB;
-    float part[MI][NJ][4];
+  __device__ __forceinline__ void row_scales(const float* rrs) {
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) rsr[i][h] = rrs[r0 + 16 * i + (lane >> 2) + 8 * h];
+  }
+  // rs2 of the tile whose first column is cb (columns from ce on are 0)
+  __device__ __forceinline__ void col_scales(const float* rs2, int cb, int ce) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = cb + c0 + 8 * j + 2 * (lane & 3) + e;
+        rsc[j][e] = col < ce ? rs2[col] : 0.f;
+      }
+  }
+  static __device__ __forceinline__ void zero(Acc (&c)[MI][NJ][4]) {
 #pragma unroll
     for (int i = 0; i < MI; ++i)
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) part[i][j][e] = 0.f;
+        for (int e = 0; e < 4; ++e) c[i][j][e] = Acc(0);
+  }
+  // c += the k-slice's products
+  __device__ __forceinline__ void mmas(const uint32_t* st, Acc (&c)[MI][NJ][4]) const {
+    const unsigned char* A = reinterpret_cast<const unsigned char*>(st);
+    const unsigned char* B = A + BM * LDB;
 #pragma unroll
-    for (int ks = 0; ks < ROWB / 32; ++ks) {  // k-steps of 16 bf16
+    for (int ks = 0; ks < ROWB / 32; ++ks) {
       uint32_t a[MI][4];
 #pragma unroll
       for (int i = 0; i < MI; ++i)
-        ldmatrix_x4(a[i], A + (r0 + 16 * i + (lane & 15)) * LDB + 16 * ks + (lane >> 4) * 8);
+        ldmatrix_x4(a[i], A + (r0 + 16 * i + (lane & 15)) * LDB + 32 * ks + (lane >> 4) * 16);
 #pragma unroll
       for (int j2 = 0; j2 < NJ / 2; ++j2) {
         uint32_t b[4];
         const int col = c0 + 16 * j2 + (lane & 7) + ((lane >> 4) << 3);
-        ldmatrix_x4(b, B + col * LDB + 16 * ks + ((lane >> 3) & 1) * 8);
+        ldmatrix_x4(b, B + col * LDB + 32 * ks + ((lane >> 3) & 1) * 16);
 #pragma unroll
         for (int i = 0; i < MI; ++i) {
-          mma_bf16(part[i][2 * j2], a[i], b[0], b[1]);
-          mma_bf16(part[i][2 * j2 + 1], a[i], b[2], b[3]);
+          mma_tc(c[i][2 * j2], a[i], b[0], b[1]);
+          mma_tc(c[i][2 * j2 + 1], a[i], b[2], b[3]);
         }
       }
     }
+  }
+  __device__ __forceinline__ void slice(const uint32_t* st) {
+    if constexpr (MODE == I8) {
+      mmas(st, acc);
+    } else {
+      float part[MI][NJ][4];
+      zero(part);
+      mmas(st, part);
 #pragma unroll
-    for (int i = 0; i < MI; ++i)
+      for (int i = 0; i < MI; ++i)
 #pragma unroll
-      for (int j = 0; j < NJ; ++j)
+        for (int j = 0; j < NJ; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] = __fadd_rn(acc[i][j][e], part[i][j][e]);
+          for (int e = 0; e < 4; ++e) acc[i][j][e] = __fadd_rn(acc[i][j][e], part[i][j][e]);
+    }
+  }
+  __device__ __forceinline__ float score(int i, int j, int e) const {
+    if constexpr (MODE == I8)
+      return __fmul_rn(__fmul_rn(__int2float_rn(acc[i][j][e]), rsr[i][e >> 1]), rsc[j][e & 1]);
+    else
+      return acc[i][j][e];
   }
   // the C fragment: lane (g, t) = (lane / 4, lane % 4) holds rows g and g + 8,
   // columns 2t and 2t + 1 of each 16 x 8 block
@@ -377,11 +433,11 @@ struct Product<BF16, BM> {
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         float* p = St + (r0 + 16 * i + g) * (BM + 8) + c0 + 8 * j + 2 * t;
-        *reinterpret_cast<float2*>(p) = make_float2(acc[i][j][0], acc[i][j][1]);
-        *reinterpret_cast<float2*>(p + 8 * (BM + 8)) = make_float2(acc[i][j][2], acc[i][j][3]);
+        *reinterpret_cast<float2*>(p) = make_float2(score(i, j, 0), score(i, j, 1));
+        *reinterpret_cast<float2*>(p + 8 * (BM + 8)) = make_float2(score(i, j, 2), score(i, j, 3));
         if (!keep)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+          for (int e = 0; e < 4; ++e) acc[i][j][e] = Acc(0);
       }
   }
 };
@@ -570,7 +626,7 @@ __device__ __forceinline__ int bin_of(float w, int n_bins) {
 }
 
 // The epilogue-floor build (-DREPRO_SIM_EPILOGUE_FLOOR, scripts/
-// compare_kernels.py --epilogue-floor): the bf16 product warps compute a
+// compare_kernels.py --epilogue-floor): the bf16 and int8 product warps compute a
 // CTA's first column tile only and stage its scores again for every other
 // column tile, so a launch times the epilogues with a product that costs
 // next to nothing.  Never the build the port runs.
@@ -583,12 +639,11 @@ constexpr bool EPILOGUE_FLOOR = false;
 template <int MODE, int BM, bool HIST_ON, bool TOPK_ON, bool SUMS_ON>
 __global__ void __launch_bounds__(NT + ET, 1) sim_kernel(Params p) {
   using T = Tile<MODE>;
-  using Acc = typename T::Acc;
-  // bf16's tensor-core product leaves its warps idle most of a tile: they
-  // claim rows of the staged tile beside the epilogue warps, and each row's
-  // hot bin is counted per warp
-  constexpr bool SHARE = MODE == BF16;
-  constexpr bool FLOOR = EPILOGUE_FLOOR && MODE == BF16;
+  // the tensor-core product (bf16, int8) leaves its warps idle most of a
+  // tile: they claim rows of the staged tile beside the epilogue warps, and
+  // each row's hot bin is counted per warp
+  constexpr bool SHARE = MODE != F32;
+  constexpr bool FLOOR = EPILOGUE_FLOOR && MODE != F32;
   constexpr int BN = BM;
   constexpr int CPL = BN / 32;         // columns of an epilogue lane
   constexpr int STAGE_W = (BM + BN) * LDW;
@@ -596,7 +651,7 @@ __global__ void __launch_bounds__(NT + ET, 1) sim_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int row_next;             // the staged tile's next unclaimed row
   uint32_t* ring = reinterpret_cast<uint32_t*>(smem);
-  Acc* St = reinterpret_cast<Acc*>(ring + STAGES * STAGE_W);
+  float* St = reinterpret_cast<float*>(ring + STAGES * STAGE_W);  // f32 scores
   float* rscale = reinterpret_cast<float*>(St + BM * LDT);
   float* rrs = rscale + BM;
   float* psum = rrs + BM;  // (hi, lo) of each (row, epilogue lane)
@@ -635,7 +690,7 @@ __global__ void __launch_bounds__(NT + ET, 1) sim_kernel(Params p) {
   // ---- the epilogues of one staged row rl; lane l takes columns l, l + 32,
   // ... of column tile ct ----
   struct Cols {
-    float vq[CPL], rsq[CPL];
+    float vq[CPL];
     int col[CPL];
     bool ok[CPL];
   };
@@ -646,7 +701,6 @@ __global__ void __launch_bounds__(NT + ET, 1) sim_kernel(Params p) {
       c.col[q] = c0 + lane + 32 * q;
       c.ok[q] = c.col[q] < c_end;
       c.vq[q] = (SUMS_ON && c.ok[q]) ? p.v[c.col[q]] : 0.f;
-      c.rsq[q] = (MODE == I8 && c.ok[q]) ? p.rs2[c.col[q]] : 0.f;
     }
   };
   // pow1: exponent and rs_exponent both 1 (the tag makes it a constant of
@@ -667,13 +721,7 @@ __global__ void __launch_bounds__(NT + ET, 1) sim_kernel(Params p) {
                                  rscale[rl]), p.n_bins);
 #pragma unroll
     for (int q = 0; q < CPL; ++q) {
-      float s;
-      if (MODE == I8)
-        s = __fmul_rn(__fmul_rn(__int2float_rn((int)St[rl * LDT + lane + 32 * q]), rrs[rl]),
-                      c.rsq[q]);
-      else
-        s = (float)St[rl * LDT + lane + 32 * q];
-      sc[q] = fminf(fmaxf(s, 0.f), 1.f);
+      sc[q] = fminf(fmaxf(St[rl * LDT + lane + 32 * q], 0.f), 1.f);
       // SHARE: no branch per element; a column past the range adds nothing
       // (its vq is 0, so its walk-sum term is an exact 0, and it is not
       // binned)
@@ -747,7 +795,8 @@ __global__ void __launch_bounds__(NT + ET, 1) sim_kernel(Params p) {
       if (s < loads) issue(s);
       cp_async_commit();
     }
-    Product<MODE, BM> pr(warp, lane);
+    std::conditional_t<MODE == F32, Product<MODE, BM>, TcProduct<MODE, BM>> pr(warp, lane);
+    if constexpr (MODE == I8) pr.row_scales(rrs);
     for (int t = 0; t < total; ++t) {
       if (t < loads) {
         cp_async_wait<STAGES - 2>();
@@ -761,6 +810,7 @@ __global__ void __launch_bounds__(NT + ET, 1) sim_kernel(Params p) {
       }
       if ((t + 1) % nks) continue;
       const int ct = t / nks;
+      if constexpr (MODE == I8) pr.col_scales(p.rs2, c_begin + ct * BN, c_end);
       if (SHARE && ct > 0) {
         Cols c;
         cols_of(ct - 1, c);
@@ -918,6 +968,285 @@ __global__ void __launch_bounds__(128) split_merge(const float* pv, const int* p
   }
 }
 
+// ---- K3 over few rows ------------------------------------------------------
+// fewrow_scores: a CTA of FR_COLS threads takes FR_COLS columns, one a
+// thread, against all M <= FR_ROWS rows.  Both tables stream through a
+// FR_STAGES-deep cp.async ring in 128-byte k-slices (the tile kernel's
+// slicing and its fma_step, so a score is the same fmaf chain over the same
+// zero-filled slices, bit for bit); E2's rows are read once, coalesced, and a thread's
+// B reads are one wavefront a quarter warp (row stride 144 bytes), its A
+// reads broadcasts.  A thread keeps 8 rows' scores a row group, up to 4
+// groups.  The clipped score goes out as its key: the float's bits, which
+// order non-negative floats as the floats, with -0.0 taken to +0.0.  The
+// CTA also counts its keys by their top 8 bits, a histogram a row (the
+// selection's first radix pass), and adds it into the row's in top.
+constexpr int FR_ROWS = 32;    // rows a few-row launch takes at most
+constexpr int FR_COLS = 256;   // columns of a CTA, one a thread (= NT)
+constexpr int FR_STAGES = 4;
+constexpr int FR_STAGE_W = (FR_ROWS + FR_COLS) * LDW;
+static_assert(FR_COLS == NT, "load_slice spreads a slice over NT threads");
+
+__host__ __device__ inline size_t fewrow_smem_bytes() {
+  return (size_t)FR_STAGES * FR_STAGE_W * 4u + FR_ROWS * 256u * 4u;
+}
+
+__global__ void __launch_bounds__(FR_COLS) fewrow_scores(const float* e1, const float* e2,
+                                                         int M, int N, int d,
+                                                         uint32_t* keys, int* top) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint32_t* ring = reinterpret_cast<uint32_t*>(smem);
+  unsigned* hist = reinterpret_cast<unsigned*>(ring + FR_STAGES * FR_STAGE_W);  // FR_ROWS x 256
+  const int tid = threadIdx.x;
+  for (int e = tid; e < FR_ROWS * 256; e += FR_COLS) hist[e] = 0;  // the loop's barrier follows
+  const int c0 = blockIdx.x * FR_COLS;
+  const int groups = (M + 7) / 8;
+  const int row_bytes = d * 4;
+  const int nks = (row_bytes + ROWB - 1) / ROWB;
+  const unsigned char* g1 = reinterpret_cast<const unsigned char*>(e1);
+  const unsigned char* g2 = reinterpret_cast<const unsigned char*>(e2);
+  auto issue = [&](int t) {
+    uint32_t* st = ring + (t % FR_STAGES) * FR_STAGE_W;
+    load_slice<FR_ROWS>(g1, M, row_bytes, 0, t * ROWB, st, tid);
+    load_slice<FR_COLS>(g2, N, row_bytes, c0, t * ROWB, st + FR_ROWS * LDW, tid);
+  };
+#pragma unroll
+  for (int s = 0; s < FR_STAGES - 1; ++s) {
+    if (s < nks) issue(s);
+    cp_async_commit();
+  }
+  float acc[FR_ROWS / 8][8];
+#pragma unroll
+  for (int g = 0; g < FR_ROWS / 8; ++g)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[g][i] = 0.f;
+  for (int t = 0; t < nks; ++t) {
+    cp_async_wait<FR_STAGES - 2>();
+    __syncthreads();  // slice t has landed; slice t - 1's stage is free
+    if (t + FR_STAGES - 1 < nks) issue(t + FR_STAGES - 1);
+    cp_async_commit();
+    const float* A = reinterpret_cast<const float*>(ring + (t % FR_STAGES) * FR_STAGE_W);
+    const float* B = A + (FR_ROWS + tid) * LDW;
+#pragma unroll
+    for (int kk = 0; kk < ROWB / 4; kk += 4) {
+      const float4 b = *reinterpret_cast<const float4*>(B + kk);
+#pragma unroll
+      for (int g = 0; g < FR_ROWS / 8; ++g) {
+        if (g >= groups) break;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float4 a = *reinterpret_cast<const float4*>(A + (8 * g + i) * LDW + kk);
+          acc[g][i] = fma_step(a, b, acc[g][i]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  const int c = c0 + tid;
+  if (c < N) {
+#pragma unroll
+    for (int g = 0; g < FR_ROWS / 8; ++g)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int r = 8 * g + i;
+        if (r < M) {
+          uint32_t u = __float_as_uint(fminf(fmaxf(acc[g][i], 0.f), 1.f));
+          u = u == 0x80000000u ? 0u : u;
+          keys[(size_t)r * N + c] = u;
+          atomicAdd(&hist[r * 256 + (u >> 24)], 1u);
+        }
+      }
+  }
+  __syncthreads();
+  for (int e = tid; e < M * 256; e += FR_COLS)
+    if (hist[e]) atomicAdd(&top[e], (int)hist[e]);
+}
+
+// fewrow_select: one CTA a row.  A column's 64-bit key is (its score key,
+// ~column): larger keys win, so the order is beats' order, and keys are
+// distinct.  Radix passes of 8 bits from the top find the k-th largest key:
+// a pass counts the keys that match the digits chosen so far by their next
+// digit and takes the digit where the count from the top reaches k; the
+// passes stop once the chosen bin holds exactly the keys still needed.  The
+// bits of ~column above those that N - 1 needs are all ones and are
+// skipped.
+//   The first pass is fewrow_scores' histogram.  One read of the row's keys
+//   then takes the keys above the chosen top digit (fewer than k: they are
+//   in) into the list, and keeps those of the chosen digit in shared memory
+//   (SEL_CAND of them; a bin that holds more is read again from device
+//   memory by each pass).  Later passes count those alone, in a histogram
+//   with a private copy for each lane of a warp (bin b, lane l at word 32 b
+//   + l: a warp's adds never share a bank).  The kept keys at or above the
+//   threshold join the list (exactly k in all), and each takes its place by
+//   the number of keys above it.  Warps append to the lists with one atomic
+//   each.
+constexpr int SEL_T = 1024;      // threads of a row's CTA: 4 a bin
+constexpr int SEL_U = 16;        // keys a thread loads before it counts them
+constexpr int SEL_K = 1024;      // widest list (repro_sim_launch's limit too)
+constexpr int SEL_CAND = 16384;  // keys of the chosen top digit kept in shared memory
+static_assert(SEL_T == 4 * 256, "a bin's total is summed by 4 threads");
+
+__host__ __device__ inline size_t select_smem_bytes() {
+  return 256u * 32u * 4u + (size_t)(SEL_K + SEL_CAND) * 8u;
+}
+
+__global__ void __launch_bounds__(SEL_T) fewrow_select(const uint32_t* keys, const int* top,
+                                                       int N, int k, float* vals, int* idx) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned* hist = reinterpret_cast<unsigned*>(smem);  // 256 bins x 32 lanes
+  unsigned long long* list = reinterpret_cast<unsigned long long*>(hist + 256 * 32);
+  unsigned long long* cand = list + SEL_K;
+  __shared__ unsigned long long prefix_s;
+  __shared__ int need_s, done_s, fill_s, ncand_s;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const uint32_t* K = keys + (size_t)blockIdx.x * N;
+  const int* T = top + (size_t)blockIdx.x * 256;
+  // the bits of ~column that vary, rounded up to whole digits
+  const int cbits = N > 1 ? ((32 - __clz(N - 1)) + 7) & ~7 : 0;
+  unsigned long long prefix = cbits < 32 ? (0xFFFFFFFFull << cbits) & 0xFFFFFFFFull : 0ull;
+  int need = k;
+  auto key = [](int c, uint32_t u) {
+    return ((unsigned long long)u << 32) | (0xFFFFFFFFu - (unsigned)c);
+  };
+  // warp 0: the digit at shift s from the counts of the matching keys (lane
+  // l has bins 8 l .. 8 l + 7; the count from the top is a suffix sum)
+  auto choose = [&](const unsigned (&cnt)[8], int s) {
+    unsigned sum = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) sum += cnt[j];
+    unsigned suf = sum;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const unsigned o = __shfl_down_sync(0xffffffffu, suf, off);
+      if (lane + off < 32) suf += o;
+    }
+    unsigned above = suf - sum;  // matching keys in the bins of higher lanes
+    if (above < (unsigned)need && (unsigned)need <= suf) {
+      int bin = -1;
+      unsigned in_bin = 0;
+#pragma unroll
+      for (int j = 7; j >= 0; --j)
+        if (bin < 0) {
+          if (above + cnt[j] >= (unsigned)need) {
+            bin = 8 * lane + j;
+            in_bin = cnt[j];
+          } else {
+            above += cnt[j];
+          }
+        }
+      prefix_s = prefix | ((unsigned long long)bin << s);
+      need_s = need - (int)above;
+      done_s = in_bin == (unsigned)(need - (int)above);
+    }
+  };
+  // a warp appends the keys its lanes take to dst (one atomic a warp)
+  auto append = [&](bool take, unsigned long long x, unsigned long long* dst, int* count,
+                    int cap) {
+    const unsigned m = __ballot_sync(0xffffffffu, take);
+    if (!m) return;
+    const int leader = __ffs(m) - 1;
+    int base = 0;
+    if (lane == leader) base = atomicAdd(count, __popc(m));
+    base = __shfl_sync(0xffffffffu, base, leader);
+    const int slot = base + __popc(m & ((1u << lane) - 1u));
+    if (take && slot < cap) dst[slot] = x;
+  };
+  // f(valid, key, top digit) for every key of the row, from device memory
+  auto each_key = [&](auto f) {
+    for (int c0 = 0; c0 < N; c0 += SEL_T * SEL_U) {
+      uint32_t u[SEL_U];
+#pragma unroll
+      for (int q = 0; q < SEL_U; ++q) {
+        const int c = c0 + q * SEL_T + tid;
+        u[q] = c < N ? K[c] : 0u;
+      }
+#pragma unroll
+      for (int q = 0; q < SEL_U; ++q) {
+        const int c = c0 + q * SEL_T + tid;
+        f(c < N, key(c, u[q]), u[q] >> 24);
+      }
+    }
+  };
+
+  if (warp == 0) {
+    unsigned cnt[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) cnt[j] = (unsigned)T[8 * lane + j];
+    choose(cnt, 56);
+  }
+  if (tid == 0) fill_s = ncand_s = 0;
+  __syncthreads();
+  prefix = prefix_s;
+  need = need_s;
+  const bool done = done_s;
+  const unsigned top_digit = (unsigned)(prefix >> 56);
+  const bool kept = !done && T[top_digit] <= SEL_CAND;
+  each_key([&](bool ok, unsigned long long x, unsigned d1) {
+    append(ok && (d1 > top_digit || (done && d1 == top_digit)), x, list, &fill_s, SEL_K);
+    if (kept) append(ok && d1 == top_digit, x, cand, &ncand_s, SEL_CAND);
+  });
+  __syncthreads();
+  const int ncand = ncand_s;
+  // f(valid, key) for every key of the chosen top digit
+  auto each_in_bin = [&](auto f) {
+    if (kept) {
+      for (int e0 = 0; e0 < ncand; e0 += SEL_T) {
+        const int e = e0 + tid;
+        f(e < ncand, e < ncand ? cand[e] : 0ull);
+      }
+    } else {
+      each_key([&](bool ok, unsigned long long x, unsigned d1) { f(ok && d1 == top_digit, x); });
+    }
+  };
+  if (!done) {
+    for (int s = 48;;) {
+      for (int e = tid; e < 256 * 32; e += SEL_T) hist[e] = 0;
+      __syncthreads();
+      const unsigned long long mask = ~0ull << (s + 8);
+      each_in_bin([&](bool ok, unsigned long long x) {
+        if (ok && ((x ^ prefix) & mask) == 0)
+          atomicAdd(&hist[((unsigned)(x >> s) & 0xFFu) * 32 + lane], 1u);
+      });
+      __syncthreads();
+      {  // bin b's total: 4 threads of 8 copies each, read rotated (no bank conflicts)
+        const int b = tid >> 2, part = tid & 3;
+        unsigned tot = 0;
+#pragma unroll
+        for (int l = 0; l < 8; ++l) tot += hist[b * 32 + ((8 * part + l + b) & 31)];
+        tot += __shfl_xor_sync(0xffffffffu, tot, 1);
+        tot += __shfl_xor_sync(0xffffffffu, tot, 2);
+        if (part == 0) hist[b * 32] = tot;  // its other readers are this thread's quad
+      }
+      __syncthreads();
+      if (warp == 0) {
+        unsigned cnt[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) cnt[j] = hist[(8 * lane + j) * 32];
+        choose(cnt, s);
+      }
+      __syncthreads();
+      prefix = prefix_s;
+      need = need_s;
+      // the next digit: the value's 32 bits, then the column's that vary
+      const int next = s > 32 ? s - 8 : (s == 32 ? cbits - 8 : s - 8);
+      // (warp 0 writes the shared results again only two barriers on)
+      if (done_s || next < 0) break;
+      s = next;
+    }
+    each_in_bin([&](bool ok, unsigned long long x) {
+      append(ok && x >= prefix, x, list, &fill_s, SEL_K);
+    });
+  }
+  __syncthreads();
+  // exactly k keys; each goes to its place: the number of keys above it
+  for (int e = tid; e < k; e += SEL_T) {
+    const unsigned long long x = list[e];
+    int place = 0;
+    for (int j = 0; j < k; ++j) place += list[j] > x;
+    vals[(size_t)blockIdx.x * k + place] = __uint_as_float((unsigned)(x >> 32));
+    idx[(size_t)blockIdx.x * k + place] = (int)(0xFFFFFFFFu - (unsigned)x);
+  }
+}
+
 template <int MODE, int BM, bool H, bool K, bool S>
 cudaError_t launch_bm(const Params& p, int splits, cudaStream_t stream) {
   const size_t bytes = smem_bytes((H ? HIST : 0) | (K ? TOPK : 0) | (S ? SUMS : 0),
@@ -1017,6 +1346,40 @@ int repro_sim_launch(int mode, int flags, const void* e1, const void* e2,
     err = cudaGetLastError();
   }
   return (int)err;
+}
+
+// Dynamic shared memory of fewrow_scores (which = 0) or fewrow_select (1),
+// in bytes.
+size_t repro_topk_few_rows_smem_bytes(int which) {
+  return which ? select_smem_bytes() : fewrow_smem_bytes();
+}
+
+// The fp32 top-k of M <= 32 rows (FR_ROWS): e1 (M, d), e2 (N, d) f32 with d
+// a multiple of 4; keys (M, N) and top (M, 256) are the wrapper's scratch
+// (top is zeroed here); vals / idx (M, k) the lists, value descending and then column
+// ascending.  1 <= k <= min(N, 1024).  Returns a cudaError_t
+// (cudaErrorInvalidValue for bad arguments).
+int repro_topk_few_rows(const float* e1, const float* e2, int M, int N, int d, int k,
+                        uint32_t* keys, int* top, float* vals, int* idx, void* stream) {
+  if (M < 1 || M > FR_ROWS || N < 1 || d < 1 || d % 4 || k < 1 || k > N || k > SEL_K)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(top, 0, (size_t)M * 256u * 4u, s);
+  if (err != cudaSuccess) return (int)err;
+  const size_t bytes = fewrow_smem_bytes();
+  err = cudaFuncSetAttribute(
+      fewrow_scores, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  fewrow_scores<<<(N + FR_COLS - 1) / FR_COLS, FR_COLS, bytes, s>>>(e1, e2, M, N, d, keys,
+                                                                   top);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const size_t sel_bytes = select_smem_bytes();
+  err = cudaFuncSetAttribute(fewrow_select, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)sel_bytes);
+  if (err != cudaSuccess) return (int)err;
+  fewrow_select<<<M, SEL_T, sel_bytes, s>>>(keys, top, N, k, vals, idx);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -124,6 +124,10 @@ def lib() -> ctypes.CDLL:
             so.repro_sim_launch.restype = ci
             so.repro_sim_smem_bytes.argtypes = [ci, ci, ci, ci]
             so.repro_sim_smem_bytes.restype = ctypes.c_size_t
+            so.repro_topk_few_rows.argtypes = [vp, vp, ci, ci, ci, ci, vp, vp, vp, vp, vp]
+            so.repro_topk_few_rows.restype = ci
+            so.repro_topk_few_rows_smem_bytes.argtypes = [ci]
+            so.repro_topk_few_rows_smem_bytes.restype = ctypes.c_size_t
             so.repro_flash_attention.argtypes = [
                 ci, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, cf, vp,
             ]
@@ -145,10 +149,12 @@ def lib() -> ctypes.CDLL:
 # launch takes the wide tile (WIDE_ROWS) where its CTAs' rows fall in one
 # count tile (``tile_rows``), else the narrow one (CTA_ROWS), whose rows
 # divide every count tile the wrapper accepts; CTA_COLS is the narrow
-# tile's columns.
+# tile's columns.  A fp32 top-k launch over at most FEW_ROWS rows takes the
+# few-row kernels instead (``few_rows``; FR_ROWS in the source).
 CTA_ROWS = 64
 WIDE_ROWS = 128
 CTA_COLS = 64
+FEW_ROWS = 32
 MAX_SMEM = 232448  # bytes of shared memory one block may use on Hopper
 MAX_SPLITS = 256   # column ranges a merge takes (32 * MERGE_J)
 # bytes a row of the kernel's operands must be a multiple of (16-byte
@@ -186,6 +192,13 @@ def column_splits(m: int, n: int, sms: int, rows: int = CTA_ROWS) -> int:
 
 
 topk_splits = column_splits  # the split of a top-k launch at CTA_ROWS rows
+
+
+def few_rows(mode: str, flags: int, m: int) -> bool:
+    """Whether a launch takes the few-row top-k kernels: fp32, top-k only,
+    at most ``FEW_ROWS`` rows (the raised-k retry).  Every other launch
+    takes the tile kernel."""
+    return mode == "fp32" and flags == TOPK and m <= FEW_ROWS
 
 
 def check_operand(t: torch.Tensor, name: str, dtype, shape) -> None:
@@ -226,12 +239,10 @@ def launch(mode: str, flags: int, e1: torch.Tensor, e2: torch.Tensor, *,
     """One launch of the fused kernel on the current stream.
 
     ``e1`` (M, d) and ``e2`` (N, d) are float32, bfloat16 or int8 per
-    ``mode``, with d a multiple of ``ALIGN[mode]``.  The tile rows
-    (:func:`tile_rows`, narrowed where the wide tile's shared memory does not
-    fit) and the column split (:func:`column_splits`, unless ``splits``
-    names one) are chosen here.  Returns
-    ``(block_counts, vals, idx, row_sums)``; entries whose epilogue is off
-    are None."""
+    ``mode``, with d a multiple of ``ALIGN[mode]``.  The kernel
+    (:func:`few_rows`: the few-row top-k, else :func:`_launch_tile`) is
+    chosen here.  Returns ``(block_counts, vals, idx, row_sums)``; entries
+    whose epilogue is off are None."""
     dtype = {"fp32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}[mode]
     m, d = e1.shape
     n = e2.shape[0]
@@ -239,11 +250,29 @@ def launch(mode: str, flags: int, e1: torch.Tensor, e2: torch.Tensor, *,
         raise ValueError(f"d={d} must be a multiple of {ALIGN[mode]} for {mode}")
     check_operand(e1, "e1", dtype, (m, d))
     check_operand(e2, "e2", dtype, (n, d))
+    if mode == "int8":
+        check_operand(rs1, "rs1", torch.float32, (m,))
+        check_operand(rs2, "rs2", torch.float32, (n,))
+    if flags & TOPK and not 1 <= k <= n:
+        raise ValueError(f"k={k} must lie in [1, {n}]")
+    if few_rows(mode, flags, m):
+        return (None, *_launch_few_rows(lib(), e1, e2, k), None)
+    return _launch_tile(mode, flags, e1, e2, rs1=rs1, rs2=rs2, scale=scale, v=v,
+                        n_bins=n_bins, exponent=exponent, rs_exponent=rs_exponent,
+                        floor=floor, k=k, bm=bm, splits=splits)
+
+
+def _launch_tile(mode: str, flags: int, e1: torch.Tensor, e2: torch.Tensor, *,
+                 rs1=None, rs2=None, scale=None, v=None, n_bins: int = 1,
+                 exponent: float = 1.0, rs_exponent: float = 1.0,
+                 floor: float = 1e-3, k: int = 1, bm: int = 1, splits=None):
+    """The tile kernel's launch, on operands :func:`launch` has checked:
+    the tile rows (:func:`tile_rows`, narrowed where the wide tile's shared
+    memory does not fit) and the column split (:func:`column_splits`, unless
+    ``splits`` names one) are chosen here."""
+    (m, d), n = e1.shape, e2.shape[0]
     dev = e1.device
     f32, i32 = torch.float32, torch.int32
-    if mode == "int8":
-        check_operand(rs1, "rs1", f32, (m,))
-        check_operand(rs2, "rs2", f32, (n,))
     block_counts = vals = idx = row_sums = None
     rows = tile_rows(m, m)
     if flags & HIST:
@@ -253,8 +282,6 @@ def launch(mode: str, flags: int, e1: torch.Tensor, e2: torch.Tensor, *,
             raise ValueError(f"block rows {bm} must be a multiple of {CTA_ROWS}")
         block_counts = torch.zeros((n_tiles, n_bins), dtype=i32, device=dev)
         rows = tile_rows(m, bm)
-    if flags & TOPK and not 1 <= k <= n:
-        raise ValueError(f"k={k} must lie in [1, {n}]")
     so = lib()
     smem = so.repro_sim_smem_bytes(flags, n_bins, k, rows)
     if smem > MAX_SMEM and rows == WIDE_ROWS:
@@ -293,6 +320,26 @@ def launch(mode: str, flags: int, e1: torch.Tensor, e2: torch.Tensor, *,
         raise RuntimeError(f"repro_sim_launch(mode={mode}, flags={flags}) "
                            f"failed with CUDA error {err}")
     return block_counts, vals, idx, row_sums
+
+
+def _launch_few_rows(so, e1, e2, k):
+    """The few-row top-k: (vals, idx), with one scratch allocation for the
+    score keys (M, N) and their top-digit counts (M, 256), freed after the
+    call (the allocator reuses memory in stream order)."""
+    (m, d), n = e1.shape, e2.shape[0]
+    dev = e1.device
+    scratch = torch.empty(m * (n + 256), dtype=torch.int32, device=dev)
+    keys, top = scratch[:m * n], scratch[m * n:]
+    vals = torch.empty((m, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((m, k), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = so.repro_topk_few_rows(ptr(e1), ptr(e2), m, n, d, k, ptr(keys), ptr(top),
+                                     ptr(vals), ptr(idx), ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"repro_topk_few_rows(M={m}, N={n}, k={k}) failed "
+                           f"with CUDA error {err}")
+    return vals, idx
 
 
 def pad_cols(t: torch.Tensor, mult: int) -> torch.Tensor:

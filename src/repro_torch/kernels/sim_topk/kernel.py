@@ -3,7 +3,10 @@
 Replaces the Pallas kernel ``_kernel`` of
 ``src/repro/kernels/sim_topk/kernel.py``; the kernel is the top-k epilogue
 of ``csrc/sim_kernels.cu`` over the same score tile as the sweep (fp32, or
-bf16 on the tensor cores)."""
+bf16 on the tensor cores), or, for a fp32 launch over at most
+``cuda_lib.FEW_ROWS`` rows (the raised-k retry), the few-row kernels of the
+same file: one pass over E2 for the scores, then a radix select and sort a
+row.  Both give the same lists bit for bit."""
 from __future__ import annotations
 
 from .. import cuda_lib

@@ -8,9 +8,10 @@ worker collects the same tests; without a card they skip.
 
 Tolerances (see ``repro_torch.kernels.checks``): counts under the edge rule,
 top-k under the near-tie rule, walk sums within 1e-6 relative of f64; the
-fp32 and bf16 sweeps equal their two-pass kernels bit for bit; int8 at
-exponent 1 equals its plain version bit for bit (integer sums, two f32
-products in a fixed order).  The model-stack kernels follow
+fp32 and bf16 sweeps equal their two-pass kernels bit for bit, and the
+few-row top-k equals the fp32 sweep; int8 equals its plain version bit for
+bit in counts and top-k (integer sums, two f32 products in a fixed
+order).  The model-stack kernels follow
 ``checks.check_model_kernel``: within twice the f32 error bound of their
 function (``checks.*_bound``), plus half a bf16 ulp on each side for a bf16
 output; a model's logits on the card against the
@@ -188,8 +189,10 @@ def test_sweep_chain_prefix_matches_plain(card):
 
 @pytest.mark.parametrize("m", [1, 8, 70])
 def test_topk_few_rows_split_matches_unsplit(card, m):
-    """A few-row top-k launch splits its columns across CTAs and merges the
-    lists; the result equals the unsplit sweep's top-k bit for bit."""
+    """A few-row launch splits its columns across CTAs and merges the lists
+    (the sweep at every m, and the tile kernel's top-k launch above
+    ``cuda_lib.FEW_ROWS`` rows; below it the top-k takes the few-row
+    kernels); the top-k equals the split sweep's bit for bit."""
     a, b, _, _ = _inputs(card, m, 5000, 64, "fp32", seed=8)
     a = torch.cat([b[:4], a]).contiguous()  # rows with exact duplicates in b
     b = torch.cat([b, b[:300]]).contiguous()  # exact ties across the ranges
@@ -205,6 +208,109 @@ def test_topk_few_rows_split_matches_unsplit(card, m):
     pv, pi = sim_topk_ref(a, b, k=128)
     s64, bound = checks.exact_scores(a, b)
     checks.check_topk(kv, ki, pv, pi, s64, bound)
+
+
+# the int8 sweep on the tensor cores: (M, N, d, k, count-tile rows, exponent)
+INT8_CASES = [
+    (300, 5000, 48, 32, 64, 1.0),     # ragged M and N; a partial 128-byte slice; 64-row tile
+    (300, 5000, 400, 32, 256, 1.0),   # three slices and a 16-byte tail; 128-row tile
+    (300, 5000, 48, 32, 256, 2.5),    # a non-unit exponent (the powf branch)
+    (8, 9000, 64, 32, 8, 1.0),        # a few-row launch: its columns split
+    (96, 3000, 64, 128, 64, 1.0),     # k 128: the 64-row tile
+]
+
+
+@pytest.mark.parametrize("m,n,d,k,bm,exponent", INT8_CASES)
+def test_int8_tensor_core_sweep_bit_identical(card, m, n, d, k, bm, exponent):
+    """The int8 product on the tensor cores sums exactly in s32 and scales
+    as the plain version does: counts and top-k equal it bit for bit, and
+    the walk sums lie within 1e-6 of f64."""
+    a, b, rs1, rs2 = _inputs(card, m, n, d, "int8", seed=15)
+    rng = np.random.default_rng(16)
+    scale = torch.from_numpy(rng.random(m).astype(np.float32)).to(card)
+    v = torch.from_numpy((10.0 ** rng.uniform(-1, 1, n)).astype(np.float32)).to(card)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    rows = cuda_lib.tile_rows(m, bm)
+    if k > 32:
+        rows = cuda_lib.CTA_ROWS  # the wide tile's lists do not fit
+    assert rows == (128 if bm == 256 else 64)
+    if m < cuda_lib.CTA_ROWS:
+        assert cuda_lib.column_splits(m, n, sms, rows) > 1
+    kw = dict(n_bins=1024, exponent=exponent, floor=1e-3, k=k, bm=bm, precision="int8",
+              rs1=rs1, rs2=rs2)
+    kc, kv, ki, ks = sim_sweep_cuda(kernel_operand(a, "int8"), kernel_operand(b, "int8"),
+                                    scale, v, **kw)
+    torch.cuda.synchronize()
+    pc, pv, pi, _ = sim_sweep_ref(a, b, scale, v, **kw)
+    assert torch.equal(kc, pc) and torch.equal(kv, pv) and torch.equal(ki, pi)
+    s64, _ = checks.exact_scores(a, b, "int8", rs1, rs2)
+    checks.check_sums(ks, s64, exponent=exponent, floor=1e-3, v=v)
+
+
+def _few_row_inputs(card, m, n, d=64):
+    """m rows against n (+ 300 duplicated) columns: row 0 is zero (every
+    score 0: the lowest columns win), row 1 a column of E2, which E2 holds
+    twice (an exact tie at the top)."""
+    a, b, _, _ = _inputs(card, m, n, d, "fp32", seed=17)
+    b = torch.cat([b, b[:300]]).contiguous()
+    a = a.clone()
+    a[0] = 0.0
+    if m > 1:
+        a[1] = b[min(7, n - 1)]
+    return a, b
+
+
+@pytest.mark.parametrize("d", [64, 100])
+@pytest.mark.parametrize("m", [1, 8, 32, 33])
+def test_topk_few_row_kernel_matches_sweep(card, m, d):
+    """A fp32 top-k launch over at most ``cuda_lib.FEW_ROWS`` rows takes the
+    few-row kernels (just above the cut, the tile kernel): its lists equal
+    the fp32 sweep's over the same rows bit for bit, at k 1, 32 and 128, at
+    whole 128-byte k-slices (d 64) and with a partial last slice (d 100)."""
+    a, b = _few_row_inputs(card, m, 5000, d)
+    assert cuda_lib.few_rows("fp32", cuda_lib.TOPK, m) == (m <= cuda_lib.FEW_ROWS)
+    a4, b4 = kernel_operand(a, "fp32"), kernel_operand(b, "fp32")
+    ones_m, ones_n = torch.ones(m, device=card), torch.ones(b.shape[0], device=card)
+    s64, bound = checks.exact_scores(a, b)
+    for k in (1, 32, 128):
+        kv, ki = sim_topk_cuda(a4, b4, k=k)
+        _, sv, si, _ = sim_sweep_cuda(a4, b4, ones_m, ones_n, n_bins=64, k=k, bm=m)
+        torch.cuda.synchronize()
+        assert torch.equal(kv, sv) and torch.equal(ki, si)
+        checks.check_topk(kv, ki, *sim_topk_ref(a, b, k=k), s64, bound)
+        assert torch.equal(ki[0].cpu(), torch.arange(k, dtype=torch.int32))
+        assert not kv[0].any()
+
+
+def test_topk_few_row_kernel_wide_tie_bin(card):
+    """A row whose chosen top-digit bin holds more keys than the selection
+    keeps in shared memory (the zero row: all 20,300 scores tie at 0) is
+    counted from device memory on every pass; its lists still equal the
+    fp32 sweep's, the lowest columns first."""
+    a, b = _few_row_inputs(card, 8, 20000)
+    a4, b4 = kernel_operand(a, "fp32"), kernel_operand(b, "fp32")
+    kv, ki = sim_topk_cuda(a4, b4, k=128)
+    _, sv, si, _ = sim_sweep_cuda(a4, b4, torch.ones(8, device=card),
+                                  torch.ones(b.shape[0], device=card), n_bins=64, k=128, bm=8)
+    torch.cuda.synchronize()
+    assert torch.equal(kv, sv) and torch.equal(ki, si)
+    assert torch.equal(ki[0].cpu(), torch.arange(128, dtype=torch.int32))
+    s64, bound = checks.exact_scores(a, b)
+    checks.check_topk(kv, ki, *sim_topk_ref(a, b, k=128), s64, bound)
+
+
+@pytest.mark.parametrize("n", [1, 200, 1000])
+def test_topk_few_row_kernel_whole_row(card, n):
+    """k = N: every column, in order (1,000 columns: the passes run into
+    the column's bits for the zero row)."""
+    a, b = _few_row_inputs(card, 8, n)
+    b = b[:n].contiguous()
+    kv, ki = sim_topk_cuda(kernel_operand(a, "fp32"), kernel_operand(b, "fp32"), k=n)
+    torch.cuda.synchronize()
+    pv, pi = sim_topk_ref(a, b, k=n)
+    s64, bound = checks.exact_scores(a, b)
+    checks.check_topk(kv, ki, pv, pi, s64, bound)
+    assert (torch.sort(ki, dim=1).values == torch.arange(n, device=card)).all()
 
 
 @pytest.mark.parametrize("bm", [64, 192, 256])
@@ -271,6 +377,12 @@ def test_tile_shared_memory(card):
     assert smem(sweep, 4096, 32, 128) == 227328
     assert 2 * (smem(sweep, 4096, 32, 64) + 1024) <= 233472
     assert smem(cuda_lib.TOPK, 1, 128, 64) <= cuda_lib.MAX_SMEM < smem(cuda_lib.TOPK, 1, 128, 128)
+    # the few-row top-k: its scores' 4-stage ring of 32 + 256 rows and
+    # top-digit counts, and its selection's histogram copies, list and
+    # 16,384 kept keys
+    few = cuda_lib.lib().repro_topk_few_rows_smem_bytes
+    assert few(0) == 4 * 288 * 144 + 32 * 256 * 4 <= cuda_lib.MAX_SMEM
+    assert few(1) == 256 * 32 * 4 + (1024 + 16384) * 8 <= cuda_lib.MAX_SMEM
 
 
 def test_launch_checks_raise(card):

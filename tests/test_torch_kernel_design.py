@@ -246,3 +246,147 @@ def test_bf16_tensor_core_schedule_holds_the_bound():
     # the schedule's own estimate, (2 * 64 + d / 64) u sum |a b|, is about a
     # third of gamma_384
     assert ratio <= (2 * 64 + d / 64) / d
+
+
+# ----------------------------------------------------------------------------
+# K3 over few rows: the selection of fewrow_select, step by step
+# ----------------------------------------------------------------------------
+
+def _choose(hist, need):
+    """The digit where the count from the top reaches ``need``: (digit,
+    keys above it, keys in it)."""
+    above = 0
+    for b in range(255, -1, -1):
+        if above + hist[b] >= need:
+            return b, above, int(hist[b])
+        above += int(hist[b])
+    raise AssertionError("fewer keys than k")
+
+
+def emulate_fewrow_select(scores, k, seed=0):
+    """What ``fewrow_scores`` and ``fewrow_select`` do with a row block's
+    f32 scores: clip (keeping a -0.0, as ``fmaxf`` may), map each clipped
+    score to its key (the float's bits, -0.0 taken to +0.0), count the keys
+    by their top 8 bits (the scores kernel's histogram), and take the
+    column into a 64-bit key ``key << 32 | ~column``.  Radix passes of 8
+    bits from the top, each taking the digit where the count from the top
+    reaches k, until the chosen bin holds exactly the keys still needed (the
+    column's bits above those N - 1 needs are skipped): the first from the
+    histogram; then one read of the keys puts those above the chosen top
+    digit in the list and keeps those of the digit; the later passes count
+    the kept keys that match the digits so far.  The kept keys at or above
+    the threshold join the list (in an arbitrary order, as atomics give
+    them), and each key goes to its place, the number of keys above it.
+    Returns (vals (M, k) f32, idx (M, k) int32, passes a row)."""
+    m, n = scores.shape
+    s32 = np.asarray(scores, np.float32)
+    clipped = np.where(s32 < 0, np.float32(0), np.where(s32 > 1, np.float32(1), s32))
+    u = clipped.view(np.uint32).copy()
+    u[u == 0x80000000] = 0
+    top = [np.bincount(row >> 24, minlength=256) for row in u]
+    cbits = ((n - 1).bit_length() + 7) & ~7 if n > 1 else 0
+    lo = np.uint64(0xFFFFFFFF) - np.arange(n, dtype=np.uint64)
+    full = (1 << 64) - 1
+    rng = np.random.default_rng(seed)
+    vals = np.empty((m, k), np.float32)
+    idx = np.empty((m, k), np.int32)
+    passes = []
+    for r in range(m):
+        x = (u[r].astype(np.uint64) << np.uint64(32)) | lo
+        prefix = (0xFFFFFFFF << cbits) & 0xFFFFFFFF if cbits < 32 else 0
+        b1, above, in_bin = _choose(top[r], k)
+        prefix |= b1 << 56
+        need = k - above
+        done = in_bin == need
+        d1 = x >> np.uint64(56)
+        got = [x[d1 > b1]]
+        kept = x[d1 == b1]
+        npass = 1
+        if done:
+            got.append(kept)
+        else:
+            s = 48
+            while True:
+                mask = (full << (s + 8)) & full
+                match = ((kept ^ np.uint64(prefix)) & np.uint64(mask)) == 0
+                hist = np.bincount(((kept[match] >> np.uint64(s)) & np.uint64(0xFF))
+                                   .astype(np.int64), minlength=256)
+                npass += 1
+                b, above, in_bin = _choose(hist, need)
+                prefix |= b << s
+                need -= above
+                nxt = s - 8 if s > 32 else (cbits - 8 if s == 32 else s - 8)
+                if in_bin == need or nxt < 0:
+                    break
+                s = nxt
+            got.append(kept[kept >= np.uint64(prefix)])
+        lst = rng.permutation(np.concatenate(got))
+        assert len(lst) == k
+        place = (lst[None, :] > lst[:, None]).sum(axis=1)
+        srt = np.empty_like(lst)
+        srt[place] = lst
+        vals[r] = (srt >> np.uint64(32)).astype(np.uint32).view(np.float32)
+        idx[r] = (np.uint64(0xFFFFFFFF) - (srt & np.uint64(0xFFFFFFFF))).astype(np.int32)
+        passes.append(npass)
+    return vals, idx, passes
+
+
+def _adversarial(case):
+    """(scores (M, N) f32, k) of one adversarial case."""
+    rng = np.random.default_rng(31)
+    if case == "every score clipped to 0":
+        return -rng.random((3, 3000)).astype(np.float32) - 0.01, 128
+    if case == "exact duplicates straddling the k-th value":
+        levels = np.float32([0.9, 0.7, 0.7001, 0.5, 0.2, 0.0])
+        return levels[rng.integers(0, len(levels), (4, 2000))], 128
+    if case == "a -0.0 score":
+        s = rng.uniform(-1.0, 1.0, (3, 1000)).astype(np.float32)
+        s[:, 900:] = 0.0
+        s[:, 300:340] = -0.0
+        s[:, ::7] = -0.0
+        return s, 600
+    if case == "k = N":
+        return rng.integers(-2, 5, (3, 300)).astype(np.float32) / 4, 300
+    assert case == "k = 128 on N = 5,000"
+    return rng.uniform(-0.2, 1.2, (8, 5000)).astype(np.float32), 128
+
+
+@pytest.mark.parametrize("case", ["every score clipped to 0",
+                                  "exact duplicates straddling the k-th value",
+                                  "a -0.0 score", "k = N", "k = 128 on N = 5,000"])
+def test_fewrow_select_emulation_matches_plain_topk(case):
+    """The emulated selection equals ``sim_topk_ref`` bit for bit on
+    adversarial rows (its scores made exact by an identity E2, so the plain
+    version sees the same floats).  Zeros compare by value: the key takes
+    -0.0 to +0.0, and the plain version's clamp may keep either sign, so
+    the plain values' zeros are taken to +0.0 before the bits are
+    compared."""
+    from repro_torch.kernels.sim_topk.ref import sim_topk_ref
+
+    scores, k = _adversarial(case)
+    m, n = scores.shape
+    ev, ei, passes = emulate_fewrow_select(scores, k)
+    pv, pi = sim_topk_ref(torch.from_numpy(scores), torch.eye(n), k=k)
+    assert np.array_equal(ei, pi.numpy())
+    assert np.array_equal(ev.view(np.int32), (pv + 0.0).numpy().view(np.int32))
+    if case == "every score clipped to 0":
+        # every value digit ties: the passes go on into the column's bits
+        # (N - 1 needs 12, rounded up to 16: two passes) and take the
+        # lowest columns
+        assert passes == [6] * m and (ei == np.arange(k)).all()
+    if case == "a -0.0 score":
+        assert (np.signbit(scores) & (scores == 0)).any()
+        assert (ev == 0).any()
+
+
+@pytest.mark.parametrize("mode,flags,m,few", [
+    ("fp32", cuda_lib.TOPK, 1, True),
+    ("fp32", cuda_lib.TOPK, 8, True),     # the raised-k retry's rows
+    ("fp32", cuda_lib.TOPK, 32, True),
+    ("fp32", cuda_lib.TOPK, 33, False),   # just above the cut
+    ("bf16", cuda_lib.TOPK, 8, False),    # bf16 top-k keeps the tile kernel
+    ("fp32", cuda_lib.HIST | cuda_lib.TOPK | cuda_lib.SUMS, 8, False),
+])
+def test_few_row_kernel_is_chosen_by_shape(mode, flags, m, few):
+    assert cuda_lib.few_rows(mode, flags, m) == few
+    assert cuda_lib.FEW_ROWS == 32
