@@ -21,7 +21,15 @@ layout and types, and on f32 operands); (4) the query path:
 AVG; COUNT at bf16, at int8 and on the two-pass schedule; a catalog with
 canonical records that drives the raised-k top-k retry), a 3-way chain
 through ``run_auto`` and a small dense-routed query, with launch counts read
-around the whole phase; (5) the similarity kernels' times with CUDA events
+around the whole phase; (4b) the other query methods: the multi-fidelity
+cascade (``execute(method="bas-cascade")``, COUNT, SUM, AVG and a two-pass
+COUNT, with the similarity proxy, and ``run_auto`` with ``cfg.cascade``),
+WWJ's walks and uniform sampling on phase 4's tables; ABAE, BlazeIt,
+blocking (its threshold calibrated on a validation split) and selection on
+4,096 x 8,192 records, the largest the dense path admits; the cascade on
+phase 6's Oracle path; each method on the card against the CPU on phase 4's
+small tables; and one profiled cascade COUNT and WWJ COUNT; (5) the
+similarity kernels' times with CUDA events
 at the phase-4 shapes (and, for context, ``torch.matmul`` and
 ``torch._int_mm`` of the bare fp32 and int8 products); (6) the Oracle path:
 a COUNT join of two 256-record tables whose Oracle is the full
@@ -31,13 +39,14 @@ by the same scorer, then profiled; (7) the
 scorer on the card against the CPU; (8) the recurrent paths:
 ``rwkv6-1.6b`` at full size and ``recurrentgemma-9b`` at full width cut to
 8 layers score 2,048 pairs each.  Launch counts are set to 0 just before
-each path (4, 6, 8) and read just after it.
+each path (4; 4b's query path, dense baselines and Oracle cascade; 6; 8)
+and read just after it.
 
 Any failed phase exits non-zero.  The last lines are one JSON object of
 kernels, the card's name and power limit, and ``{"ok": true, ...}``.
 Without a card (or without the repository beside it) it exits non-zero and
-prints no result.  The rehearsal runs phases 4, 6, 7 and 8 at a tiny size on
-the CPU and exits 3.
+prints no result.  The rehearsal runs phases 4, 4b, 6, 7 and 8 at a tiny
+size on the CPU and exits 3.
 """
 import argparse
 import collections
@@ -91,12 +100,17 @@ class Size:
     slice: int      # rows of E1 that phase 3 holds against all of E2
     budget: int     # oracle budget of a query
     dense_cap: int  # BASConfig.max_dense_weight_bytes
+    dense: tuple    # records per table of phase 4b's dense baselines
 
 
-# the main path: two tables of 32,768 records at the embedder's width
-FULL = Size(n=32768, d=384, slice=4096, budget=20000, dense_cap=256 * 2**20)
+# the main path: two tables of 32,768 records at the embedder's width; the
+# dense baselines at 4,096 x 8,192 pairs, the 256 MiB of f64 weights that the
+# default max_dense_weight_bytes admits
+FULL = Size(n=32768, d=384, slice=4096, budget=20000, dense_cap=256 * 2**20,
+            dense=(4096, 8192))
 # the CPU rehearsal: the same phases at a size the CPU runs in seconds
-REHEARSAL = Size(n=1024, d=64, slice=256, budget=4000, dense_cap=2**16)
+REHEARSAL = Size(n=1024, d=64, slice=256, budget=4000, dense_cap=2**16,
+                 dense=(128, 256))
 SEED = 0
 HOT_ROWS = 8  # canonical records of the hot catalog: the rows the k = 128 retry takes
 
@@ -169,6 +183,15 @@ def retry_operands(hot, rows):
             torch.from_numpy(hot.emb2).cuda())
 
 
+def make_small(size):
+    """Phase 4's small tables: 1,024 x 1,024 records at the full size."""
+    from repro_torch.data import make_clustered_tables
+
+    m = max(size.n // 32, 64)
+    return make_clustered_tables(m, m, d=size.d, n_entities=128, noise=0.35,
+                                 seed=SEED + 3)
+
+
 def make_chain(size):
     """The 3-way chain of phase 4: 64 x 512 x 32,768 at the full size."""
     from repro_torch.data import make_chain_dataset
@@ -189,8 +212,7 @@ def run_phase4(size, device, launches):
     t0 = time.perf_counter()
     ds, main, hot, hcat = make_catalogs(n, d, SEED)
     chain = make_chain(size)
-    small = make_clustered_tables(max(n // 32, 64), max(n // 32, 64), d=d,
-                                  n_entities=128, noise=0.35, seed=SEED + 3)
+    small = make_small(size)
     log(f"data: {time.perf_counter() - t0:.1f} s")
 
     row_t = ds.truth.sum(axis=1, dtype=np.int64)
@@ -260,12 +282,7 @@ def run_phase4(size, device, launches):
     if rel > 1e-6:
         fail("the card's estimate disagrees with the CPU's beyond 1e-6")
     for r in results:
-        res = r["result"]
-        if not (np.isfinite(res.estimate) and res.ci.lo <= res.estimate <= res.ci.hi):
-            fail(f"{r['name']}: estimate {res.estimate} outside its CI {res.ci}")
-        if res.error_ratio(r["truth"]) > 3.0:
-            fail(f"{r['name']}: |estimate - truth| is {res.error_ratio(r['truth']):.2f} "
-                 "CI half-widths")
+        _check_result(r["name"], r["result"], r["truth"])
     paths = {r["name"]: r["path"] for r in results}
     if paths["dense COUNT"] != "dense" or any(
             p != "streaming" for k, p in paths.items() if k != "dense COUNT"):
@@ -277,6 +294,21 @@ def run_phase4(size, device, launches):
             r["name"] == "COUNT two-pass" for r in results):
         fail("the two-pass run should recompute its walk sums")
     return results, hot, (ds, main)
+
+
+def _check_result(name, res, truth):
+    """The estimate is finite and inside its CI, and within 3 CI half-widths
+    of the truth (as phase 4 holds its queries)."""
+    if not (np.isfinite(res.estimate) and res.ci.lo <= res.estimate <= res.ci.hi):
+        fail(f"{name}: estimate {res.estimate} outside its CI {res.ci}")
+    if res.error_ratio(truth) > 3.0:
+        fail(f"{name}: |estimate - truth| is {res.error_ratio(truth):.2f} "
+             "CI half-widths")
+
+
+def _check_budget(name, res, budget):
+    if res.oracle_calls > budget:
+        fail(f"{name}: {res.oracle_calls} Oracle calls over the budget {budget}")
 
 
 def _timed(name, truth, launches, device, fn):
@@ -298,18 +330,22 @@ def _timed(name, truth, launches, device, fn):
     st = res.telemetry.stratify
     stratify = {"path": st.path, **st.extra} if st is not None else {}
     disp = res.telemetry.dispatch
+    path = disp.path if disp is not None else res.telemetry.mode
     row = {
-        "name": name, "result": res, "truth": truth, "path": disp.path,
+        "name": name, "result": res, "truth": truth, "path": path,
         "launches": delta, "pass_counts": passes, "stratify": stratify,
     }
+    casc = res.telemetry.cascade
     log(json.dumps({
         "query": name, "estimate": res.estimate, "truth": truth,
         "ci": [res.ci.lo, res.ci.hi], "covers": res.ci.contains(truth),
-        "path": disp.path, "launches": delta, "PASS_COUNTS": passes,
+        "error_ratio": res.error_ratio(truth),
+        "path": path, "launches": delta, "PASS_COUNTS": passes,
         "topk_retry_rows": _stat(res, "topk_retry_rows"),
         "dense_rescan_rows": _stat(res, "dense_rescan_rows"),
         "oracle_calls": res.oracle_calls, "wall_s": wall,
         "timings_s": res.telemetry.timings,
+        **({"cascade": dataclasses.asdict(casc)} if casc is not None else {}),
     }))
     return row
 
@@ -378,6 +414,269 @@ def profile_query(size, catalogs):
     log(json.dumps({"profile": "COUNT on the main catalog", "wall_ms": wall,
                     "device_busy_ms": busy, "idle_share": 1.0 - busy / wall,
                     "timings_s": res.telemetry.timings, "top_device_events": events[:8]}))
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: the other query methods (the cascade and the paper's baselines)
+# ---------------------------------------------------------------------------
+
+def phase4b_query_path(size, device, catalogs, launches):
+    """The cascade and the sampling baselines on phase 4's main catalog:
+    ``execute(method="bas-cascade")`` (COUNT, SUM, AVG, streaming, the
+    similarity proxy; the fused sweep, K1, hands the collection its top-k
+    lists, so COUNT runs once more on the two-pass schedule, whose
+    collection launches K3 at k 32), ``run_auto`` with ``cfg.cascade``, and
+    WWJ (walk mode) and UNIFORM on COUNT.  Launch counts are read around the
+    whole run."""
+    from repro_torch.core import Agg, JoinMLEngine, Query, run_auto
+    from repro_torch.core.oracle import ArrayOracle
+    from repro_torch.core.types import BASConfig
+
+    ds, main = catalogs
+    budget = size.budget
+    row_t = ds.truth.sum(axis=1, dtype=np.int64)
+    col_t = ds.truth.sum(axis=0, dtype=np.int64)
+    count = float(row_t.sum())
+    truths = {"COUNT": count, "SUM": float(ds.columns1["value"] @ row_t),
+              "AVG": float(ds.columns2["value"] @ col_t) / count}
+    exprs = {"COUNT": "COUNT(*)", "SUM": "SUM(a.value)", "AVG": "AVG(b.value)"}
+
+    def sql(agg):
+        return (f"SELECT {exprs[agg]} FROM a JOIN b ON NL('same entity') "
+                f"ORACLE BUDGET {budget} WITH PROBABILITY 0.95")
+
+    cfg = BASConfig(max_dense_weight_bytes=size.dense_cap)
+    eng = JoinMLEngine(main, lambda nl, names: ArrayOracle(ds.truth), cfg=cfg,
+                       device=device)
+    results = []
+    for agg in ("COUNT", "SUM", "AVG"):
+        results.append(_timed(
+            f"cascade {agg}", truths[agg], launches, device,
+            lambda agg=agg: eng.execute(sql(agg), method="bas-cascade", seed=SEED)))
+    two_pass = JoinMLEngine(main, lambda nl, names: ArrayOracle(ds.truth),
+                            cfg=dataclasses.replace(cfg, use_sweep=False), device=device)
+    results.append(_timed(
+        "cascade COUNT two-pass", count, launches, device,
+        lambda: two_pass.execute(sql("COUNT"), method="bas-cascade", seed=SEED)))
+    results.append(_timed(
+        "run_auto cascade COUNT", count, launches, device,
+        lambda: run_auto(Query(spec=ds.spec(), agg=Agg.COUNT,
+                               oracle=ArrayOracle(ds.truth), budget=budget),
+                         dataclasses.replace(cfg, cascade=True), seed=SEED,
+                         device=device)))
+    for method in ("wwj", "uniform"):
+        results.append(_timed(
+            f"{method} COUNT", count, launches, device,
+            lambda method=method: eng.execute(sql("COUNT"), method=method, seed=SEED)))
+    for r in results:
+        _check_result(r["name"], r["result"], r["truth"])
+        _check_budget(r["name"], r["result"], budget)
+    paths = {r["name"]: r["path"] for r in results}
+    want = {"cascade COUNT": "bas-cascade", "cascade SUM": "bas-cascade",
+            "cascade AVG": "bas-cascade", "cascade COUNT two-pass": "bas-cascade",
+            "run_auto cascade COUNT": "cascade-streaming",
+            "wwj COUNT": "wwj", "uniform COUNT": "uniform"}
+    if paths != want:
+        fail(f"unexpected paths {paths}")
+    for r in results:
+        fused = r["stratify"].get("walk_setup") == "fused"
+        if "cascade" in r["name"] and fused == ("two-pass" in r["name"]):
+            fail(f"{r['name']}: walk setup {r['stratify'].get('walk_setup')}")
+    return results
+
+
+def phase4b_dense(size, device, launches):
+    """ABAE, BlazeIt, blocking and selection at the largest size the dense
+    path admits: each materialises the chain weights of the whole cross
+    product (a torch matmul on the card, no similarity kernel).  Blocking's
+    threshold comes from ``calibrate_threshold`` on a validation split drawn
+    from the same generator with another seed."""
+    from repro_torch.core import (Agg, BASConfig, Query, calibrate_threshold,
+                                  choose_path, dense_weight_bytes, run_abae,
+                                  run_bas_selection, run_blazeit, run_blocking)
+    from repro_torch.core.similarity import chain_weights
+    from repro_torch.data import make_clustered_tables
+
+    n1, n2 = size.dense
+    t0 = time.perf_counter()
+    kw = dict(d=size.d, n_entities=max(n2 // 16, 16), noise=0.35)
+    dd = make_clustered_tables(n1, n2, seed=SEED + 4, **kw)
+    val = make_clustered_tables(n1, n2, seed=SEED + 5, **kw)
+    log(f"phase 4b dense data: {time.perf_counter() - t0:.1f} s")
+    spec = dd.spec()
+    log(json.dumps({"dense_baselines": [n1, n2, size.d],
+                    "dense_weight_bytes": dense_weight_bytes(spec),
+                    "default_path": choose_path(spec, BASConfig())}))
+    if size is FULL and not (dense_weight_bytes(spec) == BASConfig().max_dense_weight_bytes
+                             and choose_path(spec, BASConfig()) == "dense"):
+        fail("the dense baselines' tables are not the largest the dense path admits")
+    budget = size.budget
+    truth = float(dd.truth.sum(dtype=np.int64))
+
+    def q():
+        return Query(spec=spec, agg=Agg.COUNT, oracle=dd.oracle(), budget=budget)
+
+    t0 = time.perf_counter()
+    tau = calibrate_threshold(chain_weights(val.spec().embeddings, device=device),
+                              val.truth.reshape(-1), 0.9)
+    calib_s = time.perf_counter() - t0
+    del val
+    results = [_timed(name, truth, launches, device, fn) for name, fn in (
+        ("abae COUNT", lambda: run_abae(q(), seed=SEED, device=device)),
+        ("blazeit COUNT", lambda: run_blazeit(q(), seed=SEED, device=device)),
+        ("blocking COUNT", lambda: run_blocking(q(), tau, seed=SEED, device=device)))]
+    for r in results[:2]:
+        _check_result(r["name"], r["result"], truth)
+    blk = results[2]["result"]
+    n_cand = blk.telemetry.extra["n_candidates"]
+    log(json.dumps({"blocking": {"threshold": tau, "calibrate_s": calib_s,
+                                 "n_candidates": n_cand, "estimate": blk.estimate,
+                                 "truth": truth, "bias": blk.estimate / truth - 1.0}}))
+    if not (np.isfinite(blk.estimate) and n_cand > 0):
+        fail(f"blocking: estimate {blk.estimate} over {n_cand} candidates")
+    for r in results:
+        _check_budget(r["name"], r["result"], budget)
+    t0 = time.perf_counter()
+    sel = run_bas_selection(q(), recall_target=0.9, seed=SEED, device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    flat_truth = dd.truth.reshape(-1)
+    hit = int(flat_truth[sel.selected_flat].sum())
+    log(json.dumps({"query": "selection, recall target 0.9", "wall_s": time.perf_counter() - t0,
+                    "selected": int(len(sel.selected_flat)), "tau_s": sel.tau_s,
+                    "recall": hit / truth, "precision": hit / max(len(sel.selected_flat), 1),
+                    "oracle_calls": sel.oracle_calls}))
+    if sel.oracle_calls > budget:
+        fail(f"selection: {sel.oracle_calls} Oracle calls over the budget")
+    if not hit > 0:
+        fail("selection returned no true match")
+    return results
+
+
+def phase4b_oracle(size, device):
+    """The cascade on phase 6's Oracle path: COUNT whose Oracle is the full
+    joinml-oracle behind ``PairScorer`` and ``ModelOracle``, with the
+    similarity proxy, launch counts set to 0 just before and read just
+    after.  The truth is every pair scored by the same scorer."""
+    from repro_torch.core import JoinMLEngine, ModelOracle
+    from repro_torch.kernels import cuda_lib
+
+    t0 = time.perf_counter()
+    cfg, scorer, thr, cat, left, right, sql = oracle_setup(size, device)
+    eng = JoinMLEngine(cat, lambda nl, names: ModelOracle(scorer, thr), device=device)
+    truth = float((scorer.score(_all_pairs(len(left), len(right))) >= thr).sum())
+    log(f"phase 4b oracle set-up: {time.perf_counter() - t0:.1f} s")
+    scorer.seconds = 0.0
+    cuda_lib.reset_launches()
+    row = _timed("Oracle cascade COUNT", truth, cuda_lib.LAUNCHES, device,
+                 lambda: eng.execute(sql, method="bas-cascade", seed=SEED))
+    launches = dict(cuda_lib.LAUNCHES)
+    res = row["result"]
+    log(json.dumps({"Oracle cascade": {"model": cfg.name, "layers": cfg.num_layers,
+                                       "scoring_s": scorer.seconds,
+                                       "oracle_calls": res.oracle_calls,
+                                       "proxy_calls": res.telemetry.cascade.proxy_calls}}))
+    _check_result("Oracle cascade COUNT", res, truth)
+    _check_budget("Oracle cascade COUNT", res, size.budget)
+    if device == "cuda" and launches.get("flash_attention", 0) <= 0:
+        fail("flash_attention was not launched by the Oracle-path cascade")
+    return launches
+
+
+def phase4b_card_vs_cpu(size, device):
+    """Each method on phase 4's small tables on the card and on the CPU:
+    UNIFORM exactly; WWJ in flat mode, ABAE, BlazeIt and blocking, each
+    handed one weight vector computed once on the card, within 1e-12
+    relative; the dense cascade and WWJ's walks, on their own weights,
+    within 1e-6 (phase 4's tolerance)."""
+    from repro_torch.core import (Agg, Query, calibrate_threshold, run_abae,
+                                  run_bas_cascade, run_blazeit, run_blocking,
+                                  run_uniform, run_wwj)
+    from repro_torch.core.similarity import chain_weights
+
+    small = make_small(size)
+    budget = size.budget // 4
+    w = chain_weights(small.spec().embeddings, device=device)
+    tau = calibrate_threshold(w, small.truth.reshape(-1), 0.9)
+
+    def q(b=budget):
+        return Query(spec=small.spec(), agg=Agg.COUNT, oracle=small.oracle(), budget=b)
+
+    runs = {
+        "uniform": (0.0, lambda dev: run_uniform(q(), seed=SEED, device=dev)),
+        "wwj flat": (1e-12, lambda dev: run_wwj(q(), seed=SEED, weights=w, device=dev)),
+        "abae": (1e-12, lambda dev: run_abae(q(), seed=SEED, weights=w, device=dev)),
+        "blazeit": (1e-12, lambda dev: run_blazeit(q(), seed=SEED, weights=w, device=dev)),
+        "blocking": (1e-12, lambda dev: run_blocking(q(60), tau, seed=SEED, weights=w,
+                                                     device=dev)),
+        "cascade dense": (1e-6, lambda dev: run_bas_cascade(q(), seed=SEED, path="dense",
+                                                            device=dev)),
+        "wwj walks": (1e-6, lambda dev: run_wwj(q(), seed=SEED, device=dev)),
+    }
+    for name, (tol, fn) in runs.items():
+        a, b = fn("cpu"), fn(device)
+        diffs = [abs(y - x) / max(abs(x), 1e-300) for x, y in
+                 ((a.estimate, b.estimate), (a.ci.lo, b.ci.lo), (a.ci.hi, b.ci.hi))]
+        rel = max(diffs)
+        log(json.dumps({"check": f"{name} COUNT, card vs CPU", "estimate": [a.estimate, b.estimate],
+                        "oracle_calls": [a.oracle_calls, b.oracle_calls],
+                        "max_rel_diff": rel, "tolerance": tol}))
+        if not rel <= tol or a.oracle_calls != b.oracle_calls:
+            fail(f"{name}: the card disagrees with the CPU beyond {tol}")
+
+
+def profile_4b(size, catalogs):
+    """One more full-size cascade COUNT and WWJ COUNT under torch.profiler:
+    the device's busy time against the query's wall time, and where the
+    time goes (WWJ's first run in phase 4b also paid the process's first
+    import of ``scipy.stats``)."""
+    from repro_torch.core import JoinMLEngine
+    from repro_torch.core.oracle import ArrayOracle
+    from repro_torch.core.types import BASConfig
+
+    ds, main = catalogs
+    eng = JoinMLEngine(main, lambda nl, names: ArrayOracle(ds.truth),
+                       cfg=BASConfig(max_dense_weight_bytes=size.dense_cap), device="cuda")
+    sql = ("SELECT COUNT(*) FROM a JOIN b ON NL('same entity') "
+           f"ORACLE BUDGET {size.budget} WITH PROBABILITY 0.95")
+    res, wall, busy, events = _profiled(
+        lambda: eng.execute(sql, method="bas-cascade", seed=SEED + 1))
+    log(json.dumps({"profile": "cascade COUNT on the main catalog", "wall_ms": wall,
+                    "device_busy_ms": busy, "idle_share": 1.0 - busy / wall,
+                    "timings_s": res.telemetry.timings,
+                    "cascade": dataclasses.asdict(res.telemetry.cascade),
+                    "top_device_events": events[:8]}))
+    res, wall, busy, events = _profiled(
+        lambda: eng.execute(sql, method="wwj", seed=SEED + 1))
+    log(json.dumps({"profile": "WWJ COUNT (walks) on the main catalog", "wall_ms": wall,
+                    "device_busy_ms": busy, "idle_share": 1.0 - busy / wall,
+                    "estimate": res.estimate, "top_device_events": events[:8]}))
+
+
+def run_phase4b(size, model_size, device, catalogs):
+    """Phase 4b: the other query methods.  Launch counts are set to 0 just
+    before each path (the query path, the dense baselines, the Oracle-path
+    cascade) and read just after; the card-vs-CPU checks follow."""
+    from repro_torch.kernels import cuda_lib
+
+    cuda_lib.reset_launches()
+    results = phase4b_query_path(size, device, catalogs, cuda_lib.LAUNCHES)
+    query = dict(cuda_lib.LAUNCHES)
+    cuda_lib.reset_launches()
+    dense_results = phase4b_dense(size, device, cuda_lib.LAUNCHES)
+    dense = dict(cuda_lib.LAUNCHES)
+    log(json.dumps({"phase4b_launches": {"query path": query, "dense baselines": dense}}))
+    oracle = phase4b_oracle(model_size, device)
+    if device == "cuda":
+        for name in ("sim_sweep[fp32]", "sim_topk[k=32]"):
+            if query.get(name, 0) <= 0:
+                fail(f"{name} was not launched by the full-size cascades")
+        if any(dense.get(k) for k in SIM_KERNELS):
+            fail(f"the dense baselines launched similarity kernels: {dense}")
+    phase4b_card_vs_cpu(size, device)
+    paths = {"cascade and baselines (4b)": query, "dense baselines (4b)": dense,
+             "Oracle cascade (4b)": oracle}
+    return results + dense_results, paths
 
 
 # ---------------------------------------------------------------------------
@@ -766,18 +1065,15 @@ def _all_pairs(n1, n2):
                     -1).reshape(-1, 2)
 
 
-def oracle_path(size, device):
-    """Phase 6, this slice's main path: a COUNT join whose Oracle is the full
-    joinml-oracle on ``device`` (``ModelOracle`` over ``PairScorer``), with
-    launch counts set to 0 just before ``execute`` and read just after.  The
-    truth is every pair scored by the same scorer.  On the card the query
-    runs once more under the profiler."""
-    from repro_torch.core import Catalog, JoinMLEngine, ModelOracle, Table
-    from repro_torch.kernels import cuda_lib
+def oracle_setup(size, device):
+    """The Oracle path's pieces: joinml-oracle with random weights from the
+    seed behind a timed ``PairScorer``, the threshold that says yes to the
+    top 5% of P(match), the two record tables' catalog (byte-trigram
+    embeddings) and the COUNT query."""
+    from repro_torch.core import Catalog, Table
     from repro_torch.models import init_params
 
     cfg = model_config("joinml-oracle", size)
-    t0 = time.perf_counter()
     params = init_params(cfg, seed=SEED, device=device)
     left, right = entity_tables(size)
     scorer = TimedScorer(make_scorer(cfg, params, left, right, size.batch, device))
@@ -790,6 +1086,20 @@ def oracle_path(size, device):
     cat.register(Table("b", trigram_embeddings(right, EMBED_D)))
     sql = ("SELECT COUNT(*) FROM a JOIN b ON NL('same entity') "
            f"ORACLE BUDGET {size.budget} WITH PROBABILITY 0.95")
+    return cfg, scorer, thr, cat, left, right, sql
+
+
+def oracle_path(size, device):
+    """Phase 6, this slice's main path: a COUNT join whose Oracle is the full
+    joinml-oracle on ``device`` (``ModelOracle`` over ``PairScorer``), with
+    launch counts set to 0 just before ``execute`` and read just after.  The
+    truth is every pair scored by the same scorer.  On the card the query
+    runs once more under the profiler."""
+    from repro_torch.core import JoinMLEngine, ModelOracle
+    from repro_torch.kernels import cuda_lib
+
+    t0 = time.perf_counter()
+    cfg, scorer, thr, cat, left, right, sql = oracle_setup(size, device)
     eng = JoinMLEngine(cat, lambda nl, names: ModelOracle(scorer, thr), device=device)
     log(f"oracle path set-up: {time.perf_counter() - t0:.1f} s")
 
@@ -816,13 +1126,8 @@ def oracle_path(size, device):
         "oracle_calls": res.oracle_calls, "forward_batches": batches,
         "launches": launches, "wall_s": wall, "scoring_s": scoring_s,
         "timings_s": res.telemetry.timings, "truth_scoring_s": truth_s}))
-    if not (np.isfinite(res.estimate) and res.ci.lo <= res.estimate <= res.ci.hi):
-        fail(f"Oracle COUNT: estimate {res.estimate} outside its CI {res.ci}")
-    if res.oracle_calls > size.budget:
-        fail(f"Oracle COUNT: {res.oracle_calls} Oracle calls over the budget")
-    if res.error_ratio(truth) > 3.0:
-        fail(f"Oracle COUNT: |estimate - truth| is {res.error_ratio(truth):.2f} "
-             "CI half-widths")
+    _check_result("Oracle COUNT", res, truth)
+    _check_budget("Oracle COUNT", res, size.budget)
     if device == "cuda":
         if launches.get("flash_attention", 0) <= 0:
             fail("flash_attention was not launched on the Oracle path")
@@ -1068,16 +1373,18 @@ def model_kernels():
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--rehearse-cpu", action="store_true",
-                    help="run phases 4, 6, 7 and 8 at a tiny size on the CPU (exits 3)")
+                    help="run phases 4, 4b, 6, 7 and 8 at a tiny size on the CPU "
+                         "(exits 3)")
     if ap.parse_args().rehearse_cpu:
         from repro_torch.kernels import cuda_lib
 
-        results, _, _ = run_phase4(REHEARSAL, "cpu", cuda_lib.LAUNCHES)
+        results, _, catalogs = run_phase4(REHEARSAL, "cpu", cuda_lib.LAUNCHES)
+        results_4b, _ = run_phase4b(REHEARSAL, REHEARSAL_MODEL, "cpu", catalogs)
         oracle_path(REHEARSAL_MODEL, "cpu")
         card_vs_cpu(REHEARSAL_MODEL, "cpu")
         recurrent_paths(REHEARSAL_MODEL, "cpu")
-        log(f"rehearsal complete: {len(results)} queries, the Oracle query and "
-            "the recurrent paths on the CPU (no result)")
+        log(f"rehearsal complete: {len(results) + len(results_4b)} queries, the "
+            "Oracle queries and the recurrent paths on the CPU (no result)")
         sys.exit(3)
     if not torch.cuda.is_available():
         log("no CUDA card: nothing to measure")
@@ -1141,6 +1448,10 @@ def main():
     retry = next(r for r in results if r["name"] == "COUNT hot rows")
     retry_rows = _stat(retry["result"], "topk_retry_rows")
     profile_query(FULL, catalogs)
+
+    # phase 4b: the other query methods, counts set to 0 before each path
+    _, paths_4b = run_phase4b(FULL, FULL_MODEL, "cuda", catalogs)
+    profile_4b(FULL, catalogs)
     del catalogs
 
     # phase 5: times at the phase-4 shapes
@@ -1163,13 +1474,16 @@ def main():
     for name in SIM_KERNELS:
         rows.append({"name": name, "route": "cuda", "source": SIM_SOURCE,
                      "replaces": REPLACES[name], "launches": launches[name],
-                     "max_abs_err": errs[name], **times[name]})
+                     "max_abs_err": errs[name], **times[name],
+                     "launches_by_path": {"query path (4)": launches[name]} | {
+                         p: n.get(name, 0) for p, n in paths_4b.items()}})
     for name in MODEL_KERNELS:
         path_row, *other_rows = model_rows[name]
         rows.append({"name": name, "route": "cuda", "source": MODEL_SOURCE,
                      "replaces": REPLACES[name],
                      "launches": paths[main_path[name]].get(name, 0), **path_row,
-                     "launches_by_path": {p: n.get(name, 0) for p, n in paths.items()},
+                     "launches_by_path": {p: n.get(name, 0) for p, n in
+                                          (paths | paths_4b).items()},
                      "other_shapes": other_rows})
     log(json.dumps({"kernels": rows}))
     log(smi)

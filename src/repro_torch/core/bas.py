@@ -319,9 +319,9 @@ def build_dense_space(
 ) -> StratifiedSpace:
     """Stage 1 of the dense path: materialised chain weights + sorted-top
     stratification, packaged as a :class:`StratifiedSpace`.  Shared by
-    ``run_bas`` and (once ported) the cascade estimator, so both regimes
-    stratify identically and differ only in how the pipeline spends the
-    Oracle budget."""
+    ``run_bas`` and the cascade estimator (``cascade.run_bas_cascade``), so
+    both regimes stratify identically and differ only in how the pipeline
+    spends the Oracle budget."""
     # ---- similarity + stratification -------------------------------------
     t0 = time.perf_counter()
     if weights is None:

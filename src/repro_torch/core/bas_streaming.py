@@ -107,7 +107,8 @@ def build_streaming_space(
     walk+rejection D_0 sampler, packaged as a :class:`StratifiedSpace`.
     Returns ``(space, extra_detail)`` — the extra detail carries the
     streaming-specific keys (``p_top``, ``use_kernel``) the caller merges
-    into its pipeline detail dict."""
+    into its pipeline detail dict.  Shared by ``run_bas_streaming`` and the
+    cascade estimator so both spend stage 1 identically."""
     if use_kernel is None:
         use_kernel = cfg.use_kernel
     if use_sweep is None:

@@ -26,7 +26,7 @@ from ..device import resolve_device
 from ..obs import DispatchTelemetry
 from .bas import run_bas
 from .bas_streaming import run_bas_streaming
-from .types import BASConfig, JoinSpec, Query, QueryResult
+from .types import Agg, BASConfig, JoinSpec, Query, QueryResult
 
 _WEIGHT_BYTES = np.dtype(np.float64).itemsize
 
@@ -57,8 +57,14 @@ def run_auto(
     ``device`` (default ``"cuda"``; raises without a card).
 
     The decision is recorded in ``result.telemetry.dispatch``.  The index
-    store and the multi-fidelity cascade are not ported yet: an
-    ``index_store`` or ``cfg.cascade`` raises :class:`NotImplementedError`.
+    store is not ported yet: an ``index_store`` raises
+    :class:`NotImplementedError` (ROADMAP queue 1, item 6).
+
+    ``cfg.cascade`` layers the multi-fidelity cascade (``core/cascade.py``)
+    on top of the same memory decision: linear aggregates route through
+    ``run_bas_cascade`` on the chosen regime (``path="cascade-dense"`` /
+    ``"cascade-streaming"``); non-linear aggregates have no difference
+    decomposition and fall through to plain BAS.
     """
     resolve_device(device)
     cfg = cfg or BASConfig()
@@ -66,14 +72,15 @@ def run_auto(
         raise NotImplementedError(
             "index stores are not ported yet (ROADMAP queue 1, item 6)"
         )
-    if cfg.cascade:
-        raise NotImplementedError(
-            "the multi-fidelity cascade is not ported yet (ROADMAP queue 1, "
-            "item 7)"
-        )
     footprint = dense_weight_bytes(query.spec)
     path = choose_path(query.spec, cfg)
-    if path == "dense":
+    if cfg.cascade and query.agg in (Agg.COUNT, Agg.SUM, Agg.AVG):
+        from .cascade import run_bas_cascade   # lazy: cascade imports us
+
+        res = run_bas_cascade(query, cfg, seed=seed, path=path, n_bins=n_bins,
+                              device=device)
+        path = f"cascade-{path}"
+    elif path == "dense":
         res = run_bas(query, cfg, seed=seed, device=device)
     else:
         res = run_bas_streaming(query, cfg, seed=seed, n_bins=n_bins,

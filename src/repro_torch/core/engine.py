@@ -20,7 +20,7 @@ from typing import Callable, Optional, Union
 import numpy as np
 
 from ..device import resolve_device
-from . import bas, bas_streaming, dispatch
+from . import baselines, bas, bas_streaming, dispatch
 from .oracle import Oracle
 from .types import Agg, AttrFn, BASConfig, JoinSpec, Query, QueryResult
 
@@ -143,16 +143,6 @@ def _compile_expr(expr: str, tables: list[Table]) -> Optional[AttrFn]:
     raise ValueError(f"unsupported aggregate expression: {expr!r}")
 
 
-# methods of the reference engine that wait for later parts of the port
-_NOT_PORTED = {
-    "bas-cascade": "ROADMAP queue 1, item 7 (core/cascade.py)",
-    "wwj": "ROADMAP queue 1, item 7 (core/baselines.py)",
-    "uniform": "ROADMAP queue 1, item 7 (core/baselines.py)",
-    "abae": "ROADMAP queue 1, item 7 (core/baselines.py)",
-    "blazeit": "ROADMAP queue 1, item 7 (core/baselines.py)",
-}
-
-
 class JoinMLEngine:
     """Executes JoinML queries.  ``oracle_factory(nl_condition, table_names)``
     supplies the Oracle for a given join predicate (e.g. an ArrayOracle in
@@ -160,11 +150,16 @@ class JoinMLEngine:
     list of per-edge predicates when the query conjoins ``NL('...') AND
     NL('...')`` (one per join edge).
 
+    ``proxy_factory`` (same signature as ``oracle_factory``) supplies the
+    cheap proxy oracle for the multi-fidelity cascade
+    (``method="bas-cascade"`` or ``cfg.cascade``); without one, the cascade
+    falls back to the thresholded-similarity proxy
+    (:func:`repro_torch.core.cascade.similarity_proxy`).
+
     ``device`` (default ``"cuda"``; raises without a card) is where the
-    similarity passes and kernels run.  Methods ``auto``, ``bas`` and
-    ``bas-streaming`` are ported; the others, an ``index_store`` and a
-    ``proxy_factory`` raise :class:`NotImplementedError` naming their
-    ROADMAP item."""
+    similarity passes and kernels run.  Every method of the reference engine
+    is ported; an ``index_store`` (the persistent stratification index,
+    ROADMAP queue 1, item 6) raises :class:`NotImplementedError`."""
 
     def __init__(
         self,
@@ -181,15 +176,11 @@ class JoinMLEngine:
             raise NotImplementedError(
                 "index stores are not ported yet (ROADMAP queue 1, item 6)"
             )
-        if proxy_factory is not None:
-            raise NotImplementedError(
-                "the cascade's proxy oracles are not ported yet (ROADMAP "
-                "queue 1, item 7)"
-            )
         self.device = resolve_device(device)
         self.catalog = catalog
         self.oracle_factory = oracle_factory
         self.cfg = cfg or BASConfig()
+        self.proxy_factory = proxy_factory
 
     def build(self, sql: str, budget: Optional[int] = None,
               confidence: Optional[float] = None) -> Query:
@@ -206,6 +197,8 @@ class JoinMLEngine:
             g=g,
             budget=budget or pq.budget or 10000,
             confidence=confidence or pq.confidence or 0.95,
+            proxy=(self.proxy_factory(nl, pq.table_names)
+                   if self.proxy_factory is not None else None),
         )
 
     def execute(self, sql: str, method: str = "auto", seed: int = 0,
@@ -215,10 +208,6 @@ class JoinMLEngine:
         through the memory-aware dispatcher: dense when the flat chain-weight
         array fits under ``cfg.max_dense_weight_bytes``, streaming otherwise.
         ``"bas"`` / ``"bas-streaming"`` force a path explicitly."""
-        if method in _NOT_PORTED:
-            raise NotImplementedError(
-                f"method {method!r} is not ported yet: {_NOT_PORTED[method]}"
-            )
         q = self.build(sql, budget, confidence)
         if method == "auto":
             return dispatch.run_auto(q, self.cfg, seed=seed,
@@ -228,4 +217,18 @@ class JoinMLEngine:
         if method == "bas-streaming":
             return bas_streaming.run_bas_streaming(q, self.cfg, seed=seed,
                                                    device=self.device)
+        if method == "bas-cascade":
+            from . import cascade
+
+            return cascade.run_bas_cascade(q, self.cfg, seed=seed,
+                                           device=self.device)
+        if method == "wwj":
+            return baselines.run_wwj(q, self.cfg, seed=seed, device=self.device)
+        if method == "uniform":
+            return baselines.run_uniform(q, seed=seed, device=self.device)
+        if method == "abae":
+            return baselines.run_abae(q, self.cfg, seed=seed, device=self.device)
+        if method == "blazeit":
+            return baselines.run_blazeit(q, self.cfg, seed=seed,
+                                         device=self.device)
         raise ValueError(f"unknown method {method!r}")

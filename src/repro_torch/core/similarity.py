@@ -122,6 +122,11 @@ def quantize_rows_int8(emb: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return q, row_scale.astype(np.float32)
 
 
+def dequantize_rows_int8(q: np.ndarray, row_scale: np.ndarray) -> np.ndarray:
+    """Inverse of :func:`quantize_rows_int8` (up to rounding)."""
+    return q.astype(np.float32) * np.asarray(row_scale, np.float32).reshape(-1, 1)
+
+
 def weight_of_score(
     s: np.ndarray, exponent: float = 1.0, floor: float = 1e-3
 ) -> np.ndarray:

@@ -1,7 +1,7 @@
 """The port's query engine end to end against the reference, seeded, on
 2-way ``make_clustered_tables`` and 3-way ``make_chain_dataset`` inputs:
 ``run_bas``, ``run_bas_streaming``, ``run_auto`` and ``JoinMLEngine.execute``
-on a SQL string.
+on a SQL string, for every method the reference's engine accepts.
 
 Strata membership is checked equal first; then estimates and CI bounds must
 agree within 1e-6 relative — the tolerance the reference states between its
@@ -141,16 +141,42 @@ def test_engine_sql_matches_reference(method):
     assert a.ci.p == b.ci.p == 0.9
 
 
+@pytest.mark.parametrize("method", ["bas-cascade", "wwj", "uniform", "abae", "blazeit"])
+def test_engine_runs_every_reference_method(method):
+    """The methods ported with the baselines and the cascade, through
+    ``JoinMLEngine.execute`` on the CPU, against the reference's engine on
+    the same SQL string (``uniform`` touches no weight and is exact)."""
+    rds, pds = _pair()
+    rcfg, pcfg = _cfgs()
+    sql = ("SELECT SUM(a.value) FROM a JOIN b ON NL('same entity') "
+           "ORACLE BUDGET 800 WITH PROBABILITY 0.9")
+
+    def engine(mod, ds, cfg, **kw):
+        cat = mod.Catalog()
+        cat.register(mod.Table("a", ds.emb1, ds.columns1))
+        cat.register(mod.Table("b", ds.emb2, ds.columns2))
+        return mod.JoinMLEngine(cat, lambda nl, names: ds.oracle(), cfg=cfg, **kw)
+
+    a = engine(P, pds, pcfg, device="cpu").execute(sql, method=method, seed=4)
+    b = engine(R, rds, rcfg).execute(sql, method=method, seed=4)
+    if method == "uniform":
+        assert (a.estimate, a.ci.lo, a.ci.hi, a.oracle_calls) == \
+            (b.estimate, b.ci.lo, b.ci.hi, b.oracle_calls)
+    else:
+        _close(a, b)
+    assert a.telemetry.mode == b.telemetry.mode
+    assert a.oracle_calls <= 800
+
+
 def test_unported_methods_raise():
+    """What still raises: the persistent stratification index (an
+    ``index_store``, an ``artifact``; ROADMAP item 6) and an unknown method."""
     _, pds = _pair()
     cat = P.Catalog()
     cat.register(P.Table("a", pds.emb1))
     cat.register(P.Table("b", pds.emb2))
     eng = P.JoinMLEngine(cat, lambda nl, names: pds.oracle(), device="cpu")
     sql = "SELECT COUNT(*) FROM a JOIN b ON NL('x') ORACLE BUDGET 500"
-    for method in ("bas-cascade", "wwj", "uniform", "abae", "blazeit"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            eng.execute(sql, method=method)
     with pytest.raises(ValueError, match="unknown method"):
         eng.execute(sql, method="nope")
     with pytest.raises(NotImplementedError, match="item 6"):
@@ -158,5 +184,5 @@ def test_unported_methods_raise():
     q = P.Query(spec=pds.spec(), agg=P.Agg.COUNT, oracle=pds.oracle(), budget=500)
     with pytest.raises(NotImplementedError, match="item 6"):
         P.run_bas_streaming(q, artifact=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        P.run_auto(q, P.BASConfig(cascade=True), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 6"):
+        P.run_auto(q, index_store=object(), device="cpu")

@@ -1,7 +1,8 @@
 """The port's copy of the statistical-coverage harness
 (``tests/test_guarantees.py``): what the paper sells is the guarantee
-``P(mu in CI) >= p`` at any oracle budget, so the port's dense and streaming
-BAS paths run 50 seeded replicates over the same small synthetic workload
+``P(mu in CI) >= p`` at any oracle budget, so every estimator path of the
+port — dense and streaming BAS, and the multi-fidelity cascade on both
+regimes — runs 50 seeded replicates over the same small synthetic workload
 with known ground truth, on the CPU, and their empirical coverage must stay
 above ``nominal - slack`` with the reference's slack (0.10 under nominal
 0.95: the binomial noise of 50 replicates plus small-sample bootstrap-t
@@ -9,7 +10,15 @@ error)."""
 import numpy as np
 import pytest
 
-from repro_torch.core import Agg, BASConfig, Query, run_bas, run_bas_streaming
+from repro_torch.core import (
+    Agg,
+    ArrayOracle,
+    BASConfig,
+    Query,
+    run_bas,
+    run_bas_cascade,
+    run_bas_streaming,
+)
 from repro_torch.data import make_clustered_tables
 
 N_REP = 50
@@ -40,6 +49,11 @@ def _coverage(ds, truth, run_one, agg=Agg.COUNT, g=None):
 PATHS = {
     "bas-dense": lambda q, s: run_bas(q, CFG, seed=s, device="cpu"),
     "bas-streaming": lambda q, s: run_bas_streaming(q, CFG, seed=s, device="cpu"),
+    "cascade-dense": lambda q, s: run_bas_cascade(q, CFG, seed=s, path="dense",
+                                                  device="cpu"),
+    "cascade-streaming": lambda q, s: run_bas_cascade(q, CFG, seed=s,
+                                                      path="streaming",
+                                                      device="cpu"),
 }
 
 
@@ -64,3 +78,19 @@ def test_sum_ci_coverage_at_nominal(workload, path):
     cov, ests = _coverage(ds, truth, PATHS[path], agg=Agg.SUM, g=g)
     assert cov >= NOMINAL - SLACK, f"{path}: SUM coverage {cov:.2f}"
     assert abs(np.mean(ests) - truth) < 0.3 * truth
+
+
+def test_cascade_coverage_robust_to_garbage_proxy(workload):
+    """An adversarial proxy (labels = coin flips, uncorrelated with truth)
+    widens the cascade's CIs but must not break their validity — the
+    difference estimator corrects any proxy bias by construction."""
+    ds, truth = workload
+    rng = np.random.default_rng(99)
+    garbage = ArrayOracle((rng.random(ds.truth.shape) < 0.5).astype(np.float64))
+    hits = 0
+    for seed in range(N_REP):
+        q = Query(spec=ds.spec(), agg=Agg.COUNT, oracle=ds.oracle(), budget=BUDGET,
+                  proxy=garbage)
+        res = run_bas_cascade(q, CFG, seed=seed, path="dense", device="cpu")
+        hits += res.ci.contains(truth)
+    assert hits / N_REP >= NOMINAL - SLACK

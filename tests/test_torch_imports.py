@@ -1,5 +1,5 @@
-"""The port stands alone: importing ``repro_torch``, running a query and
-scoring pairs with the Oracle model loads neither JAX nor the reference
+"""The port stands alone: importing ``repro_torch``, running queries (BAS,
+the cascade, a baseline) and scoring pairs with the Oracle model loads neither JAX nor the reference
 package, and its entry points run on the card unless the caller asks for the
 CPU."""
 import os
@@ -27,6 +27,12 @@ eng = JoinMLEngine(cat, lambda nl, names: ArrayOracle(ds.truth), cfg=cfg,
 res = eng.execute("SELECT SUM(a.value) FROM a JOIN b ON NL('x') "
                   "ORACLE BUDGET 600 WITH PROBABILITY 0.9")
 assert res.telemetry.dispatch.path == "streaming"
+res = eng.execute("SELECT COUNT(*) FROM a JOIN b ON NL('x') ORACLE BUDGET 600",
+                  method="bas-cascade")
+assert res.telemetry.cascade.proxy_rows > 0
+res = eng.execute("SELECT COUNT(*) FROM a JOIN b ON NL('x') ORACLE BUDGET 600",
+                  method="abae")
+assert res.telemetry.mode == "abae"
 ch = make_chain_dataset([12, 14, 16], seed=1)
 run_auto(Query(spec=ch.spec(), agg=Agg.COUNT, oracle=ch.oracle(), budget=300),
          cfg, device="cpu")
@@ -78,6 +84,8 @@ def test_entry_points_default_to_the_card():
     _no_card()
     from repro_torch.core import Agg, Catalog, JoinMLEngine, Query, run_auto
     from repro_torch.core import run_bas, run_bas_streaming
+    from repro_torch.core import (run_abae, run_bas_cascade, run_bas_selection,
+                                  run_blazeit, run_blocking, run_uniform, run_wwj)
     from repro_torch.core.similarity import pair_weights
     from repro_torch.core.stratify import stratify_streaming
     from repro_torch.core.types import BASConfig
@@ -102,6 +110,15 @@ def test_entry_points_default_to_the_card():
         lambda: run_bas(q()),
         lambda: run_bas_streaming(q()),
         lambda: JoinMLEngine(Catalog(), lambda nl, names: None),
+        lambda: JoinMLEngine(Catalog(), lambda nl, names: None,
+                             proxy_factory=lambda nl, names: None),
+        lambda: run_uniform(q()),
+        lambda: run_wwj(q()),
+        lambda: run_blocking(q(), 0.5),
+        lambda: run_abae(q()),
+        lambda: run_blazeit(q()),
+        lambda: run_bas_cascade(q()),
+        lambda: run_bas_selection(q(), 0.9),
         lambda: stratify_streaming(ds.emb1, ds.emb2, 0.2, 200, BASConfig(),
                                    use_kernel=True),
         lambda: pair_weights(ds.emb1, ds.emb2),
