@@ -28,7 +28,22 @@ WWJ's walks and uniform sampling on phase 4's tables; ABAE, BlazeIt,
 blocking (its threshold calibrated on a validation split) and selection on
 4,096 x 8,192 records, the largest the dense path admits; the cascade on
 phase 6's Oracle path; each method on the card against the CPU on phase 4's
-small tables; and one profiled cascade COUNT and WWJ COUNT; (5) the
+small tables; (4c) the
+persistent stratification index on phase 4's tables: the fp32 index built
+through an ``IndexStore``, saved, and mmap-loaded into a new store; COUNT,
+SUM, AVG, the hot-row COUNT (the k 128 retry over the live embeddings), a
+cascade COUNT and the 3-way chain through ``JoinMLEngine(index_store=...)``
+/ ``run_auto``, each equal to its phase 4 / 4b run bit for bit and
+launching no sweep; one profiled warm COUNT; appends against rebuilds on
+the card (fp32 right then left, int8 and bf16 right, and an artifact with
+32-row count tiles, also against the CPU), each append and rebuild
+profiled once for its device time; the sweep kernel against its plain
+version at the appends' shapes (a right append's delta at each precision,
+a left append's chunk); and the launcher's ``build-index`` and
+``refresh-index`` modes; then one profiled COUNT on phase 4's tables, and
+one profiled cascade COUNT and WWJ COUNT (after 4c's profiles: after a
+session of many events the profiler loses some of a later session's
+device events); (5) the
 similarity kernels' times with CUDA events
 at the phase-4 shapes (and, for context, ``torch.matmul`` and
 ``torch._int_mm`` of the bare fp32 and int8 products); (6) the Oracle path:
@@ -40,12 +55,14 @@ scorer on the card against the CPU; (8) the recurrent paths:
 ``rwkv6-1.6b`` at full size and ``recurrentgemma-9b`` at full width cut to
 8 layers score 2,048 pairs each.  Launch counts are set to 0 just before
 each path (4; 4b's query path, dense baselines and Oracle cascade; 6; 8)
-and read just after it.
+and read just after it; in 4c, just before each of the index path's own
+calls (its builds, queries and appends, not the rebuilds and kernel checks
+they are held against) and read just after it.
 
 Any failed phase exits non-zero.  The last lines are one JSON object of
 kernels, the card's name and power limit, and ``{"ok": true, ...}``.
 Without a card (or without the repository beside it) it exits non-zero and
-prints no result.  The rehearsal runs phases 4, 4b, 6, 7 and 8 at a tiny
+prints no result.  The rehearsal runs phases 4, 4b, 4c, 6, 7 and 8 at a tiny
 size on the CPU and exits 3.
 """
 import argparse
@@ -293,7 +310,7 @@ def run_phase4(size, device, launches):
     if similarity.PASS_COUNTS["edge_row_sums"] == 0 and any(
             r["name"] == "COUNT two-pass" for r in results):
         fail("the two-pass run should recompute its walk sums")
-    return results, hot, (ds, main)
+    return results, hot, (ds, main), chain
 
 
 def _check_result(name, res, truth):
@@ -334,6 +351,7 @@ def _timed(name, truth, launches, device, fn):
     row = {
         "name": name, "result": res, "truth": truth, "path": path,
         "launches": delta, "pass_counts": passes, "stratify": stratify,
+        "wall_s": wall,
     }
     casc = res.telemetry.cascade
     log(json.dumps({
@@ -372,10 +390,11 @@ def _busy_ms(events):
     return busy / 1e3
 
 
-def _profiled(fn):
+def _profiled(fn, require_events=True):
     """Run ``fn`` under torch.profiler; returns its result, the wall ms, the
     device's busy ms (the union of its events' spans) and the device events
-    by their summed self time, largest first."""
+    by their summed self time, largest first.  Fails if the profiler saw no
+    device event, unless ``require_events`` is false."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -394,7 +413,7 @@ def _profiled(fn):
             rows.append((e.key, us / 1e3, e.count))
     rows.sort(key=lambda r: -r[1])
     busy = _busy_ms(prof.events())
-    if busy <= 0:
+    if busy <= 0 and require_events:
         fail("the profiler saw no device event in a run on the card")
     return res, wall, busy, [[k[:60], ms, n] for k, ms, n in rows]
 
@@ -680,6 +699,397 @@ def run_phase4b(size, model_size, device, catalogs):
 
 
 # ---------------------------------------------------------------------------
+# phase 4c: the persistent stratification index
+# ---------------------------------------------------------------------------
+
+# the artifact of the small-tile case: built on SUB64[0] x SUB64[1] rows (so
+# its count tiles hold 32 rows), grown by a left append to SUB64[2] rows,
+# then right-appended; the appends' rows, and the launcher's table side
+INDEX_FULL = dict(sub64=(32, 4096, 1000), append=1024, launcher_side=4096,
+                  launcher_append=256)
+INDEX_REHEARSAL = dict(sub64=(32, 256, 200), append=64, launcher_side=128,
+                       launcher_append=16)
+
+
+class _PathLaunches:
+    """The index path's own launches: the counts are set to 0 just before
+    each of its calls and read just after, so the checks between them (the
+    rebuilds, the kernels against their plain versions) count nothing."""
+
+    def __init__(self):
+        self.counts = collections.Counter()
+
+    def __call__(self, fn):
+        from repro_torch.kernels import cuda_lib
+
+        cuda_lib.reset_launches()
+        try:
+            return fn()
+        finally:
+            self.counts.update(cuda_lib.LAUNCHES)
+
+
+def _same_result(name, a, b):
+    """Estimate and CI bit for bit."""
+    if (a.estimate, a.ci.lo, a.ci.hi) != (b.estimate, b.ci.lo, b.ci.hi):
+        fail(f"{name}: {a.estimate} [{a.ci.lo}, {a.ci.hi}] differs from the fresh "
+             f"run's {b.estimate} [{b.ci.lo}, {b.ci.hi}]")
+
+
+def _artifacts_equal(name, got, want, regroup=None):
+    """``got`` (grown by appends) against ``want`` (a rebuild): key, sizes,
+    counts, every count tile (regrouped to the rebuild's stride where the
+    artifact keeps a finer one) and the valid top-k bit for bit; the walk
+    sums and total weight within 1e-6 relative."""
+    from repro_torch.core.index import _regroup_tiles
+
+    bc = np.asarray(got.block_counts)
+    if got.block_rows != want.block_rows:
+        bc = _regroup_tiles(bc, got.block_rows, want.block_rows)
+    checks_ = {
+        "key": got.key == want.key, "sizes": got.sizes == want.sizes,
+        "counts": np.array_equal(np.asarray(got.counts), np.asarray(want.counts)),
+        "tiles": np.array_equal(bc, np.asarray(want.block_counts)),
+    }
+    if want.topk_vals is not None:
+        ok = np.asarray(want.topk_valid)
+        checks_["topk"] = (np.array_equal(np.asarray(got.topk_valid), ok)
+                           and np.array_equal(np.asarray(got.topk_vals)[ok],
+                                              np.asarray(want.topk_vals)[ok])
+                           and np.array_equal(np.asarray(got.topk_idx)[ok],
+                                              np.asarray(want.topk_idx)[ok]))
+    rel = None
+    if want.row_sums is not None:
+        g, w = np.asarray(got.row_sums[0]), np.asarray(want.row_sums[0])
+        rel = max(float(np.max(np.abs(g - w) / np.abs(w))),
+                  abs(got.total_weight - want.total_weight) / abs(want.total_weight))
+        checks_["sums"] = rel <= 1e-6
+    log(json.dumps({"check": f"{name}: appends against a rebuild",
+                    "equal": checks_, "row_sums_max_rel": rel}))
+    if not all(checks_.values()):
+        fail(f"{name}: the appended artifact differs from the rebuild: {checks_}")
+
+
+# the index calls' device time by kind, from the profiler's event names
+DEVICE_KINDS = (("sweep kernels", ("sim_kernel", "split_merge")),
+                ("uploads", ("Memcpy HtoD",)), ("downloads", ("Memcpy DtoH",)))
+
+
+def _device_split(fn, device):
+    """``fn()`` and its wall ms; on the card, run once under torch.profiler,
+    also its device busy ms and its device ms by kind (the sweep kernels,
+    uploads, downloads, other).  After a session with many events the
+    profiler can lose some or all of a later session's device events, so
+    the split is kept only if it saw every sweep launch the call counted
+    and an upload; else it is reported as not measured."""
+    from repro_torch.kernels import cuda_lib
+
+    if device != "cuda":
+        t0 = time.perf_counter()
+        res = fn()
+        return res, {"wall_ms": (time.perf_counter() - t0) * 1e3}
+    before = dict(cuda_lib.LAUNCHES)
+    res, wall, busy, events = _profiled(fn, require_events=False)
+    launched = sum(v - before.get(k, 0) for k, v in cuda_lib.LAUNCHES.items()
+                   if k.startswith("sim_sweep"))
+    by_kind = {kind: 0.0 for kind, _ in DEVICE_KINDS} | {"other": 0.0}
+    seen = 0
+    for key, ms, count in events:
+        kind = next((k for k, keys in DEVICE_KINDS if any(x in key for x in keys)), "other")
+        by_kind[kind] += ms
+        seen += count if "sim_kernel" in key else 0
+    if seen < launched or by_kind["uploads"] <= 0:
+        return res, {"wall_ms": wall, "device_ms": "not measured: the profiler lost "
+                     f"events ({seen} of {launched} sweep launches seen)"}
+    return res, {"wall_ms": wall, "device_busy_ms": busy, "device_ms_by_kind": by_kind}
+
+
+def _append_vs_rebuild(name, art, steps, device, path, **build_kw):
+    """Apply ``steps`` ((table, rows), ...) to ``art`` with ``append_rows``
+    (counted by ``path``) and rebuild over the grown tables with
+    ``build_index`` (a check, not counted); prints each append's and the
+    rebuild's wall ms and device split (``_device_split``) and holds the
+    two equal.  Returns the grown artifact."""
+    from repro_torch.core import append_rows, build_index
+
+    timings = []
+    for table, rows in steps:
+        art, timing = path(lambda a=art, t=table, r=rows: _device_split(
+            lambda: append_rows(a, t, r, device=device), device))
+        timings.append({"append": f"{len(rows)} rows to table {table}",
+                        "delta_tiles": art.stats["last_delta_blocks"], **timing})
+    ref, timing = _device_split(
+        lambda: build_index(art.embeddings, n_bins=art.n_bins, exponent=art.exponent,
+                            floor=art.floor, precision=art.precision_requested,
+                            tolerance=float("inf"), device=device), device)
+    log(json.dumps({"index appends": name, "precision": art.precision,
+                    "sizes": art.sizes, "block_rows": art.block_rows,
+                    "appends": timings, "rebuild": timing}))
+    if art.precision != build_kw.get("precision", "fp32"):
+        fail(f"{name}: the index is {art.precision}")
+    _artifacts_equal(name, art, ref)
+    return art
+
+
+def _small_tile_case(sizes, d, device, path):
+    """An artifact built while its left table had 32 rows keeps 32-row count
+    tiles; a left append grows the table and a right append then sweeps all
+    of its rows at that stride (tiles of fewer rows than a CTA's, one launch
+    a tile on the card).  Held against a rebuild and, on the card, against
+    the same appends on the CPU under the edge and near-tie rules."""
+    from repro_torch.core import append_rows, build_index
+    from repro_torch.core.similarity import normalize
+    from repro_torch.kernels import checks
+
+    n1, n2, grown_n1 = sizes
+    rng = np.random.default_rng(SEED + 9)
+    e1 = normalize(rng.standard_normal((grown_n1, d))).astype(np.float32)
+    e2 = normalize(rng.standard_normal((n2 + n2 // 4, d))).astype(np.float32)
+    steps = [(0, e1[n1:]), (1, e2[n2:])]
+
+    def base(dev):
+        art = build_index([e1[:n1], e2[:n2]], device=dev)
+        if art.block_rows != 32:
+            fail(f"small-tile case: block_rows {art.block_rows}")
+        return art
+
+    card = _append_vs_rebuild("fp32, 32-row tiles", path(lambda: base(device)), steps,
+                              device, path)
+    if device != "cuda":
+        return
+    plain = base("cpu")
+    for table, rows in steps:
+        plain = append_rows(plain, table, rows, device="cpu")
+    s64, bound = checks.exact_scores(torch.from_numpy(e1).cuda(),
+                                     torch.from_numpy(e2).cuda())
+    c = checks.check_counts([torch.from_numpy(card.block_counts),
+                             torch.from_numpy(plain.block_counts)],
+                            s64, bound, n_bins=card.n_bins, exponent=card.exponent,
+                            floor=card.floor, bm=32)
+    t = checks.check_topk(*(torch.from_numpy(np.asarray(x)) for x in (
+        card.topk_vals, card.topk_idx, plain.topk_vals, plain.topk_idx)), s64, bound)
+    rel = checks.check_sums(torch.from_numpy(card.row_sums[0]), s64,
+                            exponent=card.exponent, floor=card.floor)
+    log(json.dumps({"check": "fp32, 32-row tiles: the card's appends against the plain "
+                             "version's (edge rule, near-tie rule, sums 1e-6)",
+                    "counts": c, "topk": t, "sums_max_rel": rel}))
+
+
+def _delta_sweep_checks(ds, extra, block_rows):
+    """The sweep kernel against its plain version at the shapes the appends
+    give it, at the artifact's tile stride: a right append's delta (every
+    left row against the new columns) at each precision, and one chunk of
+    the fp32 left append (``block_rows`` new rows against the grown right
+    table).  Returns the largest top-k value difference by kernel."""
+    errs = {}
+    for precision, name in SWEEP_NAMES.items():
+        *_, errs[name] = check_sweep(f"{name}, right-append delta", ds.emb1, extra.emb2,
+                                     precision, bm=block_rows)
+        torch.cuda.empty_cache()
+    grown = np.concatenate([ds.emb2, extra.emb2])
+    *_, err = check_sweep("sim_sweep[fp32], left-append chunk", extra.emb1[:block_rows],
+                          grown, "fp32", bm=block_rows)
+    errs["sim_sweep[fp32]"] = max(errs["sim_sweep[fp32]"], err)
+    torch.cuda.empty_cache()
+    return errs
+
+
+def _run_launcher(root, knobs, device):
+    """The launcher's two index modes as subprocesses; the refreshed
+    artifact must load and verify."""
+    import shutil as _shutil
+
+    from repro_torch.checkpoint.index_io import list_indexes, load_index
+    from repro_torch.core import artifact_key
+
+    _shutil.rmtree(root, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    base = [sys.executable, "-m", "repro_torch.launch.serve", "--index-root", root,
+            "--device", device]
+    for argv in (["--mode", "build-index", "--n-side", str(knobs["launcher_side"])],
+                 ["--mode", "refresh-index", "--append-rows", str(knobs["launcher_append"])]):
+        t0 = time.perf_counter()
+        out = subprocess.run(base + argv, capture_output=True, text=True, cwd=HERE,
+                             env=env, timeout=600)
+        log(json.dumps({"launcher": argv[1], "rc": out.returncode,
+                        "wall_s": time.perf_counter() - t0,
+                        "stdout": out.stdout.strip()[-400:]}))
+        if out.returncode != 0:
+            fail(f"launcher --mode {argv[1]} exited {out.returncode}:\n{out.stderr[-3000:]}")
+    newest = max(list_indexes(root), key=lambda x: x["version"])
+    art = load_index(root, newest["key"])
+    side = knobs["launcher_side"]
+    if (art.version != 2 or art.sizes != (side, side + knobs["launcher_append"])
+            or art.key != artifact_key(art.embeddings, art.n_bins, art.exponent,
+                                       art.floor, art.precision_requested)):
+        fail(f"the refreshed artifact does not verify: {newest}")
+
+
+def run_phase4c(size, device, catalogs, hot, chain, results, results_4b, knobs):
+    """Phase 4c: the persistent stratification index on phase 4's tables.
+    Builds the fp32 index through an ``IndexStore`` and saves it; loads it
+    into a new store (mmap); COUNT, SUM, AVG, the hot-row COUNT, a cascade
+    COUNT and the 3-way chain through ``JoinMLEngine(index_store=...)`` /
+    ``run_auto`` against phases 4 and 4b bit for bit, the warm queries
+    launching no sweep; appends against rebuilds (fp32 right then left, int8
+    and bf16 right, and the 32-row-tile case); on the card, the sweep
+    kernel against its plain version at the appends' shapes; the launcher's
+    two modes.  Returns the warm queries' rows, the path's launch counts
+    (its builds, queries and appends, not its checks) and the kernels'
+    largest top-k value differences at the appends' shapes."""
+    import shutil as _shutil
+
+    from repro_torch.checkpoint.index_io import load_index, save_index
+    from repro_torch.core import (Agg, Catalog, IndexStore, JoinMLEngine, Query,
+                                  Table, artifact_key, build_index, run_auto)
+    from repro_torch.core.oracle import ArrayOracle
+    from repro_torch.core.types import BASConfig
+    from repro_torch.data import make_clustered_tables
+    from repro_torch.kernels import cuda_lib
+
+    ds, main = catalogs
+    budget = size.budget
+    cfg = BASConfig(max_dense_weight_bytes=size.dense_cap)
+    params = dict(n_bins=4096, exponent=cfg.weight_exponent, floor=cfg.weight_floor,
+                  precision=cfg.sweep_precision)
+    fresh = {r["name"]: r for r in results + results_4b}
+    root = os.path.join(HERE, "build", "index_smoke")
+    _shutil.rmtree(root, ignore_errors=True)
+    path = _PathLaunches()
+
+    # 1. the fp32 index, built through a store and saved
+    store = IndexStore(root=root, device=device)
+    t0 = time.perf_counter()
+    art, hit = path(lambda: store.get_or_build([ds.emb1, ds.emb2], **params))
+    build_s = time.perf_counter() - t0
+    built = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
+    t0 = time.perf_counter()
+    save_index(root, art)
+    save_s = time.perf_counter() - t0
+    log(json.dumps({"index": "built", "sizes": art.sizes, "block_rows": art.block_rows,
+                    "build_s": build_s, "save_s": save_s,
+                    "artifact_mb": art.nbytes / 2**20, "launches": built}))
+    if hit or (device == "cuda" and built != {"sim_sweep[fp32]": 1}):
+        fail(f"the index build launched {built} (hit {hit})")
+
+    # 2. a new store loads it from disk (mmap); the store first derives the
+    # content key from the live tables, so its load includes their hash
+    t0 = time.perf_counter()
+    load_index(root, art.key)
+    load_index_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    artifact_key([ds.emb1, ds.emb2], **params)
+    key_s = time.perf_counter() - t0
+    warm = IndexStore(root=root, device=device)
+    t0 = time.perf_counter()
+    loaded, hit = path(lambda: warm.get_or_build([ds.emb1, ds.emb2], **params))
+    load_s = time.perf_counter() - t0
+    log(json.dumps({"index": "loaded", "store_load_s": load_s,
+                    "load_index_s": load_index_s, "artifact_key_s": key_s,
+                    "stats": warm.stats()}))
+    if hit or warm.stats()["index_load"] != 1 or warm.stats()["index_build"] != 0:
+        fail(f"the index did not load from disk: {warm.stats()}")
+
+    # 3. COUNT, SUM, AVG through the engine: streaming-index, no sweep, no
+    # standalone pass, each equal to phase 4's fresh run
+    sql = {
+        "COUNT": "SELECT COUNT(*) FROM a JOIN b ON NL('same entity') "
+                 f"ORACLE BUDGET {budget} WITH PROBABILITY 0.95",
+        "SUM": "SELECT SUM(a.value) FROM a JOIN b ON NL('same entity') "
+               f"ORACLE BUDGET {budget} WITH PROBABILITY 0.95",
+        "AVG": "SELECT AVG(b.value) FROM a JOIN b ON NL('same entity') "
+               f"ORACLE BUDGET {budget} WITH PROBABILITY 0.95",
+    }
+    eng = JoinMLEngine(main, lambda nl, names: ArrayOracle(ds.truth), cfg=cfg,
+                       index_store=warm, device=device)
+    rows = []
+    for name, q in sql.items():
+        row = path(lambda q=q, n=name: _timed(
+            f"{n} warm index", fresh[n]["truth"], cuda_lib.LAUNCHES, device,
+            lambda: eng.execute(q, method="auto", seed=SEED)))
+        rows.append(row)
+        log(json.dumps({"warm against fresh": name,
+                        "wall_s": [row["wall_s"], fresh[name]["wall_s"]],
+                        "stratify_s": [row["result"].telemetry.timings["stratify_s"],
+                                       fresh[name]["result"].telemetry.timings["stratify_s"]]}))
+        _same_result(row["name"], row["result"], fresh[name]["result"])
+    # the cascade COUNT, stage 1 from the store
+    row = path(lambda: _timed(
+        "cascade COUNT warm index", fresh["cascade COUNT"]["truth"], cuda_lib.LAUNCHES,
+        device, lambda: eng.execute(sql["COUNT"], method="bas-cascade", seed=SEED)))
+    rows.append(row)
+    _same_result(row["name"], row["result"], fresh["cascade COUNT"]["result"])
+    if row["result"].telemetry.index is None or not row["result"].telemetry.index.hit:
+        fail("the cascade did not stratify from the index")
+
+    # 4. the hot-row COUNT from its own index: the k = 128 retry runs over
+    # the live embeddings
+    hcat = Catalog()
+    hcat.register(Table("h", hot.emb1, hot.columns1))
+    hcat.register(Table("b", hot.emb2, hot.columns2))
+    path(lambda: warm.get_or_build([hot.emb1, hot.emb2], **params))
+    heng = JoinMLEngine(hcat, lambda nl, names: ArrayOracle(hot.truth), cfg=cfg,
+                        index_store=warm, device=device)
+    row = path(lambda: _timed(
+        "COUNT hot rows warm index", fresh["COUNT hot rows"]["truth"], cuda_lib.LAUNCHES,
+        device, lambda: heng.execute(sql["COUNT"].replace("FROM a", "FROM h"),
+                                     method="auto", seed=SEED)))
+    rows.append(row)
+    _same_result(row["name"], row["result"], fresh["COUNT hot rows"]["result"])
+    if device == "cuda" and row["launches"].get("sim_topk[k=128]", 0) <= 0:
+        fail("the hot-row warm query did not launch sim_topk[k=128]")
+
+    # 5. the 3-way chain, hydrated
+    chain_embs = [np.asarray(e, np.float32) for e in chain.spec().embeddings]
+    path(lambda: warm.get_or_build(chain_embs, **params))
+    row = path(lambda: _timed(
+        "3-way chain COUNT warm index", fresh["3-way chain COUNT"]["truth"],
+        cuda_lib.LAUNCHES, device,
+        lambda: run_auto(Query(spec=chain.spec(), agg=Agg.COUNT, oracle=chain.oracle(),
+                               budget=budget),
+                         cfg, seed=SEED, index_store=warm, device=device)))
+    rows.append(row)
+    _same_result(row["name"], row["result"], fresh["3-way chain COUNT"]["result"])
+
+    for r in rows:
+        if r["name"] != "cascade COUNT warm index" and r["path"] != "streaming-index":
+            fail(f"{r['name']}: dispatch path {r['path']}")
+        if any(r["launches"].get(k, 0) for k in cuda_lib.LAUNCHES if k.startswith("sim_sweep")):
+            fail(f"{r['name']}: a warm query launched a sweep: {r['launches']}")
+        if sum(r["pass_counts"].values()):
+            fail(f"{r['name']}: a warm query launched a standalone pass")
+    if device == "cuda":
+        res, wall, busy, events = path(lambda: _profiled(
+            lambda: eng.execute(sql["COUNT"], seed=SEED + 1)))
+        log(json.dumps({"profile": "warm-index COUNT on the main catalog", "wall_ms": wall,
+                        "device_busy_ms": busy, "idle_share": 1.0 - busy / wall,
+                        "timings_s": res.telemetry.timings,
+                        "top_device_events": events[:8]}))
+
+    # 6. appends against rebuilds on the card: fp32 right then left, int8
+    # and bf16 right, the 32-row-tile case
+    extra = make_clustered_tables(knobs["append"], knobs["append"], d=size.d,
+                                  n_entities=512, noise=0.35, seed=SEED + 7)
+    _append_vs_rebuild("fp32", loaded, [(1, extra.emb2), (0, extra.emb1)], device, path)
+    for prec in ("int8", "bf16"):
+        lowp = path(lambda p=prec: build_index([ds.emb1, ds.emb2],
+                                               **{**params, "precision": p},
+                                               tolerance=float("inf"), device=device))
+        _append_vs_rebuild(prec, lowp, [(1, extra.emb2)], device, path, precision=prec)
+        del lowp
+    _small_tile_case(knobs["sub64"], size.d, device, path)
+    errs = {}
+    if device == "cuda":
+        errs = _delta_sweep_checks(ds, extra, loaded.block_rows)
+
+    # 7. the launcher's two index modes
+    _run_launcher(os.path.join(HERE, "build", "index_launcher"), knobs, device)
+    _shutil.rmtree(root, ignore_errors=True)
+    _shutil.rmtree(os.path.join(HERE, "build", "index_launcher"), ignore_errors=True)
+    return rows, dict(path.counts), errs
+
+
+# ---------------------------------------------------------------------------
 # phases 3 and 5: kernels against their plain versions, and their times
 # ---------------------------------------------------------------------------
 
@@ -713,12 +1123,10 @@ def device_ms_by_kernel(fn, reps):
     return dict(out)
 
 
-def kernel_inputs(ds, rows, precision):
+def kernel_inputs(e1, e2, precision):
     from repro_torch.core.similarity import quantize_rows_int8
 
     dev = torch.device("cuda")
-    e1 = ds.emb1[:rows]
-    e2 = ds.emb2
     if precision == "int8":
         q1, r1 = quantize_rows_int8(e1)
         q2, r2 = quantize_rows_int8(e2)
@@ -727,20 +1135,59 @@ def kernel_inputs(ds, rows, precision):
     return [torch.from_numpy(e1).to(dev), torch.from_numpy(e2).to(dev), None, None]
 
 
-def sweep_fns(ds, rows, precision, k=32):
+def sweep_fns(e1, e2, precision, k=32, bm=256):
     from repro_torch.kernels.sim_sweep.kernel import kernel_operand, sim_sweep_cuda
     from repro_torch.kernels.sim_sweep.ref import sim_sweep_ref
 
-    a, b, rs1, rs2 = kernel_inputs(ds, rows, precision)
+    a, b, rs1, rs2 = kernel_inputs(e1, e2, precision)
     m, n = a.shape[0], b.shape[0]
     scale = torch.ones(m, device="cuda")
     v = torch.ones(n, device="cuda")
     ka, kb = kernel_operand(a, precision), kernel_operand(b, precision)
-    kw = dict(n_bins=4096, exponent=1.0, floor=1e-3, k=k, bm=256,
+    kw = dict(n_bins=4096, exponent=1.0, floor=1e-3, k=k, bm=bm,
               precision=precision, rs1=rs1, rs2=rs2)
     kern = lambda: sim_sweep_cuda(ka, kb, scale, v, **kw)  # noqa: E731
     plain = lambda: sim_sweep_ref(a, b, scale, v, **kw)  # noqa: E731
     return kern, plain, (a, b, rs1, rs2, scale, v)
+
+
+SWEEP_NAMES = {"fp32": "sim_sweep[fp32]", "bf16": "sim_sweep[bf16]",
+               "int8": "sim_sweep_q[int8]"}
+
+
+def check_sweep(name, e1, e2, precision, k=32, bm=256):
+    """The sweep kernel against its plain version on the card, on the same
+    ``e1`` x ``e2`` at ``k`` and ``bm``: count tiles under the edge rule,
+    top-k under the near-tie rule, walk sums within 1e-6 of the exact f64
+    sums, and the int8 sweep bit for bit; fails on a violation.  Returns
+    the operands, the kernel's tiles and top-k, the exact scores with their
+    bound, and the largest top-k value difference."""
+    from repro_torch.kernels import checks
+
+    kern, plain, (a, b, rs1, rs2, scale, v) = sweep_fns(e1, e2, precision, k, bm)
+    kb, kv, ki, ks = kern()
+    torch.cuda.synchronize()
+    pb, pv, pi, ps = plain()
+    s64, bound = checks.exact_scores(a, b, precision, rs1, rs2)
+    try:
+        c = checks.check_counts([kb, pb], s64, bound, n_bins=4096, exponent=1.0,
+                                floor=1e-3, bm=bm, scale=scale)
+        t = checks.check_topk(kv, ki, pv, pi, s64, bound)
+        rel = checks.check_sums(ks, s64, exponent=1.0, floor=1e-3, v=v)
+        rel_plain = checks.check_sums(ps, s64, exponent=1.0, floor=1e-3, v=v)
+    except AssertionError as exc:
+        fail(f"{name} at {a.shape[0]} x {b.shape[0]}, bm {bm}: {exc}")
+    err = float((kv.double() - pv.double()).abs().max())
+    log(json.dumps({"check": name, "rows": a.shape[0], "cols": b.shape[0], "bm": bm,
+                    "k": k, "uncertain_elements": c["uncertain"],
+                    "count_mismatch": c["mismatch"], "topk_mismatch": t["mismatch"],
+                    "sum_rel_err": rel, "plain_sum_rel_err": rel_plain,
+                    "max_abs_err_vals": err}))
+    if precision == "int8" and not (torch.equal(kb, pb) and torch.equal(kv, pv)
+                                    and torch.equal(ki, pi)):
+        fail(f"{name} at {a.shape[0]} x {b.shape[0]} is not bit-identical to its "
+             "plain version")
+    return a, b, kb, kv, ki, s64, bound, err
 
 
 def phase3(ds, rows):
@@ -752,27 +1199,9 @@ def phase3(ds, rows):
     from repro_torch.kernels.sim_topk.ref import sim_topk_ref
 
     errs = {}
-    for precision, name in (("fp32", "sim_sweep[fp32]"), ("bf16", "sim_sweep[bf16]"),
-                            ("int8", "sim_sweep_q[int8]")):
-        kern, plain, (a, b, rs1, rs2, scale, v) = sweep_fns(ds, rows, precision)
-        kb, kv, ki, ks = kern()
-        torch.cuda.synchronize()
-        pb, pv, pi, ps = plain()
-        s64, bound = checks.exact_scores(a, b, precision, rs1, rs2)
-        c = checks.check_counts([kb, pb], s64, bound, n_bins=4096, exponent=1.0,
-                                floor=1e-3, bm=256, scale=scale)
-        t = checks.check_topk(kv, ki, pv, pi, s64, bound)
-        rel = checks.check_sums(ks, s64, exponent=1.0, floor=1e-3, v=v)
-        rel_plain = checks.check_sums(ps, s64, exponent=1.0, floor=1e-3, v=v)
-        errs[name] = float((kv.double() - pv.double()).abs().max())
-        log(json.dumps({"check": name, "rows": rows, "cols": b.shape[0],
-                        "uncertain_elements": c["uncertain"],
-                        "count_mismatch": c["mismatch"], "topk_mismatch": t["mismatch"],
-                        "sum_rel_err": rel, "plain_sum_rel_err": rel_plain,
-                        "max_abs_err_vals": errs[name]}))
-        if precision == "int8" and not (torch.equal(kb, pb) and torch.equal(kv, pv)
-                                        and torch.equal(ki, pi)):
-            fail("int8 sweep is not bit-identical to its plain version")
+    for precision, name in SWEEP_NAMES.items():
+        a, b, kb, kv, ki, s64, bound, errs[name] = check_sweep(
+            name, ds.emb1[:rows], ds.emb2, precision)
         if precision == "fp32":
             fp32 = (a, b, kb, kv, ki, s64, bound)
         if precision == "bf16":
@@ -930,9 +1359,8 @@ def phase5(ds, retry_rows, hot):
     n = ds.emb1.shape[0]
     d = ds.emb1.shape[1]
     times = {}
-    for precision, name in (("fp32", "sim_sweep[fp32]"), ("bf16", "sim_sweep[bf16]"),
-                            ("int8", "sim_sweep_q[int8]")):
-        kern, plain, (a, b, *_rest) = sweep_fns(ds, n, precision)
+    for precision, name in SWEEP_NAMES.items():
+        kern, plain, (a, b, *_rest) = sweep_fns(ds.emb1[:n], ds.emb2, precision)
         m = a.shape[0]
         ms = _events_ms(kern, 3)
         pms = _events_ms(plain, 1)
@@ -1373,18 +1801,20 @@ def model_kernels():
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--rehearse-cpu", action="store_true",
-                    help="run phases 4, 4b, 6, 7 and 8 at a tiny size on the CPU "
+                    help="run phases 4, 4b, 4c, 6, 7 and 8 at a tiny size on the CPU "
                          "(exits 3)")
     if ap.parse_args().rehearse_cpu:
         from repro_torch.kernels import cuda_lib
 
-        results, _, catalogs = run_phase4(REHEARSAL, "cpu", cuda_lib.LAUNCHES)
+        results, hot, catalogs, chain = run_phase4(REHEARSAL, "cpu", cuda_lib.LAUNCHES)
         results_4b, _ = run_phase4b(REHEARSAL, REHEARSAL_MODEL, "cpu", catalogs)
+        results_4c, _, _ = run_phase4c(REHEARSAL, "cpu", catalogs, hot, chain, results,
+                                       results_4b, INDEX_REHEARSAL)
         oracle_path(REHEARSAL_MODEL, "cpu")
         card_vs_cpu(REHEARSAL_MODEL, "cpu")
         recurrent_paths(REHEARSAL_MODEL, "cpu")
-        log(f"rehearsal complete: {len(results) + len(results_4b)} queries, the "
-            "Oracle queries and the recurrent paths on the CPU (no result)")
+        log(f"rehearsal complete: {len(results) + len(results_4b) + len(results_4c)} "
+            "queries, the Oracle queries and the recurrent paths on the CPU (no result)")
         sys.exit(3)
     if not torch.cuda.is_available():
         log("no CUDA card: nothing to measure")
@@ -1439,7 +1869,7 @@ def main():
 
     # phase 4: the main path, counts read around the whole phase
     cuda_lib.reset_launches()
-    results, hot, catalogs = run_phase4(FULL, "cuda", cuda_lib.LAUNCHES)
+    results, hot, catalogs, chain = run_phase4(FULL, "cuda", cuda_lib.LAUNCHES)
     launches = dict(cuda_lib.LAUNCHES)
     log(json.dumps({"main_path_launches": launches}))
     for name in SIM_KERNELS:
@@ -1447,12 +1877,26 @@ def main():
             fail(f"kernel {name} was not launched on the query path")
     retry = next(r for r in results if r["name"] == "COUNT hot rows")
     retry_rows = _stat(retry["result"], "topk_retry_rows")
-    profile_query(FULL, catalogs)
 
     # phase 4b: the other query methods, counts set to 0 before each path
-    _, paths_4b = run_phase4b(FULL, FULL_MODEL, "cuda", catalogs)
+    results_4b, paths_4b = run_phase4b(FULL, FULL_MODEL, "cuda", catalogs)
+
+    # phase 4c: the index, counts set to 0 just before each of its own calls
+    # and read just after; its kernel checks at the appends' shapes.  Its
+    # profiles come before phase 4 and 4b's: after the cascade's session of
+    # many events the profiler loses later sessions' device events.
+    _, index_launches, index_errs = run_phase4c(FULL, "cuda", catalogs, hot, chain,
+                                                results, results_4b, INDEX_FULL)
+    log(json.dumps({"phase4c_launches": index_launches}))
+    for name, err in index_errs.items():
+        errs[name] = max(errs[name], err)
+    for name in ("sim_sweep[fp32]", "sim_sweep[bf16]", "sim_sweep_q[int8]",
+                 "sim_topk[k=128]"):
+        if index_launches.get(name, 0) <= 0:
+            fail(f"{name} was not launched by the index phase")
+    profile_query(FULL, catalogs)
     profile_4b(FULL, catalogs)
-    del catalogs
+    del catalogs, chain, results_4b
 
     # phase 5: times at the phase-4 shapes
     ds = make_clustered_tables(FULL.n, FULL.n, d=FULL.d, n_entities=512,
@@ -1476,7 +1920,8 @@ def main():
                      "replaces": REPLACES[name], "launches": launches[name],
                      "max_abs_err": errs[name], **times[name],
                      "launches_by_path": {"query path (4)": launches[name]} | {
-                         p: n.get(name, 0) for p, n in paths_4b.items()}})
+                         p: n.get(name, 0) for p, n in paths_4b.items()} | {
+                         "index (4c)": index_launches.get(name, 0)}})
     for name in MODEL_KERNELS:
         path_row, *other_rows = model_rows[name]
         rows.append({"name": name, "route": "cuda", "source": MODEL_SOURCE,

@@ -1,10 +1,8 @@
 """JoinML-X core on PyTorch: the paper's algorithms (WWJ, BAS), its
 baselines, the multi-fidelity cascade, selection and the join-order planner,
-and the query engine.
+the persistent stratification index, and the query engine.
 
-Exports what the reference's ``repro.core`` exports, except the persistent
-stratification index (``core/index.py``), which follows in a later part of
-the port (ROADMAP queue 1, item 6)."""
+Exports what the reference's ``repro.core`` exports."""
 from ..obs import QueryTelemetry  # noqa: F401 — QueryResult.telemetry type
 from .types import (  # noqa: F401
     Agg,
@@ -34,6 +32,14 @@ from .cascade import (  # noqa: F401
     similarity_proxy,
 )
 from .dispatch import choose_path, dense_weight_bytes, run_auto  # noqa: F401
+from .index import (  # noqa: F401
+    IndexArtifact,
+    IndexStore,
+    append_rows,
+    artifact_key,
+    build_index,
+    table_fingerprint,
+)
 from .baselines import (  # noqa: F401
     calibrate_threshold,
     run_abae,

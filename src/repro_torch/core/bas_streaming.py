@@ -101,6 +101,8 @@ def build_streaming_space(
     use_kernel: Optional[bool] = None,
     use_sweep: Optional[bool] = None,
     precision: Optional[str] = None,
+    artifact=None,
+    index_store=None,
     device="cuda",
 ) -> tuple:
     """Stage 1 of the streaming path: histogram stratification + the
@@ -108,7 +110,11 @@ def build_streaming_space(
     Returns ``(space, extra_detail)`` — the extra detail carries the
     streaming-specific keys (``p_top``, ``use_kernel``) the caller merges
     into its pipeline detail dict.  Shared by ``run_bas_streaming`` and the
-    cascade estimator so both spend stage 1 identically."""
+    cascade estimator so both spend stage 1 identically.
+
+    The sweep comes from ``artifact`` when one is given, else from
+    ``index_store.get_or_build`` (which builds on the store's device at
+    its first miss), else from a fresh pass on ``device``."""
     if use_kernel is None:
         use_kernel = cfg.use_kernel
     if use_sweep is None:
@@ -122,10 +128,21 @@ def build_streaming_space(
 
     # ---- streaming stratification (single fused sweep) -------------------
     t0 = time.perf_counter()
+    index_hit = None
+    index_build_ms = None
+    if artifact is None and index_store is not None:
+        artifact, index_hit = index_store.get_or_build(
+            embeddings, n_bins=n_bins, exponent=exp, floor=floor,
+            precision=precision, use_kernel=use_kernel,
+        )
+        if not index_hit:
+            index_build_ms = (time.perf_counter() - t0) * 1e3
+    elif artifact is not None:
+        index_hit = True
     strat = stratify_streaming_chain(
         embeddings, cfg.alpha, query.budget, cfg, n_bins=n_bins,
         use_kernel=use_kernel, use_sweep=use_sweep, precision=precision,
-        device=device,
+        artifact=artifact, device=device,
     )
     k = strat.num_strata
     sizes = strat.stratum_sizes()
@@ -142,8 +159,9 @@ def build_streaming_space(
 
     # ---- full-space sampling distribution pieces for D_0 rejection -------
     # Walk setup (row sums + chain total weight) consumes the statistics the
-    # fused sweep emitted alongside the histogram, so no second pass over
-    # the cross product is ever launched here.  Only the two-pass baseline
+    # fused sweep emitted alongside the histogram — or, on a warm index,
+    # hydrates them from the artifact — so no second pass over the cross
+    # product is ever launched here.  Only the two-pass baseline
     # (use_sweep=False) and low-precision sweeps (which withhold their sums,
     # see stratify.SweepInfo) fall back to the standalone recomputation.
     t0 = time.perf_counter()
@@ -204,6 +222,13 @@ def build_streaming_space(
             kernel=strat.sweep.kernel, precision=strat.sweep.precision,
             **strat.sweep.stats,
         )
+    if artifact is not None:
+        meta["path"] = "index"
+        meta["index_hit"] = bool(index_hit)
+        meta["index_version"] = artifact.version
+        meta["delta_blocks"] = int(artifact.stats.get("delta_blocks", 0))
+        if index_build_ms is not None:
+            meta["index_build_ms"] = round(index_build_ms, 2)
     space = StratifiedSpace(
         sizes=sizes,
         weight_sums=weight_sums,
@@ -230,13 +255,12 @@ def run_bas_streaming(
     (all aggregates); the cross product is never materialised.  The
     similarity passes run on ``device`` (the CUDA kernels by default).
 
-    ``artifact`` / ``index_store`` (the persistent stratification index) are
-    not ported yet and raise :class:`NotImplementedError`."""
-    if artifact is not None or index_store is not None:
-        raise NotImplementedError(
-            "index artifacts and index stores are not ported yet "
-            "(ROADMAP queue 1, item 6)"
-        )
+    ``artifact`` (:class:`repro_torch.core.index.IndexArtifact`) hydrates a
+    stored sweep instead of computing one; ``index_store``
+    (:class:`repro_torch.core.index.IndexStore`) resolves one, building it
+    at the first miss.  Either way ``detail["stratify"]`` records
+    ``index_hit``, ``index_version``, ``delta_blocks`` (and
+    ``index_build_ms`` when this query built it)."""
     resolve_device(device)
     cfg = cfg or BASConfig()
     rng = np.random.default_rng(seed)
@@ -250,7 +274,8 @@ def run_bas_streaming(
 
     space, extra = build_streaming_space(
         query, cfg, rng, timings, n_bins=n_bins, use_kernel=use_kernel,
-        use_sweep=use_sweep, precision=precision, device=device,
+        use_sweep=use_sweep, precision=precision, artifact=artifact,
+        index_store=index_store, device=device,
     )
     return run_stratified_pipeline(
         query, cfg, rng, space, {"mode": "bas_streaming", **extra},

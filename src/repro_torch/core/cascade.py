@@ -378,14 +378,9 @@ def run_bas_cascade(
     the stage-1 regime (``"dense"`` | ``"streaming"``); by default the same
     memory model as ``dispatch.run_auto`` decides.  Non-linear aggregates
     (MIN/MAX/MEDIAN) have no difference decomposition and fall back to plain
-    BAS on the chosen path.  Stage 1 runs on ``device``; ``artifact`` /
-    ``index_store`` (the persistent stratification index) are not ported yet
-    and raise :class:`NotImplementedError`."""
-    if artifact is not None or index_store is not None:
-        raise NotImplementedError(
-            "index artifacts and index stores are not ported yet "
-            "(ROADMAP queue 1, item 6)"
-        )
+    BAS on the chosen path.  Stage 1 runs on ``device``; on the streaming
+    regime it stratifies from ``artifact`` or through ``index_store`` (the
+    persistent stratification index) when one is given."""
     resolve_device(device)
     cfg = cfg or BASConfig()
     rng = np.random.default_rng(seed)
@@ -407,8 +402,10 @@ def run_bas_cascade(
                            device=device)
         from .bas_streaming import run_bas_streaming
 
-        return run_bas_streaming(query, cfg, seed=seed, n_bins=n_bins,
-                                 device=device)
+        return run_bas_streaming(
+            query, cfg, seed=seed, n_bins=n_bins, artifact=artifact,
+            index_store=index_store, device=device,
+        )
 
     proxy = proxy if proxy is not None else query.proxy
     if proxy is None:
@@ -435,7 +432,8 @@ def run_bas_cascade(
             from .bas_streaming import build_streaming_space
 
             space, extra = build_streaming_space(
-                query, cfg, rng, timings, n_bins=n_bins, device=device,
+                query, cfg, rng, timings, n_bins=n_bins, artifact=artifact,
+                index_store=index_store, device=device,
             )
             detail = {"mode": "bas-cascade", **extra}
         return run_cascade_pipeline(

@@ -56,9 +56,17 @@ def run_auto(
     """Execute BAS on whichever path the memory model selects, on
     ``device`` (default ``"cuda"``; raises without a card).
 
-    The decision is recorded in ``result.telemetry.dispatch``.  The index
-    store is not ported yet: an ``index_store`` raises
-    :class:`NotImplementedError` (ROADMAP queue 1, item 6).
+    With an :class:`~repro_torch.core.index.IndexStore`, a *fresh* resident
+    artifact for the query's tables overrides the memory model: the query
+    routes through the streaming path hydrating the stored sweep
+    (``path="streaming-index"``) — a lookup instead of the sweep.  A
+    streaming-routed miss builds through the store (once; concurrent
+    queries on the same tables share the build), so the next query hits.
+    Dense-routed misses stay dense: the store only wins once an artifact
+    exists (built by a prior streaming query or the ``build-index``
+    launcher).
+
+    The decision is recorded in ``result.telemetry.dispatch``.
 
     ``cfg.cascade`` layers the multi-fidelity cascade (``core/cascade.py``)
     on top of the same memory decision: linear aggregates route through
@@ -68,23 +76,37 @@ def run_auto(
     """
     resolve_device(device)
     cfg = cfg or BASConfig()
-    if index_store is not None:
-        raise NotImplementedError(
-            "index stores are not ported yet (ROADMAP queue 1, item 6)"
-        )
     footprint = dense_weight_bytes(query.spec)
     path = choose_path(query.spec, cfg)
+    artifact = None
+    if index_store is not None:
+        embeddings = [np.asarray(e, np.float32)
+                      for e in query.spec.embeddings]
+        artifact = index_store.lookup(
+            embeddings, n_bins=n_bins, exponent=cfg.weight_exponent,
+            floor=cfg.weight_floor, precision=cfg.sweep_precision,
+        )
+        if artifact is not None:
+            path = "streaming-index"
+    # a resident artifact is handed on; without one, the store itself is,
+    # so that a streaming miss builds through it
+    store = index_store if artifact is None else None
     if cfg.cascade and query.agg in (Agg.COUNT, Agg.SUM, Agg.AVG):
         from .cascade import run_bas_cascade   # lazy: cascade imports us
 
-        res = run_bas_cascade(query, cfg, seed=seed, path=path, n_bins=n_bins,
-                              device=device)
+        regime = "dense" if path == "dense" else "streaming"
+        res = run_bas_cascade(
+            query, cfg, seed=seed, path=regime, n_bins=n_bins,
+            artifact=artifact, index_store=store, device=device,
+        )
         path = f"cascade-{path}"
     elif path == "dense":
         res = run_bas(query, cfg, seed=seed, device=device)
     else:
-        res = run_bas_streaming(query, cfg, seed=seed, n_bins=n_bins,
-                                device=device)
+        res = run_bas_streaming(
+            query, cfg, seed=seed, n_bins=n_bins, artifact=artifact,
+            index_store=store, device=device,
+        )
     res.telemetry.dispatch = DispatchTelemetry(
         path=path,
         dense_weight_bytes=footprint,
@@ -92,6 +114,6 @@ def run_auto(
         n_tuples=query.spec.n_tuples,
         sweep=cfg.use_sweep,
         sweep_precision=cfg.sweep_precision,
-        index_store=False,
+        index_store=index_store is not None,
     )
     return res

@@ -156,10 +156,15 @@ class JoinMLEngine:
     falls back to the thresholded-similarity proxy
     (:func:`repro_torch.core.cascade.similarity_proxy`).
 
+    ``index_store`` (:class:`repro_torch.core.index.IndexStore`) makes
+    repeat and concurrent queries on the same registered tables stratify
+    from one persistent sweep artifact: ``method="auto"`` routes through a
+    fresh resident artifact when one exists, and ``method="bas-streaming"``
+    / ``"bas-cascade"`` resolve (building on first miss) through the store.
+
     ``device`` (default ``"cuda"``; raises without a card) is where the
     similarity passes and kernels run.  Every method of the reference engine
-    is ported; an ``index_store`` (the persistent stratification index,
-    ROADMAP queue 1, item 6) raises :class:`NotImplementedError`."""
+    is ported."""
 
     def __init__(
         self,
@@ -172,14 +177,11 @@ class JoinMLEngine:
         ] = None,
         device="cuda",
     ):
-        if index_store is not None:
-            raise NotImplementedError(
-                "index stores are not ported yet (ROADMAP queue 1, item 6)"
-            )
         self.device = resolve_device(device)
         self.catalog = catalog
         self.oracle_factory = oracle_factory
         self.cfg = cfg or BASConfig()
+        self.index_store = index_store
         self.proxy_factory = proxy_factory
 
     def build(self, sql: str, budget: Optional[int] = None,
@@ -211,17 +213,22 @@ class JoinMLEngine:
         q = self.build(sql, budget, confidence)
         if method == "auto":
             return dispatch.run_auto(q, self.cfg, seed=seed,
+                                     index_store=self.index_store,
                                      device=self.device)
         if method == "bas":
             return bas.run_bas(q, self.cfg, seed=seed, device=self.device)
         if method == "bas-streaming":
-            return bas_streaming.run_bas_streaming(q, self.cfg, seed=seed,
-                                                   device=self.device)
+            return bas_streaming.run_bas_streaming(
+                q, self.cfg, seed=seed, index_store=self.index_store,
+                device=self.device,
+            )
         if method == "bas-cascade":
             from . import cascade
 
-            return cascade.run_bas_cascade(q, self.cfg, seed=seed,
-                                           device=self.device)
+            return cascade.run_bas_cascade(
+                q, self.cfg, seed=seed, index_store=self.index_store,
+                device=self.device,
+            )
         if method == "wwj":
             return baselines.run_wwj(q, self.cfg, seed=seed, device=self.device)
         if method == "uniform":

@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import host_f32, resolve_device
 
 
 def normalize(emb: np.ndarray) -> np.ndarray:
@@ -33,7 +33,7 @@ def as_f32_tensor(x, device: torch.device) -> torch.Tensor:
     """numpy / tensor -> contiguous float32 tensor on ``device``."""
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=torch.float32).contiguous()
-    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)
+    return torch.from_numpy(host_f32(x)).to(device)
 
 
 def weights_of_scores_t(sim: torch.Tensor, exponent: float,

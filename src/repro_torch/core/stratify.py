@@ -42,6 +42,7 @@ from typing import Optional
 
 import numpy as np
 
+from ..device import resolve_device
 from .types import BASConfig
 
 
@@ -201,25 +202,18 @@ class SweepInfo:
         return starts, self.block_rows
 
 
-
-
-def _no_index(artifact) -> None:
-    if artifact is not None:
-        raise NotImplementedError(
-            "index artifacts are not ported yet (ROADMAP queue 1, item 6)"
-        )
-
-
 def _kernel_sweep(e1, e2, n_bins, exponent, floor, scale=None,
                   precision="fp32", k_top=TOPK_CANDIDATES, right=None,
-                  rs_exponent=None, device="cuda"):
+                  rs_exponent=None, block=None, device="cuda"):
     """Fused sweep: the kernel on a CUDA device, its plain version on the
-    CPU.  Never returns None: a failed build or launch raises."""
+    CPU.  Never returns None: a failed build or launch raises.  ``block``
+    (default: the op's own) caps the count tiles' rows."""
     from ..kernels.sim_sweep.ops import sim_sweep
 
+    kwargs = {} if block is None else {"block": block}
     return sim_sweep(e1, e2, n_bins, exponent, floor, k=k_top, scale=scale,
                      precision=precision, right=right,
-                     rs_exponent=rs_exponent, device=device)
+                     rs_exponent=rs_exponent, device=device, **kwargs)
 
 
 def _warn_lowp_unavailable(precision):
@@ -268,7 +262,6 @@ def _over_threshold(e1, e2, threshold, exponent, floor, device,
     the same numbers and order as thresholding :func:`pair_weights`."""
     import torch
 
-    from ..device import resolve_device
     from .similarity import as_f32_tensor, pair_weights_t
 
     dev = resolve_device(device)
@@ -292,9 +285,15 @@ def sweep_pass(
     tolerance: Optional[float] = None,
     k_top: int = TOPK_CANDIDATES,
     artifact=None,
+    kernel_block: Optional[int] = None,
     device="cuda",
 ) -> SweepInfo:
     """One pass over the two-table product: histogram + count tiles + top-k.
+
+    ``kernel_block`` caps the kernel path's row-block (tile stride) — index
+    maintenance passes the artifact's ``block_rows`` so delta tiles nest
+    into the stored ones even after the table outgrows its original
+    power-of-two bucket.
 
     ``k_top`` sizes the top-k output; callers that know collection will go
     dense (m_cap >= 16 * n1) pass 1 to skip most of its cost.  The blocked
@@ -304,14 +303,23 @@ def sweep_pass(
     blocks the tiles flag.  Low-precision sweeps are tolerance-checked: the
     first row block is re-binned at fp32 and the whole sweep falls back to
     fp32 when the CDF deviation exceeds ``tolerance``.
+
+    ``artifact`` (a :class:`repro_torch.core.index.IndexArtifact`) skips
+    the pass entirely and hydrates the stored sweep instead — bit-identical
+    at fp32 because the artifact is a prior pass's output; the artifact
+    must cover exactly these tables and this binning config (checked).
     """
     from .similarity import pair_weights  # local import to avoid cycle
 
-    _no_index(artifact)
+    if artifact is not None:
+        artifact.check(sizes=(e1.shape[0], e2.shape[0]), n_bins=n_bins,
+                       exponent=exponent, floor=floor)
+        return artifact.sweep_info()
     tolerance = _precision_tolerance(precision, tolerance)
     if use_kernel:
         out = _kernel_sweep(e1, e2, n_bins, exponent, floor,
-                            precision=precision, k_top=k_top, device=device)
+                            precision=precision, k_top=k_top,
+                            block=kernel_block, device=device)
         info = SweepInfo(
             counts=out.counts, edges=out.edges,
             block_counts=out.block_counts, block_rows=out.block_rows,
@@ -341,7 +349,8 @@ def sweep_pass(
                 )
                 info = sweep_pass(
                     e1, e2, n_bins, exponent, floor, block, use_kernel,
-                    precision="fp32", k_top=k_top, device=device,
+                    precision="fp32", k_top=k_top, kernel_block=kernel_block,
+                    device=device,
                 )
                 info.stats["lowp_fallback"] = dev
         return info
@@ -397,7 +406,9 @@ def sweep_pass_chain(
     """k-way chain sweep: the geometric-mean chain weight W(t)**(1/(k-1)) is
     histogrammed over prefix blocks; each prefix block contributes one
     count tile, so chain collection can skip prefix blocks with no
-    over-threshold mass.  At k=2 this is exactly :func:`sweep_pass`."""
+    over-threshold mass.  At k=2 this is exactly :func:`sweep_pass`.
+    ``artifact`` hydrates a stored sweep instead of computing (see
+    :func:`sweep_pass`)."""
     from ..kernels.sim_sweep.ops import prepare_right
     from .similarity import pair_weights
 
@@ -408,7 +419,10 @@ def sweep_pass_chain(
             use_kernel, precision, tolerance, k_top=k_top, artifact=artifact,
             device=device,
         )
-    _no_index(artifact)
+    if artifact is not None:
+        artifact.check(sizes=tuple(e.shape[0] for e in embeddings),
+                       n_bins=n_bins, exponent=exponent, floor=floor)
+        return artifact.sweep_info()
     tolerance = _precision_tolerance(precision, tolerance)
     root = 1.0 / (k - 1)
     e_prev, e_last = embeddings[-2], embeddings[-1]
@@ -787,8 +801,11 @@ def stratify_streaming_chain(
     single-sweep path; ``use_sweep=False`` keeps the two-pass
     histogram-then-collect baseline, which is bit-identical at fp32.
     ``precision`` opts the sweep into the bf16/int8 fast path (default from
-    ``cfg.sweep_precision``), tolerance-gated via ``cfg.sweep_tolerance``."""
-    _no_index(artifact)
+    ``cfg.sweep_precision``), tolerance-gated via ``cfg.sweep_tolerance``.
+    ``artifact`` (:class:`repro_torch.core.index.IndexArtifact`) hydrates a
+    persisted sweep instead of computing one — threshold selection and
+    collection run unchanged against the loaded tiles/top-k."""
+    resolve_device(device)
     if use_sweep is None:
         use_sweep = cfg.use_sweep
     if precision is None:
@@ -802,7 +819,13 @@ def stratify_streaming_chain(
     if m == 0:
         return Stratification(np.empty(0, np.int64), np.zeros(1, np.int64), n)
     sweep = None
-    if use_sweep:
+    if artifact is not None:
+        sweep = sweep_pass_chain(
+            embeddings, n_bins, cfg.weight_exponent, cfg.weight_floor,
+            artifact=artifact, device=device,
+        )
+        counts, edges = sweep.counts, sweep.edges
+    elif use_sweep:
         # collection only consults the top-k when the blocking regime is
         # sparse per row (see collect_top); otherwise skip its epilogue cost
         n1 = embeddings[0].shape[0]

@@ -10,6 +10,7 @@ when the first device is resolved, and asserted on every resolution.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -40,3 +41,12 @@ def resolve_device(device="cuda") -> torch.device:
     assert not torch.backends.cuda.matmul.allow_tf32, "TF32 matmul is on"
     assert not torch.backends.cudnn.allow_tf32, "TF32 convolution is on"
     return dev
+
+
+def host_f32(x) -> np.ndarray:
+    """``x`` as C-contiguous, writable f32 numpy rows, the form
+    ``torch.from_numpy`` takes without a warning.  A read-only array (an
+    index artifact's embeddings after an mmap load) is copied once, here,
+    where the rows enter the port's torch code."""
+    arr = np.ascontiguousarray(x, np.float32)
+    return arr if arr.flags.writeable else arr.copy()

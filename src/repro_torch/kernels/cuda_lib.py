@@ -38,17 +38,26 @@ NVCC_FLAGS = [
 MODES = {"fp32": 0, "bf16": 1, "int8": 2}
 HIST, TOPK, SUMS = 1, 2, 4
 
-# Launch counts, one per kernel: each wrapper adds one where it launches its
-# kernel and nowhere else.  Keys are the kernel names chip_smoke.py reports.
+# Launch counts, one per kernel: each wrapper adds one (``count_launch``)
+# where it launches its kernel and nowhere else.  Keys are the kernel names
+# chip_smoke.py reports.  A lock keeps the counts right when kernels launch
+# from several threads (an index store's build runs on its caller's thread).
 LAUNCHES: Counter = Counter()
+_launch_lock = threading.Lock()
 
 _lock = threading.Lock()
 _lib = None
 BUILD_INFO: dict = {}
 
 
+def count_launch(name: str) -> None:
+    with _launch_lock:
+        LAUNCHES[name] += 1
+
+
 def reset_launches() -> None:
-    LAUNCHES.clear()
+    with _launch_lock:
+        LAUNCHES.clear()
 
 
 def build_dir() -> Path:

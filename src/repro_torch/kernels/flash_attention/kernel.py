@@ -43,5 +43,5 @@ def flash_attention_cuda(q, k, v, causal=True, window=0):
         )
     if err != 0:
         raise RuntimeError(f"repro_flash_attention failed with CUDA error {err}")
-    cuda_lib.LAUNCHES["flash_attention"] += 1
+    cuda_lib.count_launch("flash_attention")
     return o

@@ -27,5 +27,5 @@ def rglru_scan_cuda(a, g):
             p(a), p(g), p(out), b, t, r, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"repro_rglru_scan failed with CUDA error {err}")
-    cuda_lib.LAUNCHES["rglru_scan"] += 1
+    cuda_lib.count_launch("rglru_scan")
     return out

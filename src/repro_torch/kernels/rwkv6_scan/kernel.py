@@ -59,5 +59,5 @@ def rwkv6_scan_cuda(r, k, v, w, u):
         )
     if err != 0:
         raise RuntimeError(f"repro_rwkv6_scan failed with CUDA error {err}")
-    cuda_lib.LAUNCHES["rwkv6_scan"] += 1
+    cuda_lib.count_launch("rwkv6_scan")
     return out

@@ -19,5 +19,5 @@ def sim_hist_cuda(e1, e2, scale, n_bins=4096, exponent=1.0, floor=1e-3,
         precision, cuda_lib.HIST, e1, e2, scale=scale, n_bins=n_bins,
         exponent=exponent, floor=floor, bm=max(e1.shape[0], 1),
     )
-    cuda_lib.LAUNCHES["sim_hist"] += 1
+    cuda_lib.count_launch("sim_hist")
     return bc[0]

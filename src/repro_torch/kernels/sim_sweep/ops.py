@@ -32,7 +32,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ...device import resolve_device
+from ...device import host_f32, resolve_device
 from ..padding import pad_rows, remove_pad_counts
 from .kernel import kernel_operand, sim_sweep_cuda
 from .ref import sim_sweep_ref
@@ -73,7 +73,7 @@ class SweepOut(NamedTuple):
 def prepare_right(e2, block=256, precision="fp32", device="cuda") -> PreparedRight:
     assert precision in PRECISIONS, precision
     dev = resolve_device(device)
-    e2 = np.asarray(e2, np.float32)
+    e2 = host_f32(e2)
     n2 = e2.shape[0]
     bn = _pow2_block(block, n2)
     e2p, p2 = pad_rows(e2, bn)
@@ -102,7 +102,7 @@ def sim_sweep(e1, e2=None, n_bins=4096, exponent=1.0, floor=1e-3, k=8,
     need the raw full-exponent edge weight in the walk sums).  With
     ``right=`` the sweep runs on the prepared table's device."""
     assert precision in PRECISIONS, precision
-    e1 = np.asarray(e1, np.float32)
+    e1 = host_f32(e1)
     n1 = e1.shape[0]
     if right is None:
         assert e2 is not None, "pass e2 or a PreparedRight"

@@ -17,5 +17,5 @@ def sim_topk_cuda(e1, e2, k=8, precision="fp32"):
     (``sim_sweep.kernel.kernel_operand``): f32, or bf16 with
     ``precision="bf16"``."""
     _, vals, idx, _ = cuda_lib.launch(precision, cuda_lib.TOPK, e1, e2, k=k)
-    cuda_lib.LAUNCHES[f"sim_topk[k={k}]"] += 1
+    cuda_lib.count_launch(f"sim_topk[k={k}]")
     return vals, idx

@@ -1,4 +1,6 @@
-"""Typed per-query telemetry (:mod:`repro_torch.obs.telemetry`)."""
+"""Observability: the typed per-query telemetry
+(:mod:`repro_torch.obs.telemetry`) and the pluggable metric trackers
+(:mod:`repro_torch.obs.tracker`) that the index store counts on."""
 from .telemetry import (  # noqa: F401
     CascadeTelemetry,
     DispatchTelemetry,
@@ -8,4 +10,14 @@ from .telemetry import (  # noqa: F401
     StoreTelemetry,
     StratifyTelemetry,
     TelemetryView,
+)
+from .tracker import (  # noqa: F401
+    NULL_TRACKER,
+    InMemoryTracker,
+    JsonlTracker,
+    NoopTracker,
+    StreamingHistogram,
+    Tracker,
+    make_tracker,
+    merge_snapshots,
 )

@@ -169,8 +169,10 @@ def test_engine_runs_every_reference_method(method):
 
 
 def test_unported_methods_raise():
-    """What still raises: the persistent stratification index (an
-    ``index_store``, an ``artifact``; ROADMAP item 6) and an unknown method."""
+    """What still raises: an unknown method, and an index artifact that does
+    not cover the query's tables.  The persistent stratification index
+    itself (an ``index_store``, an ``artifact``; ROADMAP item 6) is ported
+    and serves the query."""
     _, pds = _pair()
     cat = P.Catalog()
     cat.register(P.Table("a", pds.emb1))
@@ -179,10 +181,17 @@ def test_unported_methods_raise():
     sql = "SELECT COUNT(*) FROM a JOIN b ON NL('x') ORACLE BUDGET 500"
     with pytest.raises(ValueError, match="unknown method"):
         eng.execute(sql, method="nope")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        P.JoinMLEngine(cat, lambda nl, names: None, index_store=object(), device="cpu")
-    q = P.Query(spec=pds.spec(), agg=P.Agg.COUNT, oracle=pds.oracle(), budget=500)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        P.run_bas_streaming(q, artifact=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        P.run_auto(q, index_store=object(), device="cpu")
+    store = P.IndexStore(device="cpu")
+    indexed = P.JoinMLEngine(cat, lambda nl, names: pds.oracle(), index_store=store,
+                             device="cpu")
+    assert indexed.execute(sql, method="bas-streaming").telemetry.index.hit is False
+
+    def q():
+        return P.Query(spec=pds.spec(), agg=P.Agg.COUNT, oracle=pds.oracle(),
+                       budget=500)
+
+    res = P.run_auto(q(), index_store=store, device="cpu")
+    assert res.telemetry.dispatch.path == "streaming-index"
+    art = P.build_index([pds.emb1[:100], pds.emb2], device="cpu")
+    with pytest.raises(ValueError, match="covers tables"):
+        P.run_bas_streaming(q(), artifact=art, device="cpu")

@@ -241,11 +241,23 @@ def test_similarity_proxy_group_is_the_reference_key(ds):
 
 
 def test_index_arguments_raise(ds):
+    """Stage 1 stratifies from an index artifact or through an index store
+    (ROADMAP item 6), equal to the fresh cascade bit for
+    bit; only an artifact that does not cover the query's tables raises."""
     _, pds, _ = ds
-    _, pq = _queries(pds, pds)
-    for kw in (dict(artifact=object()), dict(index_store=object())):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            P.run_bas_cascade(pq, path="streaming", device="cpu", **kw)
+    embs = [np.asarray(e, np.float32) for e in pds.spec().embeddings]
+    fresh = P.run_bas_cascade(_queries(pds, pds)[1], path="streaming", device="cpu")
+    art = P.build_index(embs, device="cpu")
+    for kw in (dict(artifact=art), dict(index_store=P.IndexStore(device="cpu"))):
+        res = P.run_bas_cascade(_queries(pds, pds)[1], path="streaming",
+                                device="cpu", **kw)
+        assert res.telemetry.stratify.path == "index"
+        assert (res.estimate, res.ci.lo, res.ci.hi) == (
+            fresh.estimate, fresh.ci.lo, fresh.ci.hi)
+    other = P.build_index([embs[0][:40], embs[1]], device="cpu")
+    with pytest.raises(ValueError, match="covers tables"):
+        P.run_bas_cascade(_queries(pds, pds)[1], path="streaming", device="cpu",
+                          artifact=other)
 
 
 # ----------------------------------------------------------------------------

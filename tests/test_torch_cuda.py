@@ -415,6 +415,123 @@ def test_query_on_card_matches_cpu(card):
 
 
 # ---------------------------------------------------------------------------
+# the persistent stratification index on the card
+# ---------------------------------------------------------------------------
+
+def _index_artifacts_equal(got, want):
+    """Key, sizes, counts, every count tile and the valid top-k bit for
+    bit (tiles regrouped where ``got`` keeps a finer stride); walk sums
+    within 1e-6 relative."""
+    from repro_torch.core.index import _regroup_tiles
+
+    assert (got.key, got.sizes) == (want.key, want.sizes)
+    np.testing.assert_array_equal(got.counts, want.counts)
+    np.testing.assert_array_equal(
+        _regroup_tiles(got.block_counts, got.block_rows, want.block_rows),
+        want.block_counts)
+    ok = np.asarray(want.topk_valid)
+    np.testing.assert_array_equal(got.topk_valid, ok)
+    np.testing.assert_array_equal(np.asarray(got.topk_vals)[ok],
+                                  np.asarray(want.topk_vals)[ok])
+    np.testing.assert_array_equal(np.asarray(got.topk_idx)[ok],
+                                  np.asarray(want.topk_idx)[ok])
+    if want.row_sums is not None:
+        np.testing.assert_allclose(got.row_sums[0], want.row_sums[0], rtol=1e-6)
+        assert got.total_weight == pytest.approx(want.total_weight, rel=1e-6)
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("table", [0, 1])
+def test_index_append_on_card_equals_rebuild(card, precision, table):
+    """Left and right appends on the card equal a rebuild on the card bit
+    for bit in tiles and top-k: each score is the same number in the delta
+    launch as in the rebuild's (one fmaf chain in fp32, a fixed k-slice
+    order in bf16, exact integer sums in int8)."""
+    from repro_torch.core import append_rows, build_index
+
+    rng = np.random.default_rng(20 + table)
+    e1, e2 = _unit(rng, 900, 64), _unit(rng, 700, 64)
+    n1, n2 = (700, 700) if table == 0 else (900, 500)
+    kw = dict(n_bins=1024, precision=precision, tolerance=float("inf"),
+              device="cuda")
+    art = build_index([e1[:n1], e2[:n2]], **kw)
+    assert art.precision == precision and art.kernel
+    grown = append_rows(art, table, (e1[n1:], e2[n2:])[table], device="cuda")
+    _index_artifacts_equal(grown, build_index([e1, e2], **kw))
+
+
+def test_index_small_tiles_on_card_equal_plain(card):
+    """An artifact built on 32 left rows keeps 32-row count tiles; after a
+    left append to 300 rows, the right append sweeps every left row at that
+    stride, one launch a tile.  The card's artifact equals a rebuild on the
+    card, and the CPU's appends under the edge, near-tie and 1e-6 rules."""
+    from repro_torch.core import append_rows, build_index
+
+    rng = np.random.default_rng(23)
+    e1, e2 = _unit(rng, 300, 48), _unit(rng, 640, 48)
+    grown = {}
+    for dev in ("cuda", "cpu"):
+        art = build_index([e1[:32], e2[:500]], n_bins=512, device=dev)
+        assert art.block_rows == 32
+        cuda_lib.reset_launches()
+        art = append_rows(append_rows(art, 0, e1[32:], device=dev), 1, e2[500:],
+                          device=dev)
+        if dev == "cuda":
+            # 9 chunks of the left append, one launch a 32-row tile after
+            assert cuda_lib.LAUNCHES["sim_sweep[fp32]"] == 9 + 10
+        grown[dev] = art
+    _index_artifacts_equal(grown["cuda"], build_index([e1, e2], n_bins=512,
+                                                      device="cuda"))
+    a, b = torch.from_numpy(e1).to(card), torch.from_numpy(e2).to(card)
+    s64, bound = checks.exact_scores(a, b)
+    c, p = grown["cuda"], grown["cpu"]
+    checks.check_counts([torch.from_numpy(c.block_counts), torch.from_numpy(p.block_counts)],
+                        s64, bound, n_bins=512, exponent=1.0, floor=1e-3, bm=32)
+    checks.check_topk(*(torch.from_numpy(np.asarray(x)) for x in (
+        c.topk_vals, c.topk_idx, p.topk_vals, p.topk_idx)), s64, bound)
+    checks.check_sums(torch.from_numpy(c.row_sums[0]), s64, exponent=1.0, floor=1e-3)
+
+
+def test_hydrated_query_on_card_equals_fresh(card, tmp_path):
+    """A query hydrated from an artifact (resident, and mmap-loaded from
+    disk) equals the fresh query on the card bit for bit, and launches no
+    sweep; concurrent first queries share one build."""
+    import threading
+
+    from repro_torch.checkpoint.index_io import load_index, save_index
+    from repro_torch.core import Agg, IndexStore, Query, build_index, run_bas_streaming
+    from repro_torch.data import make_clustered_tables
+
+    ds = make_clustered_tables(600, 500, n_entities=200, noise=0.4, seed=5)
+
+    def q():
+        return Query(spec=ds.spec(), agg=Agg.COUNT, oracle=ds.oracle(), budget=2000)
+
+    fresh = run_bas_streaming(q(), seed=0)
+    art = build_index([ds.emb1, ds.emb2])
+    save_index(str(tmp_path), art)
+    for a in (art, load_index(str(tmp_path), art.key)):
+        cuda_lib.reset_launches()
+        res = run_bas_streaming(q(), seed=0, artifact=a)
+        assert not any(k.startswith("sim_sweep") for k in cuda_lib.LAUNCHES)
+        assert (res.estimate, res.ci.lo, res.ci.hi) == (
+            fresh.estimate, fresh.ci.lo, fresh.ci.hi)
+    store = IndexStore()
+    cuda_lib.reset_launches()
+    out = []
+    threads = [threading.Thread(target=lambda: out.append(
+        run_bas_streaming(q(), seed=0, index_store=store))) for _ in range(3)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert len(out) == 3 and cuda_lib.LAUNCHES["sim_sweep[fp32]"] == 1
+    assert store.stats()["index_build"] == 1
+    for res in out:
+        assert res.estimate == fresh.estimate
+
+
+# ---------------------------------------------------------------------------
 # the model-stack kernels: K5 flash attention, K6 RWKV6 scan, K7 RG-LRU scan
 # ---------------------------------------------------------------------------
 

@@ -1,7 +1,8 @@
 """The port stands alone: importing ``repro_torch``, running queries (BAS,
-the cascade, a baseline) and scoring pairs with the Oracle model loads neither JAX nor the reference
-package, and its entry points run on the card unless the caller asks for the
-CPU."""
+the cascade, a baseline), scoring pairs with the Oracle model, and building,
+saving, loading, appending to and querying through a stratification index
+load neither JAX nor the reference package, and its entry points run on
+the card unless the caller asks for the CPU."""
 import os
 import subprocess
 import sys
@@ -58,6 +59,23 @@ assert scorer.pairs_scored > 0
 for arch in ("rwkv6-1.6b", "recurrentgemma-9b"):
     c = get_smoke_config(arch)
     forward(c, init_params(c, device="cpu"), {"tokens": [[1, 2, 3]]})
+import tempfile
+from repro_torch.checkpoint.index_io import load_index, save_index
+from repro_torch.core import IndexStore, append_rows, build_index
+
+with tempfile.TemporaryDirectory() as root:
+    art = build_index([ds.emb1, ds.emb2[:100]], device="cpu")
+    save_index(root, art)
+    art = append_rows(load_index(root, art.key), 1, ds.emb2[100:], device="cpu")
+    save_index(root, art)
+    store = IndexStore(root=root, device="cpu")
+    eng = JoinMLEngine(cat, lambda nl, names: ArrayOracle(ds.truth), cfg=cfg,
+                       index_store=store, device="cpu")
+    sql = "SELECT COUNT(*) FROM a JOIN b ON NL('x') ORACLE BUDGET 300"
+    eng.execute(sql, method="bas-streaming")
+    res = eng.execute(sql)
+    assert res.telemetry.dispatch.path == "streaming-index"
+    assert store.stats()["index_load"] == 1 and store.stats()["index_build"] == 0
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
              or m == "repro" or m.startswith("repro."))

@@ -147,5 +147,14 @@ def test_precision_validation_and_index_not_ported():
     assert sw.precision == "fp32" and "lowp_fallback" in sw.stats
     with pytest.warns(UserWarning, match="host path computes fp32"):
         st.sweep_pass(e1, e2, use_kernel=False, precision="int8", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        st.sweep_pass(e1, e2, artifact=object(), device="cpu")
+    # an index artifact (ROADMAP item 6) hydrates when it
+    # covers these tables and this binning, and raises otherwise
+    from repro_torch.core import build_index
+
+    art = build_index([e1, e2], n_bins=256, device="cpu")
+    assert st.sweep_pass(e1, e2, n_bins=256, artifact=art,
+                         device="cpu").stats["index_version"] == 1
+    with pytest.raises(ValueError, match="n_bins"):
+        st.sweep_pass(e1, e2, n_bins=512, artifact=art, device="cpu")
+    with pytest.raises(ValueError, match="covers tables"):
+        st.sweep_pass(e1[:20], e2, n_bins=256, artifact=art, device="cpu")
