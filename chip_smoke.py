@@ -51,22 +51,38 @@ a COUNT join of two 256-record tables whose Oracle is the full
 ``joinml-oracle`` (12 layers, d 768, bf16, random weights from a seed)
 behind ``PairScorer`` and ``ModelOracle``, held against every pair scored
 by the same scorer, then profiled; (7) the
-scorer on the card against the CPU; (8) the recurrent paths:
+scorer on the card against the CPU (joinml-oracle, a block of each
+recurrent model, one layer of olmoe-1b-7b and of qwen3-moe-235b-a22b at
+full width with their routes compared, and whisper-medium's forward at one
+encoder and one decoder layer over 1,500 frames); (8) the recurrent paths:
 ``rwkv6-1.6b`` at full size and ``recurrentgemma-9b`` at full width cut to
-8 layers score 2,048 pairs each.  Launch counts are set to 0 just before
-each path (4; 4b's query path, dense baselines and Oracle cascade; 6; 8)
-and read just after it; in 4c, just before each of the index path's own
-calls (its builds, queries and appends, not the rebuilds and kernel checks
-they are held against) and read just after it.
+8 layers score 2,048 pairs each; (9) the MoE, VLM and encoder-decoder
+families, one model on the card at a time: the full ``olmoe-1b-7b`` as the
+Oracle of phase 6's COUNT (held by phase 6's checks), scoring 2,048 pairs,
+the same batch twice (bit for bit), 16,384 of the truth's pairs again in
+another batch order (the labels that move are reported: capacity counts
+every token of a batch), and 4 requests through ``ContinuousBatcher``;
+``qwen3-moe-235b-a22b`` at full width cut to 4 of 94 layers and the full
+``pixtral-12b`` scoring 2,048 pairs each; pixtral's forward over 256
+seeded patches before a 48-token prompt, batch 4; and the full
+``whisper-medium``'s forward over (4, 1,500) seeded frames and a 48-token
+prompt, then 16 decode steps.  Flash attention is also checked and timed at
+those models' shapes (phase 3).  Launch counts are set to 0 just before
+each path (4; 4b's query path, dense baselines and Oracle cascade; 6; 8;
+each of 9's, where olmoe's path is the COUNT's ``execute`` and its timed
+scoring and batcher are counted apart) and read just after it; in 4c, just before each of the index
+path's own calls (its builds, queries and appends, not the rebuilds and
+kernel checks they are held against) and read just after it.
 
 Any failed phase exits non-zero.  The last lines are one JSON object of
 kernels, the card's name and power limit, and ``{"ok": true, ...}``.
 Without a card (or without the repository beside it) it exits non-zero and
-prints no result.  The rehearsal runs phases 4, 4b, 4c, 6, 7 and 8 at a tiny
-size on the CPU and exits 3.
+prints no result.  The rehearsal runs phases 4, 4b, 4c, 6, 7, 8 and 9 at a
+tiny size on the CPU and exits 3.
 """
 import argparse
 import collections
+import contextlib
 import dataclasses
 import json
 import os
@@ -141,19 +157,31 @@ class ModelSize:
     sample: int           # pairs whose P(match) sets the threshold
     cpu_pairs: int        # joinml-oracle pairs scored on the card and on the CPU
     recurrent_pairs: int  # pairs each recurrent model scores
+    family_pairs: int     # pairs each model of phase 9 scores
+    order_pairs: int      # truth pairs olmoe scores again in another batch order
+    family_batch: int     # phase 9's forwards: rows of patches or frames
+    decode_steps: int     # whisper's decode steps after its forward
 
 
 # the Oracle paths: two tables of 256 records (65,536 pairs), batches of 256
 FULL_MODEL = ModelSize(full=True, entities=64, batch=256, budget=2000,
-                       sample=4096, cpu_pairs=64, recurrent_pairs=2048)
+                       sample=4096, cpu_pairs=64, recurrent_pairs=2048,
+                       family_pairs=2048, order_pairs=16384, family_batch=4,
+                       decode_steps=16)
 REHEARSAL_MODEL = ModelSize(full=False, entities=8, batch=16, budget=300,
-                            sample=256, cpu_pairs=8, recurrent_pairs=32)
+                            sample=256, cpu_pairs=8, recurrent_pairs=32,
+                            family_pairs=32, order_pairs=256, family_batch=2,
+                            decode_steps=4)
 RGEMMA_LAYERS = 8      # two (rec, rec, attn) blocks and a 2-layer rec tail
+QWEN3_LAYERS = 4       # of 94: the whole model does not fit on one 80 GB card
+PROMPT = 48            # phase 9's prompt tokens: the scorer's 48-token bucket
 EMBED_D = 384          # the embedder's width
 THRESHOLD_Q = 0.95     # the Oracle says yes to the top 5% of P(match)
-# P(match) on the card against the CPU, both in bf16: the two sides round
-# matmul sums to bf16 in other orders, layer after layer
+# P(match) on the card against the CPU, both in bf16 (and whisper's logits,
+# relative to the largest): the two sides round matmul sums to bf16 in
+# other orders, layer after layer
 CARD_CPU_ATOL = 0.02
+MOE_CPU_PAIRS = 8      # phase 7's MoE pairs: 384 tokens, 60 (olmoe) / 30 (qwen3) slots an expert
 
 
 # ---------------------------------------------------------------------------
@@ -581,7 +609,7 @@ def phase4b_oracle(size, device):
     from repro_torch.kernels import cuda_lib
 
     t0 = time.perf_counter()
-    cfg, scorer, thr, cat, left, right, sql = oracle_setup(size, device)
+    cfg, scorer, thr, cat, left, right, sql, _ = oracle_setup(size, device)
     eng = JoinMLEngine(cat, lambda nl, names: ModelOracle(scorer, thr), device=device)
     truth = float((scorer.score(_all_pairs(len(left), len(right))) >= thr).sum())
     log(f"phase 4b oracle set-up: {time.perf_counter() - t0:.1f} s")
@@ -1493,15 +1521,15 @@ def _all_pairs(n1, n2):
                     -1).reshape(-1, 2)
 
 
-def oracle_setup(size, device):
-    """The Oracle path's pieces: joinml-oracle with random weights from the
-    seed behind a timed ``PairScorer``, the threshold that says yes to the
-    top 5% of P(match), the two record tables' catalog (byte-trigram
+def oracle_setup(size, device, name="joinml-oracle"):
+    """The Oracle path's pieces: the model ``name`` with random weights from
+    the seed behind a timed ``PairScorer``, the threshold that says yes to
+    the top 5% of P(match), the two record tables' catalog (byte-trigram
     embeddings) and the COUNT query."""
     from repro_torch.core import Catalog, Table
     from repro_torch.models import init_params
 
-    cfg = model_config("joinml-oracle", size)
+    cfg = model_config(name, size)
     params = init_params(cfg, seed=SEED, device=device)
     left, right = entity_tables(size)
     scorer = TimedScorer(make_scorer(cfg, params, left, right, size.batch, device))
@@ -1514,7 +1542,7 @@ def oracle_setup(size, device):
     cat.register(Table("b", trigram_embeddings(right, EMBED_D)))
     sql = ("SELECT COUNT(*) FROM a JOIN b ON NL('same entity') "
            f"ORACLE BUDGET {size.budget} WITH PROBABILITY 0.95")
-    return cfg, scorer, thr, cat, left, right, sql
+    return cfg, scorer, thr, cat, left, right, sql, params
 
 
 def oracle_path(size, device):
@@ -1527,7 +1555,7 @@ def oracle_path(size, device):
     from repro_torch.kernels import cuda_lib
 
     t0 = time.perf_counter()
-    cfg, scorer, thr, cat, left, right, sql = oracle_setup(size, device)
+    cfg, scorer, thr, cat, left, right, sql, _ = oracle_setup(size, device)
     eng = JoinMLEngine(cat, lambda nl, names: ModelOracle(scorer, thr), device=device)
     log(f"oracle path set-up: {time.perf_counter() - t0:.1f} s")
 
@@ -1550,7 +1578,7 @@ def oracle_path(size, device):
         "d_model": cfg.d_model, "dtype": cfg.dtype, "pairs": len(left) * len(right),
         "threshold": thr, "estimate": res.estimate, "truth": truth,
         "ci": [res.ci.lo, res.ci.hi], "covers": res.ci.contains(truth),
-        "error_ratio": res.error_ratio(truth), "path": res.telemetry.dispatch.path,
+        "error_ratio": res.error_ratio(truth), "dispatch": res.telemetry.dispatch.path,
         "oracle_calls": res.oracle_calls, "forward_batches": batches,
         "launches": launches, "wall_s": wall, "scoring_s": scoring_s,
         "timings_s": res.telemetry.timings, "truth_scoring_s": truth_s}))
@@ -1573,32 +1601,155 @@ def oracle_path(size, device):
 
 def card_vs_cpu(size, device):
     """Phase 7: ``PairScorer.score`` with the same bf16 parameters on the
-    card and on the CPU: joinml-oracle at full depth, and one pattern block
-    of rwkv6-1.6b and of recurrentgemma-9b at full width."""
+    card and on the CPU, within ``CARD_CPU_ATOL``: joinml-oracle at full
+    depth, one pattern block of rwkv6-1.6b and of recurrentgemma-9b, and one
+    layer of olmoe-1b-7b and of qwen3-moe-235b-a22b, all at full width (the
+    MoE dispatch at 64 and 128 experts, its capacity buffer dropping
+    overflow); then one encoder and one decoder layer of whisper-medium
+    over its 1,500 frames (``_whisper_card_vs_cpu``)."""
     from repro_torch.models import init_params
 
     left, right = entity_tables(size)
     rng = np.random.default_rng(SEED + 5)
     for name, over, n in (("joinml-oracle", {}, size.cpu_pairs),
                           ("rwkv6-1.6b", {"num_layers": 1}, 4),
-                          ("recurrentgemma-9b", {"num_layers": 3}, 4)):
+                          ("recurrentgemma-9b", {"num_layers": 3}, 4),
+                          ("olmoe-1b-7b", {"num_layers": 1}, MOE_CPU_PAIRS),
+                          ("qwen3-moe-235b-a22b", {"num_layers": 1}, MOE_CPU_PAIRS)):
         cfg = model_config(name, size, **over)
         params = init_params(cfg, seed=SEED + 1, device=device)
         pairs = np.stack([rng.integers(0, len(left), n), rng.integers(0, len(right), n)], 1)
-        on_card = make_scorer(cfg, params, left, right, n, device).score(pairs)
+        with _recorded_moe_routes() as card_routes:
+            card_scorer = make_scorer(cfg, params, left, right, n, device)
+            on_card = card_scorer.score(pairs)
         params.to("cpu")
         t0 = time.perf_counter()
-        on_cpu = make_scorer(cfg, params, left, right, n, "cpu").score(pairs)
-        diff = float(np.abs(on_card - on_cpu).max())
-        log(json.dumps({"check": f"{name}: P(match) on the card vs the CPU",
-                        "layers": cfg.num_layers, "pairs": n, "max_abs_diff": diff,
-                        "tolerance": CARD_CPU_ATOL,
-                        "p_range": [float(on_cpu.min()), float(on_cpu.max())],
-                        "cpu_s": time.perf_counter() - t0}))
+        with _recorded_moe_routes() as cpu_routes:
+            on_cpu = make_scorer(cfg, params, left, right, n, "cpu").score(pairs)
+        cpu_s = time.perf_counter() - t0
+        line = {"check": f"{name}: P(match) on the card vs the CPU",
+                "layers": cfg.num_layers, "pairs": n}
+        held = np.ones(n, bool)
+        if cfg.family == "moe":
+            excluded, line["moe"] = _route_differences(name, cfg, card_routes, cpu_routes,
+                                                       _read_positions(card_scorer, pairs))
+            held[sorted(excluded)] = False
+        diff = float(np.abs(on_card - on_cpu)[held].max())
+        log(json.dumps(line | {"max_abs_diff": diff, "tolerance": CARD_CPU_ATOL,
+                               "p_range": [float(on_cpu.min()), float(on_cpu.max())],
+                               "cpu_s": cpu_s}))
         if not diff <= CARD_CPU_ATOL:
             fail(f"{name}: the card's P(match) differs from the CPU's by {diff}")
         del params
-        torch.cuda.empty_cache()
+        _free()
+    _whisper_card_vs_cpu(size, device)
+
+
+@contextlib.contextmanager
+def _recorded_moe_routes():
+    """Record every ``moe_mlp`` call of the port's models: its input (on
+    the host, f64) and its routing as the call's own device computes it
+    (the top-k experts, and the (token, choice) pairs that keep a slot of
+    the capacity buffer)."""
+    import repro_torch.models.model as M
+    from repro_torch.models.layers import moe_route
+
+    seen, inner = [], M.moe_mlp
+
+    def spy(p, cfg, x):
+        top_e, _, keep, _ = moe_route(p, cfg, x.reshape(-1, x.shape[-1]))
+        seen.append({"x": x.double().cpu().numpy(), "top_e": top_e.cpu().numpy(),
+                     "keep": keep.cpu().numpy(), "router": p.router.double().cpu().numpy()})
+        return inner(p, cfg, x)
+
+    M.moe_mlp = spy
+    try:
+        yield seen
+    finally:
+        M.moe_mlp = inner
+
+
+def _read_positions(scorer, pairs):
+    """The position whose logits give each pair's P(match): with one
+    padded length and one batch, row i of the forward is pair i."""
+    lens = np.array([len(t) for t in scorer._tokenize(pairs)])
+    if len(set(scorer._buckets[np.searchsorted(scorer._buckets, lens)])) != 1:
+        fail("the card-vs-CPU pairs pad to more than one length")
+    return lens - 1
+
+
+def _route_differences(name, cfg, card, cpu, reads):
+    """Pairs a routing difference between the card and the CPU can reach,
+    by the rule of the model tests: a token whose top-k set differs must be
+    explained by the inputs' difference (the CPU's k-th/(k+1)-th router gap
+    is at most twice the largest change of those logits), and reaches its
+    own position, and every later one of its row if a layer follows.  A
+    kept slot that differs where the top-k sets agree must come after a
+    flipped token (a flip moves the expert's later pairs up or down the
+    capacity order); with no flip the card keeps exactly the CPU's pairs.
+    Fails otherwise.  Returns (rows excluded, a summary for the log)."""
+    k, reach, flips = cfg.num_experts_per_tok, set(), []
+    dropped = []
+    for layer, (a, b) in enumerate(zip(card, cpu, strict=True)):
+        rows, s = b["x"].shape[:2]
+        la = a["x"].reshape(rows * s, -1) @ b["router"]
+        lb = b["x"].reshape(rows * s, -1) @ b["router"]
+        flip = (np.sort(a["top_e"], -1) != np.sort(b["top_e"], -1)).any(-1)
+        kept_a, kept_b = (np.sort(np.where(r["keep"], r["top_e"], -1), -1) for r in (a, b))
+        slot = (kept_a != kept_b).any(-1) & ~flip
+        dropped.append(int((~b["keep"]).sum()))
+        for t in np.nonzero(flip)[0]:
+            srt = np.sort(lb[t])[::-1]
+            gap, moved = float(srt[k - 1] - srt[k]), float(np.abs(la[t] - lb[t]).max())
+            flips.append({"layer": layer, "pos": divmod(int(t), s), "gap": gap,
+                          "logit_change": moved})
+            if not gap <= 2 * moved:
+                fail(f"{name}: a route differs that the inputs do not explain: {flips[-1]}")
+        if slot.any() and (not flip.any() or np.nonzero(slot)[0].min()
+                           <= np.nonzero(flip)[0].min()):
+            fail(f"{name}: the card keeps other capacity slots than the CPU at layer {layer}")
+        last = layer == len(cpu) - 1
+        for t in np.nonzero(flip | slot)[0]:
+            row, pos = divmod(int(t), s)
+            reach |= {(row, q) for q in range(pos, pos + 1 if last else s)}
+    excluded = {row for row, pos in reach if pos == reads[row]}
+    if len(excluded) > len(reads) // 4:
+        fail(f"{name}: routing differs at {len(excluded)} of {len(reads)} pairs")
+    return excluded, {"dropped_pairs_cpu": dropped, "capacity_per_expert":
+                      int(np.ceil(cpu[0]["x"].shape[0] * cpu[0]["x"].shape[1] * k
+                                  / cfg.num_experts * cfg.moe_capacity_factor)),
+                      "route_flips": flips, "pairs_excluded": sorted(excluded)}
+
+
+def _whisper_card_vs_cpu(size, device):
+    """Phase 7: whisper-medium at full width, one encoder and one decoder
+    layer, over seeded (2, 1,500) frames and a ``PROMPT``-token prompt:
+    the card's logits (flash attention over the frames and across them)
+    within ``CARD_CPU_ATOL`` of the CPU's largest |logit|."""
+    from repro_torch.models import forward, init_params
+
+    cfg = model_config("whisper-medium", size, encoder_layers=1, num_layers=1)
+    params = init_params(cfg, seed=SEED + 1, device=device)
+    rng = np.random.default_rng(SEED + 13)
+    batch = {"tokens": torch.from_numpy(rng.integers(8, cfg.vocab_size, (2, PROMPT))),
+             "frames": torch.from_numpy(rng.standard_normal(
+                 (2, cfg.encoder_seq, cfg.d_model)).astype(np.float32))}
+    on_card = forward(cfg, params, batch).float().cpu()
+    params.to("cpu")
+    t0 = time.perf_counter()
+    on_cpu = forward(cfg, params, batch).float()
+    scale = float(on_cpu.abs().max())
+    diff = float((on_card - on_cpu).abs().max())
+    log(json.dumps({"check": "whisper-medium: logits on the card vs the CPU",
+                    "encoder_layers": 1, "layers": 1, "frames": cfg.encoder_seq,
+                    "tokens": PROMPT, "max_abs_diff": diff, "largest_logit": scale,
+                    "tolerance": CARD_CPU_ATOL * scale,
+                    "cpu_s": time.perf_counter() - t0}))
+    if not diff <= CARD_CPU_ATOL * scale:
+        fail(f"whisper-medium: the card's logits differ from the CPU's by {diff} "
+             f"(largest {scale})")
+    del params
+    _free()
 
 
 def recurrent_paths(size, device):
@@ -1644,6 +1795,259 @@ def recurrent_paths(size, device):
     return out
 
 
+def _free():
+    """Return a dropped model's memory before the next one is built: the
+    big ones do not fit on the card two at a time."""
+    import gc
+
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def _path_launches(name, launches, device, needs=("flash_attention",)):
+    if device == "cuda":
+        for k in needs:
+            if launches.get(k, 0) <= 0:
+                fail(f"{k} was not launched on the {name} path")
+
+
+def _reduced_note(cfg, full_cfg):
+    """What a phase-9 configuration cuts from the published one."""
+    cuts = [f"{f.name} {getattr(full_cfg, f.name)} -> {getattr(cfg, f.name)}"
+            for f in dataclasses.fields(cfg)
+            if getattr(cfg, f.name) != getattr(full_cfg, f.name)]
+    return cuts
+
+
+def _score_pairs(name, cfg, scorer, pairs, device):
+    sync(device)
+    t0 = time.perf_counter()
+    p = scorer.score(pairs)
+    sync(device)
+    wall = time.perf_counter() - t0
+    if not (np.isfinite(p).all() and (p >= 0).all() and (p <= 1).all()):
+        fail(f"{name}: P(match) is not a probability")
+    return p, wall
+
+
+def moe_oracle_path(size, device):
+    """Phase 9a: olmoe-1b-7b as the Oracle.  The COUNT of phase 6 on its
+    tables, held by the same checks, with launch counts set to 0 just
+    before ``execute`` and read just after (the path's counts); then
+    pairs/s over ``family_pairs`` pairs, the same batch scored twice (bit
+    for bit), ``order_pairs`` of the truth's pairs scored again in another
+    batch order (capacity counts every token of a batch, so a pair's
+    P(match) depends on its batch-mates, as in the reference: the labels
+    that change are reported), and requests through ``ContinuousBatcher``;
+    the timed scoring's and the batcher's launches are counted apart."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import JoinMLEngine, ModelOracle
+    from repro_torch.data.pipeline import ByteTokenizer
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.serve import ContinuousBatcher, Request
+
+    t0 = time.perf_counter()
+    cfg, scorer, thr, cat, left, right, sql, params = oracle_setup(size, device, "olmoe-1b-7b")
+    eng = JoinMLEngine(cat, lambda nl, names: ModelOracle(scorer, thr), device=device)
+    setup_s = time.perf_counter() - t0
+    cuda_lib.reset_launches()
+    sync(device)
+    t0 = time.perf_counter()
+    res = eng.execute(sql, seed=SEED)
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches = dict(cuda_lib.LAUNCHES)
+    everything = _all_pairs(len(left), len(right))
+    t0 = time.perf_counter()
+    p_truth = scorer.score(everything)
+    truth_s = time.perf_counter() - t0
+    truth = float((p_truth >= thr).sum())
+
+    rng = np.random.default_rng(SEED + 9)
+    pairs = everything[rng.choice(len(everything), size.family_pairs, replace=False)]
+    cuda_lib.reset_launches()
+    _, score_wall = _score_pairs("olmoe-1b-7b", cfg, scorer.scorer, pairs, device)
+    scoring_launches = dict(cuda_lib.LAUNCHES)
+    batch = everything[:size.batch]
+    once, twice = scorer.score(batch), scorer.score(batch)
+    if not np.array_equal(once, twice):
+        fail("olmoe-1b-7b: the same batch scored twice differs "
+             f"(max {float(np.abs(once - twice).max())})")
+    # a random subset of the truth's pairs in a random order: every batch
+    # holds other pairs than it did for the truth
+    again = rng.choice(len(everything), size.order_pairs, replace=False)
+    moved = (scorer.score(everything[again]) >= thr) != (p_truth[again] >= thr)
+    flips = int(moved.sum())
+
+    tok = ByteTokenizer()
+    cb = ContinuousBatcher(cfg, params, batch_size=4, max_len=64, eos_id=tok.EOS,
+                           device=device)
+    for i in range(4):
+        cb.submit(Request(uid=i, prompt=np.array([tok.BOS] + tok.encode(left[i])[:20],
+                                                 np.int32), max_new_tokens=8))
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    done = cb.run_until_done(max_steps=200)
+    sync(device)
+    decode_s = time.perf_counter() - t0
+    batcher_launches = dict(cuda_lib.LAUNCHES)
+    if len(done) != 4 or not all(r.out_tokens for r in done):
+        fail("olmoe-1b-7b: the batcher did not finish its 4 requests")
+    log(json.dumps({
+        "path": "phase 9: olmoe-1b-7b Oracle COUNT", "model": cfg.name,
+        "layers": cfg.num_layers, "d_model": cfg.d_model, "experts": cfg.num_experts,
+        "top_k": cfg.num_experts_per_tok, "capacity_factor": cfg.moe_capacity_factor,
+        "dtype": cfg.dtype, "params": sum(x.numel() for x in params.parameters()),
+        "reduced": _reduced_note(cfg, get_config(cfg.name)),
+        "pairs": len(everything), "threshold": thr, "estimate": res.estimate,
+        "truth": truth, "ci": [res.ci.lo, res.ci.hi], "covers": res.ci.contains(truth),
+        "error_ratio": res.error_ratio(truth), "dispatch": res.telemetry.dispatch.path,
+        "oracle_calls": res.oracle_calls, "set_up_s": setup_s, "wall_s": wall, "truth_scoring_s": truth_s,
+        "scored_pairs": len(pairs), "pairs_per_s": len(pairs) / score_wall,
+        "scoring_launches": scoring_launches,
+        "same_batch_bit_identical": True,
+        "rescored_in_another_order": len(again),
+        "labels_changed_by_batch_order": flips,
+        "batcher": {"requests": len(done), "tokens": sum(len(r.out_tokens) for r in done),
+                    "wall_s": decode_s, "launches": batcher_launches},
+        "launches": launches}))
+    _check_result("olmoe-1b-7b Oracle COUNT", res, truth)
+    _check_budget("olmoe-1b-7b Oracle COUNT", res, size.budget)
+    _path_launches("olmoe-1b-7b", launches, device)
+    _path_launches("olmoe-1b-7b scoring", scoring_launches, device)
+    return launches
+
+
+def family_scoring(name, size, device, **over):
+    """Phase 9b/9c: ``name`` (cut by ``over``) scores ``family_pairs``
+    pairs, with launch counts set to 0 just before and read just after;
+    also returns the parameters for a forward of its own."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.models import init_params
+
+    left, right = entity_tables(size)
+    rng = np.random.default_rng(SEED + 10)
+    pairs = np.stack([rng.integers(0, len(left), size.family_pairs),
+                      rng.integers(0, len(right), size.family_pairs)], 1)
+    cfg = model_config(name, size, **over)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=SEED + 3, device=device)
+    sync(device)
+    init_s = time.perf_counter() - t0
+    scorer = make_scorer(cfg, params, left, right, size.batch, device)
+    cuda_lib.reset_launches()
+    p, wall = _score_pairs(name, cfg, scorer, pairs, device)
+    launches = dict(cuda_lib.LAUNCHES)
+    log(json.dumps({
+        "path": f"phase 9: {name} scores pairs", "layers": cfg.num_layers,
+        "d_model": cfg.d_model, "params": sum(x.numel() for x in params.parameters()),
+        "reduced": _reduced_note(cfg, get_config(name)), "init_s": init_s,
+        "pairs": len(pairs), "forward_batches": scorer.forward_batches, "wall_s": wall,
+        "pairs_per_s": len(pairs) / wall, "launches": launches,
+        "p_range": [float(p.min()), float(p.max())]}))
+    _path_launches(name, launches, device)
+    del scorer
+    return cfg, params, launches
+
+
+def vlm_forward(cfg, params, size, device):
+    """Phase 9c: pixtral-12b's forward over seeded patches before a
+    ``PROMPT``-token prompt, counts set to 0 just before and read after."""
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.models import forward
+
+    rng = np.random.default_rng(SEED + 11)
+    b = size.family_batch
+    batch = {"tokens": torch.from_numpy(rng.integers(8, cfg.vocab_size, (b, PROMPT))),
+             "patches": torch.from_numpy(rng.standard_normal(
+                 (b, cfg.num_patches, cfg.d_model)).astype(np.float32))}
+    cuda_lib.reset_launches()
+    sync(device)
+    t0 = time.perf_counter()
+    logits = forward(cfg, params, batch)
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches = dict(cuda_lib.LAUNCHES)
+    ok = bool(torch.isfinite(logits).all())
+    log(json.dumps({"path": f"phase 9: {cfg.name} forward with patches",
+                    "batch": b, "patches": cfg.num_patches, "tokens": PROMPT,
+                    "logits": list(logits.shape), "finite": ok, "wall_s": wall,
+                    "launches": launches}))
+    if logits.shape != (b, cfg.num_patches + PROMPT, cfg.vocab_size) or not ok:
+        fail(f"{cfg.name}: logits of shape {tuple(logits.shape)}, finite {ok}")
+    _path_launches(cfg.name, launches, device)
+    return launches
+
+
+def encdec_path(size, device):
+    """Phase 9d: whisper-medium's forward over seeded frames and a
+    ``PROMPT``-token prompt (``prefill``, which returns a fresh cache as the
+    reference's does), then ``decode_steps`` greedy decode steps from
+    position 0; counts set to 0 just before and read after."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.models import decode_step, init_params, prefill
+
+    cfg = model_config("whisper-medium", size)
+    params = init_params(cfg, seed=SEED + 4, device=device)
+    rng = np.random.default_rng(SEED + 12)
+    b = size.family_batch
+    batch = {"tokens": torch.from_numpy(rng.integers(8, cfg.vocab_size, (b, PROMPT))),
+             "frames": torch.from_numpy(rng.standard_normal(
+                 (b, cfg.encoder_seq, cfg.d_model)).astype(np.float32))}
+    cuda_lib.reset_launches()
+    sync(device)
+    t0 = time.perf_counter()
+    logits, cache = prefill(cfg, params, batch, max_len=PROMPT + size.decode_steps)
+    sync(device)
+    forward_s = time.perf_counter() - t0
+    tok = logits[:, -1].argmax(-1)[:, None]
+    steps = []
+    for t in range(size.decode_steps):
+        sync(device)
+        t0 = time.perf_counter()
+        step_logits, cache = decode_step(cfg, params, cache, tok, t)
+        tok = step_logits.argmax(-1)[:, None]
+        sync(device)
+        steps.append(time.perf_counter() - t0)
+    launches = dict(cuda_lib.LAUNCHES)
+    ok = bool(torch.isfinite(logits).all() and torch.isfinite(step_logits).all())
+    log(json.dumps({"path": "phase 9: whisper-medium forward and decode",
+                    "encoder_layers": cfg.encoder_layers, "layers": cfg.num_layers,
+                    "params": sum(x.numel() for x in params.parameters()),
+                    "reduced": _reduced_note(cfg, get_config(cfg.name)),
+                    "batch": b, "frames": cfg.encoder_seq, "tokens": PROMPT,
+                    "forward_s": forward_s, "decode_steps": len(steps),
+                    "decode_step_ms": [1e3 * x for x in steps],
+                    "decode_step_ms_median": 1e3 * float(np.median(steps)),
+                    "finite": ok, "launches": launches}))
+    if logits.shape != (b, PROMPT, cfg.vocab_size) or not ok:
+        fail(f"whisper-medium: logits of shape {tuple(logits.shape)}, finite {ok}")
+    _path_launches("whisper-medium", launches, device)
+    return launches
+
+
+def family_paths(size, device):
+    """Phase 9: the MoE, VLM and encoder-decoder families on ``device``,
+    one model at a time.  Returns {path: launch counts}."""
+    paths = {"olmoe-1b-7b (9)": moe_oracle_path(size, device)}
+    _free()
+    _, params, paths["qwen3-moe-235b-a22b (9)"] = family_scoring(
+        "qwen3-moe-235b-a22b", size, device,
+        **({"num_layers": QWEN3_LAYERS} if size.full else {}))
+    del params
+    _free()
+    cfg, params, paths["pixtral-12b pairs (9)"] = family_scoring("pixtral-12b", size, device)
+    paths["pixtral-12b patches (9)"] = vlm_forward(cfg, params, size, device)
+    del params
+    _free()
+    paths["whisper-medium (9)"] = encdec_path(size, device)
+    _free()
+    return paths
+
+
 def _attention_pairs(sq, skv, causal, window):
     """The (query, key) pairs the masks leave: the work a causal or windowed
     attention needs."""
@@ -1656,16 +2060,24 @@ def _attention_pairs(sq, skv, causal, window):
     return int(ok.sum())
 
 
-# (B, Hq, Hkv, S, d, causal, window), bf16 as the models run it.  The rows
-# named "path" are shapes the main paths give the kernel (the entity pairs
-# are 35-45 tokens, so every batch is padded to the 48-token bucket); the
-# scorer's 16-token bucket and the long shapes follow.
+# (B, Hq, Hkv, Sq, Skv, d, causal, window), bf16 as the models run it.  The
+# rows named "path" are shapes the main paths give the kernel (the entity
+# pairs are 35-45 tokens, so every batch is padded to the 48-token bucket);
+# phase 9's forwards follow (pixtral's 256 patches before a 48-token prompt,
+# whisper's encoder over its 1,500 frames and the decoder's cross-attention
+# over them, neither causal), then the scorer's 16-token bucket and the long
+# shapes.  The first row is the Oracle path's.
 FLASH_SHAPES = {
-    "joinml-oracle path": (256, 12, 12, 48, 64, True, 0),
-    "recurrentgemma-9b path": (256, 16, 1, 48, 256, True, 2048),
-    "joinml-oracle, 16-token bucket": (256, 12, 12, 16, 64, True, 0),
-    "llama3.2-1b heads, S 4096": (1, 32, 8, 4096, 64, True, 0),
-    "recurrentgemma heads, S 4096, window 2048": (1, 16, 1, 4096, 256, True, 2048),
+    "joinml-oracle path": (256, 12, 12, 48, 48, 64, True, 0),
+    "recurrentgemma-9b path": (256, 16, 1, 48, 48, 256, True, 2048),
+    "olmoe-1b-7b path": (256, 16, 16, 48, 48, 128, True, 0),
+    "qwen3-moe heads path": (256, 64, 4, 48, 48, 128, True, 0),
+    "pixtral-12b, 256 patches + 48 tokens": (4, 32, 8, 304, 304, 128, True, 0),
+    "whisper-medium encoder": (4, 16, 16, 1500, 1500, 64, False, 0),
+    "whisper-medium cross-attention": (4, 16, 16, 48, 1500, 64, False, 0),
+    "joinml-oracle, 16-token bucket": (256, 12, 12, 16, 16, 64, True, 0),
+    "llama3.2-1b heads, S 4096": (1, 32, 8, 4096, 4096, 64, True, 0),
+    "recurrentgemma heads, S 4096, window 2048": (1, 16, 1, 4096, 4096, 256, True, 2048),
 }
 # (B, H, T, hd); K6 runs them on bf16 (B, T, H, hd) projections as the model
 # holds them, then on f32 (B, H, T, hd) operands
@@ -1680,20 +2092,21 @@ def _flash_case(gen, shape, dtype=torch.bfloat16):
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-    b, hq, hkv, s, d, causal, window = shape
-    q = torch.randn((b, hq, s, d), generator=gen, device="cuda").to(dtype)
-    k = torch.randn((b, hkv, s, d), generator=gen, device="cuda").to(dtype)
-    v = torch.randn((b, hkv, s, d), generator=gen, device="cuda").to(dtype)
+    b, hq, hkv, sq, skv, d, causal, window = shape
+    q = torch.randn((b, hq, sq, d), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((b, hkv, skv, d), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((b, hkv, skv, d), generator=gen, device="cuda").to(dtype)
     if window:
-        pos = torch.arange(s, device="cuda")
-        mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
+        qp = torch.arange(sq, device="cuda")[:, None]
+        kp = torch.arange(skv, device="cuda")[None, :]
+        mask = (qp >= kp) & (qp - kp < window)
         library = lambda: F.scaled_dot_product_attention(  # noqa: E731
             q, k, v, attn_mask=mask, enable_gqa=True)
     else:
         library = lambda: F.scaled_dot_product_attention(  # noqa: E731
             q, k, v, is_causal=causal, enable_gqa=True)
-    flops = 4.0 * b * hq * d * _attention_pairs(s, s, causal, window)
-    byts = q.element_size() * (2 * b * hq * s * d + 2 * b * hkv * s * d)
+    flops = 4.0 * b * hq * d * _attention_pairs(sq, skv, causal, window)
+    byts = q.element_size() * (2 * b * hq * sq * d + 2 * b * hkv * skv * d)
     return (lambda: flash_attention_cuda(q, k, v, causal=causal, window=window),
             lambda: flash_attention_ref(q, k, v, causal=causal, window=window),
             lambda: checks.flash_attention_bound(q, k, v, causal=causal, window=window),
@@ -1801,7 +2214,7 @@ def model_kernels():
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--rehearse-cpu", action="store_true",
-                    help="run phases 4, 4b, 4c, 6, 7 and 8 at a tiny size on the CPU "
+                    help="run phases 4, 4b, 4c, 6, 7, 8 and 9 at a tiny size on the CPU "
                          "(exits 3)")
     if ap.parse_args().rehearse_cpu:
         from repro_torch.kernels import cuda_lib
@@ -1813,8 +2226,10 @@ def main():
         oracle_path(REHEARSAL_MODEL, "cpu")
         card_vs_cpu(REHEARSAL_MODEL, "cpu")
         recurrent_paths(REHEARSAL_MODEL, "cpu")
+        family_paths(REHEARSAL_MODEL, "cpu")
         log(f"rehearsal complete: {len(results) + len(results_4b) + len(results_4c)} "
-            "queries, the Oracle queries and the recurrent paths on the CPU (no result)")
+            "queries, the Oracle queries, the recurrent paths and the model families "
+            "on the CPU (no result)")
         sys.exit(3)
     if not torch.cuda.is_available():
         log("no CUDA card: nothing to measure")
@@ -1850,7 +2265,7 @@ def main():
         f"sim_topk, few-row kernels (<= {cuda_lib.FEW_ROWS} rows), selection":
             cuda_lib.lib().repro_topk_few_rows_smem_bytes(1)} | {
         f"flash_attention f32 d={d}": fsmem(0, d, 1, 1, 1, 1) for d in (64, 256)} | {
-        f"flash_attention bf16 {label}": fsmem(1, sh[4], sh[1], sh[2], sh[3], sh[3])
+        f"flash_attention bf16 {label}": fsmem(1, sh[5], sh[1], sh[2], sh[3], sh[4])
         for label, sh in FLASH_SHAPES.items()}}))
 
     from repro_torch.data import make_clustered_tables
@@ -1906,11 +2321,14 @@ def main():
     del ds, hot
     torch.cuda.empty_cache()
 
-    # phases 6-8: the Oracle path, the card against the CPU, the recurrent
-    # paths; counts set to 0 just before each path and read just after
+    # phases 6-9: the Oracle path, the card against the CPU, the recurrent
+    # paths, the model families; counts set to 0 just before each path and
+    # read just after
     paths = {"Oracle COUNT": oracle_path(FULL_MODEL, "cuda")}
     card_vs_cpu(FULL_MODEL, "cuda")
     paths.update(recurrent_paths(FULL_MODEL, "cuda"))
+    # phase 9: the MoE, VLM and encoder-decoder families, one model at a time
+    paths.update(family_paths(FULL_MODEL, "cuda"))
     main_path = {"flash_attention": "Oracle COUNT", "rwkv6_scan": "rwkv6-1.6b",
                  "rglru_scan": "recurrentgemma-9b"}
 

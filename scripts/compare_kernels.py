@@ -157,10 +157,10 @@ def flash_ms(cs, gen):
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 
     out = {}
-    for label, (bb, hq, hkv, s, d, causal, window) in cs.FLASH_SHAPES.items():
-        q = torch.randn((bb, hq, s, d), generator=gen, device="cuda").bfloat16()
-        k = torch.randn((bb, hkv, s, d), generator=gen, device="cuda").bfloat16()
-        v = torch.randn((bb, hkv, s, d), generator=gen, device="cuda").bfloat16()
+    for label, (bb, hq, hkv, sq, skv, d, causal, window) in cs.FLASH_SHAPES.items():
+        q = torch.randn((bb, hq, sq, d), generator=gen, device="cuda").bfloat16()
+        k = torch.randn((bb, hkv, skv, d), generator=gen, device="cuda").bfloat16()
+        v = torch.randn((bb, hkv, skv, d), generator=gen, device="cuda").bfloat16()
         out[label] = events_ms(lambda: flash_attention_cuda(
             q, k, v, causal=causal, window=window), 20)
     return out

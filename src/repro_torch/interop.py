@@ -18,9 +18,9 @@ from .models.config import ModelConfig
 from .models.model import Model
 
 # top-level keys of the reference tree whose leaves are stacked over layers
-# (``jax.vmap`` of the layer init): ``layers`` over depth, ``blocks`` over
-# the hybrid's pattern blocks
-STACKED = ("layers", "blocks")
+# (``jax.vmap`` of the layer init): ``layers`` over the decoder's depth,
+# ``enc`` over the encoder's, ``blocks`` over the hybrid's pattern blocks
+STACKED = ("layers", "enc", "blocks")
 
 
 def bas_config_from_dict(d: dict) -> BASConfig:
@@ -63,10 +63,13 @@ def _to_torch(arr) -> torch.Tensor:
 
 def params_from_jax(cfg: ModelConfig, tree: dict, device="cuda") -> Model:
     """The port's parameters (a :class:`~repro_torch.models.Model`) from the
-    reference's ``init_params`` tree with numpy leaves.  The stacked
-    ``layers`` / ``blocks`` leaves are split along their first axis into
-    ``layers.<i>.…`` / ``blocks.<i>.…``; ``tail`` is a list already.  Every
-    name and type must match: a missing, extra or retyped parameter raises."""
+    reference's ``init_params`` tree with numpy leaves, for every family.
+    The stacked ``layers`` / ``enc`` / ``blocks`` leaves are split along
+    their first axis into ``layers.<i>.…`` and so on (an MoE layer's
+    expert leaves (L, e, d, ff) into (e, d, ff) each); ``tail`` is a list
+    already; the others (``embed``, ``head``, ``ln_f``, ``ln_enc``,
+    ``patch_proj``) map by name.  Every name and type must match: a
+    missing, extra or retyped parameter raises."""
     dev = resolve_device(device)
     state = {}
     for name, leaf in _flatten(tree):

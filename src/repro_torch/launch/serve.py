@@ -10,7 +10,11 @@ the card by default::
 
 As in the reference launcher, the model is the architecture's reduced config
 (``get_smoke_config``) with the byte tokenizer's vocabulary and random
-weights (seed 0).
+weights (seed 0).  Decode takes every ``--arch``: it admits requests
+mid-flight where the cache is positional and in waves for the recurrent
+families.  Score takes every ``--arch`` but an encoder-decoder
+(``whisper-medium``): a pair is text only, so there are no frames to score
+it against, and the reference's score mode is not defined for it either.
 
 Index maintenance modes (no model; see ``repro_torch.core.index``)::
 
@@ -129,7 +133,10 @@ def _make_scorer(cfg, params, tok, records, batch_size: int, device):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="llama3.2-1b")
+    ap.add_argument("--arch", default="llama3.2-1b",
+                    help="any architecture of repro_torch.configs; --mode score "
+                         "is not defined for an encoder-decoder (whisper-medium): "
+                         "a pair is text only and has no frames")
     ap.add_argument("--mode", choices=("decode", "score", *INDEX_MODES,
                                        *NOT_PORTED),
                     default="decode")
@@ -180,6 +187,9 @@ def main(argv=None):
 
     tok = ByteTokenizer()
     cfg = get_smoke_config(args.arch, vocab_size=tok.vocab_size)
+    if args.mode == "score" and cfg.family == "encdec":
+        ap.error(f"--mode score is not defined for {args.arch}: an "
+                 "encoder-decoder needs frames, and a pair is text only")
     params = init_params(cfg, seed=0, device=args.device)
     print(f"[serve] {cfg.name} ({cfg.param_count()/1e6:.1f}M) mode={args.mode} "
           f"device={params.embed.device}")

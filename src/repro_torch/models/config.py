@@ -3,9 +3,9 @@
 A copy of the reference's ``models/config.py``: the port imports nothing of
 the reference.  One config per assigned architecture (see
 ``repro_torch.configs``); reduced configs drive the CPU tests, full configs
-run on the card (``chip_smoke.py``).  Fields of families or levers the port
-does not run yet (MoE, encoder-decoder, VLM, remat, the bf16 backward) are
-kept so that a config means the same thing in both packages.
+run on the card (``chip_smoke.py``).  Fields of levers the port does not
+run yet (remat, the bf16 backward: training is ROADMAP queue 1, item 11)
+are kept so that a config means the same thing in both packages.
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
-"""Model building blocks: norms, RoPE, GQA attention through the flash
-attention op, and SwiGLU/GeGLU MLPs (the reference's ``models/layers.py``).
+"""Model building blocks: norms, RoPE, GQA self- and cross-attention through
+the flash attention op, SwiGLU/GeGLU MLPs, and the MoE MLP with sort-based
+capacity dispatch (the reference's ``models/layers.py``).
 
 Parameters live in :class:`torch.nn.Module` holders whose attribute names are
 the reference's parameter keys (``wq``, ``w_gate``, ...), so a reference
@@ -114,15 +115,18 @@ class Attention(nn.Module):
             self.bv = param(full(gen, (nkv * hd,), 0.0, dt))
 
 
-def _qkv(p: Attention, cfg: ModelConfig, x):
-    """Project to (B, S, n, hd) heads."""
+def _qkv(p: Attention, cfg: ModelConfig, x, kv_x=None):
+    """Project to (B, S, n, hd) heads; keys and values from ``kv_x`` (B,
+    Skv, d) when given (cross-attention), else from ``x``."""
     b, s, _ = x.shape
-    q, k, v = x @ p.wq, x @ p.wk, x @ p.wv
+    kv_x = x if kv_x is None else kv_x
+    skv = kv_x.shape[1]
+    q, k, v = x @ p.wq, kv_x @ p.wk, kv_x @ p.wv
     if hasattr(p, "bq"):
         q, k, v = q + p.bq, k + p.bk, v + p.bv
     return (q.reshape(b, s, cfg.num_heads, cfg.head_dim),
-            k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim),
-            v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim))
+            k.reshape(b, skv, cfg.num_kv_heads, cfg.head_dim),
+            v.reshape(b, skv, cfg.num_kv_heads, cfg.head_dim))
 
 
 def _grouped_scores(q, k):
@@ -142,21 +146,24 @@ def _grouped_out(probs, v):
 
 
 def chunked_attention(p: Attention, cfg: ModelConfig, x, positions,
-                      causal: bool = True, window: int = 0,
-                      use_rope: bool = True):
-    """Full-sequence self-attention through the flash-attention op (K5 on
-    the card, its plain version on the CPU), in the kernel's (B, H, S, d)
-    layout.  The kernel masks by position counted from 0 in both q and k,
-    which is what ``positions`` is on the forward path (an ``arange``);
-    ``positions`` feeds RoPE.  The kernel computes P.V with f32 P (at bf16
-    on the tensor cores, each P as three exact bf16 terms) where the
-    reference casts the probabilities to the model type first, so at bf16
-    the two differ by bf16 rounding."""
+                      kv_x=None, kv_positions=None, causal: bool = True,
+                      window: int = 0, use_rope: bool = True):
+    """Full-sequence attention through the flash-attention op (K5 on the
+    card, its plain version on the CPU), in the kernel's layout: (B, Hq, S,
+    d) queries against (B, Hkv, Skv, d) keys and values, which come from
+    ``kv_x`` (cross-attention) or from ``x``.  The kernel masks by position
+    counted from 0 in both q and k, which is what ``positions`` and
+    ``kv_positions`` are on every forward path (an ``arange``); they feed
+    RoPE, which ``use_rope=False`` leaves out.  The kernel computes P.V with
+    f32 P (at bf16 on the tensor cores, each P as three exact bf16 terms)
+    where the reference casts the probabilities to the model type first, so
+    at bf16 the two differ by bf16 rounding."""
     b, s, _ = x.shape
-    q, k, v = (t.transpose(1, 2) for t in _qkv(p, cfg, x))
+    q, k, v = (t.transpose(1, 2) for t in _qkv(p, cfg, x, kv_x))
+    kv_positions = positions if kv_positions is None else kv_positions
     if use_rope:
         q = apply_rope(q, positions[:, None, :], cfg.rope_theta)
-        k = apply_rope(k, positions[:, None, :], cfg.rope_theta)
+        k = apply_rope(k, kv_positions[:, None, :], cfg.rope_theta)
     out = flash_attention(q, k, v, causal=causal, window=window)
     return out.transpose(1, 2).reshape(b, s, -1) @ p.wo
 
@@ -194,6 +201,47 @@ def decode_attention(p: Attention, cfg: ModelConfig, x, cache_k, cache_v,
     return out, cache_k, cache_v
 
 
+def ring_decode_attention(p: Attention, cfg: ModelConfig, x, k_cache, v_cache,
+                          position, w: int):
+    """Sliding-window decode over a ring-buffer cache of ``w`` slots (the
+    hybrid's local attention): this step's K/V go to slot ``position % w``,
+    and a slot is read while the absolute position it holds lies in
+    ``(position - w, position]``.  x: (B, 1, d); k/v_cache: (B, w, nkv,
+    hd), updated in place; position: one scalar for the batch (the ring
+    cannot be rewound per slot).  Returns out (B, 1, d)."""
+    b = x.shape[0]
+    q, k, v = _qkv(p, cfg, x)
+    position = torch.as_tensor(position, dtype=torch.int64, device=x.device)
+    if position.ndim:
+        raise ValueError("a ring-buffer cache takes one position for the whole batch")
+    pos = position.expand(b)[:, None]
+    q = apply_rope(q.transpose(1, 2), pos[:, None, :], cfg.rope_theta).transpose(1, 2)
+    k = apply_rope(k.transpose(1, 2), pos[:, None, :], cfg.rope_theta).transpose(1, 2)
+    slot = position % w
+    k_cache[:, slot] = k[:, 0].to(k_cache.dtype)
+    v_cache[:, slot] = v[:, 0].to(v_cache.dtype)
+    idx = torch.arange(w, device=x.device)
+    slot_pos = position - ((position - idx) % w)  # absolute position a slot holds
+    valid = (slot_pos <= position) & (slot_pos > position - w) & (slot_pos >= 0)
+    scores = _grouped_scores(q, k_cache) * cfg.head_dim**-0.5
+    scores = torch.where(valid, scores, torch.tensor(-1e30, device=x.device))
+    probs = torch.softmax(scores, dim=-1)
+    return _grouped_out(probs, v_cache).reshape(b, 1, -1) @ p.wo
+
+
+def cross_decode_attention(p: Attention, cfg: ModelConfig, x, xk, xv, n_valid: int):
+    """One decoder token's cross-attention over precomputed encoder K/V
+    (B, T, nkv, hd), of which the first ``n_valid`` frames are real and the
+    rest cache padding (masked).  x: (B, 1, d).  Returns out (B, 1, d)."""
+    b = x.shape[0]
+    q = (x @ p.wq).reshape(b, 1, cfg.num_heads, cfg.head_dim)
+    scores = _grouped_scores(q, xk) * cfg.head_dim**-0.5
+    valid = torch.arange(xk.shape[1], device=x.device) < n_valid
+    scores = torch.where(valid, scores, torch.tensor(-1e30, device=x.device))
+    probs = torch.softmax(scores, dim=-1)
+    return _grouped_out(probs, xv).reshape(b, 1, -1) @ p.wo
+
+
 # ----------------------------------------------------------------------------
 # MLPs
 # ----------------------------------------------------------------------------
@@ -226,3 +274,80 @@ def mlp(p: MLP, cfg: ModelConfig, x):
         act = F.silu if cfg.act == "silu" else gelu
         return (act(x @ p.w_gate) * (x @ p.w_up)) @ p.w_down
     return gelu(x @ p.w_up + p.b_up) @ p.w_down + p.b_down
+
+
+# ----------------------------------------------------------------------------
+# MoE: top-k routing + sort-based capacity dispatch (one group on one card)
+# ----------------------------------------------------------------------------
+
+class MoE(nn.Module):
+    """``moe_params``: an f32 router and stacked expert matrices."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator):
+        super().__init__()
+        dt = dtype_of(cfg)
+        d, ff, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+        self.router = param(dense_init(gen, (d, e), torch.float32))
+        self.w_gate = param(dense_init(gen, (e, d, ff), dt))
+        self.w_up = param(dense_init(gen, (e, d, ff), dt))
+        self.w_down = param(dense_init(gen, (e, ff, d), dt))
+
+
+def moe_capacity(cfg: ModelConfig, tokens: int) -> int:
+    """Slots per expert for ``tokens`` tokens: every token of the batch,
+    padding rows included, so a row's routing depends on its batch-mates."""
+    k, e = cfg.num_experts_per_tok, cfg.num_experts
+    return max(int(np.ceil(tokens * k / e * cfg.moe_capacity_factor)), 1)
+
+
+def moe_route(p: MoE, cfg: ModelConfig, xt):
+    """Routing of (T, d) tokens: the f32 router's softmax, its top k with
+    the weights normalised, and which (token, choice) pairs keep a slot.
+    Returns (top_e (T, k), top_w (T, k) f32, keep (T, k) bool, slot (T, k):
+    the row of the (E * cap) capacity buffer a kept pair takes).
+
+    Pairs are grouped by expert in the order of a stable argsort of the
+    flattened (T * k) choices, as ``jnp.argsort`` orders them; an expert's
+    pairs past its capacity are dropped in that order."""
+    t = xt.shape[0]
+    e, k = cfg.num_experts, cfg.num_experts_per_tok
+    probs = torch.softmax(xt.float() @ p.router, dim=-1)
+    top_w, top_e = torch.topk(probs, k, dim=-1)
+    top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
+    cap = moe_capacity(cfg, t)
+    flat_e = top_e.reshape(t * k)
+    order = torch.argsort(flat_e, stable=True)
+    e_sorted = flat_e[order]
+    start = torch.searchsorted(e_sorted, torch.arange(e, device=xt.device))
+    pos_in_e = torch.arange(t * k, device=xt.device) - start[e_sorted]
+    # back to (token, choice) order
+    pos = torch.empty_like(pos_in_e)
+    pos[order] = pos_in_e
+    keep = (pos < cap).reshape(t, k)
+    slot = (flat_e * cap + pos).reshape(t, k)
+    return top_e, top_w, keep, slot
+
+
+def moe_mlp(p: MoE, cfg: ModelConfig, x):
+    """x: (B, S, d).  Tokens go to their top-k experts through an (E, cap,
+    d) capacity buffer; overflow is dropped (Switch behaviour).  The expert
+    products are batched matmuls.  A token's k contributions are put back
+    in (token, choice) order and summed over k, so the same batch gives the
+    same bits on every run (no atomic scatter-add)."""
+    b, s, d = x.shape
+    e = cfg.num_experts
+    xt = x.reshape(b * s, d)
+    top_e, top_w, keep, slot = moe_route(p, cfg, xt)
+    cap = moe_capacity(cfg, b * s)
+    k = top_e.shape[1]
+    tok = torch.arange(b * s, device=x.device)[:, None].expand(-1, k)
+    buf = x.new_zeros((e * cap, d))
+    buf[slot[keep]] = xt[tok[keep]]
+    buf = buf.reshape(e, cap, d)
+    act = F.silu if cfg.act in ("silu", "geglu") else gelu
+    h = act(torch.bmm(buf, p.w_gate)) * torch.bmm(buf, p.w_up)
+    out_buf = torch.bmm(h, p.w_down).reshape(e * cap, d)
+    picked = out_buf[slot.clamp_max(e * cap - 1)]           # (T, k, d)
+    contrib = torch.where(keep[..., None], picked, picked.new_zeros(()))
+    contrib = contrib * top_w[..., None].to(x.dtype)
+    return contrib.sum(dim=1).reshape(b, s, d)

@@ -1,12 +1,16 @@
 """Recurrent sequence mixers: RWKV6 (Finch) time/channel mix and the RG-LRU
 (RecurrentGemma/Griffin) block (the reference's ``models/recurrent.py``).
 
-The full-sequence recurrences go through the scan ops, ``kernels.rwkv6_scan``
-(K6) and ``kernels.rglru_scan`` (K7), where the reference runs ``lax.scan``.
-Both kernels start from a zero state and return no final state, which is
-what ``forward`` needs: it starts every recurrent layer from zeros and
-discards the state.  Decode with a carried state (T = 1) is not ported yet
-(ROADMAP queue 1, item 10.3).
+The mixers take and return the reference's state: ``rwkv_time_mix`` the
+(B, H, hd, hd) f32 matrix ``s`` beside the token shift's last input,
+``rglru_mix`` the (B, r) f32 ``h`` beside the causal conv's last inputs.
+Given no state (``None``), a mixer runs the full sequence from zeros through
+its scan op, ``kernels.rwkv6_scan`` (K6) or ``kernels.rglru_scan`` (K7),
+where the reference runs ``lax.scan``; the kernels return no final state, so
+neither does the mixer (``forward`` discards it, as the reference's does).
+Given a state, it runs the recurrence's update step by step in plain torch,
+as the reference does in ``jnp`` for decode (T = 1): the kernels take no
+initial state.
 """
 from __future__ import annotations
 
@@ -62,10 +66,25 @@ def _token_shift(x, last):
     return torch.cat([last[:, None, :], x[:, :-1, :]], dim=1)
 
 
-def rwkv_time_mix(p: TimeMix, cfg: ModelConfig, x, last_x):
-    """RWKV6 attention substitute over a full sequence from a zero state.
+def _rwkv_steps(r, k, v, w, u, s):
+    """The RWKV6 recurrence from state ``s`` (B, H, hd, hd), f32, one step
+    at a time (the reference's ``step``).  r, k, v, w: (B, T, H, hd).
+    Returns (out (B, T, H, hd) f32, the final state)."""
+    outs = []
+    for t in range(r.shape[1]):
+        rt, kt, vt, wt = (z[:, t].float() for z in (r, k, v, w))
+        kv = kt[..., :, None] * vt[..., None, :]
+        outs.append(torch.einsum("bhk,bhkv->bhv", rt, s + u[None, :, :, None] * kv))
+        s = wt[..., :, None] * s + kv
+    return torch.stack(outs, dim=1), s
 
-    x: (B, T, d); last_x: (B, d).  Returns (out, new_last_x)."""
+
+def rwkv_time_mix(p: TimeMix, cfg: ModelConfig, x, state, last_x):
+    """RWKV6 attention substitute.
+
+    x: (B, T, d); state: (B, H, hd, hd) f32, or None for zeros (the full
+    sequence through K6, and no final state back); last_x: (B, d).
+    Returns (out, new_state, new_last_x)."""
     b, t, d = x.shape
     hd = cfg.rwkv_head_dim
     h = d // hd
@@ -80,18 +99,21 @@ def rwkv_time_mix(p: TimeMix, cfg: ModelConfig, x, last_x):
     g = F.silu(mix(p.mu_g) @ p.w_g)
     dec = p.decay_w0 + torch.tanh(mix(p.mu_w) @ p.decay_a) @ p.decay_b
     w = torch.exp(-torch.exp(dec.float())).reshape(b, t, h, hd)
-    # (B, H, T, hd) views of the (B, T, H, hd) projections, in the model's
-    # type: the kernel reads them through their strides and widens to f32,
-    # and writes its output in r's layout
-    out = rwkv6_scan(*(z.transpose(1, 2) for z in (r, k, v, w)), p.bonus_u)
-    out = out.transpose(1, 2)  # (B, T, H, hd)
+    if state is None:
+        # (B, H, T, hd) views of the (B, T, H, hd) projections, in the
+        # model's type: the kernel reads them through their strides, widens
+        # to f32, and writes its output in r's layout
+        out = rwkv6_scan(*(z.transpose(1, 2) for z in (r, k, v, w)), p.bonus_u)
+        out = out.transpose(1, 2)  # (B, T, H, hd)
+    else:
+        out, state = _rwkv_steps(r, k, v, w, p.bonus_u, state)
     # per-head group norm (ln_x), population variance as jnp.var
     mu_ = out.mean(-1, keepdim=True)
     var = out.var(-1, keepdim=True, correction=0)
     out = (out - mu_) * torch.rsqrt(var + 1e-5)
     out = out.reshape(b, t, d) * p.ln_x
     out = (out.to(x.dtype) * g) @ p.w_o
-    return out, x[:, -1, :]
+    return out, state, x[:, -1, :]
 
 
 def rwkv_channel_mix(p: ChannelMix, cfg: ModelConfig, x, last_x):
@@ -158,10 +180,12 @@ def _causal_conv(x, conv_w, conv_b, conv_state=None):
     return out + conv_b, new_state
 
 
-def rglru_mix(p: RGLRU, cfg: ModelConfig, x, conv_state):
-    """Griffin recurrent block over a full sequence from h = 0.
+def rglru_mix(p: RGLRU, cfg: ModelConfig, x, h0, conv_state):
+    """Griffin recurrent block.
 
-    x: (B, T, d); conv_state: (B, W-1, r).  Returns (out, new_conv_state)."""
+    x: (B, T, d); h0: (B, r) f32, or None for zeros (the full sequence
+    through K7, and no final h back); conv_state: (B, W-1, r), or None for
+    zeros.  Returns (out, h_T, new_conv_state)."""
     y = gelu(x @ p.w_y)
     u = x @ p.w_x
     u, conv_state = _causal_conv(u, p.conv_w, p.conv_b, conv_state)
@@ -172,8 +196,17 @@ def rglru_mix(p: RGLRU, cfg: ModelConfig, x, conv_state):
     gated = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12)) * (
         ig * u.float()
     )
-    hs = rglru_scan(a, gated).to(x.dtype)  # (B, T, r)
-    return (y * hs) @ p.w_o, conv_state
+    if h0 is None:
+        hs = rglru_scan(a, gated)  # (B, T, r) f32
+        h_t = None
+    else:
+        steps = []
+        h_t = h0
+        for t in range(x.shape[1]):
+            h_t = a[:, t] * h_t + gated[:, t]
+            steps.append(h_t)
+        hs = torch.stack(steps, dim=1)
+    return (y * hs.to(x.dtype)) @ p.w_o, h_t, conv_state
 
 
 def rglru_state_init(cfg: ModelConfig, batch: int, device):

@@ -12,8 +12,9 @@ forward runs at one of O(log max_len) shapes.  The reference's data-parallel
 ``mesh=`` path is not ported yet (ROADMAP queue 1, item 10.4).
 
 ContinuousBatcher — fixed B decode slots; finished sequences vacate their
-slot and queued requests are admitted mid-flight (per-slot positions), the
-standard serving pattern for mixed-length batches.
+slot and queued requests are admitted mid-flight (per-slot positions) where
+the cache is positional, and in waves where the model carries recurrent
+state.
 """
 from __future__ import annotations
 
@@ -144,12 +145,16 @@ class ContinuousBatcher:
     advance together each step; empty slots decode a pad token into a junk
     region that is never read.
 
-    The batcher passes **per-slot positions** to ``decode_step``, so a
-    queued request is admitted into any freed slot mid-flight — its position
-    rewinds to 0 and the per-slot causal mask keeps it from attending to the
-    previous occupant's stale KV entries.  That needs a positional cache
-    (the dense family); the reference's gated admission for recurrent state
-    comes with their decode (ROADMAP queue 1, item 10.3).
+    Admission: where ``cfg.has_positional_cache`` holds (dense, moe, vlm,
+    encdec) the batcher passes **per-slot positions** to ``decode_step``,
+    so a queued request is admitted into any freed slot mid-flight — its
+    position rewinds to 0 and the per-slot causal mask keeps it from
+    attending to the previous occupant's stale KV entries.  The recurrent
+    families (ssm, and the hybrid's ring buffer) carry state that cannot be
+    rewound per slot — and even an idle slot absorbs pad tokens into its
+    state every step — so admission is gated there: requests are admitted
+    only at step 0, and when every slot has drained the batcher resets the
+    cache and admits the next wave.
     """
 
     def __init__(self, cfg: ModelConfig, params: Model, batch_size: int = 4,
@@ -166,11 +171,22 @@ class ContinuousBatcher:
         self.prompt_left: list = [0] * batch_size
         self.queue: list = []
         self.finished: list = []
+        self.global_pos = 0
+        self.per_slot_pos = cfg.has_positional_cache
 
     def submit(self, req: Request):
         self.queue.append(req)
 
     def _admit(self):
+        if not self.per_slot_pos:
+            # gated admission (scalar position): recurrent state absorbs pad
+            # tokens even in idle slots, so only step 0 is safe; once
+            # everything drained, reset the cache and start a new wave
+            if self.queue and self.global_pos > 0 and all(s is None for s in self.slots):
+                self.cache = init_cache(self.cfg, self.b, self.max_len, self.device)
+                self.global_pos = 0
+            if self.global_pos != 0:
+                return
         for i in range(self.b):
             if self.slots[i] is None and self.queue:
                 req = self.queue.pop(0)
@@ -190,7 +206,10 @@ class ContinuousBatcher:
                 toks[i, 0] = req.prompt[consumed]
             else:
                 toks[i, 0] = req.out_tokens[-1] if req.out_tokens else self.eos_id
-        position = torch.from_numpy(np.minimum(self.pos, self.max_len - 1)).to(self.device)
+        if self.per_slot_pos:
+            position = torch.from_numpy(np.minimum(self.pos, self.max_len - 1)).to(self.device)
+        else:
+            position = self.global_pos
         logits, self.cache = decode_step(
             self.cfg, self.params, self.cache,
             torch.from_numpy(toks).to(self.device), position,
@@ -200,10 +219,11 @@ class ContinuousBatcher:
             if req is None:
                 continue
             self.pos[i] += 1
-            if self.pos[i] >= self.max_len:
+            if self.per_slot_pos and self.pos[i] >= self.max_len:
                 # positional cache capacity exhausted (possibly still
                 # mid-prompt): keep this step's token if we were generating,
-                # then terminate rather than clobber the last KV position
+                # then terminate rather than clobber the last KV position.
+                # Recurrent families have no positional capacity to exhaust.
                 if self.prompt_left[i] <= 1:
                     req.out_tokens.append(int(np.argmax(logits[i])))
                 req.done = True
@@ -221,6 +241,7 @@ class ContinuousBatcher:
                 req.done = True
                 self.finished.append(req)
                 self.slots[i] = None
+        self.global_pos += 1
 
     def run_until_done(self, max_steps: int = 10_000):
         while (any(s is not None for s in self.slots) or self.queue) and max_steps:

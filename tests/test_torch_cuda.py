@@ -553,6 +553,15 @@ FLASH_SHAPES = [
     (2, 4, 2, 33, 33, 16, False, 0),
     (1, 2, 1, 90, 90, 128, False, 17),
     (1, 2, 1, 90, 40, 16, False, 10),
+    # the model families' shapes (chip_smoke.py FLASH_SHAPES): olmoe's MHA
+    # and qwen3's 16:1 GQA at d 128, pixtral's 256 patches + 48 tokens,
+    # whisper's encoder over 1,500 frames and its cross-attention (48
+    # queries over 1,500 keys), neither causal; batches cut
+    (8, 16, 16, 48, 48, 128, True, 0),
+    (8, 64, 4, 48, 48, 128, True, 0),
+    (1, 32, 8, 304, 304, 128, True, 0),
+    (1, 16, 16, 1500, 1500, 64, False, 0),
+    (2, 16, 16, 48, 1500, 64, False, 0),
 ]
 
 
@@ -701,14 +710,32 @@ def test_model_kernel_launch_checks_raise(card):
         rglru_scan_cuda(a, a)
 
 
+def _family_batch(cfg, b, s, seed):
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32))}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+    if cfg.num_patches:
+        batch["patches"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.num_patches, cfg.d_model)).astype(np.float32))
+    return batch
+
+
 @pytest.mark.parametrize("arch,over,kernels", [
     ("joinml-oracle", {}, {"flash_attention"}),
     ("rwkv6-1.6b", {}, {"rwkv6_scan"}),
     ("recurrentgemma-9b", {"num_layers": 5}, {"rglru_scan", "flash_attention"}),
+    ("olmoe-1b-7b", {}, {"flash_attention"}),
+    ("qwen3-moe-235b-a22b", {}, {"flash_attention"}),
+    ("whisper-medium", {}, {"flash_attention"}),
+    ("pixtral-12b", {}, {"flash_attention"}),
 ])
 def test_forward_on_card_matches_cpu(card, arch, over, kernels):
     """The reduced models at f32: the card's forward (through the kernels)
-    against the CPU's (through their plain versions)."""
+    against the CPU's (through their plain versions); whisper with its
+    frames, pixtral with its patches."""
     import copy
 
     from repro_torch.configs import get_smoke_config
@@ -716,12 +743,37 @@ def test_forward_on_card_matches_cpu(card, arch, over, kernels):
 
     cfg = get_smoke_config(arch, dtype="float32", **over)
     params = init_params(cfg, seed=1, device="cpu")
-    tokens = torch.from_numpy(
-        np.random.default_rng(2).integers(0, cfg.vocab_size, (3, 45)).astype(np.int32))
-    want = forward(cfg, params, {"tokens": tokens})
+    batch = _family_batch(cfg, 3, 45, seed=2)
+    want = forward(cfg, params, batch)
     cuda_lib.reset_launches()
-    got = forward(cfg, copy.deepcopy(params).to(card), {"tokens": tokens})
+    got = forward(cfg, copy.deepcopy(params).to(card), batch)
     torch.cuda.synchronize()
     assert {k for k, n in cuda_lib.LAUNCHES.items() if n} == kernels
     err = float((got.cpu() - want).abs().max())
     assert err <= 2e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("arch,over", [
+    ("olmoe-1b-7b", {}), ("rwkv6-1.6b", {}), ("recurrentgemma-9b", {"num_layers": 5}),
+    ("whisper-medium", {}), ("pixtral-12b", {}),
+])
+def test_decode_on_card_matches_cpu(card, arch, over):
+    """The reduced models at f32: eight decode steps on the card (the
+    carried states, ring buffers and cross-attention in plain torch there
+    too) against the same steps on the CPU, within 2e-5 of the largest
+    |logit|."""
+    import copy
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import decode_step, init_cache, init_params
+
+    cfg = get_smoke_config(arch, dtype="float32", **over)
+    params = init_params(cfg, seed=1, device="cpu")
+    on_card = copy.deepcopy(params).to(card)
+    tokens = _family_batch(cfg, 3, 8, seed=3)["tokens"]
+    cpu_cache = init_cache(cfg, 3, 8, device="cpu")
+    card_cache = init_cache(cfg, 3, 8, device=card)
+    for t in range(8):
+        want, cpu_cache = decode_step(cfg, params, cpu_cache, tokens[:, t:t + 1], t)
+        got, card_cache = decode_step(cfg, on_card, card_cache, tokens[:, t:t + 1], t)
+        assert float((got.cpu() - want).abs().max()) <= 2e-5 * float(want.abs().max())

@@ -1,5 +1,6 @@
 """The port stands alone: importing ``repro_torch``, running queries (BAS,
-the cascade, a baseline), scoring pairs with the Oracle model, and building,
+the cascade, a baseline), scoring pairs with the Oracle model, an MoE
+forward and an encoder-decoder decode step, and building,
 saving, loading, appending to and querying through a stratification index
 load neither JAX nor the reference package, and its entry points run on
 the card unless the caller asks for the CPU."""
@@ -56,9 +57,14 @@ scorer = PairScorer(mcfg, init_params(mcfg, device="cpu"), tok_pair, tok.YES,
 run_auto(Query(spec=ds.spec(), agg=Agg.COUNT, oracle=ModelOracle(scorer),
                budget=200), cfg, device="cpu")
 assert scorer.pairs_scored > 0
-for arch in ("rwkv6-1.6b", "recurrentgemma-9b"):
+for arch in ("rwkv6-1.6b", "recurrentgemma-9b", "olmoe-1b-7b"):
     c = get_smoke_config(arch)
     forward(c, init_params(c, device="cpu"), {"tokens": [[1, 2, 3]]})
+from repro_torch.models import decode_step, init_cache
+
+c = get_smoke_config("whisper-medium")
+p = init_params(c, device="cpu")
+decode_step(c, p, init_cache(c, 1, 4, device="cpu"), [[1]], 0)
 import tempfile
 from repro_torch.checkpoint.index_io import load_index, save_index
 from repro_torch.core import IndexStore, append_rows, build_index

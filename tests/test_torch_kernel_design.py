@@ -107,11 +107,16 @@ def test_split3_is_exact():
 
 
 @pytest.mark.parametrize("label", ["joinml-oracle path", "recurrentgemma-9b path",
+                                   "olmoe-1b-7b path", "qwen3-moe heads path",
+                                   "pixtral-12b, 256 patches + 48 tokens",
+                                   "whisper-medium encoder",
+                                   "whisper-medium cross-attention",
                                    "joinml-oracle, 16-token bucket"])
 def test_flash_bf16_emulation_holds_the_rule_at_path_shapes(label):
-    _, hq, hkv, s, d, causal, window = _chip_smoke().FLASH_SHAPES[label]
-    rng = np.random.default_rng(s + d)
-    q, k, v = (_bf16(rng, (2, h, s, d)) for h in (hq, hkv, hkv))
+    _, hq, hkv, sq, skv, d, causal, window = _chip_smoke().FLASH_SHAPES[label]
+    rng = np.random.default_rng(sq + d)
+    q = _bf16(rng, (2, hq, sq, d))
+    k, v = (_bf16(rng, (2, hkv, skv, d)) for _ in range(2))
     got = emulate_flash_bf16(q, k, v, causal, window)
     res = checks.check_model_kernel(
         got, flash_attention_ref(q, k, v, causal=causal, window=window),
@@ -122,7 +127,7 @@ def test_flash_bf16_emulation_holds_the_rule_at_path_shapes(label):
 @pytest.mark.parametrize("label", ["llama3.2-1b heads, S 4096",
                                    "recurrentgemma heads, S 4096, window 2048"])
 def test_flash_bf16_emulation_holds_the_rule_at_long_shapes(label):
-    _, hq, hkv, s, d, causal, window = _chip_smoke().FLASH_SHAPES[label]
+    _, hq, hkv, s, skv, d, causal, window = _chip_smoke().FLASH_SHAPES[label]
     rng = np.random.default_rng(s + d)
     q, k, v = (_bf16(rng, (2, h, s, d)) for h in (hq, hkv, hkv))
     for h in (0, hq - 1):

@@ -113,6 +113,67 @@ def test_continuous_batcher_matches_reference():
     assert got == want and len(got) == 5
 
 
+def _tiny_decode_cfgs(arch):
+    """The reference's ``_tiny_decode_cfg`` (``tests/test_oracle_batch.py``)
+    in both packages, at f32, with the same parameters."""
+    over = dict(remat=False, num_layers=1, d_model=32, num_heads=2, num_kv_heads=2,
+                head_dim=16, d_ff=64, vocab_size=64, dtype="float32")
+    rcfg = jax_smoke_config(arch, **over)
+    rparams = jax_init_params(rcfg, jax.random.key(0))
+    cfg = get_smoke_config(arch, **over)
+    return rcfg, rparams, cfg, params_from_jax(cfg, jax.tree.map(np.asarray, rparams),
+                                               device="cpu")
+
+
+def test_continuous_batcher_gated_admission_recurrent():
+    """The mirror of the reference's test of the same name: a recurrent
+    family cannot rewind per-slot state, so admission is gated — the late
+    request waits for the drain and the reset and decodes exactly as it does
+    alone — and every request's tokens equal the reference batcher's."""
+    rcfg, rparams, cfg, params = _tiny_decode_cfgs("rwkv6-1.6b")
+    assert cfg.family == "ssm"
+    rng = np.random.default_rng(2)
+    pa = rng.integers(7, 60, size=5).astype(np.int32)
+    pb = rng.integers(7, 60, size=3).astype(np.int32)
+
+    def run(batcher_cls, request_cls, c, p, **kw):
+        cb = batcher_cls(c, p, batch_size=2, max_len=64, eos_id=1, **kw)
+        assert not cb.per_slot_pos
+        cb.submit(request_cls(uid=0, prompt=pa, max_new_tokens=3))
+        cb.step()                      # wave 1 started: only request A on board
+        cb.submit(request_cls(uid=1, prompt=pb, max_new_tokens=3))
+        assert cb.global_pos > 0
+        done = cb.run_until_done(max_steps=200)
+        assert len(done) == 2
+        return {r.uid: r.out_tokens for r in done}
+
+    got = run(ContinuousBatcher, Request, cfg, params, device="cpu")
+    solo = ContinuousBatcher(cfg, params, batch_size=2, max_len=64, eos_id=1, device="cpu")
+    solo.submit(Request(uid=1, prompt=pb, max_new_tokens=3))
+    assert got[1] == solo.run_until_done(max_steps=100)[0].out_tokens
+    assert got == run(JaxBatcher, JaxRequest, rcfg, rparams)
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "recurrentgemma-9b", "whisper-medium",
+                                  "pixtral-12b"])
+def test_continuous_batcher_serves_every_family(arch):
+    """Three requests through two slots: mid-flight admission where the
+    cache is positional (moe, encdec, vlm), waves for the hybrid; every
+    request's greedy tokens equal the reference batcher's."""
+    rcfg, rparams, cfg, params = _tiny_decode_cfgs(arch)
+    rcb = JaxBatcher(rcfg, rparams, batch_size=2, max_len=32, eos_id=1)
+    cb = ContinuousBatcher(cfg, params, batch_size=2, max_len=32, eos_id=1, device="cpu")
+    assert cb.per_slot_pos == rcb.per_slot_pos == (arch != "recurrentgemma-9b")
+    rng = np.random.default_rng(4)
+    for i in range(3):
+        prompt = rng.integers(7, 60, size=3 + 2 * i).astype(np.int32)
+        rcb.submit(JaxRequest(uid=i, prompt=prompt, max_new_tokens=2 + i))
+        cb.submit(Request(uid=i, prompt=prompt, max_new_tokens=2 + i))
+    want = {r.uid: r.out_tokens for r in rcb.run_until_done()}
+    got = {r.uid: r.out_tokens for r in cb.run_until_done()}
+    assert got == want and len(got) == 3
+
+
 def _threshold(probs: np.ndarray) -> float:
     """The midpoint of the widest gap between sorted probabilities in their
     middle half: a threshold no f32 difference can move a label across."""
@@ -175,6 +236,28 @@ def test_launcher_scores_on_the_cpu_and_names_what_is_missing(capsys):
     assert "scored 8 pairs" in capsys.readouterr().out
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 9"):
         main(["--mode", "service", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "rwkv6-1.6b", "recurrentgemma-9b",
+                                  "whisper-medium", "pixtral-12b"])
+def test_launcher_decodes_and_scores_every_family(arch, capsys):
+    """``--mode decode`` for every family on the CPU, and ``--mode score``
+    for every family but the encoder-decoder, which the launcher refuses
+    (a pair is text only: there are no frames to score it against)."""
+    from repro_torch.launch.serve import main
+
+    main(["--arch", arch, "--mode", "decode", "--requests", "3", "--max-new", "2",
+          "--device", "cpu"])
+    assert "3 requests, 6 tokens" in capsys.readouterr().out
+    score = ["--arch", arch, "--mode", "score", "--pairs", "5", "--device", "cpu"]
+    if arch == "whisper-medium":
+        with pytest.raises(SystemExit) as exc:
+            main(score)
+        assert exc.value.code == 2
+        assert "--mode score is not defined for whisper-medium" in capsys.readouterr().err
+    else:
+        main(score)
+        assert "scored 5 pairs" in capsys.readouterr().out
 
 
 def test_oracle_path_pairs_fill_the_48_token_bucket():
