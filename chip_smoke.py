@@ -67,18 +67,35 @@ every token of a batch), and 4 requests through ``ContinuousBatcher``;
 seeded patches before a 48-token prompt, batch 4; and the full
 ``whisper-medium``'s forward over (4, 1,500) seeded frames and a 48-token
 prompt, then 16 decode steps.  Flash attention is also checked and timed at
-those models' shapes (phase 3).  Launch counts are set to 0 just before
-each path (4; 4b's query path, dense baselines and Oracle cascade; 6; 8;
-each of 9's, where olmoe's path is the COUNT's ``execute`` and its timed
-scoring and batcher are counted apart) and read just after it; in 4c, just before each of the index
+those models' shapes (phase 3); (10) the serving plane: (10a) eight
+concurrent BaS COUNT queries (seeds 0-7) whose Oracle is phase 6's
+(``ModelOracle(..., name="joinml-oracle")``) through one ``OracleService``
+with a ``LabelStore``, each equal to its serial run bit for bit, the summed
+charge equal to the store's unique misses, then the store saved at close
+serving two of the queries through a restarted service with no backend
+row; (10b) the launcher's ``worker`` and ``server`` modes as subprocesses
+on 127.0.0.1 serving that Oracle (port 0, the bound addresses read from
+their output), four ``RemoteOracle`` queries equal to 10a's serial runs,
+the front's remote shards read from one scrape of ``--metrics-port``, the
+``client`` and ``service`` modes run to their end, and the server killed
+between two flushes of one query and restarted on its port, the query
+charged once; (10c, run after 4c while phase 4's tables are resident) four
+concurrent ``run_auto`` COUNTs through one
+``OracleService(index_store=IndexStore(...))``: one fp32 build sweep,
+three index hits, each estimate equal to 4c's warm COUNT.  Launch counts
+are set to 0 just before each path (4; 4b's query path, dense baselines
+and Oracle cascade; 6; 8; each of 9's, where olmoe's path is the COUNT's
+``execute`` and its timed scoring and batcher are counted apart; 10a's
+served queries; 10c's queries; 10b's launches happen in its subprocesses)
+and read just after it; in 4c, just before each of the index
 path's own calls (its builds, queries and appends, not the rebuilds and
 kernel checks they are held against) and read just after it.
 
 Any failed phase exits non-zero.  The last lines are one JSON object of
 kernels, the card's name and power limit, and ``{"ok": true, ...}``.
 Without a card (or without the repository beside it) it exits non-zero and
-prints no result.  The rehearsal runs phases 4, 4b, 4c, 6, 7, 8 and 9 at a
-tiny size on the CPU and exits 3.
+prints no result.  The rehearsal runs phases 4, 4b, 4c, 6, 7, 8, 9 and 10
+at a tiny size on the CPU and exits 3.
 """
 import argparse
 import collections
@@ -2210,11 +2227,455 @@ def model_kernels():
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the serving plane
+# ---------------------------------------------------------------------------
+
+SERVED_QUERIES = 8     # 10a's concurrent BaS COUNT queries, seeds 0-7
+REMOTE_QUERIES = 4     # 10b's RemoteOracle queries, seeds 0-3
+SERVE_WAIT_MS = 8.0    # the service's window timer, as the launcher sets it
+SERVE_BOUND_S = 600.0  # every wait of phase 10 on a query, a process or a line
+ORACLE_NAME = "joinml-oracle"
+
+
+def _count(spec, oracle, budget):
+    from repro_torch.core import Agg, Query
+
+    return Query(spec=spec, agg=Agg.COUNT, oracle=oracle, budget=budget)
+
+
+def _equal_runs(name, got, want, got_calls, want_calls):
+    """Served equals serial: the estimate, the CI and ``calls``, bit for
+    bit."""
+    if (got.estimate != want.estimate or got.ci.lo != want.ci.lo
+            or got.ci.hi != want.ci.hi or got_calls != want_calls):
+        fail(f"{name}: ({got.estimate!r}, [{got.ci.lo!r}, {got.ci.hi!r}], "
+             f"{got_calls}) differs from the serial run ({want.estimate!r}, "
+             f"[{want.ci.lo!r}, {want.ci.hi!r}], {want_calls})")
+
+
+def _served(svc, oracles, seeds, spec, budget, device, lat=None):
+    """One BaS COUNT per (oracle, seed), concurrently through ``svc``; each
+    query detaches its oracle when it ends.  ``lat`` gets each query's wall
+    seconds."""
+    from repro_torch.core import run_bas
+    from repro_torch.serve import serve_queries
+
+    svc.attach(*oracles)
+
+    def job(i):
+        t0 = time.perf_counter()
+        try:
+            return run_bas(_count(spec, oracles[i], budget), seed=seeds[i],
+                           device=device)
+        finally:
+            if lat is not None:
+                lat[i] = time.perf_counter() - t0
+            svc.detach(oracles[i])
+
+    return serve_queries(svc, [lambda i=i: job(i) for i in range(len(seeds))],
+                         timeout=SERVE_BOUND_S)
+
+
+def serving_in_process(size, device):
+    """Phase 10a: eight concurrent BaS COUNT queries (seeds 0-7) whose
+    Oracle is phase 6's scorer (``ModelOracle(..., name="joinml-oracle")``)
+    through one ``OracleService(workers=1, max_wait_ms=8)`` with a
+    ``LabelStore``, each equal to its serial run bit for bit; the summed
+    charge equals the store's unique misses.  Launch counts are set to 0
+    just before the served run and read just after.  Then the store, saved
+    under its root at close, serves two of the queries again through a
+    restarted service with no backend row.  Returns what 10b needs."""
+    import shutil as _shutil
+
+    from repro_torch.core import JoinSpec, ModelOracle, run_bas
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.serve import LabelStore, OracleService
+
+    t0 = time.perf_counter()
+    cfg, timed, thr, _, left, right, _, params = oracle_setup(size, device)
+    scorer = timed.scorer
+    spec = JoinSpec([trigram_embeddings(left, EMBED_D),
+                     trigram_embeddings(right, EMBED_D)])
+    log(f"phase 10a set-up: {time.perf_counter() - t0:.1f} s")
+
+    def named():
+        return ModelOracle(scorer, thr, name=ORACLE_NAME)
+
+    seeds = list(range(SERVED_QUERIES))
+    serial = []
+    sync(device)
+    t0 = time.perf_counter()
+    for s in seeds:
+        o = named()
+        serial.append((run_bas(_count(spec, o, size.budget), seed=s, device=device),
+                       o.calls))
+    sync(device)
+    serial_s = time.perf_counter() - t0
+
+    root = os.path.join(HERE, "build", "serving_smoke", "labels")
+    _shutil.rmtree(root, ignore_errors=True)
+    store = LabelStore(root=root)
+    oracles = [named() for _ in seeds]
+    lat = [0.0] * len(seeds)
+    rows0 = scorer.pairs_scored
+    with OracleService(workers=1, max_wait_ms=SERVE_WAIT_MS, label_store=store) as svc:
+        cuda_lib.reset_launches()
+        sync(device)
+        t0 = time.perf_counter()
+        results = _served(svc, oracles, seeds, spec, size.budget, device, lat)
+        sync(device)
+        wall = time.perf_counter() - t0
+        launches = dict(cuda_lib.LAUNCHES)
+        stats, snap = svc.stats(), svc.snapshot()
+    backend_rows = scorer.pairs_scored - rows0
+    for s, got, o, (want, calls) in zip(seeds, results, oracles, serial):
+        _equal_runs(f"served COUNT seed {s}", got, want, o.calls, calls)
+    charged = sum(o.charged for o in oracles)
+    labels = sum(o.calls for o in oracles)
+    log(json.dumps({
+        "path": "phase 10a: served COUNT", "model": cfg.name, "layers": cfg.num_layers,
+        "queries": len(seeds), "budget": size.budget, "threshold": thr,
+        "estimates": [r.estimate for r in results], "calls": [o.calls for o in oracles],
+        "charged": charged, "store_misses": stats["store_misses"],
+        "store_hits": sum(o.store_hits for o in oracles),
+        "store": {k: stats[k] for k in ("store_hits", "store_shared", "store_misses",
+                                        "store_entries", "store_hit_rate")},
+        "windows": stats["windows"], "segments": stats["segments"],
+        "segments_per_window": stats["segments_per_window"],
+        "window_fill_ratio": stats["window_fill_ratio"],
+        "window_dedup_ratio": stats["window_dedup_ratio"],
+        "backend_calls": stats["backend_calls"], "backend_rows": backend_rows,
+        "wall_s": wall, "serial_wall_s": serial_s, "labels": labels,
+        "labels_per_s": labels / wall,
+        "query_latency_s": {"p50": float(np.quantile(lat, 0.5)),
+                            "p99": float(np.quantile(lat, 0.99))},
+        "flush_rate_rows_per_s": snap.get("service.rate_rows_per_s"),
+        "launches": launches}))
+    if charged != stats["store_misses"] or backend_rows != charged:
+        fail(f"charge-once: {charged} charged, {stats['store_misses']} store misses, "
+             f"{backend_rows} rows scored")
+    if stats["windows"] >= stats["segments"]:
+        fail("the served queries' flushes never shared a window")
+    if device == "cuda" and launches.get("flash_attention", 0) <= 0:
+        fail("flash_attention was not launched on the served path")
+
+    # restart: the store saved at close serves two queries with no backend row
+    rows0 = scorer.pairs_scored
+    again = [named() for _ in range(2)]
+    revived = LabelStore(root=root)
+    with OracleService(workers=1, max_wait_ms=SERVE_WAIT_MS, label_store=revived) as svc:
+        res2 = _served(svc, again, seeds[:2], spec, size.budget, device)
+        stats2 = svc.stats()
+    for s, got, o, (want, calls) in zip(seeds, res2, again, serial):
+        _equal_runs(f"restarted COUNT seed {s}", got, want, o.calls, calls)
+    log(json.dumps({"check": "phase 10a: restart from the saved store",
+                    "segments_loaded": revived.loads,
+                    "backend_rows": scorer.pairs_scored - rows0,
+                    "rows_labelled": stats2["rows_labelled"],
+                    "charged": [o.charged for o in again],
+                    "store_hits": [o.store_hits for o in again]}))
+    if (revived.loads != 1 or scorer.pairs_scored != rows0 or stats2["rows_labelled"]
+            or any(o.charged or o.store_hits != o.calls for o in again)):
+        fail("the restarted service did not serve the queries from the saved store")
+    return dict(cfg=cfg, scorer=scorer, params=params, thr=thr, spec=spec, left=left,
+                right=right, serial=serial, launches=launches)
+
+
+def _launcher(argv, device):
+    """``repro_torch.launch.serve`` as a subprocess (``--arch
+    joinml-oracle``); its output on a pipe."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "joinml-oracle",
+         "--device", device, *argv],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=HERE, env=env)
+
+
+def _read_address(name, proc, seen):
+    """Read ``proc``'s output until its ``listening on host:port`` line,
+    within ``SERVE_BOUND_S``; every line read is kept in ``seen``."""
+    import re
+    import selectors
+
+    sel = selectors.DefaultSelector()
+    sel.register(proc.stdout, selectors.EVENT_READ)
+    end = time.monotonic() + SERVE_BOUND_S
+    try:
+        while sel.select(timeout=max(end - time.monotonic(), 0.0)):
+            line = proc.stdout.readline()
+            if not line:
+                break
+            seen.append(line)
+            m = re.search(r"listening on ([0-9.]+):(\d+)", line)
+            if m:
+                return (m.group(1), int(m.group(2)))
+    finally:
+        sel.close()
+    fail(f"{name} printed no bound address:\n{''.join(seen)[-3000:]}")
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _scrape(port):
+    """One GET of the OpenMetrics endpoint: its samples by name."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("GET", "/metrics")
+        resp = conn.getresponse()
+        body = resp.read().decode()
+        ctype = resp.getheader("Content-Type")
+    finally:
+        conn.close()
+    if resp.status != 200 or not ctype.startswith("application/openmetrics-text") \
+            or not body.rstrip().endswith("# EOF"):
+        fail(f"the metrics scrape returned {resp.status} {ctype}")
+    return {ln.split(" ")[0]: float(ln.split(" ")[1]) for ln in body.splitlines()
+            if ln and not ln.startswith("#")}
+
+
+def _stop(name, proc, seen, terminate=True):
+    """Stop a launcher subprocess and collect its output: a serving role is
+    sent SIGTERM (it prints its shutdown lines and exits 0); otherwise
+    (``terminate`` false) the process is waited for, within the bound."""
+    if terminate and proc.poll() is None:
+        proc.terminate()
+    try:
+        out = proc.communicate(timeout=SERVE_BOUND_S)[0]
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out = proc.communicate()[0]
+        fail(f"{name} did not stop:\n{(''.join(seen) + out)[-3000:]}")
+    return "".join(seen) + out
+
+
+def serving_fleet(size, device, served):
+    """Phase 10b: the launcher's fleet modes as subprocesses on 127.0.0.1,
+    each serving phase 10a's Oracle (the same model, seed, tables,
+    threshold and batch).  ``--mode worker --port 0`` and ``--mode server
+    --port 0 --worker-hosts <worker>`` print their bound addresses; four
+    ``RemoteOracle`` queries here equal 10a's serial runs bit for bit and
+    the front reports remote shards; ``--mode client`` runs to its end;
+    one scrape of ``--metrics-port``; the server is killed between two
+    flushes of one query and restarted on its port, and the query ends
+    with no label charged twice; ``--mode service`` exits 0."""
+    import shutil as _shutil
+
+    from repro_torch.core import ModelOracle, OracleBatch, run_bas
+    from repro_torch.serve import RemoteOracle, serve_queries
+
+    work = os.path.join(HERE, "build", "serving_smoke")
+    os.makedirs(work, exist_ok=True)
+    records = os.path.join(work, "records.json")
+    with open(records, "w") as f:
+        json.dump({"left": served["left"], "right": served["right"]}, f)
+    serve_args = ["--records", records, "--threshold", repr(served["thr"]),
+                  "--score-batch", str(size.batch), "--group", ORACLE_NAME]
+    if size.full:
+        serve_args.append("--full-width")
+    metrics_port = _free_port()
+    t0 = time.perf_counter()
+    lines = {"worker": [], "server": []}
+    service = _launcher(["--mode", "service", "--queries", "4", "--budget", "300",
+                         "--label-store-mb", "64", "--tracker", "memory"], device)
+    worker = _launcher(["--mode", "worker", "--port", "0", *serve_args], device)
+    server = client = None
+    try:
+        w_addr = _read_address("the worker", worker, lines["worker"])
+        server_args = ["--mode", "server", "--worker-hosts", f"{w_addr[0]}:{w_addr[1]}",
+                       "--label-store-mb", "256", *serve_args]
+        server = _launcher([*server_args, "--port", "0", "--metrics-port",
+                            str(metrics_port)], device)
+        s_addr = _read_address("the server", server, lines["server"])
+        startup_s = time.perf_counter() - t0
+        client = _launcher(
+            ["--mode", "client", "--connect", f"{s_addr[0]}:{s_addr[1]}",
+             "--group", ORACLE_NAME, "--queries", "4", "--budget", "300",
+             "--n-side", str(min(48, len(served["left"]), len(served["right"])))],
+            device)
+
+        # four remote queries against the front, as 10a's serial runs
+        oracles = [RemoteOracle(s_addr, ORACLE_NAME, timeout_s=SERVE_BOUND_S)
+                   for _ in range(REMOTE_QUERIES)]
+        seeds = list(range(REMOTE_QUERIES))
+
+        def job(i):
+            try:
+                return run_bas(_count(served["spec"], oracles[i], size.budget),
+                               seed=seeds[i], device=device)
+            finally:
+                oracles[i].close()
+
+        t1 = time.perf_counter()
+        remote = serve_queries(None, [lambda i=i: job(i) for i in seeds],
+                               timeout=SERVE_BOUND_S)
+        remote_s = time.perf_counter() - t1
+        for s, got, o in zip(seeds, remote, oracles):
+            want, calls = served["serial"][s]
+            _equal_runs(f"remote COUNT seed {s}", got, want, o.calls, calls)
+        metrics = _scrape(metrics_port)
+        try:
+            client_out = client.communicate(timeout=SERVE_BOUND_S)[0]
+        except subprocess.TimeoutExpired:
+            client.kill()
+            fail("--mode client did not finish")
+        if client.returncode != 0 or client_out.count("estimate=") != 4:
+            fail(f"--mode client exited {client.returncode}:\n{client_out[-3000:]}")
+        shards = metrics.get("repro_service_remote_shards", 0.0)
+        windows = metrics.get("repro_service_windows", 0.0)
+        log(json.dumps({
+            "path": "phase 10b: the TCP fleet", "startup_s": startup_s,
+            "worker": f"{w_addr[0]}:{w_addr[1]}", "server": f"{s_addr[0]}:{s_addr[1]}",
+            "remote_queries": len(seeds), "remote_wall_s": remote_s,
+            "estimates": [r.estimate for r in remote],
+            "labels_per_s": sum(o.calls for o in oracles) / remote_s,
+            "scrape": {k: v for k, v in metrics.items() if k in (
+                "repro_service_windows", "repro_service_segments",
+                "repro_service_remote_shards", "repro_service_remote_failures",
+                "repro_service_rows_labelled", "repro_service_window_fill_ratio",
+                "repro_label_store_hits", "repro_label_store_misses")},
+            "client": [ln for ln in client_out.splitlines() if "[client]" in ln][:1]}))
+        # the front shards a window of 2 x min_shard (256, the reference's
+        # default) rows or more: the full run's windows are that large, the
+        # rehearsal's small queries' windows need not be
+        if windows <= 0 or (size.full and shards <= 0):
+            fail(f"the front shows {shards} remote shards over {windows} windows")
+
+        # the server killed between two flushes of one query, then restarted
+        o = RemoteOracle(s_addr, ORACLE_NAME, timeout_s=SERVE_BOUND_S, retries=8,
+                         max_backoff_s=1.0)
+        local = ModelOracle(served["scorer"], served["thr"])
+        n_right = len(served["right"])
+        o.bind_sizes((len(served["left"]), n_right))
+        o.set_budget(5)
+        # matches and non-matches: flush 2 repeats one pair of flush 1
+        probe = _all_pairs(8, n_right)
+        probe_labels = ModelOracle(served["scorer"], served["thr"]).label(probe)
+        pos, neg = probe[probe_labels == 1], probe[probe_labels == 0]
+        first, second = np.stack([pos[0], neg[0]]), np.stack([neg[0], pos[1], neg[1]])
+        batch = OracleBatch(o)
+        h1 = batch.submit(first)
+        batch.flush_async().result(timeout=SERVE_BOUND_S)
+        server.kill()
+        lines["server"].append(server.communicate(timeout=SERVE_BOUND_S)[0])
+        t1 = time.perf_counter()
+        server = _launcher([*server_args, "--port", str(s_addr[1])], device)
+        lines["restarted"] = []
+        if _read_address("the restarted server", server, lines["restarted"]) != s_addr:
+            fail("the server did not come back on its port")
+        restart_s = time.perf_counter() - t1
+        h2 = batch.submit(second)
+        batch.flush_async().result(timeout=SERVE_BOUND_S)
+        o.close()
+        want1, want2 = local.label(first), local.label(second)
+        log(json.dumps({"check": "phase 10b: server killed between two flushes",
+                        "restart_s": restart_s, "reconnects": o.conn.reconnects,
+                        "calls": o.calls, "requests": o.requests,
+                        "labels": [h1.labels.tolist(), h2.labels.tolist()]}))
+        if (not np.array_equal(h1.labels, want1) or not np.array_equal(h2.labels, want2)
+                or o.conn.reconnects < 1 or (o.calls, o.requests) != (4, 5)
+                or o.remaining != 1):
+            fail("the query across the server's restart was charged twice or "
+                 "labelled otherwise than in process")
+    finally:
+        if client is not None and client.poll() is None:
+            client.kill()
+            client.communicate()
+        outs = {}
+        for name, proc in (("server", server), ("worker", worker)):
+            if proc is not None:
+                outs[name] = _stop(name, proc, lines.get("restarted" if name == "server"
+                                                         else name, []))
+        outs["service"] = _stop("--mode service", service, [], terminate=False)
+    for name, out in outs.items():
+        proc = {"server": server, "worker": worker, "service": service}[name]
+        if proc.returncode != 0:
+            fail(f"--mode {name} exited {proc.returncode}:\n{out[-3000:]}")
+    log(json.dumps({"launcher": {name: [ln for ln in out.splitlines()
+                                        if "shut down" in ln or "windows:" in ln
+                                        or "concurrent queries" in ln]
+                                 for name, out in outs.items()}}))
+    if "concurrent queries" not in outs["service"]:
+        fail("--mode service did not run its queries")
+    _shutil.rmtree(work, ignore_errors=True)
+
+
+def _warm_count(rows_4c):
+    return next(r["result"] for r in rows_4c if r["name"] == "COUNT warm index")
+
+
+def serving_index(size, device, catalogs, warm_count):
+    """Phase 10c: four concurrent ``run_auto`` COUNT queries on phase 4's
+    tables through one ``OracleService(index_store=IndexStore(...))``:
+    one K1 fp32 build sweep among them, three index hits, and every
+    estimate equal to phase 4c's warm COUNT bit for bit.  Launch counts
+    are set to 0 just before the queries and read just after."""
+    from repro_torch.core import IndexStore, run_auto
+    from repro_torch.core.oracle import ArrayOracle
+    from repro_torch.core.types import BASConfig
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.serve import OracleService, serve_queries
+
+    ds, _ = catalogs
+    cfg = BASConfig(max_dense_weight_bytes=size.dense_cap)
+    oracles = [ArrayOracle(ds.truth) for _ in range(4)]
+    with OracleService(workers=1, max_wait_ms=SERVE_WAIT_MS,
+                       index_store=IndexStore(device=device)) as svc:
+        svc.attach(*oracles)
+
+        def job(i):
+            try:
+                return run_auto(_count(ds.spec(), oracles[i], size.budget), cfg,
+                                seed=SEED, index_store=svc.index_store, device=device)
+            finally:
+                svc.detach(oracles[i])
+
+        cuda_lib.reset_launches()
+        sync(device)
+        t0 = time.perf_counter()
+        results = serve_queries(svc, [lambda i=i: job(i) for i in range(4)],
+                                timeout=SERVE_BOUND_S)
+        sync(device)
+        wall = time.perf_counter() - t0
+        launches = dict(cuda_lib.LAUNCHES)
+        stats = svc.stats()
+    paths = [r.telemetry.dispatch.path for r in results]
+    hits = [bool(r.telemetry.index and r.telemetry.index.hit) for r in results]
+    log(json.dumps({"path": "phase 10c: index-served COUNTs", "queries": 4,
+                    "wall_s": wall, "paths": paths, "index_hit": hits,
+                    "estimates": [r.estimate for r in results],
+                    "stats": {k: stats[k] for k in ("index_hit", "index_build",
+                                                    "index_miss", "windows", "segments")},
+                    "launches": launches}))
+    for i, (r, o) in enumerate(zip(results, oracles)):
+        _equal_runs(f"index-served COUNT {i}", r, warm_count, r.oracle_calls,
+                    warm_count.oracle_calls)
+        _check_budget(f"index-served COUNT {i}", r, size.budget)
+    if stats["index_hit"] != 3 or stats["index_build"] != 1 or sorted(hits) != [
+            False, True, True, True]:
+        fail(f"the four queries did not share one build: {stats}, hits {hits}")
+    # dispatch picks the path before the shared build lands, as the
+    # reference's does: all four report "streaming", three with index.hit
+    if paths != ["streaming"] * 4:
+        fail(f"phase 10c dispatched {paths}, not four 'streaming' queries")
+    if device == "cuda" and launches.get("sim_sweep[fp32]", 0) != 1:
+        fail(f"phase 10c launched {launches}, not one fp32 build sweep")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--rehearse-cpu", action="store_true",
-                    help="run phases 4, 4b, 4c, 6, 7, 8 and 9 at a tiny size on the CPU "
+                    help="run phases 4, 4b, 4c, 6, 7, 8, 9 and 10 at a tiny size on the CPU "
                          "(exits 3)")
     if ap.parse_args().rehearse_cpu:
         from repro_torch.kernels import cuda_lib
@@ -2223,17 +2684,21 @@ def main():
         results_4b, _ = run_phase4b(REHEARSAL, REHEARSAL_MODEL, "cpu", catalogs)
         results_4c, _, _ = run_phase4c(REHEARSAL, "cpu", catalogs, hot, chain, results,
                                        results_4b, INDEX_REHEARSAL)
+        serving_index(REHEARSAL, "cpu", catalogs, _warm_count(results_4c))
         oracle_path(REHEARSAL_MODEL, "cpu")
         card_vs_cpu(REHEARSAL_MODEL, "cpu")
         recurrent_paths(REHEARSAL_MODEL, "cpu")
         family_paths(REHEARSAL_MODEL, "cpu")
+        served = serving_in_process(REHEARSAL_MODEL, "cpu")
+        serving_fleet(REHEARSAL_MODEL, "cpu", served)
         log(f"rehearsal complete: {len(results) + len(results_4b) + len(results_4c)} "
-            "queries, the Oracle queries, the recurrent paths and the model families "
-            "on the CPU (no result)")
+            "queries, the Oracle queries, the recurrent paths, the model families "
+            "and the serving plane on the CPU (no result)")
         sys.exit(3)
     if not torch.cuda.is_available():
         log("no CUDA card: nothing to measure")
         sys.exit(2)
+    t_script = time.perf_counter()
 
     # phase 1: the card
     smi = subprocess.run(
@@ -2300,8 +2765,8 @@ def main():
     # and read just after; its kernel checks at the appends' shapes.  Its
     # profiles come before phase 4 and 4b's: after the cascade's session of
     # many events the profiler loses later sessions' device events.
-    _, index_launches, index_errs = run_phase4c(FULL, "cuda", catalogs, hot, chain,
-                                                results, results_4b, INDEX_FULL)
+    rows_4c, index_launches, index_errs = run_phase4c(FULL, "cuda", catalogs, hot, chain,
+                                                      results, results_4b, INDEX_FULL)
     log(json.dumps({"phase4c_launches": index_launches}))
     for name, err in index_errs.items():
         errs[name] = max(errs[name], err)
@@ -2311,7 +2776,12 @@ def main():
             fail(f"{name} was not launched by the index phase")
     profile_query(FULL, catalogs)
     profile_4b(FULL, catalogs)
-    del catalogs, chain, results_4b
+    # phase 10c on phase 4's tables while they are resident: counts set to 0
+    # just before its four queries and read just after
+    t10 = time.perf_counter()
+    index_served = serving_index(FULL, "cuda", catalogs, _warm_count(rows_4c))
+    phase10_s = time.perf_counter() - t10
+    del catalogs, chain, results_4b, rows_4c
 
     # phase 5: times at the phase-4 shapes
     ds = make_clustered_tables(FULL.n, FULL.n, d=FULL.d, n_entities=512,
@@ -2329,6 +2799,15 @@ def main():
     paths.update(recurrent_paths(FULL_MODEL, "cuda"))
     # phase 9: the MoE, VLM and encoder-decoder families, one model at a time
     paths.update(family_paths(FULL_MODEL, "cuda"))
+    # phase 10a-b: the serving plane with phase 6's Oracle (10c ran above)
+    t10 = time.perf_counter()
+    served = serving_in_process(FULL_MODEL, "cuda")
+    paths["served COUNT (10a)"] = served["launches"]
+    serving_fleet(FULL_MODEL, "cuda", served)
+    del served
+    _free()
+    phase10_s += time.perf_counter() - t10
+    log(json.dumps({"phase10_s": phase10_s, "script_s": time.perf_counter() - t_script}))
     main_path = {"flash_attention": "Oracle COUNT", "rwkv6_scan": "rwkv6-1.6b",
                  "rglru_scan": "recurrentgemma-9b"}
 
@@ -2339,7 +2818,8 @@ def main():
                      "max_abs_err": errs[name], **times[name],
                      "launches_by_path": {"query path (4)": launches[name]} | {
                          p: n.get(name, 0) for p, n in paths_4b.items()} | {
-                         "index (4c)": index_launches.get(name, 0)}})
+                         "index (4c)": index_launches.get(name, 0),
+                         "index via the service (10c)": index_served.get(name, 0)}})
     for name in MODEL_KERNELS:
         path_row, *other_rows = model_rows[name]
         rows.append({"name": name, "route": "cuda", "source": MODEL_SOURCE,

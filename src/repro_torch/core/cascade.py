@@ -55,13 +55,15 @@ Pipeline (mirrors ``bas.run_stratified_pipeline`` stage for stage):
 5. *Estimate + CI*: bootstrap-t over the proxy + correction pseudo-strata.
 
 Serving: the proxy is a distinct :class:`~repro_torch.core.oracle.Oracle`
-instance with its own ledger.  A proxy built by :func:`similarity_proxy`
-carries a content fingerprint of its tables as ``name`` (the reference's
-recipe, so both packages name the same tables alike): the key under which
-the serving plane (ROADMAP queue 1, item 9) will fuse concurrent queries'
-proxy traffic and share stored proxy labels.  Until that plane is ported,
-every flush is local and the telemetry's ``*_group`` fields carry the keys
-the reference would report (:func:`_group`).
+instance, so its :meth:`~repro_torch.core.oracle.Oracle.service_group` key
+never collides with the expensive oracle's.  Through an
+:class:`~repro_torch.serve.oracle_service.OracleService` the two stages
+therefore coalesce into *separate* super-batches, and the proxy is attached
+under its own ``cascade-proxy`` query class.  A proxy built by
+:func:`similarity_proxy` carries a content fingerprint of its tables as
+``name`` (the reference's recipe, so both packages name the same tables
+alike): its service group, under which concurrent queries on the same
+tables fuse their proxy traffic and share stored proxy labels.
 
 Every entry point takes ``device=`` (default ``"cuda"``; raises without a
 card): both stage-1 spaces run their similarity passes and kernels there.
@@ -95,27 +97,20 @@ from .types import Agg, BASConfig, JoinSpec, Query, QueryResult
 class SimilarityProxyOracle(FnOracle):
     """The embedding proxy as an Oracle: label = chain weight >= threshold.
 
-    ``name`` is the content fingerprint of the tables: the reference keys
-    its service group on it (``("scorer", "sim-proxy:<fp>", threshold)``),
-    so proxies for the same tables may fuse and share stored labels — safe
-    because the fingerprint binds the name to the embedding content.  The
-    port's ``service_group`` comes with the serving plane (ROADMAP queue 1,
-    item 9)."""
+    ``name`` pins a *stable* service group (``("scorer", "sim-proxy:<fp>",
+    threshold)``): proxies for the same tables fuse into one super-batch per
+    service window and may share label-store segments — safe because the
+    fingerprint binds the name to the embedding content."""
 
     def __init__(self, fn, threshold: float, name: Optional[str] = None):
         super().__init__(fn)
         self.threshold = float(threshold)
         self.name = name
 
-
-def _group(oracle: Oracle) -> str:
-    """The group key reported in ``detail["cascade"]``: the reference's
-    ``repr(oracle.service_group())`` for a named similarity proxy, and its
-    per-instance default key for any other oracle (the port's oracles have
-    no ``service_group`` until the serving plane, ROADMAP queue 1, item 9)."""
-    if isinstance(oracle, SimilarityProxyOracle) and oracle.name is not None:
-        return repr(("scorer", f"sim-proxy:{oracle.name}", oracle.threshold))
-    return repr(("#process-local", "oracle", id(oracle)))
+    def service_group(self):
+        if self.name is not None:
+            return ("scorer", f"sim-proxy:{self.name}", self.threshold)
+        return super().service_group()
 
 
 def similarity_proxy(
@@ -354,8 +349,8 @@ def run_cascade_pipeline(
                 "proxy_rows": int(proxy_rows),
                 "correction_rows": int(sum(s.n for s in corr_live)),
                 "disagreement_rate": float(disagree),
-                "proxy_group": _group(proxy),
-                "oracle_group": _group(query.oracle),
+                "proxy_group": repr(proxy.service_group()),
+                "oracle_group": repr(query.oracle.service_group()),
             },
         },
     )
@@ -414,9 +409,7 @@ def run_bas_cascade(
     proxy.bind_sizes(query.spec.sizes)
     # through a service, route the proxy stage too (its own group + class) so
     # proxy traffic super-batches independently and lands in the per-class
-    # telemetry; a plain local oracle keeps the proxy local as well.  The
-    # port's oracles have no service until the serving plane is ported
-    # (ROADMAP queue 1, item 9), so ``svc`` is always None for now.
+    # telemetry; a plain local oracle keeps the proxy local as well
     svc = getattr(query.oracle, "service", None)
     attached = False
     if svc is not None and getattr(proxy, "service", None) is None:

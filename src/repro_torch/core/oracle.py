@@ -36,15 +36,42 @@ merges the results.  If the charge would exceed the budget,
 a failed flush leaves the Oracle exactly as it was.  ``Oracle.label`` is
 sugar for a one-request batch, so ad-hoc callers keep the old interface.
 
+Async mode
+----------
+When an :class:`repro_torch.serve.oracle_service.OracleService` is attached
+to the Oracle (``service.attach(oracle)``), ``flush_async()`` hands the
+deduped pending set to the service and returns a
+``concurrent.futures.Future``; the service micro-batches requests **across
+queries**, executes them on its scorer-worker pool, and resolves the request
+handles with exactly the semantics of a local flush (same dedup, same atomic
+ledger charge, same retryability on failure).  Without a service,
+``flush_async()`` degrades to an already-completed future around a local
+flush, so pipeline stages can uniformly submit-then-await.  ``flush()``
+stays the synchronous entry point and routes through the service when one
+is attached — callers never need to know which mode they are in.
+
 Counters: ``requests`` counts every tuple submitted (cache hits included),
 ``calls`` counts unique tuples actually labelled (what the budget meters),
 ``batches`` counts flushes that labelled at least one new tuple — a
 well-batched query keeps ``batches`` at O(pipeline stages) regardless of the
-number of strata; it is exactly the number of backend ``_label`` invocations.
-``charged`` equals ``calls``, and ``store_hits`` / ``store_charge_saved``
-stay 0: the reference's serving plane (an oracle service that fuses flushes
-across queries, and its shared label store) is not ported yet, and these
-counters keep :meth:`Oracle.stats` in the reference's shape.
+number of strata.  For a local flush that is exactly the number of backend
+``_label`` invocations; under an attached service, cross-query fusion and
+worker sharding make the true backend-call count differ (see
+``OracleService.stats()["backend_calls"]``).
+
+Charge-once accounting (shared label store)
+-------------------------------------------
+When the attached service carries a :class:`repro_torch.serve.label_store
+.LabelStore`, some of a flush's unique uncached keys are served from the
+communal store instead of a backend execution.  Those keys still advance
+``calls`` — the counter that paces the BAS pipeline and meters the
+user-facing budget guarantee — so sampling decisions and estimates are
+bit-identical to serial execution.  What changes is who *pays*: ``charged``
+counts the keys this oracle's own flushes executed on a backend (the real
+ledger spend), and ``store_hits``/``store_charge_saved`` count the keys
+served communally.  Without a store ``charged == calls``; with one, the
+workload-wide sum of ``charged`` equals the store's unique-miss count —
+each distinct pair is charged exactly once, to its first requester.
 """
 from __future__ import annotations
 
@@ -61,12 +88,18 @@ class BudgetExceeded(RuntimeError):
     pass
 
 
+# Marker for service-group keys built from id(...) — equality works within
+# the process (coalescing, store segments), but the key is meaningless in
+# another process, so the shared label store never persists such segments.
+PROCESS_LOCAL = "#process-local"
+
+
 # ---- wire payloads ----------------------------------------------------------
 #
-# The multi-host transport (serving plane) ships pre-planned label
-# work between processes: a client plans a flush against its *own* cache and
-# ledger, sends only the unique uncached tuple indices, and commits locally
-# when the labels come back.  These two dataclasses are the payloads — pure
+# The multi-host transport (repro_torch.serve.transport) ships pre-planned
+# label work between processes: a client plans a flush against its *own*
+# cache and ledger, sends only the unique uncached tuple indices, and commits
+# locally when the labels come back.  These two dataclasses are the payloads — pure
 # numpy/struct encodings with a fixed little-endian layout, so the framing
 # layer stays a dumb byte pipe and core/ carries the schema.  docs/serving.md
 # documents the byte layout as part of the protocol spec.
@@ -165,9 +198,10 @@ class Oracle(abc.ABC):
         self.requests = 0       # total tuples requested (incl. cache hits)
         self.batches = 0        # backend _label invocations
         self.charged = 0        # unique tuples this oracle paid to execute
-        self.store_hits = 0           # no shared label store: always 0
-        self.store_charge_saved = 0   # no shared label store: always 0
+        self.store_hits = 0     # unique tuples served by a shared LabelStore
+        self.store_charge_saved = 0   # ledger charges avoided via the store
         self.budget: Optional[int] = None
+        self.service = None     # attached OracleService (None = local flushes)
 
     def set_budget(self, budget: Optional[int]) -> None:
         self.budget = budget
@@ -255,6 +289,18 @@ class Oracle(abc.ABC):
         batch.flush()
         return handle.labels
 
+    def service_group(self):
+        """Coalescing key: flushes from oracles with *equal* keys may be fused
+        into one backend execution by an attached service.  Two oracles share
+        a key only when ``_label`` is the same pure function of the tuple
+        indices for both (same backend model, same table bindings).  The
+        default is per-instance (no cross-oracle fusion, but requests still
+        micro-batch into the same service window and shard over its worker
+        pool); :class:`ModelOracle` keys on its shared scorer.  id()-based
+        keys carry the :data:`PROCESS_LOCAL` marker so the shared label
+        store knows they cannot be persisted across restarts."""
+        return (PROCESS_LOCAL, "oracle", id(self))
+
     def lookup(self, keys: np.ndarray) -> np.ndarray:
         """Cached labels for already-resolved keys (keys must all be cached)."""
         pos = np.searchsorted(self._keys, keys)
@@ -307,20 +353,36 @@ class Oracle(abc.ABC):
         self.store_charge_saved = 0
 
 
-def plan_requests(oracle: Oracle, requests: Sequence["OracleRequest"]) -> tuple:
+def plan_requests(
+    oracle: Oracle,
+    requests: Sequence["OracleRequest"],
+    extra_planned: Optional[np.ndarray] = None,
+) -> tuple:
     """Plan a flush without mutating anything: encode every request, dedupe
-    against the cache, and check the budget.  Returns ``(keys_list,
-    n_requested, new_keys)``; raises :class:`BudgetExceeded` if labelling
-    ``new_keys`` would overrun."""
+    against the cache (and against ``extra_planned`` — keys another flush in
+    the same service window has already claimed for this oracle), and check
+    the budget.  Returns ``(keys_list, n_requested, new_keys)``; raises
+    :class:`BudgetExceeded` if labelling ``new_keys`` would overrun.
+
+    This is THE flush-planning algorithm: ``OracleBatch._flush_local`` and
+    ``OracleService`` both call it, so local and served execution cannot
+    drift apart semantically."""
     keys_list = [oracle._encode(r.idx) for r in requests]
     all_keys = (np.concatenate(keys_list) if keys_list
                 else np.empty(0, np.int64))
     hit = oracle._cached_mask(all_keys)
     new_keys = np.unique(all_keys[~hit])
+    already = 0
+    if extra_planned is not None and len(extra_planned):
+        new_keys = np.setdiff1d(new_keys, extra_planned, assume_unique=False)
+        already = len(extra_planned)
     if len(new_keys) and oracle.budget is not None and (
-            oracle.calls + len(new_keys) > oracle.budget):
+            oracle.calls + already + len(new_keys) > oracle.budget):
+        used = f"{oracle.calls} used"
+        if already:
+            used += f" (+{already} planned this window)"
         raise BudgetExceeded(
-            f"oracle budget {oracle.budget} exceeded: {oracle.calls} used, "
+            f"oracle budget {oracle.budget} exceeded: {used}, "
             f"{len(new_keys)} new requested"
         )
     return keys_list, len(all_keys), new_keys
@@ -333,16 +395,32 @@ def commit_requests(
     n_requested: int,
     new_keys: np.ndarray,
     new_vals: Optional[np.ndarray],
+    store_keys: Optional[np.ndarray] = None,
+    store_vals: Optional[np.ndarray] = None,
 ) -> None:
     """Commit an executed flush: merge the fresh labels into the cache,
     charge the ledger atomically, and resolve every request handle.  The
-    counterpart of :func:`plan_requests`; callers invoke it only after the
-    backend execution succeeded."""
+    counterpart of :func:`plan_requests`, shared by local and served flushes;
+    callers invoke it only after the backend execution succeeded.
+
+    ``store_keys``/``store_vals`` are the store-consultation phase's output:
+    keys of this flush served from a shared :class:`repro_torch.serve
+    .label_store.LabelStore` instead of a backend execution.  They merge into
+    the cache and advance ``calls`` exactly like executed keys (so budget
+    pacing — and therefore every estimate — is bit-identical to serial
+    execution), but the ledger charge lands on ``store_hits``/
+    ``store_charge_saved`` rather than ``charged``: the store's first
+    requester already paid."""
+    n_store = len(store_keys) if store_keys is not None else 0
     if len(new_keys):
         oracle._merge(new_keys, new_vals)
         oracle.charged += len(new_keys)
         oracle.batches += 1
-    oracle.calls += len(new_keys)
+    if n_store:
+        oracle._merge(store_keys, store_vals)
+        oracle.store_hits += n_store
+        oracle.store_charge_saved += n_store
+    oracle.calls += len(new_keys) + n_store
     oracle.requests += n_requested
     for r, keys in zip(requests, keys_list):
         r._labels = oracle.lookup(keys)
@@ -393,19 +471,27 @@ class OracleBatch:
 
         An **empty** pending set is a guaranteed no-op: no backend call, no
         budget charge (even when the budget is already exhausted), and no
-        counter movement."""
+        counter movement.  With a service attached, routes through
+        :meth:`flush_async` so concurrent queries coalesce."""
         self.flush_async().result()
 
     def flush_async(self) -> Future:
-        """Submit-then-await entry point: runs the flush now and returns an
-        already-done future, so pipeline stages submit, do other work, then
-        await.  Failures (:class:`BudgetExceeded`, backend errors) surface
-        at ``.result()``; the requests stay pending, so the same batch can be
-        retried."""
+        """Submit-then-await entry point: returns a future that resolves
+        (to ``None``) once every pending request's ``labels`` is populated.
+
+        With a service attached to the oracle, the deduped pending set is
+        enqueued into the service's micro-batching window and labelled on its
+        worker pool alongside other queries' flushes; otherwise the flush
+        runs locally (synchronously) and the returned future is already
+        done.  Failures (:class:`BudgetExceeded`, backend errors) surface at
+        ``.result()``; the requests stay pending in either mode, so the same
+        batch can be retried."""
+        if self.oracle.service is not None and self._pending:
+            return self.oracle.service.submit(self)
         fut: Future = Future()
         try:
             self._flush_local()
-        except BaseException as e:  # surfaced at .result()
+        except BaseException as e:  # surfaced at .result(), like the service
             fut.set_exception(e)
         else:
             fut.set_result(None)
@@ -481,16 +567,35 @@ class ModelOracle(Oracle):
     callable; this class only adds the ledger semantics.  Because callers
     route through :class:`OracleBatch`, the scorer receives each pipeline
     stage's deduped union as one large request and applies its own device
-    batching internally.  The reference's ``name`` (the key the oracle
-    service fuses named oracles under) comes with that service (ROADMAP
-    queue 1, item 9).
+    batching internally.
+
+    ``name`` optionally gives the scorer a *stable* identity: named oracles
+    fuse (and share label-store segments) by name rather than by object id,
+    so their segments survive a service restart when the store persists to
+    disk.  Naming is a contract — every oracle sharing a name must score
+    through the same model weights.
     """
 
-    def __init__(self, scorer, threshold: float = 0.5):
+    def __init__(self, scorer, threshold: float = 0.5,
+                 name: Optional[str] = None):
         super().__init__()
         self.scorer = scorer.score if hasattr(scorer, "score") else scorer
         self.threshold = threshold
+        self.name = name
 
     def _label(self, idx: np.ndarray) -> np.ndarray:
         probs = np.asarray(self.scorer(idx), dtype=np.float64)
         return (probs >= self.threshold).astype(np.float64)
+
+    def service_group(self):
+        """Fuse with every oracle scoring through the same served model at the
+        same threshold: concurrent queries against one scorer become one
+        super-batch per service window.  Named oracles key on the name (a
+        stable, persistable identity); unnamed ones key on the scorer
+        *object* — for a bound ``scorer.score`` the owning instance, via
+        ``__self__``, since each attribute access creates a fresh
+        bound-method object whose id would never match across oracles."""
+        if self.name is not None:
+            return ("scorer", str(self.name), float(self.threshold))
+        backend = getattr(self.scorer, "__self__", self.scorer)
+        return (PROCESS_LOCAL, "scorer", id(backend), float(self.threshold))

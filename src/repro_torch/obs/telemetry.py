@@ -79,10 +79,8 @@ class CascadeTelemetry:
     """Per-stage counters of the multi-fidelity cascade (``core/cascade.py``).
 
     ``proxy_*`` is the cheap unmetered stage, ``oracle_calls`` the expensive
-    ledger the §2 budget binds; ``*_group`` record the distinct group keys
-    the two stages would super-batch under (the reference's
-    ``service_group()`` keys, formatted by ``core.cascade._group`` until the
-    port's serving plane exists)."""
+    ledger the §2 budget binds; ``*_group`` record the distinct
+    ``service_group()`` keys the two stages super-batch under."""
 
     proxy_calls: int = 0
     proxy_requests: int = 0

@@ -11,10 +11,11 @@ matmul; the streaming regime's fused sweep), a run agrees within
 ``REL = 1e-6`` with equal ``oracle_calls``, the tolerance of
 ``tests/test_torch_bas.py``.
 
-The reference's two service tests (``service_group`` keyed by content, and
-served execution bit-identical to serial) wait for the serving plane
-(ROADMAP queue 1, item 9); in their place the proxy's content fingerprint
-``name`` is held equal to the reference's.
+The reference's two service tests are mirrored within the port: the
+proxy's ``service_group`` is keyed by the tables' content (its fingerprint
+``name`` is also held equal to the reference's), and concurrent cascade
+queries through one ``OracleService`` equal their serial runs bit for bit,
+the proxy stage served under its own ``cascade-proxy`` class.
 """
 import numpy as np
 import pytest
@@ -218,6 +219,21 @@ def test_similarity_proxy_name_is_the_reference_fingerprint(ds):
         p1.label(idx), R.similarity_proxy(rds.spec()).label(idx))
 
 
+def test_similarity_proxy_service_group_is_content_keyed(ds):
+    """The default proxy's service group is fingerprinted from the table
+    embeddings: same tables -> same group (cross-query super-batch fusion +
+    safe label sharing), different tables -> different group; and it is the
+    reference's group for the same tables."""
+    rds, pds, _ = ds
+    p1 = P.similarity_proxy(pds.spec())
+    p2 = P.similarity_proxy(pds.spec())
+    assert p1.service_group() == p2.service_group()
+    assert p1.service_group()[0] == "scorer"
+    assert p1.service_group() == R.similarity_proxy(rds.spec()).service_group()
+    other = PD.make_clustered_tables(40, 40, n_entities=60, noise=0.4, seed=9)
+    assert P.similarity_proxy(other.spec()).service_group() != p1.service_group()
+
+
 def test_cascade_telemetry_roundtrip(ds):
     _, pds, _ = ds
     _, pq = _queries(pds, pds, proxy=pds.truth.astype(np.float64))
@@ -343,3 +359,61 @@ def test_garbage_proxy_degrades_gracefully_to_bas_variance():
     assert cover / n_rep >= 0.80
     rmse_c = float(np.sqrt(np.mean(np.square(casc_err))))
     assert rmse_c <= float(np.mean(widths)) / 2.0 * 2.0
+
+
+# ----------------------------------------------------------------------------
+# OracleService integration (acceptance: bit-identical to serial)
+# ----------------------------------------------------------------------------
+
+def _served_queries(seeds):
+    out = []
+    for s in seeds:
+        d = PD.make_clustered_tables(64, 64, n_entities=96, noise=0.4, seed=s)
+        out.append(P.Query(spec=d.spec(), agg=P.Agg.COUNT, oracle=d.oracle(),
+                           budget=400,
+                           proxy=P.ArrayOracle(d.truth.astype(np.float64))))
+    return out
+
+
+def test_served_cascade_bit_identical_to_serial():
+    """Concurrent cascade queries through one OracleService produce exactly
+    the serial estimates/CIs/ledgers; proxy traffic super-batches under its
+    own ``cascade-proxy`` class and shows up in the per-class telemetry.
+    The windows' timer only groups flushes (a stage may flush the oracle
+    without its proxy); no result depends on it, and every wait is bounded.
+    """
+    from repro_torch.obs import InMemoryTracker
+    from repro_torch.serve.oracle_service import OracleService, serve_queries
+
+    seeds = (1, 2, 3)
+    serial = []
+    for q, s in zip(_served_queries(seeds), seeds):
+        res = P.run_bas_cascade(q, seed=s, path="dense", device="cpu")
+        serial.append((res, q.oracle.calls, q.oracle.requests))
+
+    tracker = InMemoryTracker()
+    with OracleService(workers=2, max_wait_ms=20.0, tracker=tracker) as svc:
+        queries = _served_queries(seeds)
+        svc.attach(*[q.oracle for q in queries])
+
+        def job(q, s):
+            try:
+                return P.run_bas_cascade(q, seed=s, path="dense", device="cpu")
+            finally:
+                svc.detach(q.oracle)
+
+        results = serve_queries(
+            svc, [lambda q=q, s=s: job(q, s) for q, s in zip(queries, seeds)],
+            timeout=120.0,
+        )
+        snap = svc.snapshot()
+
+    for (ref, calls, requests), got, q in zip(serial, results, queries):
+        assert got.estimate == ref.estimate          # bit-identical
+        assert got.ci.lo == ref.ci.lo and got.ci.hi == ref.ci.hi
+        assert q.oracle.calls == calls               # same ledger charge
+        assert q.oracle.requests == requests
+        # the auto-attached proxy detached with its query
+        assert q.proxy.service is None
+    # proxy stage landed in its own deadline-class telemetry
+    assert snap["service.class.cascade-proxy.flush_ms.count"] > 0.0

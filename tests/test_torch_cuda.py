@@ -777,3 +777,102 @@ def test_decode_on_card_matches_cpu(card, arch, over):
         want, cpu_cache = decode_step(cfg, params, cpu_cache, tokens[:, t:t + 1], t)
         got, card_cache = decode_step(cfg, on_card, card_cache, tokens[:, t:t + 1], t)
         assert float((got.cpu() - want).abs().max()) <= 2e-5 * float(want.abs().max())
+
+
+# ----------------------------------------------------------------------------
+# the serving plane with the Oracle model on the card
+# ----------------------------------------------------------------------------
+
+def _card_oracle_setup(card, n=48):
+    """The reduced joinml-oracle (bf16, seed 0) behind a ``PairScorer`` on
+    the card over ``n`` x ``n`` synthetic records, the join spec and the
+    threshold that says yes to the top 10% of P(match)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import make_clustered_tables
+    from repro_torch.data.pipeline import ByteTokenizer, pair_example
+    from repro_torch.models import init_params
+    from repro_torch.serve import PairScorer
+
+    tok = ByteTokenizer()
+    cfg = get_smoke_config("joinml-oracle", vocab_size=tok.vocab_size)
+    records = [f"entity {i % 12} record {i:03d}" for i in range(n)]
+
+    def tok_pair(pair):
+        t, _ = pair_example(tok, records[pair[0]], records[pair[1]], None, 48)
+        return t[t != tok.PAD]
+
+    scorer = PairScorer(cfg, init_params(cfg, seed=0, device=card), tok_pair,
+                        tok.YES, tok.NO, max_len=48, batch_size=32,
+                        device=card)
+    ds = make_clustered_tables(n, n, n_entities=32, noise=0.4, seed=0)
+    pairs = np.stack(np.unravel_index(np.arange(n * n), (n, n)), 1)
+    thr = float(np.quantile(scorer.score(pairs), 0.9))
+    return scorer, ds, thr
+
+
+def test_served_equals_serial_with_the_oracle_on_the_card(card):
+    """Four BAS COUNT queries through one ``OracleService`` with a shared
+    label store, their Oracle the reduced joinml-oracle on the card: each
+    query's estimate, CI and ``calls`` equal its serial run bit for bit (the
+    scorer pads every forward to one batch shape), and the summed charge
+    equals the store's unique misses."""
+    from repro_torch.core import Agg, ModelOracle, Query, run_bas
+    from repro_torch.serve import LabelStore, OracleService, serve_queries
+
+    scorer, ds, thr = _card_oracle_setup(card)
+    seeds = (0, 1, 2, 3)
+
+    def query():
+        return Query(spec=ds.spec(), agg=Agg.COUNT, budget=600,
+                     oracle=ModelOracle(scorer, thr, name="joinml-oracle"))
+
+    serial = []
+    for s in seeds:
+        q = query()
+        serial.append((run_bas(q, seed=s, device=card), q.oracle.calls))
+    store = LabelStore()
+    queries = [query() for _ in seeds]
+    with OracleService(workers=1, max_wait_ms=60_000.0,
+                       label_store=store) as svc:
+        svc.attach(*[q.oracle for q in queries])
+
+        def job(q, s):
+            try:
+                return run_bas(q, seed=s, device=card)
+            finally:
+                svc.detach(q.oracle)
+
+        results = serve_queries(
+            svc, [lambda q=q, s=s: job(q, s) for q, s in zip(queries, seeds)],
+            timeout=300.0)
+        stats = svc.stats()
+    for (ref, calls), got, q in zip(serial, results, queries):
+        assert got.estimate == ref.estimate
+        assert got.ci.lo == ref.ci.lo and got.ci.hi == ref.ci.hi
+        assert q.oracle.calls == calls
+    assert sum(q.oracle.charged for q in queries) == stats["store_misses"]
+    assert stats["windows"] < stats["segments"]
+
+
+def test_loopback_server_with_the_oracle_on_the_card(card):
+    """A BAS query labelling through a loopback ``OracleServiceServer`` whose
+    group is the card's scorer equals the same query labelling in process:
+    estimate, CI and ledger."""
+    from repro_torch.core import Agg, ModelOracle, Query, run_bas
+    from repro_torch.serve import OracleServiceServer, RemoteOracle, scorer_group
+
+    scorer, ds, thr = _card_oracle_setup(card)
+    local = ModelOracle(scorer, thr)
+    ref = run_bas(Query(spec=ds.spec(), agg=Agg.COUNT, oracle=local,
+                        budget=600), seed=5, device=card)
+    with OracleServiceServer({"oracle": scorer_group(scorer, thr)},
+                             max_wait_ms=60_000.0) as srv:
+        with RemoteOracle(srv.address, "oracle", timeout_s=120.0,
+                          retries=0) as remote:
+            got = run_bas(Query(spec=ds.spec(), agg=Agg.COUNT, oracle=remote,
+                                budget=600), seed=5, device=card)
+        stats = srv.service.stats()
+    assert got.estimate == ref.estimate
+    assert got.ci.lo == ref.ci.lo and got.ci.hi == ref.ci.hi
+    assert (remote.calls, remote.requests) == (local.calls, local.requests)
+    assert stats["rows_labelled"] == local.calls

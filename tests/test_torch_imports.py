@@ -1,7 +1,9 @@
 """The port stands alone: importing ``repro_torch``, running queries (BAS,
 the cascade, a baseline), scoring pairs with the Oracle model, an MoE
-forward and an encoder-decoder decode step, and building,
-saving, loading, appending to and querying through a stratification index
+forward and an encoder-decoder decode step, building,
+saving, loading, appending to and querying through a stratification index,
+and serving queries through the oracle service (with its label store and
+metrics exporter) and over its TCP transport
 load neither JAX nor the reference package, and its entry points run on
 the card unless the caller asks for the CPU."""
 import os
@@ -82,6 +84,25 @@ with tempfile.TemporaryDirectory() as root:
     res = eng.execute(sql)
     assert res.telemetry.dispatch.path == "streaming-index"
     assert store.stats()["index_load"] == 1 and store.stats()["index_build"] == 0
+from repro_torch.obs import MetricsExporter
+from repro_torch.serve import (LabelStore, OracleService, OracleServiceServer,
+                               RemoteOracle)
+
+served = ArrayOracle(ds.truth)
+with OracleService(max_wait_ms=60_000, label_store=LabelStore()) as svc:
+    svc.attach(served)
+    run_auto(Query(spec=ds.spec(), agg=Agg.COUNT, oracle=served, budget=300),
+             cfg, device="cpu")
+    svc.detach(served)
+    assert svc.stats()["windows"] > 0 and served.charged > 0
+    with MetricsExporter([svc.snapshot]) as exp:
+        assert "repro_service_windows" in exp.render()
+with OracleServiceServer({"truth": ArrayOracle(ds.truth)._label},
+                         max_wait_ms=60_000) as srv:
+    with RemoteOracle(srv.address, "truth", timeout_s=60, retries=0) as ro:
+        run_auto(Query(spec=ds.spec(), agg=Agg.COUNT, oracle=ro, budget=300),
+                 cfg, device="cpu")
+    assert srv.service.stats()["rows_labelled"] == ro.calls > 0
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
              or m == "repro" or m.startswith("repro."))
@@ -120,6 +141,7 @@ def test_entry_points_default_to_the_card():
     from repro_torch.configs import get_smoke_config
     from repro_torch.interop import params_from_jax
     from repro_torch.models import init_cache, init_params
+    from repro_torch.launch.serve import main as serve_main
     from repro_torch.serve import ContinuousBatcher, PairScorer
 
     ds = make_clustered_tables(40, 30, seed=0)
@@ -155,6 +177,10 @@ def test_entry_points_default_to_the_card():
         lambda: params_from_jax(mcfg, {}),
         lambda: PairScorer(mcfg, cpu_params, None, 5, 6),
         lambda: ContinuousBatcher(mcfg, cpu_params),
+        lambda: serve_main(["--mode", "service"]),
+        lambda: serve_main(["--mode", "server", "--port", "0"]),
+        lambda: serve_main(["--mode", "worker", "--port", "0"]),
+        lambda: serve_main(["--mode", "client"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA card"):

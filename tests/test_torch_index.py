@@ -562,6 +562,25 @@ def test_store_loads_from_disk_root(tmp_path):
     np.testing.assert_array_equal(np.asarray(got.counts), art.counts)
 
 
+def test_oracle_service_stats_carry_index_counters():
+    """An ``OracleService`` given an ``index_store`` merges the store's
+    counters into its ``stats()``; without one it carries no index keys."""
+    from repro_torch.serve.oracle_service import OracleService
+
+    e1, e2 = _tables(50, 50)
+    store = _store()
+    with OracleService(workers=1, index_store=store) as svc:
+        base = svc.stats()
+        assert base["index_hit"] == 0 and base["index_miss"] == 0
+        store.get_or_build([e1, e2], n_bins=BINS)
+        store.get_or_build([e1, e2], n_bins=BINS)
+        s = svc.stats()
+    assert s["index_hit"] == 1 and s["index_build"] == 1
+    assert s["index_bytes"] > 0
+    with OracleService(workers=1) as svc:   # no store -> no index keys
+        assert "index_hit" not in svc.stats()
+
+
 def test_store_snapshot_uses_dotted_namespace(tmp_path):
     """The ``IndexStore`` half of ``tests/test_obs.py``'s snapshot test."""
     snap = _store(root=str(tmp_path)).snapshot()

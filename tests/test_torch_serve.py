@@ -14,6 +14,9 @@ Both packages hold the same parameters (``params_from_jax``) of a reduced
   1e-6 relative, the tolerance of ``test_torch_bas.py``.
 """
 import dataclasses
+import os
+import subprocess
+import sys
 
 import jax
 import numpy as np
@@ -234,8 +237,8 @@ def test_launcher_scores_on_the_cpu_and_names_what_is_missing(capsys):
     main(["--arch", "joinml-oracle", "--mode", "score", "--pairs", "8",
           "--device", "cpu"])
     assert "scored 8 pairs" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 9"):
-        main(["--mode", "service", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 11"):
+        main(["--mode", "service", "--shard", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "rwkv6-1.6b", "recurrentgemma-9b",
@@ -282,3 +285,87 @@ def test_oracle_path_pairs_fill_the_48_token_bucket():
     assert len(lens) == 256 * 256
     assert (lens.min(), lens.max()) == (35, 45)
     assert set(scorer._buckets[np.searchsorted(scorer._buckets, lens)]) == {48}
+
+
+def _launch(*args):
+    """The launcher as a subprocess on the CPU, its output on a pipe."""
+    env = dict(os.environ)
+    src = os.path.join(os.path.dirname(os.path.dirname(__file__)), "src")
+    env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "joinml-oracle", "--device", "cpu", *args],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+
+
+def _read_address(proc, seen, timeout=120.0):
+    """Read ``proc``'s output until its ``listening on host:port`` line
+    (bounded); every line read is kept in ``seen``."""
+    import re
+    import selectors
+
+    sel = selectors.DefaultSelector()
+    sel.register(proc.stdout, selectors.EVENT_READ)
+    try:
+        while sel.select(timeout=timeout):
+            line = proc.stdout.readline()
+            if not line:
+                break
+            seen.append(line)
+            m = re.search(r"listening on ([0-9.]+):(\d+)", line)
+            if m:
+                return f"{m.group(1)}:{m.group(2)}"
+    finally:
+        sel.close()
+    raise AssertionError(f"no bound address: {''.join(seen)}")
+
+
+def test_launcher_fleet_modes_on_the_cpu():
+    """``--mode worker --port 0`` and ``--mode server --port 0
+    --worker-hosts`` print their bound addresses; ``--mode client``
+    against the server runs its queries to the end; a terminated server
+    prints its shutdown lines, with the shards its worker took."""
+    w_lines, s_lines = [], []
+    worker = _launch("--mode", "worker", "--port", "0")
+    server = None
+    try:
+        w_addr = _read_address(worker, w_lines)
+        server = _launch("--mode", "server", "--port", "0", "--worker-hosts",
+                         w_addr, "--label-store-mb", "8")
+        s_addr = _read_address(server, s_lines)
+        client = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--mode",
+             "client", "--connect", s_addr, "--queries", "3", "--budget", "300",
+             "--device", "cpu"],
+            capture_output=True, text=True, timeout=300,
+            env=dict(os.environ, PYTHONPATH=os.path.join(
+                os.path.dirname(os.path.dirname(__file__)), "src")
+                + os.pathsep + os.environ.get("PYTHONPATH", "")))
+        assert client.returncode == 0, client.stderr[-3000:]
+        assert "[client] 3 queries against" in client.stdout
+        assert client.stdout.count("estimate=") == 3
+    finally:
+        for proc in (server, worker):
+            if proc is not None:
+                proc.terminate()
+        out = {}
+        for name, proc in (("server", server), ("worker", worker)):
+            if proc is not None:
+                out[name] = proc.communicate(timeout=60)[0]
+    s_out = "".join(s_lines) + out["server"]
+    assert server.returncode == 0 and worker.returncode == 0, s_out
+    assert f"registered worker {w_addr}" in s_out
+    assert "[server] shut down;" in s_out and "rows labelled" in s_out
+    assert "[worker] shut down;" in out["worker"]
+
+
+def test_launcher_service_mode_on_the_cpu(capsys):
+    from repro_torch.launch.serve import main
+
+    main(["--arch", "joinml-oracle", "--mode", "service", "--device", "cpu",
+          "--queries", "3", "--budget", "200", "--label-store-mb", "8",
+          "--tracker", "memory"])
+    out = capsys.readouterr().out
+    assert "[serve] 3 concurrent queries" in out
+    assert out.count("estimate=") == 3
+    assert "store: hit_rate=" in out and "class 'default':" in out
