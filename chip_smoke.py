@@ -16,7 +16,11 @@ lists, and the fp32 sweep as the 3-way chain calls it (exponent 0.5, a
 per-row scale, walk sums at exponent 1); then flash attention and the two
 recurrent scans against theirs at the shapes the model paths give them and
 at one long shape each, with their times (the RWKV6 scan in the model's
-layout and types, and on f32 operands); (4) the query path:
+layout and types, and on f32 operands); (3c) K5's backward against an
+f64 autograd of its plain version under
+``checks.flash_attention_grad_bound`` at the training shape (bf16 and f32)
+and at the other families' attention shapes, bit for bit on a second run,
+beside SDPA's forward and backward; (4) the query path:
 ``JoinMLEngine.execute`` on 32,768 x 32,768 records at d = 384 (COUNT, SUM,
 AVG; COUNT at bf16, at int8 and on the two-pass schedule; a catalog with
 canonical records that drives the raised-k top-k retry), a 3-way chain
@@ -82,11 +86,25 @@ between two flushes of one query and restarted on its port, the query
 charged once; (10c, run after 4c while phase 4's tables are resident) four
 concurrent ``run_auto`` COUNTs through one
 ``OracleService(index_store=IndexStore(...))``: one fp32 build sweep,
-three index hits, each estimate equal to 4c's warm COUNT.  Launch counts
+three index hits, each estimate equal to 4c's warm COUNT; (11) training:
+the full ``joinml-oracle`` (remat on, AdamW) on a repeated batch of 16 x
+128 pair tokens from the entity corpus, the loss finite and falling, its
+median step, tokens/s, peak memory, K5's launches a step and the device's
+idle share over 3 profiled steps; 4 microbatches against 1; 3 steps, a
+save through ``AsyncCheckpointer``, a restore and 3 more steps against 6
+uninterrupted ones, bit for bit, in a subprocess under
+``torch.use_deterministic_algorithms``; and the training launcher started
+twice on one checkpoint directory, the second start resuming.  Phases 3 to
+4c and 10c run with the launch autotuner on (``kernels.autotune``, its
+cache measured afresh under ``build/``; its entries and measuring seconds
+are printed apart from the timed queries); it is off again from phase 5,
+and the Oracle COUNT (6) and the served COUNTs (10a) must equal the
+estimates recorded before this run's changes bit for bit.  Launch counts
 are set to 0 just before each path (4; 4b's query path, dense baselines
 and Oracle cascade; 6; 8; each of 9's, where olmoe's path is the COUNT's
 ``execute`` and its timed scoring and batcher are counted apart; 10a's
-served queries; 10c's queries; 10b's launches happen in its subprocesses)
+served queries; 10c's queries; 11's steps; 10b's launches happen in its
+subprocesses)
 and read just after it; in 4c, just before each of the index
 path's own calls (its builds, queries and appends, not the rebuilds and
 kernel checks they are held against) and read just after it.
@@ -94,8 +112,8 @@ kernel checks they are held against) and read just after it.
 Any failed phase exits non-zero.  The last lines are one JSON object of
 kernels, the card's name and power limit, and ``{"ok": true, ...}``.
 Without a card (or without the repository beside it) it exits non-zero and
-prints no result.  The rehearsal runs phases 4, 4b, 4c, 6, 7, 8, 9 and 10
-at a tiny size on the CPU and exits 3.
+prints no result.  The rehearsal runs phases 4, 4b, 4c, 6, 7, 8, 9, 10 and
+11 at a tiny size on the CPU and exits 3.
 """
 import argparse
 import collections
@@ -128,6 +146,10 @@ REPLACES = {
 }
 SIM_KERNELS = tuple(REPLACES)[:6]
 MODEL_KERNELS = tuple(REPLACES)[6:]
+# K5's backward has no Pallas counterpart: the reference differentiates its
+# jnp attention
+BWD_REPLACES = ("src/repro/models/layers.py:157 (jax.grad of chunked_attention; "
+                "no Pallas kernel)")
 # published H100 SXM peaks (dense): FP32 on the CUDA cores, bf16 and int8 on
 # the tensor cores, HBM3 bandwidth
 PEAK = {"fp32": 67e12, "bf16": 989e12, "int8": 1979e12}
@@ -1138,6 +1160,18 @@ def run_phase4c(size, device, catalogs, hot, chain, results, results_4b, knobs):
 # phases 3 and 5: kernels against their plain versions, and their times
 # ---------------------------------------------------------------------------
 
+def _log_tuning(where):
+    """The autotuner's entries and the seconds it spent measuring them, apart
+    from the timed queries (a query that met a new shape bucket first
+    includes its measurement)."""
+    from repro_torch.kernels import autotune
+
+    secs = autotune.tuning_seconds()
+    log(json.dumps({"autotune": where, "entries": {k: list(v) for k, v in
+                                                   autotune.cache_info().items()},
+                    "tuning_s": secs, "tuning_s_total": sum(secs.values())}))
+
+
 def _events_ms(fn, reps):
     fn()
     torch.cuda.synchronize()
@@ -1601,6 +1635,9 @@ def oracle_path(size, device):
         "timings_s": res.telemetry.timings, "truth_scoring_s": truth_s}))
     _check_result("Oracle COUNT", res, truth)
     _check_budget("Oracle COUNT", res, size.budget)
+    if size.full and device == "cuda" and res.estimate != ORACLE_COUNT_BEFORE:
+        fail(f"the Oracle COUNT moved: {res.estimate!r} where it was "
+             f"{ORACLE_COUNT_BEFORE!r}")
     if device == "cuda":
         if launches.get("flash_attention", 0) <= 0:
             fail("flash_attention was not launched on the Oracle path")
@@ -2227,6 +2264,327 @@ def model_kernels():
 
 
 # ---------------------------------------------------------------------------
+# phase 3c: K5's backward against its plain version
+# ---------------------------------------------------------------------------
+
+# (B, Hq, Hkv, Sq, Skv, d, causal, window, dtype): the training shape (phase
+# 11's joinml-oracle batch) in bf16 and in f32, then the other families'
+# attention: qwen3's GQA 16:1 heads at d 128, recurrentgemma's windowed MQA
+# at S 4096, whisper's encoder and its decoder's cross-attention (448 target
+# tokens against 1,500 frames), and a ragged Sq of 100
+FLASH_BWD_SHAPES = {
+    "joinml-oracle training": (16, 12, 12, 128, 128, 64, True, 0, torch.bfloat16),
+    "joinml-oracle training, f32": (16, 12, 12, 128, 128, 64, True, 0, torch.float32),
+    "qwen3-moe heads (GQA 16:1, d 128)": (16, 64, 4, 128, 128, 128, True, 0, torch.bfloat16),
+    "recurrentgemma heads, S 4096, window 2048": (1, 16, 1, 4096, 4096, 256, True, 2048,
+                                                  torch.bfloat16),
+    "whisper-medium encoder": (4, 16, 16, 1500, 1500, 64, False, 0, torch.bfloat16),
+    "whisper-medium cross-attention, 448 x 1500": (4, 16, 16, 448, 1500, 64, False, 0,
+                                                   torch.bfloat16),
+    "joinml-oracle heads, ragged Sq 100": (16, 12, 12, 100, 100, 64, True, 0, torch.bfloat16),
+}
+TRAIN_SHAPE = "joinml-oracle training"
+
+
+def _sdpa_grad_fns(q, k, v, do, causal, window):
+    """SDPA's forward + backward and its backward alone (``retain_graph``),
+    the library's yardstick for K5's backward (timed here only)."""
+    import torch.nn.functional as F
+
+    sq, skv = q.shape[2], k.shape[2]
+    qa, ka, va = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    kw = {"enable_gqa": True}
+    if window:
+        qp = torch.arange(sq, device="cuda")[:, None]
+        kp = torch.arange(skv, device="cuda")[None, :]
+        kw["attn_mask"] = (qp >= kp) & (qp - kp < window)
+    else:
+        kw["is_causal"] = causal
+
+    def fwd_bwd():
+        out = F.scaled_dot_product_attention(qa, ka, va, **kw)
+        return torch.autograd.grad(out, (qa, ka, va), do)
+
+    held = F.scaled_dot_product_attention(qa, ka, va, **kw)
+    return fwd_bwd, lambda: torch.autograd.grad(held, (qa, ka, va), do, retain_graph=True)
+
+
+def flash_backward():
+    """Phase 3c: K5's backward (``flash_attention_bwd_cuda``) at each
+    ``FLASH_BWD_SHAPES`` entry against an f64 autograd of the plain version
+    under ``checks.flash_attention_grad_bound`` (``check_model_kernel``), a
+    second run equal bit for bit, and its times (CUDA events) beside the
+    plain version's backward (autograd through ``flash_attention_ref``), our
+    forward + backward, SDPA's forward + backward and its backward alone,
+    and the bound: 2.5 times the forward's operations over the unmasked
+    pairs against the peak of the input type, or the bytes (q, k, v, o, dO
+    and the lse read, dq, dk, dv written).  Returns the row per shape, the
+    training shape's first."""
+    from repro_torch.kernels import checks
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_cuda,
+        flash_attention_cuda,
+    )
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = []
+    for label, (b, hq, hkv, sq, skv, d, causal, window, dt) in FLASH_BWD_SHAPES.items():
+        q, do = (torch.randn((b, hq, sq, d), generator=gen, device="cuda").to(dt)
+                 for _ in range(2))
+        k, v = (torch.randn((b, hkv, skv, d), generator=gen, device="cuda").to(dt)
+                for _ in range(2))
+        o, lse = flash_attention_cuda(q, k, v, causal, window, with_lse=True)
+        kern = lambda: flash_attention_bwd_cuda(q, k, v, o, do, lse, causal, window)  # noqa: E731
+        got, again = kern(), kern()
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        del again
+        qd, kd, vd = (t.double().requires_grad_() for t in (q, k, v))
+        want = torch.autograd.grad(flash_attention_ref(qd, kd, vd, causal, window),
+                                   (qd, kd, vd), do.double())
+        del qd, kd, vd
+        bounds = checks.flash_attention_grad_bound(q, k, v, do, causal, window)
+        rules = {name: checks.check_model_kernel(g, w, e)
+                 for name, g, w, e in zip(("dq", "dk", "dv"), got, want, bounds)}
+        del got, want, bounds
+        torch.cuda.empty_cache()
+        qp_, kp_, vp_ = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        held = flash_attention_ref(qp_, kp_, vp_, causal, window)
+        plain = lambda: torch.autograd.grad(held, (qp_, kp_, vp_), do, retain_graph=True)  # noqa: E731
+
+        def ours():
+            o2, l2 = flash_attention_cuda(q, k, v, causal, window, with_lse=True)
+            return flash_attention_bwd_cuda(q, k, v, o2, do, l2, causal, window)
+
+        sdpa, sdpa_bwd = _sdpa_grad_fns(q, k, v, do, causal, window)
+        reps = 10 if sq * skv <= 1 << 16 else 3
+        pairs = _attention_pairs(sq, skv, causal, window)
+        flops = 2.5 * 4.0 * b * hq * d * pairs
+        el = q.element_size()
+        byts = el * 4 * (b * hq * sq * d + b * hkv * skv * d) + 4 * b * hq * sq
+        row = _row(_events_ms(kern, reps), _events_ms(plain, 1), flops, byts,
+                   PEAK["bf16" if dt == torch.bfloat16 else "fp32"])
+        row.update(fwd_bwd_ms=_events_ms(ours, reps), library_ms=_events_ms(sdpa, reps),
+                   library_note="scaled_dot_product_attention forward + backward",
+                   library_bwd_ms=_events_ms(sdpa_bwd, reps), shape=label,
+                   dims=[b, hq, hkv, sq, skv, d, causal, window, str(dt)[6:]],
+                   same_bits_twice=same,
+                   max_abs_err=max(r["max_abs_err"] for r in rules.values()),
+                   err_over_tol={k_: r["err_over_tol"] for k_, r in rules.items()})
+        log(json.dumps({"check": "flash_attention_bwd", **row}))
+        if not same:
+            fail(f"K5's backward gave other bits on a second run at {label}")
+        rows.append(row)
+        del q, k, v, do, o, lse, held, qp_, kp_, vp_
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 11: training joinml-oracle at full width
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TrainSize:
+    full: bool        # the published config (else the reduced one)
+    batch: int        # sequences of a step
+    seq: int          # tokens of a sequence
+    steps: int        # steps on the repeated batch
+    launcher_steps: int
+
+
+TRAIN_FULL = TrainSize(full=True, batch=16, seq=128, steps=12, launcher_steps=4)
+TRAIN_REHEARSAL = TrainSize(full=False, batch=4, seq=32, steps=6, launcher_steps=2)
+TRAIN_LR = 1e-4
+
+
+def _train_setup(size, device, seed=SEED):
+    """joinml-oracle (remat on, as published), AdamW, and a loader of pair
+    batches from the entity corpus (``make_pair_batch``, loss on the label
+    token)."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data.pipeline import ByteTokenizer, make_entity_corpus, make_pair_batch
+    from repro_torch.models import init_params
+    from repro_torch.train import OptimizerConfig, init_opt_state
+
+    tok = ByteTokenizer()
+    cfg = get_config(ORACLE_NAME) if size.full else get_smoke_config(
+        ORACLE_NAME, vocab_size=tok.vocab_size, remat=True)
+    params = init_params(cfg, seed, device=device)
+    opt = init_opt_state(params)
+    ocfg = OptimizerConfig(peak_lr=TRAIN_LR, warmup_steps=2, decay_steps=1000)
+    records, ids = make_entity_corpus(n_entities=64, records_per_entity=4, noise=0.08,
+                                      seed=seed)
+
+    def batch_at(step):
+        rng = np.random.default_rng(np.random.SeedSequence([seed, step]))
+        b = make_pair_batch(tok, records, ids, size.batch, size.seq, rng)
+        return {"tokens": b["tokens"], "loss_mask": b["loss_mask"]}
+
+    return cfg, params, opt, ocfg, batch_at
+
+
+def resume_check(device, full):
+    """3 steps, a save through ``AsyncCheckpointer``, a restore into other
+    parameters, 3 more steps; against 6 uninterrupted steps, every
+    parameter and moment bit for bit.  Run in its own process under
+    ``torch.use_deterministic_algorithms(True)``; prints one JSON line."""
+    import tempfile
+
+    from repro_torch.checkpoint.checkpoint import AsyncCheckpointer, restore_latest
+    from repro_torch.train import make_train_step
+
+    torch.use_deterministic_algorithms(True)
+    size = TRAIN_FULL if full else TRAIN_REHEARSAL
+    cfg, p, o, ocfg, batch_at = _train_setup(size, device)
+    step_fn = make_train_step(cfg, ocfg)
+    for s in range(6):
+        p, o, _ = step_fn(p, o, batch_at(s))
+    ref = {k: t.detach().clone() for k, t in p.state_dict().items()}
+    ref_m = {k: t.clone() for k, t in o["m"].items()}
+    ref_v = {k: t.clone() for k, t in o["v"].items()}
+    del p, o
+    cfg, p2, o2, _, _ = _train_setup(size, device)
+    for s in range(3):
+        p2, o2, _ = step_fn(p2, o2, batch_at(s))
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as root:
+        ck = AsyncCheckpointer(root, keep_last=1)
+        ck.save(3, {"params": p2, "opt": o2})
+        ck.wait()
+        del p2, o2
+        _, p3, o3, _, _ = _train_setup(size, device, seed=SEED + 1)
+        (tree, manifest) = restore_latest(root, {"params": p3, "opt": o3})
+    p3, o3 = tree["params"], tree["opt"]
+    for s in range(3, 6):
+        p3, o3, _ = step_fn(p3, o3, batch_at(s))
+    sync(device)
+    diff = [k for k, t in p3.state_dict().items() if not torch.equal(t, ref[k])]
+    diff += [f"m/{k}" for k, t in o3["m"].items() if not torch.equal(t, ref_m[k])]
+    diff += [f"v/{k}" for k, t in o3["v"].items() if not torch.equal(t, ref_v[k])]
+    print(json.dumps({"resume": "3 + save + restore + 3 against 6 steps",
+                      "restored_step": manifest["step"], "step": int(o3["step"]),
+                      "leaves": len(ref) + len(ref_m) + len(ref_v),
+                      "differing": diff[:8], "equal": not diff}), flush=True)
+
+
+def _subprocess_resume(device, size):
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8",
+               PYTHONPATH=os.path.join(HERE, "src"))
+    code = ("import sys; sys.path.insert(0, {here!r}); import chip_smoke; "
+            "chip_smoke.resume_check({device!r}, {full!r})").format(
+                here=HERE, device=device, full=size.full)
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=HERE, env=env, timeout=900)
+    if out.returncode != 0:
+        fail(f"the resume check exited {out.returncode} (an op that refuses to run "
+             f"under deterministic algorithms is named here):\n{out.stderr[-3000:]}")
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    res["wall_s"] = time.perf_counter() - t0
+    log(json.dumps(res))
+    if not res["equal"]:
+        fail(f"the resumed run differs from the uninterrupted one: {res['differing']}")
+
+
+def _train_launcher(device, size):
+    """The training launcher started twice as a subprocess on one checkpoint
+    directory: the second start resumes where the first stopped."""
+    import shutil as _shutil
+
+    root = os.path.join(HERE, "build", "train_launcher")
+    _shutil.rmtree(root, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    base = [sys.executable, "-m", "repro_torch.launch.train", "--ckpt", root,
+            "--ckpt-every", "2", "--batch", str(size.batch), "--seq", str(size.seq),
+            "--device", device] + (["--full-width"] if size.full else [])
+    outs = []
+    for steps in (size.launcher_steps, 2 * size.launcher_steps):
+        t0 = time.perf_counter()
+        out = subprocess.run(base + ["--steps", str(steps)], capture_output=True,
+                             text=True, cwd=HERE, env=env, timeout=600)
+        log(json.dumps({"train launcher": steps, "rc": out.returncode,
+                        "wall_s": time.perf_counter() - t0,
+                        "stdout": out.stdout.strip().splitlines()[-4:]}))
+        if out.returncode != 0:
+            fail(f"the training launcher exited {out.returncode}:\n{out.stderr[-3000:]}")
+        outs.append(out.stdout)
+    if "resumed" in outs[0] or f"resumed at step {size.launcher_steps}" not in outs[1]:
+        fail("the training launcher's second start did not resume from the first's "
+             "checkpoint")
+    _shutil.rmtree(root, ignore_errors=True)
+
+
+def phase11(size, device):
+    """Phase 11: train joinml-oracle (at full width on the card) on one
+    repeated batch of ``size.batch`` x ``size.seq`` pair tokens: the loss
+    finite at every step and falling; the median step, tokens/s and peak
+    memory; K5's forward and backward launches per step (counts set to 0
+    just before the steps and read just after; remat runs each layer's
+    forward twice); the device's idle share over 3 profiled steps; 4
+    microbatches against 1; then the resume check and the launcher.
+    Returns the launch counts of the steps."""
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.train import OptimizerConfig, make_train_step
+
+    t0 = time.perf_counter()
+    cfg, params, opt, ocfg, batch_at = _train_setup(size, device)
+    step_fn = make_train_step(cfg, ocfg)
+    batch = batch_at(0)
+    log(f"phase 11 set-up: {time.perf_counter() - t0:.1f} s")
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    cuda_lib.reset_launches()
+    for _ in range(size.steps):
+        sync(device)
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch)
+        losses.append(float(m["loss"]))
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(cuda_lib.LAUNCHES)
+    per_step = {k: v / size.steps for k, v in launches.items()}
+    med = float(np.median(times[2:]))
+    row = {"phase": "11: training", "model": cfg.name, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab_size, "dtype": cfg.dtype,
+           "remat": cfg.remat, "params": cfg.param_count(), "batch": [size.batch, size.seq],
+           "losses": losses, "step_ms": times, "median_step_ms": med,
+           "tokens_per_s": size.batch * size.seq / med * 1e3,
+           "launches_per_step": per_step}
+    if device == "cuda":
+        row["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+        _, wall, busy, events = _profiled(
+            lambda: [step_fn(params, opt, batch) for _ in range(3)])
+        row.update(profiled_steps=3, wall_ms=wall, device_busy_ms=busy,
+                   idle_share=1.0 - busy / wall, top_device_events=events[:10])
+    log(json.dumps(row))
+    if not np.isfinite(losses).all():
+        fail(f"a training loss is not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"the loss did not fall on the repeated batch: {losses}")
+    if device == "cuda" and (per_step.get("flash_attention") != 2 * cfg.num_layers
+                             or per_step.get("flash_attention_bwd") != cfg.num_layers):
+        fail(f"K5 launches per step {per_step}: expected {2 * cfg.num_layers} forward "
+             f"and {cfg.num_layers} backward with remat")
+
+    # 4 microbatches against 1 at lr 0 (tests/test_substrates.py's tolerances)
+    still = OptimizerConfig(peak_lr=0.0, warmup_steps=0, weight_decay=0.0)
+    metrics = {n: make_train_step(cfg, still, n)(params, opt, batch)[2] for n in (1, 4)}
+    mb = {n: {"loss": float(m_["loss"]), "grad_norm": float(m_["grad_norm"])}
+          for n, m_ in metrics.items()}
+    log(json.dumps({"check": "phase 11: 4 microbatches against 1", **{str(n): v for n, v
+                                                                      in mb.items()}}))
+    if (abs(mb[4]["loss"] - mb[1]["loss"]) > 2e-2 * abs(mb[1]["loss"])
+            or abs(mb[4]["grad_norm"] - mb[1]["grad_norm"]) > 3e-2 * mb[1]["grad_norm"]):
+        fail(f"microbatched training differs: {mb}")
+    del params, opt, metrics
+    _free()
+    _subprocess_resume(device, size)
+    _train_launcher(device, size)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 10: the serving plane
 # ---------------------------------------------------------------------------
 
@@ -2235,6 +2593,13 @@ REMOTE_QUERIES = 4     # 10b's RemoteOracle queries, seeds 0-3
 SERVE_WAIT_MS = 8.0    # the service's window timer, as the launcher sets it
 SERVE_BOUND_S = 600.0  # every wait of phase 10 on a query, a process or a line
 ORACLE_NAME = "joinml-oracle"
+# the Oracle COUNT (phase 6) and the served COUNTs (10a, seeds 0-7) as they
+# came out before K5 took its lse output and the trainer came in: the
+# serving path must give them bit for bit
+ORACLE_COUNT_BEFORE = 2736.2408429335214
+SERVED_BEFORE = [2736.2408429335214, 2853.556150432342, 3101.306436028349,
+                 3093.171724007253, 3101.7223845472313, 3329.776234265801,
+                 2705.055569080088, 2634.2711395474203]
 
 
 def _count(spec, oracle, budget):
@@ -2351,6 +2716,9 @@ def serving_in_process(size, device):
                             "p99": float(np.quantile(lat, 0.99))},
         "flush_rate_rows_per_s": snap.get("service.rate_rows_per_s"),
         "launches": launches}))
+    if size.full and device == "cuda" and [r.estimate for r in results] != SERVED_BEFORE:
+        fail(f"the served COUNTs moved: {[r.estimate for r in results]} where they "
+             f"were {SERVED_BEFORE}")
     if charged != stats["store_misses"] or backend_rows != charged:
         fail(f"charge-once: {charged} charged, {stats['store_misses']} store misses, "
              f"{backend_rows} rows scored")
@@ -2675,8 +3043,8 @@ def serving_index(size, device, catalogs, warm_count):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--rehearse-cpu", action="store_true",
-                    help="run phases 4, 4b, 4c, 6, 7, 8, 9 and 10 at a tiny size on the CPU "
-                         "(exits 3)")
+                    help="run phases 4, 4b, 4c, 6, 7, 8, 9, 10 and 11 at a tiny size on the "
+                         "CPU (exits 3)")
     if ap.parse_args().rehearse_cpu:
         from repro_torch.kernels import cuda_lib
 
@@ -2691,9 +3059,10 @@ def main():
         family_paths(REHEARSAL_MODEL, "cpu")
         served = serving_in_process(REHEARSAL_MODEL, "cpu")
         serving_fleet(REHEARSAL_MODEL, "cpu", served)
+        phase11(TRAIN_REHEARSAL, "cpu")
         log(f"rehearsal complete: {len(results) + len(results_4b) + len(results_4c)} "
-            "queries, the Oracle queries, the recurrent paths, the model families "
-            "and the serving plane on the CPU (no result)")
+            "queries, the Oracle queries, the recurrent paths, the model families, "
+            "the serving plane and training on the CPU (no result)")
         sys.exit(3)
     if not torch.cuda.is_available():
         log("no CUDA card: nothing to measure")
@@ -2734,18 +3103,28 @@ def main():
         for label, sh in FLASH_SHAPES.items()}}))
 
     from repro_torch.data import make_clustered_tables
+    from repro_torch.kernels import autotune
 
     t0 = time.perf_counter()
     ds = make_clustered_tables(FULL.n, FULL.n, d=FULL.d, n_entities=512,
                                noise=0.35, seed=SEED)
     chain = make_chain(FULL)
     log(f"phase 3 data: {time.perf_counter() - t0:.1f} s")
+    # phases 3 to 4c and 10c run with the launch autotuner on (its cache in
+    # build/, measured afresh); it is off again before phase 5
+    tune_root = os.path.join(HERE, "build", "autotune_smoke")
+    import shutil as _shutil
+    _shutil.rmtree(tune_root, ignore_errors=True)
+    autotune.configure(os.path.join(tune_root, "autotune.json"))
     # phase 3: kernels against their plain versions at main-path shapes
     errs = phase3(ds, FULL.slice)
     chain_err, chain_timing = chain_check(chain)
     errs["sim_sweep[fp32]"] = max(errs["sim_sweep[fp32]"], chain_err)
     del ds, chain
+    _log_tuning("phase 3")
     model_rows = model_kernels()
+    # phase 3c: K5's backward
+    bwd_rows = flash_backward()
 
     # phase 4: the main path, counts read around the whole phase
     cuda_lib.reset_launches()
@@ -2782,6 +3161,8 @@ def main():
     index_served = serving_index(FULL, "cuda", catalogs, _warm_count(rows_4c))
     phase10_s = time.perf_counter() - t10
     del catalogs, chain, results_4b, rows_4c
+    _log_tuning("phases 4 to 4c and 10c")
+    autotune.reset()
 
     # phase 5: times at the phase-4 shapes
     ds = make_clustered_tables(FULL.n, FULL.n, d=FULL.d, n_entities=512,
@@ -2807,7 +3188,13 @@ def main():
     del served
     _free()
     phase10_s += time.perf_counter() - t10
-    log(json.dumps({"phase10_s": phase10_s, "script_s": time.perf_counter() - t_script}))
+    # phase 11: training, counts set to 0 just before its steps
+    t11 = time.perf_counter()
+    train_launches = phase11(TRAIN_FULL, "cuda")
+    paths["training (11)"] = train_launches
+    _free()
+    log(json.dumps({"phase10_s": phase10_s, "phase11_s": time.perf_counter() - t11,
+                    "script_s": time.perf_counter() - t_script}))
     main_path = {"flash_attention": "Oracle COUNT", "rwkv6_scan": "rwkv6-1.6b",
                  "rglru_scan": "recurrentgemma-9b"}
 
@@ -2828,6 +3215,13 @@ def main():
                      "launches_by_path": {p: n.get(name, 0) for p, n in
                                           (paths | paths_4b).items()},
                      "other_shapes": other_rows})
+    train_row, *other_bwd = bwd_rows
+    rows.append({"name": "flash_attention_bwd", "route": "cuda", "source": MODEL_SOURCE,
+                 "replaces": BWD_REPLACES,
+                 "launches": train_launches.get("flash_attention_bwd", 0), **train_row,
+                 "launches_by_path": {"training (11)": train_launches.get(
+                     "flash_attention_bwd", 0)},
+                 "other_shapes": other_bwd})
     log(json.dumps({"kernels": rows}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

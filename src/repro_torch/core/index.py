@@ -46,6 +46,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import os
 import threading
 import time
 from collections import OrderedDict
@@ -460,7 +461,8 @@ class IndexStore:
     its own thread, on ``device``, and the others block on the future;
     distinct keys build in parallel.  With ``root`` set, a memory miss
     tries the on-disk store (``checkpoint.index_io``, mmap load) before
-    paying a cold sweep.
+    paying a cold sweep, and the launch autotuner keeps its cache in
+    ``<root>/autotune.json`` (``kernels.autotune``: tuning on).
     """
 
     def __init__(self, max_bytes: int = 1 << 30, root: Optional[str] = None,
@@ -470,6 +472,13 @@ class IndexStore:
         self.device = resolve_device(device)
         self.max_bytes = int(max_bytes)
         self.root = root
+        if root is not None:
+            # tuned launch parameters live next to the artifacts they
+            # accelerate (configure() only records the path; nothing is
+            # measured until a sweep launches on the card)
+            from ..kernels import autotune
+
+            autotune.configure(os.path.join(os.fspath(root), "autotune.json"))
         self.tracker = tracker if tracker is not None else NULL_TRACKER
         self._lock = threading.Lock()
         self._entries: "OrderedDict[str, Future]" = OrderedDict()

@@ -58,6 +58,26 @@
 //   cudaFuncSetAttribute); Q and K rows are padded by one float so the 16
 //   threads of a row group read 16 banks; the 16 threads of a row are one
 //   half-warp, so row max and row sum are four xor shuffles.
+//   Both kernels write the row log-sum-exp m + log(l) in f32 when they are
+//   given an lse pointer (training); with a null pointer they do what they
+//   did before it existed.
+//
+// K5's backward (no Pallas counterpart: the reference differentiates its
+// jnp attention).  dQ, dK and dV of softmax(q k^T * d**-0.5 + mask) v for
+// every shape and mask the forward takes, f32 or bf16 in, f32 sums, the
+// gradients in the inputs' type.  It recomputes P = exp(s * scale - lse)
+// from the saved lse.  Three launches: D = rowsum(dO * O); dQ, one CTA per
+// (batch, q head, q tile) in one pass over the KV tiles; dK and dV, one CTA
+// per (batch, KV head, KV tile) in one pass over the q tiles of every q
+// head of the group, so the GQA sum needs no atomics and every run gives
+// the same bits.  A first version on the CUDA cores (SIMT f32, the forward
+// f32 kernel's 16 x 16 thread layout; 64-row tiles, 32 at d 256), so at the
+// training shape its bound is operations, 2.5 times the forward's (halved
+// under a causal mask), against the tensor cores' bf16 peak.  Masked
+// scores get dS = 0 (the mask replaces them by a constant); a row whose
+// keys are all masked (lse == FA_NEG) has P = 1 / Skv, as the forward
+// averaged every value.  Tiles wholly masked are skipped where Sq <= Skv,
+// as the forward skips them.
 //
 // K6, RWKV6 scan.  Per (batch, head), from S = 0 (hd x hd), all in f32:
 //   out_t = r_t (S + u * k_t^T v_t),  S <- diag(w_t) S + k_t^T v_t.
@@ -144,9 +164,9 @@ size_t fa_smem_bytes(int d) {
 template <int D>
 __global__ void __launch_bounds__(FA_NT)
 flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                       const float* __restrict__ v, float* __restrict__ o, int Hq,
-                       int Hkv, int Sq, int Skv, int causal, int window,
-                       float scale) {
+                       const float* __restrict__ v, float* __restrict__ o,
+                       float* __restrict__ lse, int Hq, int Hkv, int Sq, int Skv,
+                       int causal, int window, float scale) {
   extern __shared__ float smem[];
   constexpr int LDQ = D + 1;
   constexpr int LDP = FA_BKV + 1;
@@ -279,13 +299,14 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int jj = 0; jj < OPT; ++jj)
         ob[(size_t)qp * D + tx + 16 * jj] = acc[i][jj] / den;
+      if (lse != nullptr && tx == 0) lse[(size_t)bh * Sq + qp] = m[i] + logf(l[i]);
     }
   }
 }
 
 template <int D>
 cudaError_t fa_launch(const void* q, const void* k, const void* v, void* o,
-                      int B, int Hq, int Hkv, int Sq, int Skv, int causal,
+                      float* lse, int B, int Hq, int Hkv, int Sq, int Skv, int causal,
                       int window, float scale, cudaStream_t s) {
   const size_t smem = fa_smem_bytes(D);
   cudaError_t err = cudaFuncSetAttribute(
@@ -295,20 +316,20 @@ cudaError_t fa_launch(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((unsigned)(B * Hq), (unsigned)((Sq + FA_BQ - 1) / FA_BQ));
   flash_attention_kernel<D><<<grid, FA_NT, smem, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), Hq, Hkv, Sq, Skv, causal,
-      window, scale);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, Hq, Hkv, Sq, Skv,
+      causal, window, scale);
   return cudaGetLastError();
 }
 
 cudaError_t fa_dispatch(int d, const void* q, const void* k, const void* v,
-                        void* o, int B, int Hq, int Hkv, int Sq, int Skv,
+                        void* o, float* lse, int B, int Hq, int Hkv, int Sq, int Skv,
                         int causal, int window, float scale, cudaStream_t s) {
   switch (d) {
-    case 16: return fa_launch<16>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, scale, s);
-    case 32: return fa_launch<32>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, scale, s);
-    case 64: return fa_launch<64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, scale, s);
-    case 128: return fa_launch<128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, scale, s);
-    case 256: return fa_launch<256>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, scale, s);
+    case 16: return fa_launch<16>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, causal, window, scale, s);
+    case 32: return fa_launch<32>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, causal, window, scale, s);
+    case 64: return fa_launch<64>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, causal, window, scale, s);
+    case 128: return fa_launch<128>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, causal, window, scale, s);
+    case 256: return fa_launch<256>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, causal, window, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -356,10 +377,10 @@ __global__ void __launch_bounds__(FB_NT)
 flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                             const __nv_bfloat16* __restrict__ k,
                             const __nv_bfloat16* __restrict__ v,
-                            __nv_bfloat16* __restrict__ o, int Hq, int Hkv,
-                            int Sq, int Skv, int causal, int window,
-                            float scale, int n_units, int cpg, int slots,
-                            int nbuf) {
+                            __nv_bfloat16* __restrict__ o,
+                            float* __restrict__ lse, int Hq, int Hkv, int Sq,
+                            int Skv, int causal, int window, float scale,
+                            int n_units, int cpg, int slots, int nbuf) {
   constexpr int LD = D + 8;  // smem row stride (bf16): rows 16 B apart in banks
   constexpr int KD = D / 16;
   extern __shared__ __align__(16) unsigned char fb_smem[];
@@ -594,6 +615,7 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     for (int nb = 0; nb < D / 8; ++nb)
       *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)qp * D + nb * 8 + 2 * t4) =
           __floats2bfloat162_rn(acc[nb][2 * r] / den, acc[nb][2 * r + 1] / den);
+    if (lse != nullptr && t4 == 0) lse[bh * Sq + qp] = m[r] + logf(l[r]);
   }
 }
 
@@ -625,7 +647,7 @@ void fb_plan(int d, int Hq, int Hkv, int Sq, int Skv, int& cpg, int& slots,
 
 template <int D>
 cudaError_t fb_launch(const void* q, const void* k, const void* v, void* o,
-                      int B, int Hq, int Hkv, int Sq, int Skv, int causal,
+                      float* lse, int B, int Hq, int Hkv, int Sq, int Skv, int causal,
                       int window, float scale, cudaStream_t s) {
   int cpg, slots, nbuf;
   size_t smem;
@@ -641,20 +663,405 @@ cudaError_t fb_launch(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return err;
   flash_attention_bf16_kernel<D><<<(unsigned)ctas, FB_NT, smem, s>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Hq,
-      Hkv, Sq, Skv, causal, window, scale, (int)n_units, cpg, slots, nbuf);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse,
+      Hq, Hkv, Sq, Skv, causal, window, scale, (int)n_units, cpg, slots, nbuf);
   return cudaGetLastError();
 }
 
 cudaError_t fb_dispatch(int d, const void* q, const void* k, const void* v,
-                        void* o, int B, int Hq, int Hkv, int Sq, int Skv,
+                        void* o, float* lse, int B, int Hq, int Hkv, int Sq, int Skv,
                         int causal, int window, float scale, cudaStream_t s) {
   switch (d) {
-    case 16: return fb_launch<16>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, scale, s);
-    case 32: return fb_launch<32>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, scale, s);
-    case 64: return fb_launch<64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, scale, s);
-    case 128: return fb_launch<128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, scale, s);
-    case 256: return fb_launch<256>(q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, scale, s);
+    case 16: return fb_launch<16>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, causal, window, scale, s);
+    case 32: return fb_launch<32>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, causal, window, scale, s);
+    case 64: return fb_launch<64>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, causal, window, scale, s);
+    case 128: return fb_launch<128>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, causal, window, scale, s);
+    case 256: return fb_launch<256>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, causal, window, scale, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// ---- K5 backward: dQ, dK, dV (SIMT, f32) ------------------------------------
+
+constexpr int FG_NT = 256;  // threads of a CTA: 16 x 16
+
+// rows of a q tile and keys of a KV tile: 64, or 32 at d 256 (where four
+// 64-row f32 tiles would not fit the shared memory)
+template <int D>
+struct FgTile {
+  static constexpr int B = D <= 128 ? 64 : 32;
+};
+
+__device__ __forceinline__ float fg_load(const float* p) { return *p; }
+__device__ __forceinline__ float fg_load(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void fg_store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void fg_store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
+// whether the forward gave (qp, kp) the score FA_NEG
+__device__ __forceinline__ bool fg_masked(int qp, int kp, int causal, int window) {
+  return (causal && qp < kp) || (window > 0 && qp - kp >= window);
+}
+
+// a row every key of which is masked: the forward's m is FA_NEG and its lse
+// FA_NEG + log(Skv) == FA_NEG in f32; it averaged every value (p = 1 / Skv)
+__device__ __forceinline__ bool fg_empty_row(float lse) { return lse < 0.5f * FA_NEG; }
+
+// shared memory of the dQ kernel (Q, dO, K and V tiles with padded rows and
+// the dS tile) and of the dK/dV kernel (K, V, Q, dO, P and dS, and a tile's
+// lse and D)
+size_t fg_smem_dq(int d) {
+  const size_t bt = d <= 128 ? 64 : 32;
+  return sizeof(float) * (4 * bt * (d + 1) + bt * (bt + 1));
+}
+size_t fg_smem_dkv(int d) {
+  const size_t bt = d <= 128 ? 64 : 32;
+  return sizeof(float) * (4 * bt * (d + 1) + 2 * bt * (bt + 1) + 2 * bt);
+}
+
+// D_i = sum_c dO_ic O_ic, one warp a row (lanes stride the width, then a
+// butterfly), 8 rows a CTA
+template <typename T>
+__global__ void __launch_bounds__(256)
+fa_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                    float* __restrict__ delta, long long rows, int D) {
+  const long long row = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;  // a whole warp leaves together
+  const T* a = o + row * D;
+  const T* b = dout + row * D;
+  float s = 0.f;
+  for (int c = lane; c < D; c += 32) s = fmaf(fg_load(a + c), fg_load(b + c), s);
+#pragma unroll
+  for (int off = 16; off >= 1; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (lane == 0) delta[row] = s;
+}
+
+// the KV tiles a q tile [q0, q0 + BT) sees, skipped as the forward skips
+// them: only where Sq <= Skv, so that every row has a valid key (kp = qp)
+// and a skipped tile's dS is exactly 0
+template <int BT>
+__device__ __forceinline__ void fg_kv_range(int q0, int Sq, int Skv, int causal,
+                                            int window, int& b, int& e) {
+  b = 0;
+  e = Skv;
+  if (Sq <= Skv) {
+    const int q_last = min(q0 + BT, Sq) - 1;
+    if (causal) e = min(Skv, q_last + 1);
+    if (window > 0) b = (max(0, q0 - window + 1) / BT) * BT;
+  }
+}
+
+// dQ: one CTA per (batch * q head, q tile); thread (tx, ty) owns rows ty + 16
+// i of the tile, score columns tx + 16 j of a KV tile, and output columns tx
+// + 16 jj.  Per KV tile: S = Q K^T and dP = dO V^T (one fmaf chain each),
+// P = exp(S scale - lse), dS = P (dP - D) (0 where masked), then dQ += dS K.
+template <int D, typename T>
+__global__ void __launch_bounds__(FG_NT)
+fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const T* __restrict__ dout,
+                 const float* __restrict__ lse, const float* __restrict__ delta,
+                 T* __restrict__ dq, int Hq, int Hkv, int Sq, int Skv, int causal,
+                 int window, float scale) {
+  constexpr int BT = FgTile<D>::B, LD = D + 1, LDS = BT + 1;
+  constexpr int RPT = BT / 16, OPT = D / 16;
+  extern __shared__ float fg_smem[];
+  float* Qs = fg_smem;
+  float* dOs = Qs + BT * LD;
+  float* Ks = dOs + BT * LD;
+  float* Vs = Ks + BT * LD;
+  float* dSs = Vs + BT * LD;
+
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int bh = blockIdx.x, b = bh / Hq, h = bh % Hq, kvh = h / (Hq / Hkv);
+  const int q0 = blockIdx.y * BT;
+  const size_t qoff = (size_t)bh * Sq * D;
+  const size_t kvoff = (size_t)(b * Hkv + kvh) * Skv * D;
+  for (int i = tid; i < BT * D; i += FG_NT) {
+    const int r = i / D, c = i % D;
+    const bool in = q0 + r < Sq;
+    Qs[r * LD + c] = in ? fg_load(q + qoff + (size_t)(q0 + r) * D + c) : 0.f;
+    dOs[r * LD + c] = in ? fg_load(dout + qoff + (size_t)(q0 + r) * D + c) : 0.f;
+  }
+  float L[RPT], Dl[RPT], acc[RPT][OPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int qp = q0 + ty + 16 * i;
+    L[i] = qp < Sq ? lse[(size_t)bh * Sq + qp] : 0.f;
+    Dl[i] = qp < Sq ? delta[(size_t)bh * Sq + qp] : 0.f;
+#pragma unroll
+    for (int jj = 0; jj < OPT; ++jj) acc[i][jj] = 0.f;
+  }
+  int kv_b, kv_e;
+  fg_kv_range<BT>(q0, Sq, Skv, causal, window, kv_b, kv_e);
+
+  for (int kv0 = kv_b; kv0 < kv_e; kv0 += BT) {
+    __syncthreads();  // the previous tile's readers are done (and Qs is written)
+    for (int i = tid; i < BT * D; i += FG_NT) {
+      const int r = i / D, c = i % D;
+      const bool in = kv0 + r < Skv;
+      Ks[r * LD + c] = in ? fg_load(k + kvoff + (size_t)(kv0 + r) * D + c) : 0.f;
+      Vs[r * LD + c] = in ? fg_load(v + kvoff + (size_t)(kv0 + r) * D + c) : 0.f;
+    }
+    __syncthreads();
+    float s[RPT][RPT], dp[RPT][RPT];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+      for (int j = 0; j < RPT; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+    for (int kk = 0; kk < D; ++kk) {
+      float qv[RPT], gv[RPT], kv[RPT], vv[RPT];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        qv[i] = Qs[(ty + 16 * i) * LD + kk];
+        gv[i] = dOs[(ty + 16 * i) * LD + kk];
+        kv[i] = Ks[(tx + 16 * i) * LD + kk];
+        vv[i] = Vs[(tx + 16 * i) * LD + kk];
+      }
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int j = 0; j < RPT; ++j) {
+          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+          dp[i][j] = fmaf(gv[i], vv[j], dp[i][j]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int qp = q0 + ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < RPT; ++j) {
+        const int kp = kv0 + tx + 16 * j;
+        float ds = 0.f;
+        if (qp < Sq && kp < Skv && !fg_masked(qp, kp, causal, window))
+          ds = expf(s[i][j] * scale - L[i]) * (dp[i][j] - Dl[i]);
+        dSs[(ty + 16 * i) * LDS + tx + 16 * j] = ds;
+      }
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int c = 0; c < BT; ++c) {
+      float kc[OPT];
+#pragma unroll
+      for (int jj = 0; jj < OPT; ++jj) kc[jj] = Ks[c * LD + tx + 16 * jj];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        const float ds = dSs[(ty + 16 * i) * LDS + c];
+#pragma unroll
+        for (int jj = 0; jj < OPT; ++jj) acc[i][jj] = fmaf(ds, kc[jj], acc[i][jj]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int qp = q0 + ty + 16 * i;
+    if (qp >= Sq) continue;
+#pragma unroll
+    for (int jj = 0; jj < OPT; ++jj)
+      fg_store(dq + qoff + (size_t)qp * D + tx + 16 * jj, acc[i][jj] * scale);
+  }
+}
+
+// dK and dV: one CTA per (batch * KV head, KV tile), looping over the q tiles
+// of every q head of the group, so the GQA sum is a plain sum in registers
+// (no atomics; the same bits on every run).  Thread (tx, ty) owns keys ty +
+// 16 a, query columns tx + 16 c of a q tile, and output columns tx + 16 jj.
+// Per q tile: S^T = K Q^T and dP^T = V dO^T, P and dS as in the dQ kernel
+// (P = 1 / Skv on a row whose keys are all masked, dS 0 there), then dV +=
+// P^T dO and dK += dS^T Q.
+template <int D, typename T>
+__global__ void __launch_bounds__(FG_NT)
+fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, const T* __restrict__ dout,
+                  const float* __restrict__ lse, const float* __restrict__ delta,
+                  T* __restrict__ dk, T* __restrict__ dv, int Hq, int Hkv, int Sq,
+                  int Skv, int causal, int window, float scale) {
+  constexpr int BT = FgTile<D>::B, LD = D + 1, LDS = BT + 1;
+  constexpr int RPT = BT / 16, OPT = D / 16;
+  extern __shared__ float fg_smem[];
+  float* Ks = fg_smem;
+  float* Vs = Ks + BT * LD;
+  float* Qs = Vs + BT * LD;
+  float* dOs = Qs + BT * LD;
+  float* Ps = dOs + BT * LD;
+  float* dSs = Ps + BT * LDS;
+  float* Ls = dSs + BT * LDS;
+  float* Dls = Ls + BT;
+
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int bk = blockIdx.x, b = bk / Hkv, kvh = bk % Hkv, G = Hq / Hkv;
+  const int k0 = blockIdx.y * BT;
+  const size_t kvoff = (size_t)bk * Skv * D;
+  for (int i = tid; i < BT * D; i += FG_NT) {
+    const int r = i / D, c = i % D;
+    const bool in = k0 + r < Skv;
+    Ks[r * LD + c] = in ? fg_load(k + kvoff + (size_t)(k0 + r) * D + c) : 0.f;
+    Vs[r * LD + c] = in ? fg_load(v + kvoff + (size_t)(k0 + r) * D + c) : 0.f;
+  }
+  float dka[RPT][OPT], dva[RPT][OPT];
+#pragma unroll
+  for (int a = 0; a < RPT; ++a)
+#pragma unroll
+    for (int jj = 0; jj < OPT; ++jj) dka[a][jj] = dva[a][jj] = 0.f;
+  // the q tiles that see this KV tile (the dQ kernel's skips, seen from the
+  // keys): causal rows from k0 on, windowed rows before k_last + window
+  int q_b = 0, q_e = Sq;
+  if (Sq <= Skv) {
+    const int k_last = min(k0 + BT, Skv) - 1;
+    if (causal) q_b = (k0 / BT) * BT;
+    if (window > 0) q_e = min(Sq, k_last + window);
+  }
+  const float p_empty = 1.0f / (float)Skv;
+
+  for (int hh = 0; hh < G; ++hh) {
+    const size_t bh = (size_t)b * Hq + kvh * G + hh;
+    const size_t qoff = bh * Sq * D;
+    for (int q0 = q_b; q0 < q_e; q0 += BT) {
+      __syncthreads();  // the previous tile's readers are done (and Ks is written)
+      for (int i = tid; i < BT * D; i += FG_NT) {
+        const int r = i / D, c = i % D;
+        const bool in = q0 + r < Sq;
+        Qs[r * LD + c] = in ? fg_load(q + qoff + (size_t)(q0 + r) * D + c) : 0.f;
+        dOs[r * LD + c] = in ? fg_load(dout + qoff + (size_t)(q0 + r) * D + c) : 0.f;
+      }
+      for (int r = tid; r < BT; r += FG_NT) {
+        const bool in = q0 + r < Sq;
+        Ls[r] = in ? lse[bh * Sq + q0 + r] : 0.f;
+        Dls[r] = in ? delta[bh * Sq + q0 + r] : 0.f;
+      }
+      __syncthreads();
+      float s[RPT][RPT], dp[RPT][RPT];
+#pragma unroll
+      for (int a = 0; a < RPT; ++a)
+#pragma unroll
+        for (int c = 0; c < RPT; ++c) s[a][c] = dp[a][c] = 0.f;
+#pragma unroll 4
+      for (int kk = 0; kk < D; ++kk) {
+        float kv[RPT], vv[RPT], qv[RPT], gv[RPT];
+#pragma unroll
+        for (int a = 0; a < RPT; ++a) {
+          kv[a] = Ks[(ty + 16 * a) * LD + kk];
+          vv[a] = Vs[(ty + 16 * a) * LD + kk];
+          qv[a] = Qs[(tx + 16 * a) * LD + kk];
+          gv[a] = dOs[(tx + 16 * a) * LD + kk];
+        }
+#pragma unroll
+        for (int a = 0; a < RPT; ++a)
+#pragma unroll
+          for (int c = 0; c < RPT; ++c) {
+            s[a][c] = fmaf(qv[c], kv[a], s[a][c]);
+            dp[a][c] = fmaf(gv[c], vv[a], dp[a][c]);
+          }
+      }
+#pragma unroll
+      for (int a = 0; a < RPT; ++a) {
+        const int kp = k0 + ty + 16 * a;
+#pragma unroll
+        for (int c = 0; c < RPT; ++c) {
+          const int qp = q0 + tx + 16 * c;
+          float p = 0.f, ds = 0.f;
+          if (qp < Sq && kp < Skv) {
+            const float Lr = Ls[tx + 16 * c];
+            if (fg_empty_row(Lr)) {
+              p = p_empty;
+            } else if (!fg_masked(qp, kp, causal, window)) {
+              p = expf(s[a][c] * scale - Lr);
+              ds = p * (dp[a][c] - Dls[tx + 16 * c]);
+            }
+          }
+          Ps[(ty + 16 * a) * LDS + tx + 16 * c] = p;
+          dSs[(ty + 16 * a) * LDS + tx + 16 * c] = ds;
+        }
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int i = 0; i < BT; ++i) {
+        float qc[OPT], gc[OPT];
+#pragma unroll
+        for (int jj = 0; jj < OPT; ++jj) {
+          qc[jj] = Qs[i * LD + tx + 16 * jj];
+          gc[jj] = dOs[i * LD + tx + 16 * jj];
+        }
+#pragma unroll
+        for (int a = 0; a < RPT; ++a) {
+          const float p = Ps[(ty + 16 * a) * LDS + i];
+          const float ds = dSs[(ty + 16 * a) * LDS + i];
+#pragma unroll
+          for (int jj = 0; jj < OPT; ++jj) {
+            dva[a][jj] = fmaf(p, gc[jj], dva[a][jj]);
+            dka[a][jj] = fmaf(ds, qc[jj], dka[a][jj]);
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < RPT; ++a) {
+    const int kp = k0 + ty + 16 * a;
+    if (kp >= Skv) continue;
+#pragma unroll
+    for (int jj = 0; jj < OPT; ++jj) {
+      fg_store(dk + kvoff + (size_t)kp * D + tx + 16 * jj, dka[a][jj] * scale);
+      fg_store(dv + kvoff + (size_t)kp * D + tx + 16 * jj, dva[a][jj]);
+    }
+  }
+}
+
+template <int D, typename T>
+cudaError_t fg_launch(const void* q, const void* k, const void* v, const void* o,
+                      const void* dout, const float* lse, float* delta, void* dq,
+                      void* dk, void* dv, int B, int Hq, int Hkv, int Sq, int Skv,
+                      int causal, int window, float scale, cudaStream_t s) {
+  constexpr int BT = FgTile<D>::B;
+  const long long rows = (long long)B * Hq * Sq;
+  if ((Sq + BT - 1) / BT > 65535 || (Skv + BT - 1) / BT > 65535 ||
+      (rows + 7) / 8 > 0x7fffffffLL || (long long)B * Hkv > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  const size_t smem_dq = fg_smem_dq(D), smem_dkv = fg_smem_dkv(D);
+  cudaError_t err = cudaFuncSetAttribute(fa_bwd_dq_kernel<D, T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem_dq);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(fa_bwd_dkv_kernel<D, T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dkv);
+  if (err != cudaSuccess) return err;
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* gt = static_cast<const T*>(dout);
+  fa_bwd_delta_kernel<T><<<(unsigned)((rows + 7) / 8), 256, 0, s>>>(
+      static_cast<const T*>(o), gt, delta, rows, D);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 gq((unsigned)(B * Hq), (unsigned)((Sq + BT - 1) / BT));
+  fa_bwd_dq_kernel<D, T><<<gq, FG_NT, smem_dq, s>>>(
+      qt, kt, vt, gt, lse, delta, static_cast<T*>(dq), Hq, Hkv, Sq, Skv, causal,
+      window, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 gk((unsigned)(B * Hkv), (unsigned)((Skv + BT - 1) / BT));
+  fa_bwd_dkv_kernel<D, T><<<gk, FG_NT, smem_dkv, s>>>(
+      qt, kt, vt, gt, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), Hq, Hkv,
+      Sq, Skv, causal, window, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t fg_dispatch(int d, const void* q, const void* k, const void* v,
+                        const void* o, const void* dout, const float* lse,
+                        float* delta, void* dq, void* dk, void* dv, int B, int Hq,
+                        int Hkv, int Sq, int Skv, int causal, int window, float scale,
+                        cudaStream_t s) {
+  switch (d) {
+    case 16: return fg_launch<16, T>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Hq, Hkv, Sq, Skv, causal, window, scale, s);
+    case 32: return fg_launch<32, T>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Hq, Hkv, Sq, Skv, causal, window, scale, s);
+    case 64: return fg_launch<64, T>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Hq, Hkv, Sq, Skv, causal, window, scale, s);
+    case 128: return fg_launch<128, T>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Hq, Hkv, Sq, Skv, causal, window, scale, s);
+    case 256: return fg_launch<256, T>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Hq, Hkv, Sq, Skv, causal, window, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -944,7 +1351,7 @@ size_t repro_flash_smem_bytes(int dtype, int d, int Hq, int Hkv, int Sq, int Skv
 // kernel); q, k, v and o alike.  q, o: (B, Hq, Sq, d); k, v: (B, Hkv, Skv,
 // d); Hq a multiple of Hkv; d in {16, 32, 64, 128, 256}; window 0 for none.
 int repro_flash_attention(int dtype, const void* q, const void* k,
-                          const void* v, void* o, int B, int Hq, int Hkv,
+                          const void* v, void* o, float* lse, int B, int Hq, int Hkv,
                           int Sq, int Skv, int d, int causal, int window,
                           float scale, void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv || Sq <= 0 || Skv <= 0 ||
@@ -953,9 +1360,39 @@ int repro_flash_attention(int dtype, const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)fa_dispatch(d, q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, scale, s);
+    return (int)fa_dispatch(d, q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, causal, window, scale, s);
   if (dtype == 1)
-    return (int)fb_dispatch(d, q, k, v, o, B, Hq, Hkv, Sq, Skv, causal, window, scale, s);
+    return (int)fb_dispatch(d, q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, causal, window, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory of K5's backward CTAs in bytes: which 0 the dQ
+// kernel's, 1 the dK/dV kernel's, at head width d.
+size_t repro_flash_bwd_smem_bytes(int which, int d) {
+  return which == 0 ? fg_smem_dq(d) : fg_smem_dkv(d);
+}
+
+// K5's backward.  dtype as repro_flash_attention's; q, o, dout, dq: (B, Hq,
+// Sq, d); k, v, dk, dv: (B, Hkv, Skv, d); lse: (B, Hq, Sq) float32, the
+// forward's row log-sum-exp; delta: (B, Hq, Sq) float32 scratch.  Three
+// launches: D = rowsum(dO * O), dQ, then dK and dV.
+int repro_flash_attention_bwd(int dtype, const void* q, const void* k,
+                              const void* v, const void* o, const void* dout,
+                              const float* lse, float* delta, void* dq, void* dk,
+                              void* dv, int B, int Hq, int Hkv, int Sq, int Skv,
+                              int d, int causal, int window, float scale,
+                              void* stream) {
+  if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv || Sq <= 0 || Skv <= 0 ||
+      window < 0 || (long long)B * Hq > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)fg_dispatch<float>(d, q, k, v, o, dout, lse, delta, dq, dk, dv, B,
+                                   Hq, Hkv, Sq, Skv, causal, window, scale, s);
+  if (dtype == 1)
+    return (int)fg_dispatch<__nv_bfloat16>(d, q, k, v, o, dout, lse, delta, dq, dk,
+                                           dv, B, Hq, Hkv, Sq, Skv, causal, window,
+                                           scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -8,13 +8,15 @@
 * :func:`pair_example` — serializes a record pair into the pair-scoring
   prompt  ``[BOS] r1 [SEP] r2 [SCORE] -> {YES|NO}`` (Narayan et al. style).
 * :func:`make_pair_batch` — a balanced labelled pair batch.
-
-The reference's ``ShardedLoader`` comes with training (ROADMAP queue 1,
-item 11).
+* :class:`ShardedLoader` — the deterministic, restartable, host-sharded
+  training loader with prefetch, and :func:`tree_slice` (the reference's
+  ``jax_tree_slice`` on numpy trees).
 """
 from __future__ import annotations
 
+import queue
 import string
+import threading
 from typing import Optional
 
 import numpy as np
@@ -117,3 +119,71 @@ def make_pair_batch(
         toks[b], masks[b] = pair_example(tok, records[i], records[j], label, max_len)
         labels[b] = label
     return {"tokens": toks, "loss_mask": masks, "labels": labels}
+
+
+class ShardedLoader:
+    """Deterministic, restartable, host-sharded loader with prefetch.
+
+    ``batch_fn(rng) -> dict of np arrays (global_batch, ...)``; the batch of
+    step s comes from ``np.random.default_rng(SeedSequence([seed, s]))``, so
+    a restart at step s replays the stream, and each host slices its
+    contiguous shard [host_id * per_host : (host_id+1) * per_host].  The
+    prefetch thread starts here and stops at :meth:`close`.
+    """
+
+    def __init__(
+        self,
+        batch_fn,
+        global_batch: int,
+        num_hosts: int = 1,
+        host_id: int = 0,
+        seed: int = 0,
+        start_step: int = 0,
+        prefetch: int = 2,
+    ):
+        if global_batch % num_hosts:
+            raise ValueError(f"global batch {global_batch} does not split over "
+                             f"{num_hosts} hosts")
+        self.batch_fn = batch_fn
+        self.per_host = global_batch // num_hosts
+        self.host_id = host_id
+        self.seed = seed
+        self.step = start_step
+        self._q: queue.Queue = queue.Queue(maxsize=prefetch)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._work, daemon=True)
+        self._thread.start()
+
+    def _make(self, step: int):
+        rng = np.random.default_rng(np.random.SeedSequence([self.seed, step]))
+        full = self.batch_fn(rng)
+        lo = self.host_id * self.per_host
+        return tree_slice(full, lo, lo + self.per_host)
+
+    def _work(self):
+        step = self.step
+        while not self._stop.is_set():
+            try:
+                self._q.put((step, self._make(step)), timeout=0.2)
+                step += 1
+            except queue.Full:
+                continue
+
+    def __next__(self):
+        step, batch = self._q.get()
+        self.step = step + 1
+        return step, batch
+
+    def close(self, timeout: float = 5.0):
+        """Stop the prefetch thread and wait for it."""
+        self._stop.set()
+        self._thread.join(timeout)
+
+
+def tree_slice(tree, lo, hi):
+    """Rows [lo, hi) of every array of a dict / list / tuple tree."""
+    if isinstance(tree, dict):
+        return {k: tree_slice(v, lo, hi) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_slice(v, lo, hi) for v in tree)
+    return tree[lo:hi]

@@ -2,7 +2,7 @@
 
 These helpers take what the reference hands out as plain data —
 ``dataclasses.asdict(BASConfig())``, numpy embeddings, a model's parameter
-tree as numpy arrays — and build the port's objects, so a test can feed both
+tree or its optimizer state as numpy arrays — and build the port's objects, so a test can feed both
 packages the same thing.  They import neither package: the caller converts
 (``jax.tree.map(np.asarray, params)``)."""
 from __future__ import annotations
@@ -15,12 +15,8 @@ import torch
 from .core.types import BASConfig, JoinSpec
 from .device import resolve_device
 from .models.config import ModelConfig
-from .models.model import Model
+from .models.model import STACKED, Model
 
-# top-level keys of the reference tree whose leaves are stacked over layers
-# (``jax.vmap`` of the layer init): ``layers`` over the decoder's depth,
-# ``enc`` over the encoder's, ``blocks`` over the hybrid's pattern blocks
-STACKED = ("layers", "enc", "blocks")
 
 
 def bas_config_from_dict(d: dict) -> BASConfig:
@@ -61,6 +57,45 @@ def _to_torch(arr) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+def _named_leaves(tree: dict, model: Model) -> dict:
+    """The reference tree's leaves as tensors under the port's parameter
+    names (stacked leaves split along their first axis); a missing or
+    extra name raises."""
+    state = {}
+    for name, leaf in _flatten(tree):
+        t = _to_torch(leaf)
+        top, _, rest = name.partition(".")
+        if top in STACKED:
+            for i in range(t.shape[0]):
+                state[f"{top}.{i}.{rest}"] = t[i]
+        else:
+            state[name] = t
+    own = dict(model.named_parameters())
+    missing, extra = sorted(set(own) - set(state)), sorted(set(state) - set(own))
+    if missing or extra:
+        raise ValueError(f"parameter names differ: missing {missing}, extra {extra}")
+    return state
+
+
+def opt_state_from_jax(cfg: ModelConfig, state: dict, device="cuda") -> dict:
+    """The port's optimizer state (``repro_torch.train.init_opt_state``'s
+    layout) from the reference's ``{"m", "v", "step"}`` with numpy leaves:
+    ``m`` and ``v`` map by the names of :func:`params_from_jax` and must
+    be f32 of the parameters' shapes."""
+    dev = resolve_device(device)
+    model = Model(cfg, torch.Generator(device=dev).manual_seed(0))
+    shapes = {k: p.shape for k, p in model.named_parameters()}
+    out = {"step": torch.as_tensor(np.asarray(state["step"]), dtype=torch.int32).to(dev)}
+    for key in ("m", "v"):
+        named = _named_leaves(state[key], model)
+        for name, t in named.items():
+            if t.dtype != torch.float32 or t.shape != shapes[name]:
+                raise ValueError(f"{key}.{name}: {t.dtype} {tuple(t.shape)} where the "
+                                 f"port keeps float32 {tuple(shapes[name])}")
+        out[key] = {name: named[name].to(dev) for name in shapes}
+    return out
+
+
 def params_from_jax(cfg: ModelConfig, tree: dict, device="cuda") -> Model:
     """The port's parameters (a :class:`~repro_torch.models.Model`) from the
     reference's ``init_params`` tree with numpy leaves, for every family.
@@ -71,20 +106,9 @@ def params_from_jax(cfg: ModelConfig, tree: dict, device="cuda") -> Model:
     ``patch_proj``) map by name.  Every name and type must match: a
     missing, extra or retyped parameter raises."""
     dev = resolve_device(device)
-    state = {}
-    for name, leaf in _flatten(tree):
-        t = _to_torch(leaf)
-        top, _, rest = name.partition(".")
-        if top in STACKED:
-            for i in range(t.shape[0]):
-                state[f"{top}.{i}.{rest}"] = t[i]
-        else:
-            state[name] = t
     model = Model(cfg, torch.Generator(device=dev).manual_seed(0))
+    state = _named_leaves(tree, model)
     own = dict(model.named_parameters())
-    missing, extra = sorted(set(own) - set(state)), sorted(set(state) - set(own))
-    if missing or extra:
-        raise ValueError(f"parameter names differ: missing {missing}, extra {extra}")
     for name, t in state.items():
         p = own[name]
         if t.dtype != p.dtype or t.shape != p.shape:

@@ -41,6 +41,10 @@ passes through n roundings is off by at most ``gamma_n`` of its size):
   of ``exp`` and of the rescale per tile of the online softmax; the two sums
   over the keys add ``gamma(Skv + 2 tiles + 2)``.  Propagated through
   ``sum p v / sum p`` in f64.
+* **Attention's gradients** (:func:`flash_attention_grad_bound`).  The
+  same lemma through the backward's recomputation: P from the forward's
+  lse, ``dP = dO . v``, ``D = rowsum(dO * O)``, ``dS = P (dP - D)`` and the
+  three sums over keys or query rows (its docstring has the terms).
 
 The kernel and the plain version each lie within the bound of the exact
 value, so they may differ by twice it; an output stored in bf16 is rounded
@@ -245,6 +249,89 @@ def flash_attention_bound(q, k, v, causal=True, window=0):
         err = (e @ vh.abs() + o.abs() * e.sum(-1, keepdim=True)) / (den - e.sum(-1, keepdim=True))
         out[:, h] = err * (1 + U) + U * o.abs()
     return out
+
+
+def flash_attention_grad_bound(q, k, v, do, causal=True, window=0):
+    """Bounds (dq (B, Hq, Sq, d), dk, dv (B, Hkv, Skv, d)) on |an f32
+    evaluation of the gradients of softmax attention - exact|, for a
+    backward that recomputes ``P = exp(s - lse)`` from the forward's f32
+    row log-sum-exp and takes ``D = rowsum(dO * O)`` from the forward's
+    output.  Derived as :func:`flash_attention_bound` is:
+
+    * the forward's lse is off by the largest score error of its row
+      (``dmax``), the relative error of its sum (``gamma(Skv + 2 tiles +
+      2)`` and a few ulps a tile), and the ulps of ``log`` and of ``m +
+      log l``; a weight then carries its score's error, the lse's and
+      ``u |s - lse|``, so ``|P' - P| <= P rho``;
+    * ``dP = dO . v`` is a length-d dot product (``gamma(d+1)`` of
+      ``|dO| . |v|``); ``D`` sums ``dO * O'`` over d, where ``O'`` is the
+      forward's output, within :func:`flash_attention_bound` (and half a
+      bf16 ulp when stored in bf16) of the exact one;
+    * ``dS = P (dP - D)`` is then within ``(P + eP)(A + E)(1 + u)^2 - P A``
+      with ``A = |dP - D|`` and ``E`` the errors of dP and D; a masked
+      score has ``dS = 0`` exactly;
+    * each gradient is a sum over the keys (dq) or over the q rows of
+      every head of the group (dk, dv): the terms' errors plus
+      ``gamma(n + 2)`` of the sum of their magnitudes.
+
+    A row whose keys are all masked has ``P = 1 / Skv`` (the forward
+    averages every value) and adds to dv only."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    tiles = -(-skv // FA_TILE)
+    scale = d**-0.5
+    g_dot = gamma(d + 1)
+    g_sum = gamma(skv + 2 * tiles + 2)
+    qp = torch.arange(sq, device=q.device)[:, None]
+    kp = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = qp >= kp
+    if window > 0:
+        mask = mask & (qp - kp < window)
+    empty = ~mask.any(-1, keepdim=True)
+    o_err = flash_attention_bound(q, k, v, causal=causal, window=window)
+    edq = torch.empty((b, hq, sq, d), dtype=torch.float64, device=q.device)
+    edk = torch.zeros((b, hkv, skv, d), dtype=torch.float64, device=q.device)
+    edv = torch.zeros_like(edk)
+    g_dk = gamma(g * sq + 2)
+    for h in range(hq):
+        qh, doh = q[:, h].double(), do[:, h].double()
+        kh, vh = k[:, h // g].double(), v[:, h // g].double()
+        s = torch.where(mask, scale * qh @ kh.transpose(1, 2), 0.0)
+        ds = torch.where(mask, g_dot * scale * (qh.abs() @ kh.abs().transpose(1, 2)), 0.0)
+        dmax = ds.amax(-1, keepdim=True)
+        lse = torch.logsumexp(torch.where(mask, s, -torch.inf), -1, keepdim=True)
+        lse = torch.where(empty, 0.0, lse)
+        eps = g_sum + 5 * U * (tiles + 2)
+        d_lse = dmax + eps / (1 - eps) + U * (lse.abs() + np.log(skv) + 2)
+        x = torch.where(mask, s - lse, 0.0)
+        p = torch.where(mask, torch.exp(x), 0.0)
+        rho = torch.where(mask, torch.expm1(ds + d_lse + U * (x.abs() + ds + d_lse) + 3 * U), 0.0)
+        p = torch.where(empty, 1.0 / skv, p)
+        rho = torch.where(empty, 2 * U, rho)
+        e_p = p * rho
+        dp = doh @ vh.transpose(1, 2)
+        e_dp = g_dot * (doh.abs() @ vh.abs().transpose(1, 2))
+        o_h, oe_h = p @ vh, o_err[:, h]
+        if q.dtype == torch.bfloat16:
+            oe_h = oe_h + 0.5 * BF16_ULP * o_h.abs()
+        dd = (doh * o_h).sum(-1, keepdim=True)
+        e_d = (doh.abs() * oe_h).sum(-1, keepdim=True) + g_dot * (
+            doh.abs() * (o_h.abs() + oe_h)).sum(-1, keepdim=True)
+        a = (dp - dd).abs()
+        e = e_dp + e_d
+        live = mask & ~empty
+        dsm = torch.where(live, p * a, 0.0)
+        e_ds = torch.where(live, (p + e_p) * (a + e) * (1 + U) ** 2 - p * a, 0.0)
+        mag = dsm + e_ds
+        edq[:, h] = scale * (e_ds @ kh.abs() + (gamma(skv + 2) + 2 * U) * (mag @ kh.abs()))
+        edk[:, h // g] += scale * (e_ds.transpose(1, 2) @ qh.abs()
+                                   + (g_dk + 2 * U) * (mag.transpose(1, 2) @ qh.abs()))
+        edv[:, h // g] += (e_p.transpose(1, 2) @ doh.abs()
+                           + g_dk * ((p + e_p).transpose(1, 2) @ doh.abs()))
+    return edq, edk, edv
 
 
 def check_model_kernel(got, want, bound):

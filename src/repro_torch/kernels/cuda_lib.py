@@ -138,11 +138,18 @@ def lib() -> ctypes.CDLL:
             so.repro_topk_few_rows_smem_bytes.argtypes = [ci]
             so.repro_topk_few_rows_smem_bytes.restype = ctypes.c_size_t
             so.repro_flash_attention.argtypes = [
-                ci, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, cf, vp,
+                ci, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, cf, vp,
             ]
             so.repro_flash_attention.restype = ci
             so.repro_flash_smem_bytes.argtypes = [ci, ci, ci, ci, ci, ci]
             so.repro_flash_smem_bytes.restype = ctypes.c_size_t
+            so.repro_flash_attention_bwd.argtypes = [
+                ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
+                ci, ci, ci, ci, ci, ci, ci, ci, cf, vp,
+            ]
+            so.repro_flash_attention_bwd.restype = ci
+            so.repro_flash_bwd_smem_bytes.argtypes = [ci, ci]
+            so.repro_flash_bwd_smem_bytes.restype = ctypes.c_size_t
             so.repro_rwkv6_scan.argtypes = [
                 ci, vp, vp, vp, vp, vp, vp, ctypes.POINTER(ctypes.c_longlong),
                 ci, ci, ci, ci, ci, vp,
@@ -195,7 +202,14 @@ def column_splits(m: int, n: int, sms: int, rows: int = CTA_ROWS) -> int:
     tiles = -(-n // rows)
     if ctas >= sms:
         return 1
-    want = max(1, min(-(-4 * sms // ctas), tiles, MAX_SPLITS))
+    return range_count(tiles, -(-4 * sms // ctas))
+
+
+def range_count(tiles: int, want: int) -> int:
+    """The column ranges that ``want`` ranges over ``tiles`` column tiles
+    actually make, ``ceil(tiles / splits)`` tiles each (what the kernel
+    checks), at most ``MAX_SPLITS``."""
+    want = max(1, min(want, tiles, MAX_SPLITS))
     per = -(-tiles // want)
     return -(-tiles // per)
 
@@ -271,26 +285,43 @@ def launch(mode: str, flags: int, e1: torch.Tensor, e2: torch.Tensor, *,
                         floor=floor, k=k, bm=bm, splits=splits)
 
 
+# the autotuner's name of a tile launch, by its epilogues
+TUNED_OPS = {HIST | TOPK | SUMS: "sim_sweep", HIST: "sim_hist", TOPK: "sim_topk"}
+
+
 def _launch_tile(mode: str, flags: int, e1: torch.Tensor, e2: torch.Tensor, *,
                  rs1=None, rs2=None, scale=None, v=None, n_bins: int = 1,
                  exponent: float = 1.0, rs_exponent: float = 1.0,
-                 floor: float = 1e-3, k: int = 1, bm: int = 1, splits=None):
+                 floor: float = 1e-3, k: int = 1, bm: int = 1, rows=None,
+                 splits=None):
     """The tile kernel's launch, on operands :func:`launch` has checked:
     the tile rows (:func:`tile_rows`, narrowed where the wide tile's shared
-    memory does not fit) and the column split (:func:`column_splits`, unless
-    ``splits`` names one) are chosen here."""
+    memory does not fit) and the column split (:func:`column_splits`) are
+    chosen here, unless ``rows`` / ``splits`` name them; where neither is
+    named and the autotuner is on (``autotune.configure``), its winner for
+    this shape bucket takes their place: its tile rows where
+    :func:`tile_rows` allows them, its multiple of the rule's split."""
     (m, d), n = e1.shape, e2.shape[0]
     dev = e1.device
     f32, i32 = torch.float32, torch.int32
     block_counts = vals = idx = row_sums = None
-    rows = tile_rows(m, m)
+    tuned = None
+    if rows is None and splits is None and flags in TUNED_OPS:
+        from . import autotune
+
+        tuned = autotune.schedule(TUNED_OPS[flags], m, n, d, mode, dev)
+    allowed = tile_rows(m, m)
     if flags & HIST:
         check_operand(scale, "scale", f32, (m,))
         n_tiles = -(-m // bm)
         if bm % CTA_ROWS and n_tiles > 1:
             raise ValueError(f"block rows {bm} must be a multiple of {CTA_ROWS}")
         block_counts = torch.zeros((n_tiles, n_bins), dtype=i32, device=dev)
-        rows = tile_rows(m, bm)
+        allowed = tile_rows(m, bm)
+    if rows is None:
+        rows = allowed if tuned is None else min(tuned[0], allowed)
+    elif rows > allowed:
+        raise ValueError(f"{rows}-row tiles do not fit count tiles of {bm} rows")
     so = lib()
     smem = so.repro_sim_smem_bytes(flags, n_bins, k, rows)
     if smem > MAX_SMEM and rows == WIDE_ROWS:
@@ -300,7 +331,10 @@ def _launch_tile(mode: str, flags: int, e1: torch.Tensor, e2: torch.Tensor, *,
         raise ValueError(f"launch needs {smem} B of shared memory (> {MAX_SMEM})")
     if splits is None:
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        splits = column_splits(m, n, sms, rows)
+        if tuned is None:
+            splits = column_splits(m, n, sms, rows)
+        else:
+            splits = autotune.apply_split(m, n, sms, rows, tuned[1])
     # per-range outputs for the merge kernel; freed after the call, which is
     # safe because the allocator reuses memory in stream order and both
     # kernels run on the current stream

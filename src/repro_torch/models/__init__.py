@@ -8,5 +8,6 @@ from .model import (  # noqa: F401
     forward,
     init_cache,
     init_params,
+    loss_fn,
     prefill,
 )

@@ -12,8 +12,9 @@ the reference computes the same function in jnp (``chunked_attention``).
 Single-token decode attention stays plain torch, as the reference computes
 it outside any kernel.  Activations follow JAX's definitions: ``gelu`` is
 the tanh approximation, ``rms_norm`` scales by ``1 + weight``, RoPE rotates
-the two halves of a head.  Parameters are inference-only
-(``requires_grad=False``); training is a later part of the port.
+the two halves of a head.  Parameters are made with ``requires_grad=False``
+(serving needs no gradients); the trainer (``repro_torch.train``) turns
+gradients on for the parameters it updates.
 """
 from __future__ import annotations
 
@@ -35,6 +36,24 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
 
 def param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
+
+
+class _GradCast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dt):
+        ctx.dt = dt
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dt), None
+
+
+def grad_cast(x, dt):
+    """Identity whose cotangent is cast to ``dt`` (the reference's
+    ``grad_cast``): a gradient dtype barrier where an f32 island meets the
+    model's stream."""
+    return _GradCast.apply(x, dt)
 
 
 # ----------------------------------------------------------------------------
@@ -164,6 +183,9 @@ def chunked_attention(p: Attention, cfg: ModelConfig, x, positions,
     if use_rope:
         q = apply_rope(q, positions[:, None, :], cfg.rope_theta)
         k = apply_rope(k, kv_positions[:, None, :], cfg.rope_theta)
+    if cfg.bf16_backward:
+        # the reference's dtype barrier at the attention's f32 island
+        q, k, v = (grad_cast(t, x.dtype) for t in (q, k, v))
     out = flash_attention(q, k, v, causal=causal, window=window)
     return out.transpose(1, 2).reshape(b, s, -1) @ p.wo
 

@@ -4,6 +4,7 @@ hybrids and the Whisper-style encoder-decoder (the reference's
 
     init_params(cfg, seed, device)                 -> Model (the parameters)
     forward(cfg, params, batch)                    -> logits        (prefill)
+    loss_fn(cfg, params, batch)                    -> scalar loss   (training)
     init_cache(cfg, batch, max_len, device)        -> cache
     decode_step(cfg, params, cache, tokens, pos)   -> (logits, cache)
     prefill(cfg, params, batch, max_len)           -> (logits, cache)
@@ -21,13 +22,23 @@ stacked over layers the same way, and ``decode_step`` updates it in place.
 The reference's activation-sharding annotations are dropped: they do
 nothing on one card.
 
-Not ported yet: the loss and training (ROADMAP queue 1, item 11).
+Under ``cfg.remat`` a forward that records gradients runs each layer in
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of its layer
+scan); ``remat_policy="dots"`` keeps the matrix products' outputs and
+recomputes the rest (``checkpoint_dots``).  Neither changes a gradient.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ..device import resolve_device
 from .config import ModelConfig
@@ -59,6 +70,10 @@ from .recurrent import (
 )
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
+# top-level keys of the reference tree whose leaves are stacked over layers
+# (``jax.vmap`` of the layer init): ``layers`` over the decoder's depth,
+# ``enc`` over the encoder's, ``blocks`` over the hybrid's pattern blocks
+STACKED = ("layers", "enc", "blocks")
 
 
 # ----------------------------------------------------------------------------
@@ -230,6 +245,28 @@ LAYERS = {"dense": AttentionLayer, "attn": AttentionLayer, "moe": MoeLayer,
 # the model
 # ----------------------------------------------------------------------------
 
+# the matrix products whose outputs remat_policy="dots" keeps
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _run_layer(cfg: ModelConfig, layer, *args):
+    """``layer(*args)``, under activation checkpointing when ``cfg.remat``
+    holds and autograd is recording."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return layer(*args)
+    if cfg.remat_policy == "dots":
+        return checkpoint(layer, *args, use_reentrant=False,
+                          context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                                       _save_dots))
+    return checkpoint(layer, *args, use_reentrant=False)
+
+
 def sinusoidal(seq: int, d: int, device) -> torch.Tensor:
     """The reference's ``_sinusoidal`` position table (seq, d), f32."""
     pos = np.arange(seq)[:, None]
@@ -298,7 +335,7 @@ class Model(nn.Module):
         b, s = x.shape[:2]
         positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
         for layer in self.stack():
-            x = layer(x, positions)
+            x = _run_layer(self.cfg, layer, x, positions)
         return self.logits(x)
 
     def _forward_encdec(self, tokens, frames):
@@ -309,13 +346,13 @@ class Model(nn.Module):
         enc = frames.to(dt) + sinusoidal(t_enc, cfg.d_model, frames.device).to(dt)
         enc_pos = torch.arange(t_enc, device=enc.device)[None, :].expand(b, t_enc)
         for layer in self.enc:
-            enc = layer(enc, enc_pos)
+            enc = _run_layer(cfg, layer, enc, enc_pos)
         enc = rms_norm(enc, self.ln_enc, cfg.norm_eps)
         s = tokens.shape[1]
         x = self.embed[tokens] + sinusoidal(s, cfg.d_model, tokens.device).to(dt)
         pos = torch.arange(s, device=x.device)[None, :].expand(b, s)
         for layer in self.layers:
-            x = layer(x, pos, enc, enc_pos)
+            x = _run_layer(cfg, layer, x, pos, enc, enc_pos)
         return self.logits(x)
 
 
@@ -342,6 +379,60 @@ def forward(cfg: ModelConfig, params: Model, batch) -> torch.Tensor:
     with torch.no_grad():
         return params(_on(params, batch["tokens"]).long(), _on(params, batch.get("patches")),
                       _on(params, batch.get("frames")))
+
+
+# ----------------------------------------------------------------------------
+# the loss (training)
+# ----------------------------------------------------------------------------
+
+class _CEBf16(torch.autograd.Function):
+    """The reference's ``_ce_bf16``: next-token NLL from an f32 log-softmax,
+    whose backward recomputes the softmax in f32 and casts the cotangent
+    leaving it to the logits' type."""
+
+    @staticmethod
+    def forward(ctx, logits, targets):
+        ctx.save_for_backward(logits, targets)
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        return -logp.gather(-1, targets[..., None])[..., 0]
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, targets = ctx.saved_tensors
+        p = torch.softmax(logits.float(), dim=-1)
+        p.scatter_add_(-1, targets[..., None],
+                       torch.full_like(targets[..., None], -1.0, dtype=p.dtype))
+        return (p * g[..., None]).to(logits.dtype), None
+
+
+def _ce_bf16(logits, targets):
+    return _CEBf16.apply(logits, targets)
+
+
+def loss_fn(cfg: ModelConfig, params: Model, batch) -> torch.Tensor:
+    """Next-token cross entropy over the text positions (the reference's
+    ``loss_fn``): a VLM's patch positions are dropped, and ``loss_mask``
+    (B, S), when given, weights the targets of positions 1.. .  Runs the
+    model with autograd recording (``forward`` does not)."""
+    if cfg != params.cfg:
+        raise ValueError("the parameters were built for another config")
+    tokens = _on(params, batch["tokens"]).long()
+    patches = batch.get("patches")
+    logits = params(tokens, _on(params, patches), _on(params, batch.get("frames")))
+    if cfg.num_patches and patches is not None:
+        logits = logits[:, patches.shape[1]:, :]
+    targets = tokens[:, 1:]
+    logits = logits[:, :-1, :]
+    if cfg.bf16_backward:
+        nll = _ce_bf16(logits, targets)
+    else:
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -logp.gather(-1, targets[..., None])[..., 0]
+    mask = batch.get("loss_mask")
+    if mask is not None:
+        mask = _on(params, mask, torch.float32)[:, 1:]
+        return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    return nll.mean()
 
 
 # ----------------------------------------------------------------------------

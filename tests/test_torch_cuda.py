@@ -876,3 +876,128 @@ def test_loopback_server_with_the_oracle_on_the_card(card):
     assert got.ci.lo == ref.ci.lo and got.ci.hi == ref.ci.hi
     assert (remote.calls, remote.requests) == (local.calls, local.requests)
     assert stats["rows_labelled"] == local.calls
+
+
+# ---------------------------------------------------------------------------
+# K5's backward, training on the card, and the launch autotuner
+# ---------------------------------------------------------------------------
+
+# (B, Hq, Hkv, Sq, Skv, d, causal, window): chip_smoke.py's phase 3c shapes
+# cut in batch, then each head width
+FLASH_BWD_SHAPES = [
+    (2, 12, 12, 128, 128, 64, True, 0),     # the training shape
+    (2, 64, 4, 48, 48, 128, True, 0),       # GQA 16:1 at d 128
+    (1, 16, 1, 300, 300, 256, True, 128),   # a window under MQA
+    (1, 4, 4, 300, 300, 64, False, 0),      # not causal
+    (1, 4, 4, 112, 300, 64, False, 0),      # cross-attention
+    (3, 4, 2, 100, 100, 32, True, 0),       # a ragged Sq
+    (1, 2, 1, 40, 10, 16, False, 5),        # rows whose keys are all masked
+] + [(2, 4, 2, 70, 70, d, True, 0) for d in (16, 32, 64, 128, 256)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,window", FLASH_BWD_SHAPES)
+def test_flash_attention_backward_matches_f64(card, dtype, b, hq, hkv, sq, skv, d,
+                                              causal, window):
+    """dQ, dK and dV within ``checks.flash_attention_grad_bound`` of an f64
+    autograd of the plain version, the same bits twice, and the autograd
+    op (its forward saves the lse) giving the same gradients."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd_cuda
+
+    gen = torch.Generator(device=card).manual_seed(sq + d)
+    q, do = (torch.randn((b, hq, sq, d), generator=gen, device=card).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn((b, hkv, skv, d), generator=gen, device=card).to(dtype)
+            for _ in range(2))
+    o, lse = flash_attention_cuda(q, k, v, causal, window, with_lse=True)
+    assert torch.equal(o, flash_attention_cuda(q, k, v, causal, window))
+    got = flash_attention_bwd_cuda(q, k, v, o, do, lse, causal, window)
+    again = flash_attention_bwd_cuda(q, k, v, o, do, lse, causal, window)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    qd, kd, vd = (t.double().requires_grad_() for t in (q, k, v))
+    want = torch.autograd.grad(flash_attention_ref(qd, kd, vd, causal, window),
+                               (qd, kd, vd), do.double())
+    for g, w, e in zip(got, want,
+                       checks.flash_attention_grad_bound(q, k, v, do, causal, window)):
+        assert g.dtype == dtype
+        checks.check_model_kernel(g, w, e)
+    qa, ka, va = (t.clone().requires_grad_() for t in (q, k, v))
+    auto = torch.autograd.grad(flash_attention(qa, ka, va, causal, window), (qa, ka, va), do)
+    assert all(torch.equal(x, y) for x, y in zip(auto, got))
+
+
+def test_flash_attention_backward_refuses_other_head_widths(card):
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd_cuda
+
+    q = torch.zeros((1, 1, 4, 48), device=card)
+    with pytest.raises(ValueError, match="head width"):
+        flash_attention_bwd_cuda(q, q, q, q, q, torch.zeros((1, 1, 4), device=card))
+
+
+def test_train_step_on_card_matches_cpu(card):
+    """One f32 train step of joinml-oracle (remat on) on the card against
+    the CPU from the same parameters: loss and gradients within 1e-4 of
+    each leaf's largest |g| (tests/test_torch_train.py's rule)."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.train import loss_and_grads
+
+    cfg = dataclasses.replace(get_smoke_config("joinml-oracle", dtype="float32"), remat=True)
+    cpu = init_params(cfg, 0, device="cpu")
+    gpu = init_params(cfg, 0, device=card)
+    with torch.no_grad():
+        for (_, a), b in zip(cpu.named_parameters(), gpu.parameters()):
+            b.copy_(a)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (4, 40))}
+    before = dict(cuda_lib.LAUNCHES)
+    lg, gg = loss_and_grads(cfg, gpu, batch)
+    launched = {k: v - before.get(k, 0) for k, v in cuda_lib.LAUNCHES.items()}
+    lc, gc = loss_and_grads(cfg, cpu, batch)
+    assert launched["flash_attention"] == 2 * cfg.num_layers    # remat runs it twice
+    assert launched["flash_attention_bwd"] == cfg.num_layers
+    assert float(lg) == pytest.approx(float(lc), rel=1e-5)
+    for name, g in gc.items():
+        np.testing.assert_allclose(gg[name].cpu().numpy(), g.numpy(), rtol=0,
+                                   atol=1e-4 * float(g.abs().max()), err_msg=name)
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16", "int8"])
+def test_tuned_launch_keeps_tiles_and_lists(card, precision, tmp_path):
+    """Every candidate the tuner may choose against the default launch:
+    equal count tiles and top-k lists, walk sums within 1e-6 relative."""
+    from repro_torch.kernels import autotune
+
+    m, n, d, k = 640, 3000, 48, 16
+    a, b, rs1, rs2 = _inputs(card, m, n, d, precision)
+    a, b = kernel_operand(a, precision), kernel_operand(b, precision)
+    rng = np.random.default_rng(2)
+    scale = torch.from_numpy(rng.random(m).astype(np.float32)).to(card)
+    v = torch.from_numpy((10.0 ** rng.uniform(-2, 2, n)).astype(np.float32)).to(card)
+    flags = cuda_lib.HIST | cuda_lib.TOPK | cuda_lib.SUMS
+    kw = dict(rs1=rs1, rs2=rs2, scale=scale, v=v, n_bins=256, k=k, bm=128)
+    bc0, v0, i0, s0 = cuda_lib._launch_tile(precision, flags, a, b, **kw)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    cands = autotune.candidates("sim_sweep", m, n, d, precision, card)
+    assert cands
+    for rows, factor in cands:
+        splits = autotune.apply_split(m, n, sms, rows, factor)
+        bc, vals, idx, sums = cuda_lib._launch_tile(precision, flags, a, b, rows=rows,
+                                                    splits=splits, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(bc, bc0) and torch.equal(vals, v0) and torch.equal(idx, i0)
+        rel = ((sums.double() - s0.double()).abs() / s0.double().abs()).max()
+        assert float(rel) <= 1e-6
+    autotune.reset()
+    try:
+        autotune.configure(tmp_path / "autotune.json")
+        won = autotune.schedule("sim_sweep", m, n, d, precision, card)
+        assert won in cands and (tmp_path / "autotune.json").exists()
+        bc, vals, idx, _ = cuda_lib._launch_tile(precision, flags, a, b, **kw)
+        assert torch.equal(bc, bc0) and torch.equal(vals, v0) and torch.equal(idx, i0)
+    finally:
+        autotune.reset()

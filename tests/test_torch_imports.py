@@ -2,10 +2,13 @@
 the cascade, a baseline), scoring pairs with the Oracle model, an MoE
 forward and an encoder-decoder decode step, building,
 saving, loading, appending to and querying through a stratification index,
-and serving queries through the oracle service (with its label store and
-metrics exporter) and over its TCP transport
+serving queries through the oracle service (with its label store and
+metrics exporter) and over its TCP transport, and training (a train step,
+a checkpoint, the training launcher, the autotuner's cache)
 load neither JAX nor the reference package, and its entry points run on
-the card unless the caller asks for the CPU."""
+the card unless the caller asks for the CPU.  On CUDA tensors no op
+returns a result without a gradient where an input requires one: the scan
+kernels, which have no backward yet, raise."""
 import os
 import subprocess
 import sys
@@ -14,6 +17,7 @@ import pytest
 import torch
 
 SCRIPT = r"""
+import os
 import sys
 import repro_torch
 from repro_torch.core import Agg, Catalog, JoinMLEngine, Query, Table, run_auto
@@ -103,6 +107,26 @@ with OracleServiceServer({"truth": ArrayOracle(ds.truth)._label},
         run_auto(Query(spec=ds.spec(), agg=Agg.COUNT, oracle=ro, budget=300),
                  cfg, device="cpu")
     assert srv.service.stats()["rows_labelled"] == ro.calls > 0
+from repro_torch.checkpoint.checkpoint import restore_latest
+from repro_torch.kernels import autotune
+from repro_torch.launch.train import main as train_main
+from repro_torch.train import OptimizerConfig, init_opt_state, make_train_step
+
+tp = init_params(mcfg, device="cpu")
+tp, to, tm = make_train_step(mcfg, OptimizerConfig(warmup_steps=1))(
+    tp, init_opt_state(tp), {"tokens": [[1, 2, 3, 4, 5]]})
+assert float(tm["loss"]) > 0
+with tempfile.TemporaryDirectory() as d:
+    autotune.configure(os.path.join(d, "autotune.json"))
+    assert autotune.schedule("sim_sweep", 64, 64, 8, device="cpu") is None
+    autotune.reset()
+    train_main(["--steps", "2", "--batch", "2", "--seq", "8", "--ckpt", d,
+                "--device", "cpu"])
+    assert restore_latest(d, {"params": tp, "opt": to})[1]["step"] == 2
+for name in ("repro_torch.train", "repro_torch.checkpoint.checkpoint",
+             "repro_torch.runtime.fault_tolerance", "repro_torch.kernels.autotune",
+             "repro_torch.launch.train"):
+    assert name in sys.modules, name
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
              or m == "repro" or m.startswith("repro."))
@@ -142,6 +166,7 @@ def test_entry_points_default_to_the_card():
     from repro_torch.interop import params_from_jax
     from repro_torch.models import init_cache, init_params
     from repro_torch.launch.serve import main as serve_main
+    from repro_torch.launch.train import main as train_main
     from repro_torch.serve import ContinuousBatcher, PairScorer
 
     ds = make_clustered_tables(40, 30, seed=0)
@@ -181,10 +206,52 @@ def test_entry_points_default_to_the_card():
         lambda: serve_main(["--mode", "server", "--port", "0"]),
         lambda: serve_main(["--mode", "worker", "--port", "0"]),
         lambda: serve_main(["--mode", "client"]),
+        lambda: train_main(["--steps", "1"]),
+        lambda: train_main(["--steps", "1", "--full-width"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA card"):
             call()
+
+
+def test_scan_kernels_refuse_to_drop_a_gradient():
+    """K6 and K7 have no backward kernel yet: on CUDA tensors under autograd
+    they raise (naming the ROADMAP item) instead of returning a result
+    without a gradient; without autograd they launch as before."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+
+    dev = torch.device("cuda")
+    r = torch.randn(1, 2, 4, 16, device=dev, requires_grad=True)
+    w = torch.rand(1, 2, 4, 16, device=dev)
+    u = torch.randn(2, 16, device=dev)
+    with pytest.raises(NotImplementedError, match="item 15"):
+        rwkv6_scan(r, r, r, w, u)
+    a = torch.rand(1, 4, 32, device=dev)
+    g = torch.randn(1, 4, 32, device=dev, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="item 15"):
+        rglru_scan(a, g)
+    with torch.no_grad():
+        assert rglru_scan(a, g).grad_fn is None
+        assert rwkv6_scan(r, r, r, w, u).shape == (1, 2, 4, 16)
+
+
+def test_plain_ops_keep_the_gradient_on_the_cpu():
+    """On CPU tensors the three model ops run their plain versions, which
+    autograd differentiates (K5's CUDA backward: tests/test_torch_cuda.py)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+
+    q = torch.randn(1, 2, 5, 16, requires_grad=True)
+    w = torch.rand(1, 2, 5, 16)
+    for out in (flash_attention(q, q, q), rwkv6_scan(q, q, q, w, torch.randn(2, 16)),
+                rglru_scan(torch.rand(1, 5, 16), q[0, :1])):
+        assert out.grad_fn is not None
+        (g,) = torch.autograd.grad(out.sum(), q)
+        assert g.shape == q.shape and torch.isfinite(g).all()
 
 
 def test_cuda_tensor_never_falls_back():

@@ -19,6 +19,14 @@
   (rounds toward zero) after every product inside a slice, the worst
   rounding an mma could do, and its scores stay inside
   ``checks.exact_scores``' bf16 bound.
+* **K5's backward** recomputes P from the forward's row log-sum-exp:
+  :func:`emulate_flash_bwd` repeats the kernel's order in f32 (the online
+  softmax's lse over 64-key tiles, D = rowsum(dO * O), then per KV tile P,
+  dP and dS = P (dP - D) with masked scores at 0 for dQ, and per KV tile
+  the sum over every q head of the group and its q tiles for dK and dV)
+  and is held to ``checks.flash_attention_grad_bound`` against an f64
+  autograd of the plain version, at GQA, windowed, cross-attention and
+  ragged shapes and where a row's keys are all masked.
 * **The similarity tile** is 128 x 128 where a launch's count tiles hold
   whole 128-row tiles, else 64 x 64, and a launch with fewer CTA rows than
   SMs splits its columns into ranges of whole column tiles, enough for
@@ -156,6 +164,96 @@ def test_flash_bf16_emulation_matches_pallas():
     got = emulate_flash_bf16(q, k, v, True, window)
     checks.check_model_kernel(got, pallas,
                               checks.flash_attention_bound(q, k, v, window=window))
+
+
+# ----------------------------------------------------------------------------
+# K5's backward
+# ----------------------------------------------------------------------------
+
+def _mask(sq, skv, causal, window):
+    qp, kp = torch.arange(sq)[:, None], torch.arange(skv)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool)
+    if causal:
+        mask = qp >= kp
+    if window > 0:
+        mask = mask & (qp - kp < window)
+    return mask
+
+
+def emulate_flash_bwd(q, k, v, do, causal=True, window=0, bt=64):
+    """The backward kernels' arithmetic in f32: (dq, dk, dv)."""
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = d**-0.5
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, do))
+    mask = _mask(sq, skv, causal, window)
+    # the forward: online softmax over 64-key tiles, lse = m + log(l)
+    m = torch.full((b, hq, sq), -1e30)
+    l = torch.zeros((b, hq, sq))
+    acc = torch.zeros((b, hq, sq, d))
+    kr, vr = kf.repeat_interleave(g, 1), vf.repeat_interleave(g, 1)
+    for t0 in range(0, skv, TILE):
+        s = (qf @ kr[:, :, t0:t0 + TILE].transpose(-1, -2)) * scale
+        s = torch.where(mask[:, t0:t0 + TILE], s, torch.tensor(-1e30))
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + p @ vr[:, :, t0:t0 + TILE]
+        m = m_new
+    o = (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype).float()
+    lse = m + torch.log(l)
+    empty = lse < -0.5e30
+    delta = (gf * o).sum(-1)
+    dq = torch.zeros((b, hq, sq, d))
+    dk = torch.zeros((b, hkv, skv, d))
+    dv = torch.zeros((b, hkv, skv, d))
+    for t0 in range(0, skv, bt):       # dQ: one pass over the KV tiles
+        kt, vt = kr[:, :, t0:t0 + bt], vr[:, :, t0:t0 + bt]
+        live = mask[:, t0:t0 + bt]
+        p = torch.exp((qf @ kt.transpose(-1, -2)) * scale - lse[..., None])
+        ds = torch.where(live, p * (gf @ vt.transpose(-1, -2) - delta[..., None]), 0.0)
+        dq += ds @ kt
+    for t0 in range(0, skv, bt):       # dK, dV: every q head of the group, q tiles
+        live = mask[:, t0:t0 + bt]
+        for h in range(hq):
+            kt, vt = kf[:, h // g, t0:t0 + bt], vf[:, h // g, t0:t0 + bt]
+            for q0 in range(0, sq, bt):
+                rows = slice(q0, q0 + bt)
+                lv = live[rows]
+                s = (qf[:, h, rows] @ kt.transpose(-1, -2)) * scale
+                p = torch.where(lv, torch.exp(s - lse[:, h, rows, None]), 0.0)
+                p = torch.where(empty[:, h, rows, None], 1.0 / skv, p)
+                ds = torch.where(lv, p * (gf[:, h, rows] @ vt.transpose(-1, -2)
+                                          - delta[:, h, rows, None]), 0.0)
+                dv[:, h // g, t0:t0 + bt] += p.transpose(-1, -2) @ gf[:, h, rows]
+                dk[:, h // g, t0:t0 + bt] += ds.transpose(-1, -2) @ qf[:, h, rows]
+    return dq * scale, dk * scale, dv
+
+
+@pytest.mark.parametrize("shape", [
+    (2, 4, 2, 70, 70, 16, True, 0, torch.float32),      # GQA, ragged tiles
+    (2, 4, 1, 40, 40, 32, True, 24, torch.bfloat16),    # MQA, a window
+    (1, 4, 4, 33, 100, 16, False, 0, torch.float32),    # cross-attention
+    (1, 2, 1, 40, 10, 16, False, 5, torch.float32),     # rows whose keys are all masked
+    (1, 2, 2, 20, 20, 256, True, 0, torch.bfloat16),    # the widest head (32-row tiles)
+])
+def test_flash_bwd_emulation_holds_the_grad_bound(shape):
+    b, hq, hkv, sq, skv, d, causal, window, dt = shape
+    rng = np.random.default_rng(sq * d)
+    q, do = (torch.from_numpy(rng.standard_normal((b, hq, sq, d)).astype(np.float32)).to(dt)
+             for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((b, hkv, skv, d)).astype(np.float32)).to(dt)
+            for _ in range(2))
+    got = emulate_flash_bwd(q, k, v, do, causal, window, bt=64 if d <= 128 else 32)
+    qd, kd, vd = (t.double().requires_grad_() for t in (q, k, v))
+    want = torch.autograd.grad(flash_attention_ref(qd, kd, vd, causal, window),
+                               (qd, kd, vd), do.double())
+    bounds = checks.flash_attention_grad_bound(q, k, v, do, causal, window)
+    for gt, w, e in zip(got, want, bounds):
+        res = checks.check_model_kernel(gt.to(dt), w, e)
+        assert res["err_over_tol"] <= 1.0
 
 
 # ----------------------------------------------------------------------------
