@@ -16,11 +16,14 @@ lists, and the fp32 sweep as the 3-way chain calls it (exponent 0.5, a
 per-row scale, walk sums at exponent 1); then flash attention and the two
 recurrent scans against theirs at the shapes the model paths give them and
 at one long shape each, with their times (the RWKV6 scan in the model's
-layout and types, and on f32 operands); (3c) K5's backward against an
-f64 autograd of its plain version under
-``checks.flash_attention_grad_bound`` at the training shape (bf16 and f32)
-and at the other families' attention shapes, bit for bit on a second run,
-beside SDPA's forward and backward; (4) the query path:
+layout and types, and on f32 operands); (3c) the backward kernels
+against an f64 autograd of their plain versions, bit for bit on a second
+run: K5's under ``checks.flash_attention_grad_bound`` at the training
+shape (bf16 and f32) and at the other families' attention shapes
+(recurrentgemma's training MQA among them), beside SDPA's forward and
+backward; K6's at rwkv6-1.6b's training shape (bf16 r, k, v in the model's
+layout) and K7's at recurrentgemma-9b's, under ``checks.*_scan_grad_bound``;
+(4) the query path:
 ``JoinMLEngine.execute`` on 32,768 x 32,768 records at d = 384 (COUNT, SUM,
 AVG; COUNT at bf16, at int8 and on the two-pass schedule; a catalog with
 canonical records that drives the raised-k top-k retry), a 3-way chain
@@ -94,7 +97,13 @@ idle share over 3 profiled steps; 4 microbatches against 1; 3 steps, a
 save through ``AsyncCheckpointer``, a restore and 3 more steps against 6
 uninterrupted ones, bit for bit, in a subprocess under
 ``torch.use_deterministic_algorithms``; and the training launcher started
-twice on one checkpoint directory, the second start resuming.  Phases 3 to
+twice on one checkpoint directory, the second start resuming; (11b) the
+recurrent families, one model on the card at a time: the full
+``rwkv6-1.6b`` (16 x 128 tokens) and ``recurrentgemma-9b`` at full width
+cut to 8 layers (8 x 128), remat on, 6 steps each on a repeated batch, the
+loss finite and falling, the exact launches a step of K6, K7, K5 and their
+backward kernels, the median step, tokens/s, peak memory and idle share.
+The launcher check also runs ``--arch rwkv6-1.6b`` for two steps.  Phases 3 to
 4c and 10c run with the launch autotuner on (``kernels.autotune``, its
 cache measured afresh under ``build/``; its entries and measuring seconds
 are printed apart from the timed queries); it is off again from phase 5,
@@ -103,8 +112,8 @@ estimates recorded before this run's changes bit for bit.  Launch counts
 are set to 0 just before each path (4; 4b's query path, dense baselines
 and Oracle cascade; 6; 8; each of 9's, where olmoe's path is the COUNT's
 ``execute`` and its timed scoring and batcher are counted apart; 10a's
-served queries; 10c's queries; 11's steps; 10b's launches happen in its
-subprocesses)
+served queries; 10c's queries; 11's steps; each of 11b's; 10b's launches
+happen in its subprocesses)
 and read just after it; in 4c, just before each of the index
 path's own calls (its builds, queries and appends, not the rebuilds and
 kernel checks they are held against) and read just after it.
@@ -150,6 +159,13 @@ MODEL_KERNELS = tuple(REPLACES)[6:]
 # jnp attention
 BWD_REPLACES = ("src/repro/models/layers.py:157 (jax.grad of chunked_attention; "
                 "no Pallas kernel)")
+# nor have the scans' backwards: the reference differentiates its lax.scans
+SCAN_BWD_REPLACES = {
+    "rwkv6_scan_bwd": "src/repro/models/recurrent.py:103 (jax.grad of the RWKV6 lax.scan; "
+                      "no Pallas kernel)",
+    "rglru_scan_bwd": "src/repro/models/recurrent.py:212 (jax.grad of the RG-LRU lax.scan; "
+                      "no Pallas kernel)",
+}
 # published H100 SXM peaks (dense): FP32 on the CUDA cores, bf16 and int8 on
 # the tensor cores, HBM3 bandwidth
 PEAK = {"fp32": 67e12, "bf16": 989e12, "int8": 1979e12}
@@ -2282,8 +2298,14 @@ FLASH_BWD_SHAPES = {
     "whisper-medium cross-attention, 448 x 1500": (4, 16, 16, 448, 1500, 64, False, 0,
                                                    torch.bfloat16),
     "joinml-oracle heads, ragged Sq 100": (16, 12, 12, 100, 100, 64, True, 0, torch.bfloat16),
+    "recurrentgemma training (MQA 16:1, d 256)": (8, 16, 1, 128, 128, 256, True, 2048,
+                                                  torch.bfloat16),
 }
 TRAIN_SHAPE = "joinml-oracle training"
+# the scans' backwards at phase 11's training shapes: K6 (B, H, T, hd) with
+# bf16 r, k, v in the model's (B, T, H, hd) layout, K7 (B, T, R)
+RWKV_BWD_SHAPE = ("rwkv6-1.6b training", (16, 32, 128, 64))
+RGLRU_BWD_SHAPE = ("recurrentgemma-9b training", (8, 128, 4096))
 
 
 def _sdpa_grad_fns(q, k, v, do, causal, window):
@@ -2368,6 +2390,7 @@ def flash_backward():
         row.update(fwd_bwd_ms=_events_ms(ours, reps), library_ms=_events_ms(sdpa, reps),
                    library_note="scaled_dot_product_attention forward + backward",
                    library_bwd_ms=_events_ms(sdpa_bwd, reps), shape=label,
+                   share=row["bound_ms"] / row["ms"],
                    dims=[b, hq, hkv, sq, skv, d, causal, window, str(dt)[6:]],
                    same_bits_twice=same,
                    max_abs_err=max(r["max_abs_err"] for r in rules.values()),
@@ -2378,6 +2401,90 @@ def flash_backward():
         rows.append(row)
         del q, k, v, do, o, lse, held, qp_, kp_, vp_
         torch.cuda.empty_cache()
+    return rows
+
+
+def _grad_row(name, label, dims, kern, plain, exact, bounds, flops, byts):
+    """A backward kernel ``kern`` (a tuple of gradients) against ``exact()``
+    (f64) under ``bounds()`` (``check_model_kernel``), a second run equal bit
+    for bit, and its time beside the plain version's and the f32 bound."""
+    from repro_torch.kernels import checks
+
+    got, again = kern(), kern()
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
+    del again
+    rules = [checks.check_model_kernel(g, w, e) for g, w, e in zip(got, exact(), bounds())]
+    del got
+    torch.cuda.empty_cache()
+    row = _row(_events_ms(kern, 10), _events_ms(plain, 1), flops, byts, PEAK["fp32"])
+    row.update(share=row["bound_ms"] / row["ms"], shape=label, dims=list(dims),
+               same_bits_twice=same, max_abs_err=max(r["max_abs_err"] for r in rules),
+               err_over_tol=max(r["err_over_tol"] for r in rules),
+               library_note="no one PyTorch call computes the recurrence's gradient")
+    log(json.dumps({"check": name, **row}))
+    if not same:
+        fail(f"{name} gave other bits on a second run at {label}")
+    torch.cuda.empty_cache()
+    return row
+
+
+def scan_backwards():
+    """Phase 3c, the scans: K6's backward at phase 11's rwkv6-1.6b shape (bf16
+    r, k, v and f32 w as views of (B, T, H, hd) tensors, the model's decays)
+    and K7's at recurrentgemma-9b's, each against an f64 autograd of the
+    plain forward under ``checks.*_scan_grad_bound``, bit for bit on a
+    second run, beside the plain backward (``*_scan_bwd_ref``) and the bound:
+    K6 14 f32 operations per state element and step (the forward's S and
+    the backward's G, dr, dk, dw and dv, no recomputation) against r, k, v,
+    dr, dk, dv at their size and w, dout, dw in f32; K7 20 bytes per element
+    (a, h, dout read, da, dg written).  Returns {kernel: row}."""
+    from repro_torch.kernels import checks
+    from repro_torch.kernels.rglru_scan.kernel import rglru_scan_bwd_cuda, rglru_scan_cuda
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_bwd_ref, rglru_scan_ref
+    from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_bwd_cuda
+    from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_bwd_ref, rwkv6_scan_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = {}
+    label, (b, h, t, hd) = RWKV_BWD_SHAPE
+    model = lambda z: z.transpose(1, 2)  # noqa: E731
+    r, k, v = (model(torch.randn((b, t, h, hd), generator=gen, device="cuda")
+                     .to(torch.bfloat16)) for _ in range(3))
+    w = model(torch.exp(-torch.exp(torch.empty((b, t, h, hd), device="cuda")
+                                   .uniform_(-8.0, -4.0, generator=gen))))
+    u = 0.1 * torch.randn((h, hd), generator=gen, device="cuda")
+    do = model(torch.randn((b, t, h, hd), generator=gen, device="cuda"))
+    xs = (r, k, v, w, u)
+
+    def rwkv_exact():
+        xd = [x.double().requires_grad_() for x in xs]
+        return torch.autograd.grad(rwkv6_scan_ref(*xd), xd, do.double(),
+                                   materialize_grads=True)
+
+    n = b * h * t * hd
+    rows["rwkv6_scan_bwd"] = _grad_row(
+        "rwkv6_scan_bwd", label, (b, h, t, hd), lambda: rwkv6_scan_bwd_cuda(*xs, do),
+        lambda: rwkv6_scan_bwd_ref(*xs, do), rwkv_exact,
+        lambda: checks.rwkv6_scan_grad_bound(*xs, do), 14.0 * n * hd,
+        n * (3 * 2 + 3 * 2 + 3 * 4) + 8 * h * hd)
+    del r, k, v, w, u, do, xs
+    torch.cuda.empty_cache()
+
+    label, (b, t, rr) = RGLRU_BWD_SHAPE
+    a = torch.empty((b, t, rr), device="cuda").uniform_(0.5, 0.9999, generator=gen)
+    g = torch.sqrt(1 - a * a) * torch.randn((b, t, rr), generator=gen, device="cuda")
+    do = torch.randn((b, t, rr), generator=gen, device="cuda")
+    hs = rglru_scan_cuda(a, g)
+
+    def lru_exact():
+        ad, gd = a.double().requires_grad_(), g.double().requires_grad_()
+        return torch.autograd.grad(rglru_scan_ref(ad, gd), (ad, gd), do.double())
+
+    rows["rglru_scan_bwd"] = _grad_row(
+        "rglru_scan_bwd", label, (b, t, rr), lambda: rglru_scan_bwd_cuda(a, hs, do),
+        lambda: rglru_scan_bwd_ref(a, hs, do), lru_exact,
+        lambda: checks.rglru_scan_grad_bound(a, g, do), 2.0 * b * t * rr, 20 * b * t * rr)
     return rows
 
 
@@ -2397,20 +2504,30 @@ class TrainSize:
 TRAIN_FULL = TrainSize(full=True, batch=16, seq=128, steps=12, launcher_steps=4)
 TRAIN_REHEARSAL = TrainSize(full=False, batch=4, seq=32, steps=6, launcher_steps=2)
 TRAIN_LR = 1e-4
+# phase 11b: the recurrent families, one on the card at a time: (arch,
+# config cuts, sequences of a step at full width); rwkv6-1.6b in full,
+# recurrentgemma-9b at full width cut to 8 of 38 layers as phase 8 cuts it
+# (weights, gradients and f32 moments of all 38 take ~125 GB); the
+# rehearsal takes the reduced configs at TRAIN_REHEARSAL's batch
+RECURRENT_TRAIN = (("rwkv6-1.6b", {}, 16),
+                   ("recurrentgemma-9b", {"num_layers": RGEMMA_LAYERS}, 8))
+RECURRENT_TRAIN_STEPS = 6
 
 
-def _train_setup(size, device, seed=SEED):
-    """joinml-oracle (remat on, as published), AdamW, and a loader of pair
-    batches from the entity corpus (``make_pair_batch``, loss on the label
-    token)."""
+def _train_setup(size, device, seed=SEED, name=None, over=None, batch=None):
+    """``name`` (joinml-oracle unless named; remat on, as published), AdamW,
+    and a loader of ``batch`` (else ``size.batch``) pair sequences from the
+    entity corpus (``make_pair_batch``, loss on the label token)."""
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.data.pipeline import ByteTokenizer, make_entity_corpus, make_pair_batch
     from repro_torch.models import init_params
     from repro_torch.train import OptimizerConfig, init_opt_state
 
     tok = ByteTokenizer()
-    cfg = get_config(ORACLE_NAME) if size.full else get_smoke_config(
-        ORACLE_NAME, vocab_size=tok.vocab_size, remat=True)
+    name = name or ORACLE_NAME
+    cfg = dataclasses.replace(get_config(name), remat=True, **(over or {})) if size.full \
+        else get_smoke_config(name, vocab_size=tok.vocab_size, remat=True)
+    batch = batch or size.batch
     params = init_params(cfg, seed, device=device)
     opt = init_opt_state(params)
     ocfg = OptimizerConfig(peak_lr=TRAIN_LR, warmup_steps=2, decay_steps=1000)
@@ -2419,7 +2536,7 @@ def _train_setup(size, device, seed=SEED):
 
     def batch_at(step):
         rng = np.random.default_rng(np.random.SeedSequence([seed, step]))
-        b = make_pair_batch(tok, records, ids, size.batch, size.seq, rng)
+        b = make_pair_batch(tok, records, ids, batch, size.seq, rng)
         return {"tokens": b["tokens"], "loss_mask": b["loss_mask"]}
 
     return cfg, params, opt, ocfg, batch_at
@@ -2488,84 +2605,134 @@ def _subprocess_resume(device, size):
 
 
 def _train_launcher(device, size):
-    """The training launcher started twice as a subprocess on one checkpoint
-    directory: the second start resumes where the first stopped."""
+    """The training launcher as a subprocess: started twice on one
+    checkpoint directory, the second start resuming where the first
+    stopped; then ``--arch rwkv6-1.6b`` for two steps of the reduced config
+    (K6 and its backward)."""
     import shutil as _shutil
 
-    root = os.path.join(HERE, "build", "train_launcher")
-    _shutil.rmtree(root, ignore_errors=True)
     env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
-    base = [sys.executable, "-m", "repro_torch.launch.train", "--ckpt", root,
-            "--ckpt-every", "2", "--batch", str(size.batch), "--seq", str(size.seq),
-            "--device", device] + (["--full-width"] if size.full else [])
-    outs = []
-    for steps in (size.launcher_steps, 2 * size.launcher_steps):
+
+    def run(label, args):
         t0 = time.perf_counter()
-        out = subprocess.run(base + ["--steps", str(steps)], capture_output=True,
-                             text=True, cwd=HERE, env=env, timeout=600)
-        log(json.dumps({"train launcher": steps, "rc": out.returncode,
+        out = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *args,
+                              "--device", device], capture_output=True, text=True,
+                             cwd=HERE, env=env, timeout=600)
+        log(json.dumps({"train launcher": label, "rc": out.returncode,
                         "wall_s": time.perf_counter() - t0,
                         "stdout": out.stdout.strip().splitlines()[-4:]}))
         if out.returncode != 0:
             fail(f"the training launcher exited {out.returncode}:\n{out.stderr[-3000:]}")
-        outs.append(out.stdout)
+        return out.stdout
+
+    root = os.path.join(HERE, "build", "train_launcher")
+    rwkv_root = os.path.join(HERE, "build", "train_launcher_rwkv6")
+    for r in (root, rwkv_root):
+        _shutil.rmtree(r, ignore_errors=True)
+    base = ["--ckpt", root, "--ckpt-every", "2", "--batch", str(size.batch), "--seq",
+            str(size.seq)] + (["--full-width"] if size.full else [])
+    outs = [run(steps, base + ["--steps", str(steps)])
+            for steps in (size.launcher_steps, 2 * size.launcher_steps)]
     if "resumed" in outs[0] or f"resumed at step {size.launcher_steps}" not in outs[1]:
         fail("the training launcher's second start did not resume from the first's "
              "checkpoint")
-    _shutil.rmtree(root, ignore_errors=True)
+    out = run("rwkv6-1.6b, 2 steps", ["--arch", "rwkv6-1.6b", "--steps", "2", "--batch",
+                                      "4", "--seq", "64", "--ckpt", rwkv_root])
+    if "done at step 2" not in out:
+        fail("the training launcher did not finish rwkv6-1.6b's two steps")
+    for r in (root, rwkv_root):
+        _shutil.rmtree(r, ignore_errors=True)
 
 
-def phase11(size, device):
-    """Phase 11: train joinml-oracle (at full width on the card) on one
-    repeated batch of ``size.batch`` x ``size.seq`` pair tokens: the loss
-    finite at every step and falling; the median step, tokens/s and peak
-    memory; K5's forward and backward launches per step (counts set to 0
-    just before the steps and read just after; remat runs each layer's
-    forward twice); the device's idle share over 3 profiled steps; 4
-    microbatches against 1; then the resume check and the launcher.
-    Returns the launch counts of the steps."""
+def _train_run(phase, size, device, name=None, over=None, batch=None, steps=None):
+    """``steps`` (else ``size.steps``) steps of ``_train_setup``'s model on
+    its first batch, repeated: the loss finite and falling; the launches per
+    step exactly 2 forward (remat runs each layer twice) and 1 backward of
+    K6 per rwkv layer, of K7 per rec layer and of K5 per layer that attends
+    (dense, moe and attn; counts set to 0 just before the steps and read
+    just after); the median step, tokens/s, peak memory and the idle share
+    over 3 profiled steps.  Returns (the logged row, launches of the steps,
+    cfg, params, opt, the batch)."""
+    from repro_torch.configs import get_config
     from repro_torch.kernels import cuda_lib
-    from repro_torch.train import OptimizerConfig, make_train_step
+    from repro_torch.train import make_train_step
 
     t0 = time.perf_counter()
-    cfg, params, opt, ocfg, batch_at = _train_setup(size, device)
+    cfg, params, opt, ocfg, batch_at = _train_setup(size, device, name=name, over=over,
+                                                    batch=batch)
     step_fn = make_train_step(cfg, ocfg)
-    batch = batch_at(0)
-    log(f"phase 11 set-up: {time.perf_counter() - t0:.1f} s")
+    data = batch_at(0)
+    setup_s = time.perf_counter() - t0
+    steps = steps or size.steps
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
     losses, times = [], []
     cuda_lib.reset_launches()
-    for _ in range(size.steps):
+    for _ in range(steps):
         sync(device)
         t0 = time.perf_counter()
-        params, opt, m = step_fn(params, opt, batch)
+        params, opt, m = step_fn(params, opt, data)
         losses.append(float(m["loss"]))
         times.append((time.perf_counter() - t0) * 1e3)
-    launches = dict(cuda_lib.LAUNCHES)
-    per_step = {k: v / size.steps for k, v in launches.items()}
+    launches = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
+    per_step = {k: v / steps for k, v in launches.items()}
+    kinds = cfg.layer_types()
+    n_attn = sum(kinds.count(kd) for kd in ("dense", "moe", "attn"))
+    want = {"rwkv6_scan": 2 * kinds.count("rwkv"), "rwkv6_scan_bwd": kinds.count("rwkv"),
+            "rglru_scan": 2 * kinds.count("rec"), "rglru_scan_bwd": kinds.count("rec"),
+            "flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn}
+    want = {k: v for k, v in want.items() if v}
     med = float(np.median(times[2:]))
-    row = {"phase": "11: training", "model": cfg.name, "layers": cfg.num_layers,
+    n_tok = data["tokens"].shape[0] * data["tokens"].shape[1]
+    row = {"phase": phase, "model": cfg.name, "layers": cfg.num_layers,
+           "layer_types": {kd: kinds.count(kd) for kd in sorted(set(kinds))},
            "d_model": cfg.d_model, "vocab": cfg.vocab_size, "dtype": cfg.dtype,
-           "remat": cfg.remat, "params": cfg.param_count(), "batch": [size.batch, size.seq],
-           "losses": losses, "step_ms": times, "median_step_ms": med,
-           "tokens_per_s": size.batch * size.seq / med * 1e3,
-           "launches_per_step": per_step}
+           "remat": cfg.remat, "params": sum(x.numel() for x in params.parameters()),
+           "reduced": [c for c in _reduced_note(cfg, get_config(cfg.name))
+                       if not c.startswith("remat ")],
+           "batch": list(data["tokens"].shape), "setup_s": setup_s, "losses": losses,
+           "step_ms": times, "median_step_ms": med, "tokens_per_s": n_tok / med * 1e3,
+           "launches_per_step": per_step, "expected_launches_per_step": want}
     if device == "cuda":
         row["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
-        _, wall, busy, events = _profiled(
-            lambda: [step_fn(params, opt, batch) for _ in range(3)])
+        # the steps' results are dropped at once: they hold the model
+        wall, busy, events = _profiled(
+            lambda: [step_fn(params, opt, data) for _ in range(3)])[1:]
         row.update(profiled_steps=3, wall_ms=wall, device_busy_ms=busy,
                    idle_share=1.0 - busy / wall, top_device_events=events[:10])
     log(json.dumps(row))
     if not np.isfinite(losses).all():
-        fail(f"a training loss is not finite: {losses}")
+        fail(f"{cfg.name}: a training loss is not finite: {losses}")
     if not losses[-1] < losses[0]:
-        fail(f"the loss did not fall on the repeated batch: {losses}")
-    if device == "cuda" and (per_step.get("flash_attention") != 2 * cfg.num_layers
-                             or per_step.get("flash_attention_bwd") != cfg.num_layers):
-        fail(f"K5 launches per step {per_step}: expected {2 * cfg.num_layers} forward "
-             f"and {cfg.num_layers} backward with remat")
+        fail(f"{cfg.name}: the loss did not fall on the repeated batch: {losses}")
+    if device == "cuda" and per_step != want:
+        fail(f"{cfg.name}: launches per step {per_step}, expected {want}")
+    return row, launches, cfg, params, opt, data
+
+
+def recurrent_training(size, device):
+    """Phase 11b: each ``RECURRENT_TRAIN`` model trains
+    ``RECURRENT_TRAIN_STEPS`` steps through ``_train_run``, one model on the
+    card at a time.  Returns {arch: launch counts of its steps}."""
+    out = {}
+    for name, over, batch in RECURRENT_TRAIN:
+        _, out[name], *held = _train_run("11b: training", size, device, name=name, over=over,
+                                      batch=batch if size.full else None,
+                                      steps=RECURRENT_TRAIN_STEPS)
+        del held
+        _free()
+    return out
+
+
+def phase11(size, device):
+    """Phase 11: train joinml-oracle (at full width on the card) on one
+    repeated batch of ``size.batch`` x ``size.seq`` pair tokens through
+    ``_train_run``; then 4 microbatches against 1, the resume check and the
+    launcher; then phase 11b, the recurrent families.  Returns the launch
+    counts of the joinml-oracle steps and {arch: launch counts} of 11b's."""
+    from repro_torch.train import OptimizerConfig, make_train_step
+
+    _, launches, cfg, params, opt, batch = _train_run("11: training", size, device)
 
     # 4 microbatches against 1 at lr 0 (tests/test_substrates.py's tolerances)
     still = OptimizerConfig(peak_lr=0.0, warmup_steps=0, weight_decay=0.0)
@@ -2581,7 +2748,7 @@ def phase11(size, device):
     _free()
     _subprocess_resume(device, size)
     _train_launcher(device, size)
-    return launches
+    return launches, recurrent_training(size, device)
 
 
 # ---------------------------------------------------------------------------
@@ -3100,7 +3267,10 @@ def main():
             cuda_lib.lib().repro_topk_few_rows_smem_bytes(1)} | {
         f"flash_attention f32 d={d}": fsmem(0, d, 1, 1, 1, 1) for d in (64, 256)} | {
         f"flash_attention bf16 {label}": fsmem(1, sh[5], sh[1], sh[2], sh[3], sh[4])
-        for label, sh in FLASH_SHAPES.items()}}))
+        for label, sh in FLASH_SHAPES.items()} | {
+        f"flash_attention_bwd bf16 {part} d={d}":
+            cuda_lib.lib().repro_flash_bwd_smem_bytes(which, d)
+        for which, part in ((2, "dQ"), (3, "dK/dV")) for d in (64, 256)}}))
 
     from repro_torch.data import make_clustered_tables
     from repro_torch.kernels import autotune
@@ -3123,8 +3293,9 @@ def main():
     del ds, chain
     _log_tuning("phase 3")
     model_rows = model_kernels()
-    # phase 3c: K5's backward
+    # phase 3c: the backward kernels (K5's, K6's, K7's)
     bwd_rows = flash_backward()
+    scan_bwd_rows = scan_backwards()
 
     # phase 4: the main path, counts read around the whole phase
     cuda_lib.reset_launches()
@@ -3190,8 +3361,10 @@ def main():
     phase10_s += time.perf_counter() - t10
     # phase 11: training, counts set to 0 just before its steps
     t11 = time.perf_counter()
-    train_launches = phase11(TRAIN_FULL, "cuda")
+    train_launches, recurrent_launches = phase11(TRAIN_FULL, "cuda")
     paths["training (11)"] = train_launches
+    for name, n in recurrent_launches.items():
+        paths[f"{name} training (11b)"] = n
     _free()
     log(json.dumps({"phase10_s": phase10_s, "phase11_s": time.perf_counter() - t11,
                     "script_s": time.perf_counter() - t_script}))
@@ -3216,12 +3389,18 @@ def main():
                                           (paths | paths_4b).items()},
                      "other_shapes": other_rows})
     train_row, *other_bwd = bwd_rows
+    training = {p: n for p, n in paths.items() if "training" in p}
     rows.append({"name": "flash_attention_bwd", "route": "cuda", "source": MODEL_SOURCE,
                  "replaces": BWD_REPLACES,
                  "launches": train_launches.get("flash_attention_bwd", 0), **train_row,
-                 "launches_by_path": {"training (11)": train_launches.get(
-                     "flash_attention_bwd", 0)},
+                 "launches_by_path": {p: n.get("flash_attention_bwd", 0)
+                                      for p, n in training.items()},
                  "other_shapes": other_bwd})
+    for name, arch in (("rwkv6_scan_bwd", "rwkv6-1.6b"), ("rglru_scan_bwd", "recurrentgemma-9b")):
+        rows.append({"name": name, "route": "cuda", "source": MODEL_SOURCE,
+                     "replaces": SCAN_BWD_REPLACES[name],
+                     "launches": recurrent_launches[arch].get(name, 0), **scan_bwd_rows[name],
+                     "launches_by_path": {p: n.get(name, 0) for p, n in training.items()}})
     log(json.dumps({"kernels": rows}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

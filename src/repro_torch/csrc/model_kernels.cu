@@ -66,18 +66,41 @@
 // jnp attention).  dQ, dK and dV of softmax(q k^T * d**-0.5 + mask) v for
 // every shape and mask the forward takes, f32 or bf16 in, f32 sums, the
 // gradients in the inputs' type.  It recomputes P = exp(s * scale - lse)
-// from the saved lse.  Three launches: D = rowsum(dO * O); dQ, one CTA per
-// (batch, q head, q tile) in one pass over the KV tiles; dK and dV, one CTA
-// per (batch, KV head, KV tile) in one pass over the q tiles of every q
-// head of the group, so the GQA sum needs no atomics and every run gives
-// the same bits.  A first version on the CUDA cores (SIMT f32, the forward
-// f32 kernel's 16 x 16 thread layout; 64-row tiles, 32 at d 256), so at the
-// training shape its bound is operations, 2.5 times the forward's (halved
-// under a causal mask), against the tensor cores' bf16 peak.  Masked
-// scores get dS = 0 (the mask replaces them by a constant); a row whose
-// keys are all masked (lse == FA_NEG) has P = 1 / Skv, as the forward
-// averaged every value.  Tiles wholly masked are skipped where Sq <= Skv,
-// as the forward skips them.
+// from the saved lse.  Masked scores get dS = 0 (the mask replaces them by
+// a constant); a row whose keys are all masked (lse == FA_NEG) has P = 1 /
+// Skv, as the forward averaged every value.  Tiles wholly masked are
+// skipped where Sq <= Skv, as the forward skips them (then no row is all
+// masked, and a skipped score's dS is exactly 0).  Its bound is operations
+// at the training shape and beyond, 2.5 times the forward's (halved under
+// a causal mask), against the tensor cores' bf16 peak.
+//   bf16 (fa_bwd_*_bf16_kernel): the tensor cores, mma.sync m16n8k16 as in
+//   the forward, Q, dO, K and V bf16 in shared memory (16-byte cp.async,
+//   rows padded by 16 bytes, two buffers where they fit).  S = Q K^T and dP
+//   = dO V^T take the bf16 operands as they are (exact products, f32
+//   sums); P and dS are f32, so each of P^T dO, dS^T Q and dS K splits them
+//   exactly into bf16 hi, mid and lo (split3) and takes three mmas, the
+//   smallest term first (one bf16 P would be off by 2^-9 where the sums
+//   cancel).  Launches: D = rowsum(dO * O), one warp a row; dQ, a CTA of 4
+//   warps per (batch, q head, 64-row q tile), a warp 16 rows, over KV tiles
+//   of 64 keys in 16-key steps (S and dP of 16 x 16 in registers, then dQ
+//   += dS K); dK and dV, a CTA per (batch, KV head, 64 keys (32 at d 256),
+//   head split), where a warp owns 16 keys and computes S^T = K Q^T and
+//   dP^T = V dO^T, so that P^T and dS^T come out in the A-fragment layout
+//   the products over q rows take (at d 256 two warps share 16 keys and
+//   take 128 output columns each: two 16 x 256 f32 accumulators would not
+//   fit the registers).  The head split: under GQA or MQA one CTA per KV
+//   tile leaves most SMs idle (recurrentgemma's training batch, 8 x 1 KV
+//   head x 4 tiles of 32 keys, is 32 CTAs on 132 SMs, each walking 16 q
+//   heads), so a group's q heads spread over CTAs (``per`` heads each,
+//   chosen by the wrapper from B * Hkv * KV tiles against the SM count);
+//   each writes f32 partial dK and dV into a workspace the wrapper
+//   allocates, and a fourth launch sums the partials in split order and
+//   rounds them to bf16.  No atomics: every run gives the same bits.
+//   f32 (fa_bwd_dq_kernel, fa_bwd_dkv_kernel, SIMT; TF32 is not allowed on
+//   an f32 path): the first version, kept for f32 inputs (no path runs K5
+//   at f32): the forward f32 kernel's 16 x 16 thread layout on f32 tiles
+//   (64 rows, 32 at d 256); dK and dV walk every q head of the group in one
+//   CTA.
 //
 // K6, RWKV6 scan.  Per (batch, head), from S = 0 (hd x hd), all in f32:
 //   out_t = r_t (S + u * k_t^T v_t),  S <- diag(w_t) S + k_t^T v_t.
@@ -120,6 +143,25 @@
 //     kernel's astype(float32)).  The chunk's beta_t come from one
 //     butterfly over the warp that halves the steps a lane carries at each
 //     level, so its shuffles are independent of each other.
+// K6's backward (no Pallas counterpart: the reference differentiates its
+//   lax.scan).  With G_t the loss's gradient by S_t (G_{T-1} = 0), in reverse:
+//   dr_t = dout_t S_{t-1}^T + u k_t (dout_t . v_t), dk_t = G_t v_t + u r_t
+//   (dout_t . v_t), dv_t = G_t^T k_t + dout_t beta_t, dw_t = rowsum(G_t *
+//   S_{t-1}), then G_{t-1} = diag(w_t) G_t + r_t^T dout_t; du = sum over
+//   batch and time of r k (dout . v).  One CTA per (batch, head) holds all of
+//   S and G (a thread: one row, hd / TPR columns, interleaved so the column
+//   sums coalesce), since dr, dk and dw sum over the columns and dv over
+//   the rows.  S_{t-1} is needed in reverse: a first pass runs the forward
+//   and stores S at every CK-th step into a scratch tensor (checkpoints;
+//   nothing divides by w, which can be tiny), then each chunk of CK steps,
+//   last first, is recomputed from its checkpoint into shared memory (each
+//   thread its own elements) and walked backward.  The row sums reduce over
+//   the TPR lanes of a row by xor shuffles; the column sums over the rows
+//   by a butterfly that halves the columns a lane carries at each level,
+//   then over the warps through shared memory, in a fixed order; du's per
+//   (batch, head) partials are summed over the batch in order by a second
+//   launch.  No atomics.  Bound: bytes (r, k, v, w, dout read, the five
+//   gradients written; the checkpoints stay mostly in L2).
 // K7, RG-LRU scan.  h_t = a_t * h_{t-1} + g_t from h = 0, per (batch,
 //   channel).  Bound: bytes (12 bytes per element: a, g read, h written, all
 //   f32).  One thread per (batch, channel) walks T, so neighbouring threads
@@ -127,10 +169,15 @@
 //   of later steps, which do not depend on h, are in flight early.  The
 //   step is one fmaf, summed in time order (the TPU kernel's doubling scan
 //   sums in another order).
+//   Backward (no Pallas counterpart: the reference differentiates its
+//   lax.scan): Lambda_t = dout_t + a_{t+1} Lambda_{t+1} in reverse, dg_t =
+//   Lambda_t, da_t = Lambda_t h_{t-1} from the forward's saved output; the
+//   forward's layout walked backward.  Bound: bytes (20 per element: a, h,
+//   dout read, da, dg written).
 //
 // Interface: plain C, called through ctypes.  The wrappers allocate every
-// output and pass contiguous tensors (K6: strided views) and PyTorch's
-// current stream; each
+// output and scratch tensor and pass contiguous tensors (K6: strided views)
+// and PyTorch's current stream; each
 // function returns cudaGetLastError() after its launch (or
 // cudaErrorInvalidValue for arguments it does not take).
 
@@ -697,9 +744,6 @@ __device__ __forceinline__ float fg_load(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
 __device__ __forceinline__ void fg_store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void fg_store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 // whether the forward gave (qp, kp) the score FA_NEG
 __device__ __forceinline__ bool fg_masked(int qp, int kp, int causal, int window) {
@@ -1066,6 +1110,528 @@ cudaError_t fg_dispatch(int d, const void* q, const void* k, const void* v,
   }
 }
 
+// ---- K5 backward at bf16: mma.sync on the tensor cores ----------------------
+
+constexpr int FC_WARPS = 4;
+constexpr int FC_NT = 32 * FC_WARPS;
+constexpr int FC_BQ = 64;    // q rows of a dQ CTA (16 a warp) and of a dK/dV q tile
+constexpr int FC_BKV = 64;   // keys of a dQ KV tile
+
+// Fragments from shared memory, rows ld bf16 apart.  A (16 x 16): rows r0..,
+// k k0.. of a matrix stored [row][k].  B of the two 8-column blocks n0..
+// (b[0], b[1]) and n0 + 8.. (b[2], b[3]) at k k0..k0 + 15: fc_ldB from a
+// matrix stored [n][k], fc_ldBt from one stored [k][n].
+__device__ __forceinline__ void fc_ldA(uint32_t (&a)[4], const __nv_bfloat16* base, int ld,
+                                       int r0, int k0, int lane) {
+  ldmatrix_x4(a, base + (r0 + (lane & 15)) * ld + k0 + (lane >> 4) * 8);
+}
+__device__ __forceinline__ void fc_ldB(uint32_t (&b)[4], const __nv_bfloat16* base, int ld,
+                                       int n0, int k0, int lane) {
+  ldmatrix_x4(b, base + (n0 + (lane & 7) + ((lane >> 4) << 3)) * ld + k0 +
+                     ((lane >> 3) & 1) * 8);
+}
+__device__ __forceinline__ void fc_ldBt(uint32_t (&b)[4], const __nv_bfloat16* base, int ld,
+                                        int k0, int n0, int lane) {
+  ldmatrix_x4_trans(b, base + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + n0 +
+                           (lane >> 4) * 8);
+}
+
+// The f32 C fragments of a 16 x 16 tile (c0: columns 0-7, c1: 8-15) as the
+// A fragments of its three exact bf16 terms (the forward's P . V mapping)
+__device__ __forceinline__ void fc_split_a(const float (&c0)[4], const float (&c1)[4],
+                                           uint32_t (&hi)[4], uint32_t (&mid)[4],
+                                           uint32_t (&lo)[4]) {
+  const float x[4][2] = {{c0[0], c0[1]}, {c0[2], c0[3]}, {c1[0], c1[1]}, {c1[2], c1[3]}};
+#pragma unroll
+  for (int f = 0; f < 4; ++f) {
+    float h0, m0, l0, h1, m1, l1;
+    split3(x[f][0], h0, m0, l0);
+    split3(x[f][1], h1, m1, l1);
+    hi[f] = pack_bf16(h0, h1);
+    mid[f] = pack_bf16(m0, m1);
+    lo[f] = pack_bf16(l0, l1);
+  }
+}
+
+// c += (hi + mid + lo) b, the smallest term first
+__device__ __forceinline__ void fc_mma3(float (&c)[4], const uint32_t (&hi)[4],
+                                        const uint32_t (&mid)[4], const uint32_t (&lo)[4],
+                                        uint32_t b0, uint32_t b1) {
+  mma_bf16(c, lo, b0, b1);
+  mma_bf16(c, mid, b0, b1);
+  mma_bf16(c, hi, b0, b1);
+}
+
+size_t fc_dq_smem(int d, int nbuf) {
+  return 2 * (size_t)(d + 8) * (2 * FC_BQ + (size_t)nbuf * 2 * FC_BKV);
+}
+
+// dQ: a CTA per (batch * q head, 64-row q tile), warp w its rows 16 w..;
+// per KV tile (two buffers where they fit) and 16 keys at a time: S and dP
+// (16 x 16), dS = P (dP - D) with P = exp(S scale - lse), 0 where masked,
+// then dQ += dS K with dS in three bf16 terms.  Q's and dO's A fragments
+// stay in registers at d <= 64.
+template <int D>
+__global__ void __launch_bounds__(FC_NT)
+fa_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                      const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v,
+                      const __nv_bfloat16* __restrict__ dout,
+                      const float* __restrict__ lse, const float* __restrict__ delta,
+                      __nv_bfloat16* __restrict__ dq, int Hq, int Hkv, int Sq, int Skv,
+                      int causal, int window, float scale, int nbuf) {
+  constexpr int LD = D + 8, KD = D / 16;
+  constexpr bool REG = D <= 64;
+  extern __shared__ __align__(16) unsigned char fc_smem[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(fc_smem);
+  __nv_bfloat16* dOs = Qs + FC_BQ * LD;
+  __nv_bfloat16* KVs = dOs + FC_BQ * LD;  // buffer b: K at 2 b, V at 2 b + 1
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g4 = lane >> 2, t4 = lane & 3;
+  const int bh = blockIdx.x, b = bh / Hq, h = bh % Hq, kvh = h / (Hq / Hkv);
+  const int q0 = blockIdx.y * FC_BQ;
+  const size_t qoff = (size_t)bh * Sq * D;
+  const size_t kvoff = (size_t)(b * Hkv + kvh) * Skv * D;
+  for (int e = tid; e < FC_BQ * D / 8; e += FC_NT) {
+    const int r = e / (D / 8), c = (e % (D / 8)) * 8;
+    const bool in = q0 + r < Sq;
+    const size_t off = qoff + (size_t)(q0 + r) * D + c;
+    cp_async16(Qs + r * LD + c, in ? q + off : q, in);
+    cp_async16(dOs + r * LD + c, in ? dout + off : dout, in);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+  int kv_b, kv_e;
+  fg_kv_range<FC_BQ>(q0, Sq, Skv, causal, window, kv_b, kv_e);
+  auto load_kv = [&](int kv0, int buf) {
+    __nv_bfloat16* Ks = KVs + 2 * buf * FC_BKV * LD;
+    __nv_bfloat16* Vs = Ks + FC_BKV * LD;
+    for (int e = tid; e < FC_BKV * D / 8; e += FC_NT) {
+      const int r = e / (D / 8), c = (e % (D / 8)) * 8;
+      const bool in = kv0 + r < Skv;
+      const size_t off = kvoff + (size_t)(kv0 + r) * D + c;
+      cp_async16(Ks + r * LD + c, in ? k + off : k, in);
+      cp_async16(Vs + r * LD + c, in ? v + off : v, in);
+    }
+  };
+  if (kv_b < kv_e) load_kv(kv_b, 0);
+  asm volatile("cp.async.commit_group;\n" ::);
+
+  // this warp's rows: g4 (e = 0, 1 of a C fragment) and g4 + 8 (e = 2, 3)
+  const int w0 = q0 + 16 * warp;
+  const bool active = w0 < Sq;
+  const int w_last = min(w0 + 15, Sq - 1);
+  float L[2], Dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = w0 + g4 + 8 * r;
+    L[r] = qp < Sq ? lse[(size_t)bh * Sq + qp] : 0.f;
+    Dl[r] = qp < Sq ? delta[(size_t)bh * Sq + qp] : 0.f;
+  }
+  float acc[D / 8][4];
+#pragma unroll
+  for (int nb = 0; nb < D / 8; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nb][e] = 0.f;
+  uint32_t qf[REG ? KD : 1][4], gf[REG ? KD : 1][4];
+  bool ready = false;
+
+  int it = 0;
+  for (int kv0 = kv_b; kv0 < kv_e; kv0 += FC_BKV, ++it) {
+    const int buf = nbuf == 2 ? (it & 1) : 0;
+    if (it > 0) __syncthreads();  // the readers of the buffer loaded next are done
+    if (nbuf == 2) {
+      if (kv0 + FC_BKV < kv_e) load_kv(kv0 + FC_BKV, buf ^ 1);
+      asm volatile("cp.async.commit_group;\n" ::);
+      asm volatile("cp.async.wait_group 1;\n" ::);
+    } else {
+      if (it > 0) {
+        load_kv(kv0, 0);
+        asm volatile("cp.async.commit_group;\n" ::);
+      }
+      asm volatile("cp.async.wait_group 0;\n" ::);
+    }
+    __syncthreads();
+    if (!active) continue;
+    if (REG && !ready) {
+#pragma unroll
+      for (int ks = 0; ks < (REG ? KD : 1); ++ks) {
+        fc_ldA(qf[ks], Qs, LD, 16 * warp, 16 * ks, lane);
+        fc_ldA(gf[ks], dOs, LD, 16 * warp, 16 * ks, lane);
+      }
+      ready = true;
+    }
+    const __nv_bfloat16* Ks = KVs + 2 * buf * FC_BKV * LD;
+    const __nv_bfloat16* Vs = Ks + FC_BKV * LD;
+    for (int j = 0; j < FC_BKV / 16; ++j) {
+      const int k0 = kv0 + 16 * j;
+      if (k0 >= Skv) break;
+      if (Sq <= Skv && ((causal && k0 > w_last) || (window > 0 && w0 - (k0 + 15) >= window)))
+        continue;  // every score of the 16 x 16 block is masked: dS = 0
+      float s[2][4], dp[2][4];
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nb][e] = dp[nb][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KD; ++ks) {
+        uint32_t a[4], ga[4], bk[4], bv[4];
+        if (REG) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            a[e] = qf[REG ? ks : 0][e];
+            ga[e] = gf[REG ? ks : 0][e];
+          }
+        } else {
+          fc_ldA(a, Qs, LD, 16 * warp, 16 * ks, lane);
+          fc_ldA(ga, dOs, LD, 16 * warp, 16 * ks, lane);
+        }
+        fc_ldB(bk, Ks, LD, 16 * j, 16 * ks, lane);
+        fc_ldB(bv, Vs, LD, 16 * j, 16 * ks, lane);
+        mma_bf16(s[0], a, bk[0], bk[1]);
+        mma_bf16(s[1], a, bk[2], bk[3]);
+        mma_bf16(dp[0], ga, bv[0], bv[1]);
+        mma_bf16(dp[1], ga, bv[2], bv[3]);
+      }
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qp = w0 + g4 + (e >> 1) * 8;
+          const int kp = k0 + nb * 8 + 2 * t4 + (e & 1);
+          float ds = 0.f;
+          if (qp < Sq && kp < Skv && !fg_masked(qp, kp, causal, window))
+            ds = expf(s[nb][e] * scale - L[e >> 1]) * (dp[nb][e] - Dl[e >> 1]);
+          s[nb][e] = ds;
+        }
+      uint32_t hi[4], mid[4], lo[4];
+      fc_split_a(s[0], s[1], hi, mid, lo);
+#pragma unroll
+      for (int n2 = 0; n2 < D / 16; ++n2) {
+        uint32_t bk[4];
+        fc_ldBt(bk, Ks, LD, 16 * j, 16 * n2, lane);
+        fc_mma3(acc[2 * n2], hi, mid, lo, bk[0], bk[1]);
+        fc_mma3(acc[2 * n2 + 1], hi, mid, lo, bk[2], bk[3]);
+      }
+    }
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::);  // no copy left in flight
+  if (!active) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = w0 + g4 + 8 * r;
+    if (qp >= Sq) continue;
+#pragma unroll
+    for (int nb = 0; nb < D / 8; ++nb)
+      *reinterpret_cast<__nv_bfloat162*>(dq + qoff + (size_t)qp * D + nb * 8 + 2 * t4) =
+          __floats2bfloat162_rn(acc[nb][2 * r] * scale, acc[nb][2 * r + 1] * scale);
+  }
+}
+
+// the dK/dV CTA at head width D: a warp's output columns (all of them, or
+// 128 at d 256, where two warps share 16 keys) and the CTA's keys
+template <int D>
+struct FcKv {
+  static constexpr int DH = D <= 128 ? D : 128;
+  static constexpr int WPK = D / DH;
+  static constexpr int BK = 16 * FC_WARPS / WPK;
+};
+
+size_t fc_dkv_smem(int d, int nbuf) {
+  const size_t bk = d <= 128 ? 64 : 32;
+  return 2 * (size_t)(d + 8) * (2 * bk + (size_t)nbuf * 2 * FC_BQ) +
+         sizeof(float) * (size_t)nbuf * 2 * FC_BQ;
+}
+
+// dK and dV: a CTA per (batch * KV head, BK keys, head split), looping over
+// the q tiles of q heads [split * per, split * per + per) of the group (two
+// buffers of Q, dO, lse and D where they fit); per 16 q rows, S^T = K Q^T
+// and dP^T = V dO^T (16 keys x 16 rows), P^T and dS^T as in the SIMT kernel
+// (P = 1 / Skv on a row whose keys are all masked, dS 0 there), then dV +=
+// P^T dO and dK += dS^T Q with P and dS in three bf16 terms.  K's and V's
+// A fragments stay in registers at d <= 64.  With a workspace (more than one
+// split) the f32 sums go there unscaled, [split][batch * KV head][key][d];
+// else dK * scale and dV straight to bf16.
+template <int D>
+__global__ void __launch_bounds__(FC_NT)
+fa_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                       const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v,
+                       const __nv_bfloat16* __restrict__ dout,
+                       const float* __restrict__ lse, const float* __restrict__ delta,
+                       __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                       float* __restrict__ wsk, float* __restrict__ wsv, int Hq, int Hkv,
+                       int Sq, int Skv, int causal, int window, float scale, int per,
+                       int nbuf) {
+  using P = FcKv<D>;
+  constexpr int LD = D + 8, KD = D / 16, DH = P::DH, WPK = P::WPK, BK = P::BK;
+  constexpr bool REG = D <= 64;
+  extern __shared__ __align__(16) unsigned char fc_smem[];
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(fc_smem);
+  __nv_bfloat16* Vs = Ks + BK * LD;
+  __nv_bfloat16* QB = Vs + BK * LD;  // buffer b: Q at 2 b, dO at 2 b + 1
+  float* LDs = reinterpret_cast<float*>(QB + nbuf * 2 * FC_BQ * LD);  // buffer b: lse, D
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g4 = lane >> 2, t4 = lane & 3;
+  const int bk = blockIdx.x, b = bk / Hkv, kvh = bk % Hkv, G = Hq / Hkv;
+  const int k0 = blockIdx.y * BK, split = blockIdx.z;
+  const int hb = split * per, he = min(G, hb + per);
+  const int kg = warp / WPK, oh = warp % WPK;
+  const int kw0 = k0 + 16 * kg;  // this warp's first key
+  const size_t kvoff = (size_t)bk * Skv * D;
+  for (int e = tid; e < BK * D / 8; e += FC_NT) {
+    const int r = e / (D / 8), c = (e % (D / 8)) * 8;
+    const bool in = k0 + r < Skv;
+    const size_t off = kvoff + (size_t)(k0 + r) * D + c;
+    cp_async16(Ks + r * LD + c, in ? k + off : k, in);
+    cp_async16(Vs + r * LD + c, in ? v + off : v, in);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+  // the q tiles that see these keys (the dQ kernel's skips seen from the keys)
+  int q_b = 0, q_e = Sq;
+  if (Sq <= Skv) {
+    const int k_last = min(k0 + BK, Skv) - 1;
+    if (causal) q_b = (k0 / FC_BQ) * FC_BQ;
+    if (window > 0) q_e = min(Sq, k_last + window);
+  }
+  const int nqt = q_e > q_b ? (q_e - q_b + FC_BQ - 1) / FC_BQ : 0;
+  const int items = max(0, he - hb) * nqt;  // (q head, q tile) pairs
+  auto load_q = [&](int item, int buf) {
+    const size_t bh = (size_t)b * Hq + kvh * G + hb + item / nqt;
+    const int q0 = q_b + (item % nqt) * FC_BQ;
+    const size_t qoff = bh * Sq * D;
+    __nv_bfloat16* Qs = QB + 2 * buf * FC_BQ * LD;
+    __nv_bfloat16* dOs = Qs + FC_BQ * LD;
+    for (int e = tid; e < FC_BQ * D / 8; e += FC_NT) {
+      const int r = e / (D / 8), c = (e % (D / 8)) * 8;
+      const bool in = q0 + r < Sq;
+      const size_t off = qoff + (size_t)(q0 + r) * D + c;
+      cp_async16(Qs + r * LD + c, in ? q + off : q, in);
+      cp_async16(dOs + r * LD + c, in ? dout + off : dout, in);
+    }
+    for (int r = tid; r < FC_BQ; r += FC_NT) {
+      const bool in = q0 + r < Sq;
+      LDs[2 * buf * FC_BQ + r] = in ? lse[bh * Sq + q0 + r] : 0.f;
+      LDs[(2 * buf + 1) * FC_BQ + r] = in ? delta[bh * Sq + q0 + r] : 0.f;
+    }
+  };
+  if (items > 0) load_q(0, 0);
+  asm volatile("cp.async.commit_group;\n" ::);
+
+  float acck[DH / 8][4], accv[DH / 8][4];
+#pragma unroll
+  for (int nb = 0; nb < DH / 8; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acck[nb][e] = accv[nb][e] = 0.f;
+  uint32_t kf[REG ? KD : 1][4], vf[REG ? KD : 1][4];
+  bool ready = false;
+  const float p_empty = 1.0f / (float)Skv;
+  const int kw_last = min(kw0 + 15, Skv - 1);
+
+  for (int it = 0; it < items; ++it) {
+    const int buf = nbuf == 2 ? (it & 1) : 0;
+    if (it > 0) __syncthreads();  // the readers of the buffer loaded next are done
+    if (nbuf == 2) {
+      if (it + 1 < items) load_q(it + 1, buf ^ 1);
+      asm volatile("cp.async.commit_group;\n" ::);
+      asm volatile("cp.async.wait_group 1;\n" ::);
+    } else {
+      if (it > 0) {
+        load_q(it, 0);
+        asm volatile("cp.async.commit_group;\n" ::);
+      }
+      asm volatile("cp.async.wait_group 0;\n" ::);
+    }
+    __syncthreads();
+    if (kw0 >= Skv) continue;  // this warp's keys are past the end
+    if (REG && !ready) {
+#pragma unroll
+      for (int ks = 0; ks < (REG ? KD : 1); ++ks) {
+        fc_ldA(kf[ks], Ks, LD, 16 * kg, 16 * ks, lane);
+        fc_ldA(vf[ks], Vs, LD, 16 * kg, 16 * ks, lane);
+      }
+      ready = true;
+    }
+    const int q0 = q_b + (it % nqt) * FC_BQ;
+    const __nv_bfloat16* Qs = QB + 2 * buf * FC_BQ * LD;
+    const __nv_bfloat16* dOs = Qs + FC_BQ * LD;
+    const float* Lb = LDs + 2 * buf * FC_BQ;
+    const float* Db = Lb + FC_BQ;
+    for (int j = 0; j < FC_BQ / 16; ++j) {
+      const int r0 = q0 + 16 * j;
+      if (r0 >= Sq) break;
+      if (Sq <= Skv && ((causal && r0 + 15 < kw0) || (window > 0 && r0 - kw_last >= window)))
+        continue;  // every score of the 16 x 16 block is masked: P = dS = 0
+      float st[2][4], dpt[2][4];
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[nb][e] = dpt[nb][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KD; ++ks) {
+        uint32_t a[4], av[4], bq[4], bg[4];
+        if (REG) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            a[e] = kf[REG ? ks : 0][e];
+            av[e] = vf[REG ? ks : 0][e];
+          }
+        } else {
+          fc_ldA(a, Ks, LD, 16 * kg, 16 * ks, lane);
+          fc_ldA(av, Vs, LD, 16 * kg, 16 * ks, lane);
+        }
+        fc_ldB(bq, Qs, LD, 16 * j, 16 * ks, lane);
+        fc_ldB(bg, dOs, LD, 16 * j, 16 * ks, lane);
+        mma_bf16(st[0], a, bq[0], bq[1]);
+        mma_bf16(st[1], a, bq[2], bq[3]);
+        mma_bf16(dpt[0], av, bg[0], bg[1]);
+        mma_bf16(dpt[1], av, bg[2], bg[3]);
+      }
+      // rows: keys kw0 + g4 (e = 0, 1) and + 8 (e = 2, 3); columns: q rows
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kp = kw0 + g4 + (e >> 1) * 8;
+          const int cl = 16 * j + nb * 8 + 2 * t4 + (e & 1);
+          const int qp = q0 + cl;
+          float p = 0.f, ds = 0.f;
+          if (qp < Sq && kp < Skv) {
+            const float Lr = Lb[cl];
+            if (fg_empty_row(Lr)) {
+              p = p_empty;
+            } else if (!fg_masked(qp, kp, causal, window)) {
+              p = expf(st[nb][e] * scale - Lr);
+              ds = p * (dpt[nb][e] - Db[cl]);
+            }
+          }
+          st[nb][e] = p;
+          dpt[nb][e] = ds;
+        }
+      uint32_t ph[4], pm[4], pl[4], dh[4], dm[4], dl[4];
+      fc_split_a(st[0], st[1], ph, pm, pl);
+      fc_split_a(dpt[0], dpt[1], dh, dm, dl);
+#pragma unroll
+      for (int n2 = 0; n2 < DH / 16; ++n2) {
+        const int c0 = oh * DH + 16 * n2;
+        uint32_t bg[4], bq[4];
+        fc_ldBt(bg, dOs, LD, 16 * j, c0, lane);
+        fc_mma3(accv[2 * n2], ph, pm, pl, bg[0], bg[1]);
+        fc_mma3(accv[2 * n2 + 1], ph, pm, pl, bg[2], bg[3]);
+        fc_ldBt(bq, Qs, LD, 16 * j, c0, lane);
+        fc_mma3(acck[2 * n2], dh, dm, dl, bq[0], bq[1]);
+        fc_mma3(acck[2 * n2 + 1], dh, dm, dl, bq[2], bq[3]);
+      }
+    }
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::);  // no copy left in flight
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kp = kw0 + g4 + 8 * r;
+    if (kp >= Skv) continue;
+#pragma unroll
+    for (int nb = 0; nb < DH / 8; ++nb) {
+      const size_t off = (size_t)kp * D + oh * DH + nb * 8 + 2 * t4;
+      if (wsk == nullptr) {
+        *reinterpret_cast<__nv_bfloat162*>(dk + kvoff + off) =
+            __floats2bfloat162_rn(acck[nb][2 * r] * scale, acck[nb][2 * r + 1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + kvoff + off) =
+            __floats2bfloat162_rn(accv[nb][2 * r], accv[nb][2 * r + 1]);
+      } else {
+        const size_t w = ((size_t)split * gridDim.x + bk) * Skv * D + off;
+        *reinterpret_cast<float2*>(wsk + w) = make_float2(acck[nb][2 * r], acck[nb][2 * r + 1]);
+        *reinterpret_cast<float2*>(wsv + w) = make_float2(accv[nb][2 * r], accv[nb][2 * r + 1]);
+      }
+    }
+  }
+}
+
+// dK = scale * (sum of the splits' partials) and dV = their sum, in split
+// order, rounded to bf16
+__global__ void __launch_bounds__(256)
+fa_bwd_dkv_sum_kernel(const float* __restrict__ wsk, const float* __restrict__ wsv,
+                      __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                      long long n, int splits, float scale) {
+  const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (i >= n) return;
+  float sk = 0.f, sv = 0.f;
+  for (int s = 0; s < splits; ++s) {
+    sk += wsk[(size_t)s * n + i];
+    sv += wsv[(size_t)s * n + i];
+  }
+  dk[i] = __float2bfloat16_rn(sk * scale);
+  dv[i] = __float2bfloat16_rn(sv);
+}
+
+template <int D>
+cudaError_t fc_launch(const void* q, const void* k, const void* v, const void* o,
+                      const void* dout, const float* lse, float* delta, void* dq, void* dk,
+                      void* dv, float* wsk, float* wsv, int B, int Hq, int Hkv, int Sq,
+                      int Skv, int causal, int window, float scale, int per, cudaStream_t s) {
+  using P = FcKv<D>;
+  const int G = Hq / Hkv;
+  const int splits = per > 0 ? (G + per - 1) / per : 0;
+  const long long rows = (long long)B * Hq * Sq;
+  const long long n_kv = (long long)B * Hkv * Skv * D;
+  if (per <= 0 || splits > 65535 || (splits > 1 && (!wsk || !wsv)) ||
+      (Sq + FC_BQ - 1) / FC_BQ > 65535 || (Skv + P::BK - 1) / P::BK > 65535 ||
+      (rows + 7) / 8 > 0x7fffffffLL || (long long)B * Hkv > 0x7fffffffLL ||
+      (n_kv + 255) / 256 > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  const int nbuf_q = Skv > FC_BKV && fc_dq_smem(D, 2) <= FA_MAX_SMEM ? 2 : 1;
+  const int nbuf_kv = fc_dkv_smem(D, 2) <= FA_MAX_SMEM ? 2 : 1;
+  const size_t smem_q = fc_dq_smem(D, nbuf_q), smem_kv = fc_dkv_smem(D, nbuf_kv);
+  cudaError_t err = cudaFuncSetAttribute(fa_bwd_dq_bf16_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem_q);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(fa_bwd_dkv_bf16_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_kv);
+  if (err != cudaSuccess) return err;
+  using bf = __nv_bfloat16;
+  const bf* qt = static_cast<const bf*>(q);
+  const bf* kt = static_cast<const bf*>(k);
+  const bf* vt = static_cast<const bf*>(v);
+  const bf* gt = static_cast<const bf*>(dout);
+  fa_bwd_delta_kernel<bf><<<(unsigned)((rows + 7) / 8), 256, 0, s>>>(
+      static_cast<const bf*>(o), gt, delta, rows, D);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 gq((unsigned)(B * Hq), (unsigned)((Sq + FC_BQ - 1) / FC_BQ));
+  fa_bwd_dq_bf16_kernel<D><<<gq, FC_NT, smem_q, s>>>(
+      qt, kt, vt, gt, lse, delta, static_cast<bf*>(dq), Hq, Hkv, Sq, Skv, causal, window,
+      scale, nbuf_q);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 gk((unsigned)(B * Hkv), (unsigned)((Skv + P::BK - 1) / P::BK),
+                (unsigned)splits);
+  fa_bwd_dkv_bf16_kernel<D><<<gk, FC_NT, smem_kv, s>>>(
+      qt, kt, vt, gt, lse, delta, static_cast<bf*>(dk), static_cast<bf*>(dv),
+      splits > 1 ? wsk : nullptr, splits > 1 ? wsv : nullptr, Hq, Hkv, Sq, Skv, causal,
+      window, scale, per, nbuf_kv);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  fa_bwd_dkv_sum_kernel<<<(unsigned)((n_kv + 255) / 256), 256, 0, s>>>(
+      wsk, wsv, static_cast<bf*>(dk), static_cast<bf*>(dv), n_kv, splits, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t fc_dispatch(int d, const void* q, const void* k, const void* v, const void* o,
+                        const void* dout, const float* lse, float* delta, void* dq,
+                        void* dk, void* dv, float* wsk, float* wsv, int B, int Hq, int Hkv,
+                        int Sq, int Skv, int causal, int window, float scale, int per,
+                        cudaStream_t s) {
+  switch (d) {
+    case 16: return fc_launch<16>(q, k, v, o, dout, lse, delta, dq, dk, dv, wsk, wsv, B, Hq, Hkv, Sq, Skv, causal, window, scale, per, s);
+    case 32: return fc_launch<32>(q, k, v, o, dout, lse, delta, dq, dk, dv, wsk, wsv, B, Hq, Hkv, Sq, Skv, causal, window, scale, per, s);
+    case 64: return fc_launch<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, wsk, wsv, B, Hq, Hkv, Sq, Skv, causal, window, scale, per, s);
+    case 128: return fc_launch<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, wsk, wsv, B, Hq, Hkv, Sq, Skv, causal, window, scale, per, s);
+    case 256: return fc_launch<256>(q, k, v, o, dout, lse, delta, dq, dk, dv, wsk, wsv, B, Hq, Hkv, Sq, Skv, causal, window, scale, per, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 // ----------------------------------------------------------------------------
 // K6: RWKV6 scan
 // ----------------------------------------------------------------------------
@@ -1312,6 +1878,285 @@ cudaError_t rw_dispatch(const RwArgs& p, int B, int hd, int split, cudaStream_t 
   }
 }
 
+// ---- K6 backward -------------------------------------------------------------
+
+// The operands and gradients by their strides, (batch, head, time) in
+// elements with the head width contiguous: r, k, v, w, dout, dr, dk, dv, dw
+// in that order.
+struct RwBwdArgs {
+  const void* r;
+  const void* k;
+  const void* v;
+  const float* w;
+  const float* u;
+  const float* dout;
+  void* dr;
+  void* dk;
+  void* dv;
+  float* dw;
+  float* du;       // (H, hd)
+  float* du_part;  // (B, H, hd): a (batch, head)'s sum over time
+  float* ck;       // checkpoints: (B * H, ceil(T / CK), hd * hd), a thread's together
+  long long st[9][3];
+  int H, T;
+};
+
+__device__ __forceinline__ void rb_store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void rb_store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
+// A CTA per (batch, head): thread t holds row i = t / TPR of S and G, columns
+// tg + TPR m (tg = t % TPR, m < CPT); CK steps a chunk.
+template <int HD, int TPR, int CK>
+struct RbLayout {
+  static constexpr int NT = HD * TPR;
+  static constexpr int CPT = HD / TPR;
+  static constexpr int NW = NT / 32;
+  static constexpr int RPW = 32 / TPR;  // rows of a warp
+  static constexpr int LV = RPW == 16 ? 4 : (RPW == 8 ? 3 : (RPW == 4 ? 2 : 5));
+  static_assert(NT % 32 == 0 && NT <= 1024 && (1 << LV) == RPW, "the thread layout");
+};
+
+// floats of shared memory: the chunk's states, r, k, w, v and dout, u, beta
+// and dd, the warps' dv sums, the chunk's dr, dk, dw and dv
+size_t rb_smem_floats(int hd, int nt, int ck) {
+  return (size_t)ck * hd * hd + 5 * (size_t)ck * hd + hd + 2 * (size_t)ck +
+         (size_t)ck * (nt / 32) * hd + 4 * (size_t)ck * hd;
+}
+
+template <int HD, int TPR, int CK, typename TIN>
+__global__ void __launch_bounds__(HD * TPR) rwkv6_scan_bwd_kernel(RwBwdArgs p) {
+  using L = RbLayout<HD, TPR, CK>;
+  constexpr int NT = L::NT, CPT = L::CPT, NW = L::NW, LV = L::LV;
+  constexpr int NK = (CPT >> LV) > 0 ? (CPT >> LV) : 1;  // dv sums a lane ends with
+  extern __shared__ __align__(16) float rb_smem[];
+  float* Sc = rb_smem;              // CK x CPT x NT: S_{t-1} of the chunk's steps
+  float* fr = Sc + CK * CPT * NT;   // CK x HD each: r, k, w (by row), v, dout (by column)
+  float* fk = fr + CK * HD;
+  float* fw = fk + CK * HD;
+  float* fv = fw + CK * HD;
+  float* fd = fv + CK * HD;
+  float* fu = fd + CK * HD;         // HD
+  float* beta = fu + HD;            // CK: sum_i (r_i u_i) k_i
+  float* dd = beta + CK;            // CK: dout . v
+  float* dvp = dd + CK;             // CK x NW x HD: a warp's column sums of G k
+  float* odr = dvp + CK * NW * HD;  // CK x HD each: the chunk's gradients
+  float* odk = odr + CK * HD;
+  float* odw = odk + CK * HD;
+  float* odv = odw + CK * HD;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int i = tid / TPR, tg = tid % TPR;
+  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
+  const int T = p.T, NC = (T + CK - 1) / CK;
+  auto at = [&](int a) { return b * p.st[a][0] + h * p.st[a][1]; };
+  const TIN* rb = static_cast<const TIN*>(p.r) + at(0);
+  const TIN* kb = static_cast<const TIN*>(p.k) + at(1);
+  const TIN* vb = static_cast<const TIN*>(p.v) + at(2);
+  const float* wb = p.w + at(3);
+  const float* db = p.dout + at(4);
+  TIN* drb = static_cast<TIN*>(p.dr) + at(5);
+  TIN* dkb = static_cast<TIN*>(p.dk) + at(6);
+  TIN* dvb = static_cast<TIN*>(p.dv) + at(7);
+  float* dwb = p.dw + at(8);
+  float* ckb = p.ck + (size_t)bh * NC * CPT * NT;
+  for (int c = tid; c < HD; c += NT) fu[c] = p.u[h * HD + c];
+
+  // steps t0 .. t0 + n - 1 into shared memory, widened to f32: k, v and w,
+  // and with all r and dout too
+  auto stage = [&](int t0, int n, bool all) {
+    for (int e = tid; e < n * HD; e += NT) {
+      const int s = e / HD, c = e - s * HD;
+      const long long t = t0 + s;
+      fk[e] = fg_load(kb + t * p.st[1][2] + c);
+      fv[e] = fg_load(vb + t * p.st[2][2] + c);
+      fw[e] = wb[t * p.st[3][2] + c];
+      if (all) {
+        fr[e] = fg_load(rb + t * p.st[0][2] + c);
+        fd[e] = db[t * p.st[4][2] + c];
+      }
+    }
+  };
+  // the forward from S = 0 (S <- diag(w) S + k^T v as the forward kernel
+  // steps it), with the state before each chunk saved
+  float S[CPT];
+#pragma unroll
+  for (int m = 0; m < CPT; ++m) S[m] = 0.f;
+  for (int c = 0; c < NC; ++c) {
+#pragma unroll
+    for (int m = 0; m < CPT; ++m) ckb[(size_t)(c * CPT + m) * NT + tid] = S[m];
+    if (c == NC - 1) break;
+    __syncthreads();  // the previous chunk's readers are done
+    stage(c * CK, CK, false);
+    __syncthreads();
+    for (int s = 0; s < CK; ++s) {
+      const float wi = fw[s * HD + i], ki = fk[s * HD + i];
+#pragma unroll
+      for (int m = 0; m < CPT; ++m)
+        S[m] = fmaf(wi, S[m], __fmul_rn(ki, fv[s * HD + tg + TPR * m]));
+    }
+  }
+
+  // the chunks in reverse, each recomputed from its checkpoint
+  float G[CPT];
+#pragma unroll
+  for (int m = 0; m < CPT; ++m) G[m] = 0.f;
+  float du_acc = 0.f;
+  for (int c = NC - 1; c >= 0; --c) {
+    const int t0 = c * CK, n = min(CK, T - t0);
+    __syncthreads();  // the previous chunk's readers are done
+    stage(t0, n, true);
+    __syncthreads();
+    // beta and dd of each step: a warp a step, lanes over the rows, then a
+    // butterfly (fixed order)
+    for (int s = warp; s < n; s += NW) {
+      float pb = 0.f, pd = 0.f;
+      for (int c2 = lane; c2 < HD; c2 += 32) {
+        pb = fmaf(__fmul_rn(fr[s * HD + c2], fu[c2]), fk[s * HD + c2], pb);
+        pd = fmaf(fd[s * HD + c2], fv[s * HD + c2], pd);
+      }
+#pragma unroll
+      for (int off = 16; off >= 1; off >>= 1) {
+        pb = __fadd_rn(pb, __shfl_xor_sync(0xffffffffu, pb, off));
+        pd = __fadd_rn(pd, __shfl_xor_sync(0xffffffffu, pd, off));
+      }
+      if (lane == 0) {
+        beta[s] = pb;
+        dd[s] = pd;
+      }
+    }
+    // S_{t-1} of the chunk's steps, each thread its own elements
+#pragma unroll
+    for (int m = 0; m < CPT; ++m) S[m] = ckb[(size_t)(c * CPT + m) * NT + tid];
+    for (int s = 0; s < n; ++s) {
+#pragma unroll
+      for (int m = 0; m < CPT; ++m) Sc[(s * CPT + m) * NT + tid] = S[m];
+      if (s + 1 < n) {
+        const float wi = fw[s * HD + i], ki = fk[s * HD + i];
+#pragma unroll
+        for (int m = 0; m < CPT; ++m)
+          S[m] = fmaf(wi, S[m], __fmul_rn(ki, fv[s * HD + tg + TPR * m]));
+      }
+    }
+    __syncthreads();  // beta and dd are written
+    const float ui = fu[i];
+    for (int s = n - 1; s >= 0; --s) {
+      const float ri = fr[s * HD + i], ki = fk[s * HD + i], wi = fw[s * HD + i];
+      float ar = 0.f, ak = 0.f, aw = 0.f, pv[CPT];
+#pragma unroll
+      for (int m = 0; m < CPT; ++m) {
+        const int j = tg + TPR * m;
+        const float sp = Sc[(s * CPT + m) * NT + tid];
+        const float dj = fd[s * HD + j], vj = fv[s * HD + j];
+        ar = fmaf(dj, sp, ar);
+        ak = fmaf(G[m], vj, ak);
+        aw = fmaf(G[m], sp, aw);
+        pv[m] = __fmul_rn(G[m], ki);
+        G[m] = fmaf(wi, G[m], __fmul_rn(ri, dj));
+      }
+      // the row sums over the TPR lanes of the row
+#pragma unroll
+      for (int off = 1; off < TPR; off <<= 1) {
+        ar = __fadd_rn(ar, __shfl_xor_sync(0xffffffffu, ar, off));
+        ak = __fadd_rn(ak, __shfl_xor_sync(0xffffffffu, ak, off));
+        aw = __fadd_rn(aw, __shfl_xor_sync(0xffffffffu, aw, off));
+      }
+      if (tg == 0) {
+        const float dds = dd[s];
+        odr[s * HD + i] = fmaf(__fmul_rn(ui, ki), dds, ar);
+        odk[s * HD + i] = fmaf(__fmul_rn(ui, ri), dds, ak);
+        odw[s * HD + i] = aw;
+        du_acc = fmaf(__fmul_rn(ri, ki), dds, du_acc);
+      }
+      // the column sums over the warp's rows: each level halves the columns
+      // a lane carries while it has more than one, then adds across lanes
+      int m0 = 0;
+      bool writer = true;
+#pragma unroll
+      for (int lvl = 0; lvl < LV; ++lvl) {
+        const int o = 16 >> lvl;
+        const int half = (CPT >> lvl) / 2;
+        const bool up = lane & o;
+        if (half > 0) {
+#pragma unroll
+          for (int q = 0; q < half; ++q) {
+            const float send = up ? pv[q] : pv[q + half];
+            const float keep = up ? pv[q + half] : pv[q];
+            pv[q] = __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, send, o));
+          }
+          m0 += up ? half : 0;
+        } else {
+          pv[0] = __fadd_rn(pv[0], __shfl_xor_sync(0xffffffffu, pv[0], o));
+          writer = writer && !up;
+        }
+      }
+      if (writer) {
+#pragma unroll
+        for (int q = 0; q < NK; ++q) dvp[(s * NW + warp) * HD + tg + TPR * (m0 + q)] = pv[q];
+      }
+    }
+    __syncthreads();
+    // dv = the warps' sums in order + dout beta
+    for (int e = tid; e < n * HD; e += NT) {
+      const int s = e / HD, j = e - s * HD;
+      float a = 0.f;
+      for (int w = 0; w < NW; ++w) a = __fadd_rn(a, dvp[(s * NW + w) * HD + j]);
+      odv[e] = fmaf(fd[e], beta[s], a);
+    }
+    __syncthreads();
+    for (int e = tid; e < n * HD; e += NT) {
+      const int s = e / HD, c2 = e - s * HD;
+      const long long t = t0 + s;
+      rb_store(drb + t * p.st[5][2] + c2, odr[e]);
+      rb_store(dkb + t * p.st[6][2] + c2, odk[e]);
+      rb_store(dvb + t * p.st[7][2] + c2, odv[e]);
+      dwb[t * p.st[8][2] + c2] = odw[e];
+    }
+  }
+  if (tg == 0) p.du_part[(size_t)bh * HD + i] = du_acc;
+}
+
+// du = the (batch, head) partials summed over the batch in order
+__global__ void __launch_bounds__(256)
+rwkv6_bwd_du_kernel(const float* __restrict__ part, float* __restrict__ du, int B, int n) {
+  const int e = blockIdx.x * 256 + threadIdx.x;
+  if (e >= n) return;
+  float s = 0.f;
+  for (int b = 0; b < B; ++b) s = __fadd_rn(s, part[(size_t)b * n + e]);
+  du[e] = s;
+}
+
+template <int HD, int TPR, int CK, typename TIN>
+cudaError_t rb_launch(const RwBwdArgs& p, int B, int ck_steps, cudaStream_t s) {
+  using L = RbLayout<HD, TPR, CK>;
+  if (ck_steps != CK || (long long)B * p.H > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * rb_smem_floats(HD, L::NT, CK);
+  auto fn = rwkv6_scan_bwd_kernel<HD, TPR, CK, TIN>;
+  cudaError_t err =
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  fn<<<(unsigned)(B * p.H), L::NT, smem, s>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int n = p.H * HD;
+  rwkv6_bwd_du_kernel<<<(n + 255) / 256, 256, 0, s>>>(p.du_part, p.du, B, n);
+  return cudaGetLastError();
+}
+
+// (threads a row, chunk steps) per head width: the chunk's states fill at
+// most 128 KB of shared memory (64 KB at hd 32)
+template <typename TIN>
+cudaError_t rb_dispatch(const RwBwdArgs& p, int B, int hd, int ck_steps, cudaStream_t s) {
+  switch (hd) {
+    case 16: return rb_launch<16, 2, 16, TIN>(p, B, ck_steps, s);
+    case 32: return rb_launch<32, 2, 16, TIN>(p, B, ck_steps, s);
+    case 64: return rb_launch<64, 4, 8, TIN>(p, B, ck_steps, s);
+    case 128: return rb_launch<128, 4, 2, TIN>(p, B, ck_steps, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 // ----------------------------------------------------------------------------
 // K7: RG-LRU scan
 // ----------------------------------------------------------------------------
@@ -1330,6 +2175,27 @@ rglru_scan_kernel(const float* __restrict__ a, const float* __restrict__ g,
     const size_t off = base + (size_t)t * R;
     h = fmaf(a[off], h, g[off]);
     out[off] = h;
+  }
+}
+
+// Lambda_t = dout_t + a_{t+1} Lambda_{t+1} from t = T - 1 down, dg_t =
+// Lambda_t, da_t = Lambda_t h_{t-1} (h_{-1} = 0); the loads of earlier steps
+// do not depend on Lambda and are in flight early
+__global__ void __launch_bounds__(LRU_NT)
+rglru_scan_bwd_kernel(const float* __restrict__ a, const float* __restrict__ h,
+                      const float* __restrict__ dout, float* __restrict__ da,
+                      float* __restrict__ dg, int T, int R) {
+  const int c = blockIdx.x * LRU_NT + threadIdx.x;
+  if (c >= R) return;
+  const size_t base = (size_t)blockIdx.y * T * R + c;
+  float lam = 0.f, a_next = 0.f;
+#pragma unroll 8
+  for (int t = T - 1; t >= 0; --t) {
+    const size_t off = base + (size_t)t * R;
+    lam = fmaf(a_next, lam, dout[off]);
+    dg[off] = lam;
+    da[off] = t > 0 ? __fmul_rn(lam, h[off - R]) : 0.f;
+    a_next = a[off];
   }
 }
 
@@ -1366,22 +2232,31 @@ int repro_flash_attention(int dtype, const void* q, const void* k,
   return (int)cudaErrorInvalidValue;
 }
 
-// Dynamic shared memory of K5's backward CTAs in bytes: which 0 the dQ
-// kernel's, 1 the dK/dV kernel's, at head width d.
+// Dynamic shared memory of K5's backward CTAs in bytes, at head width d:
+// which 0 the f32 dQ kernel's, 1 the f32 dK/dV kernel's, 2 the bf16 dQ
+// kernel's and 3 the bf16 dK/dV kernel's (two buffers where they fit).
 size_t repro_flash_bwd_smem_bytes(int which, int d) {
-  return which == 0 ? fg_smem_dq(d) : fg_smem_dkv(d);
+  if (which == 0) return fg_smem_dq(d);
+  if (which == 1) return fg_smem_dkv(d);
+  const size_t two = which == 2 ? fc_dq_smem(d, 2) : fc_dkv_smem(d, 2);
+  if (two <= FA_MAX_SMEM) return two;
+  return which == 2 ? fc_dq_smem(d, 1) : fc_dkv_smem(d, 1);
 }
 
 // K5's backward.  dtype as repro_flash_attention's; q, o, dout, dq: (B, Hq,
 // Sq, d); k, v, dk, dv: (B, Hkv, Skv, d); lse: (B, Hq, Sq) float32, the
-// forward's row log-sum-exp; delta: (B, Hq, Sq) float32 scratch.  Three
-// launches: D = rowsum(dO * O), dQ, then dK and dV.
+// forward's row log-sum-exp; delta: (B, Hq, Sq) float32 scratch.  f32:
+// three launches (D = rowsum(dO * O), dQ, then dK and dV); per and the
+// workspace are not read.  bf16: the tensor-core kernels, each dK/dV CTA
+// taking per q heads of its group; with more than one split (ceil(Hq / Hkv
+// / per)) wsk and wsv are float32 scratch of splits * B * Hkv * Skv * d
+// each, and a fourth launch sums them.
 int repro_flash_attention_bwd(int dtype, const void* q, const void* k,
                               const void* v, const void* o, const void* dout,
                               const float* lse, float* delta, void* dq, void* dk,
-                              void* dv, int B, int Hq, int Hkv, int Sq, int Skv,
-                              int d, int causal, int window, float scale,
-                              void* stream) {
+                              void* dv, float* wsk, float* wsv, int B, int Hq, int Hkv,
+                              int Sq, int Skv, int d, int causal, int window, float scale,
+                              int per, void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv || Sq <= 0 || Skv <= 0 ||
       window < 0 || (long long)B * Hq > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
@@ -1390,9 +2265,8 @@ int repro_flash_attention_bwd(int dtype, const void* q, const void* k,
     return (int)fg_dispatch<float>(d, q, k, v, o, dout, lse, delta, dq, dk, dv, B,
                                    Hq, Hkv, Sq, Skv, causal, window, scale, s);
   if (dtype == 1)
-    return (int)fg_dispatch<__nv_bfloat16>(d, q, k, v, o, dout, lse, delta, dq, dk,
-                                           dv, B, Hq, Hkv, Sq, Skv, causal, window,
-                                           scale, s);
+    return (int)fc_dispatch(d, q, k, v, o, dout, lse, delta, dq, dk, dv, wsk, wsv, B, Hq,
+                            Hkv, Sq, Skv, causal, window, scale, per, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1420,12 +2294,49 @@ int repro_rwkv6_scan(int dtype, const void* r, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
+// K6's backward.  dtype as repro_rwkv6_scan's: r, k, v, dr, dk and dv in
+// that type; w, u, dout, dw, du float32.  r, k, v, w, dout, dr, dk, dv, dw:
+// (B, H, T, hd) by their strides (strides: (batch, head, time) of each in
+// that order, in elements; the head width contiguous); u, du: (H, hd)
+// contiguous; du_part: float32 scratch of B * H * hd; ck: float32 scratch of
+// B * H * ceil(T / ck_steps) * hd * hd, ck_steps the chunk of hd's layout
+// (16 at hd 16 and 32, 8 at hd 64, 2 at hd 128).  Two launches.
+int repro_rwkv6_scan_bwd(int dtype, const void* r, const void* k, const void* v,
+                         const float* w, const float* u, const float* dout, void* dr,
+                         void* dk, void* dv, float* dw, float* du, float* du_part,
+                         float* ck, const long long* strides, int B, int H, int T, int hd,
+                         int ck_steps, void* stream) {
+  if (B <= 0 || H <= 0 || T <= 0 || !strides) return (int)cudaErrorInvalidValue;
+  RwBwdArgs p;
+  p.r = r; p.k = k; p.v = v; p.w = w; p.u = u; p.dout = dout;
+  p.dr = dr; p.dk = dk; p.dv = dv; p.dw = dw; p.du = du; p.du_part = du_part; p.ck = ck;
+  for (int a = 0; a < 9; ++a)
+    for (int j = 0; j < 3; ++j) p.st[a][j] = strides[3 * a + j];
+  p.H = H;
+  p.T = T;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)rb_dispatch<float>(p, B, hd, ck_steps, s);
+  if (dtype == 1) return (int)rb_dispatch<__nv_bfloat16>(p, B, hd, ck_steps, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 // K7.  a, g, out: (B, T, R) float32.
 int repro_rglru_scan(const float* a, const float* g, float* out, int B, int T,
                      int R, void* stream) {
   if (B <= 0 || T <= 0 || R <= 0 || B > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)((R + LRU_NT - 1) / LRU_NT), (unsigned)B);
   rglru_scan_kernel<<<grid, LRU_NT, 0, static_cast<cudaStream_t>(stream)>>>(a, g, out, T, R);
+  return (int)cudaGetLastError();
+}
+
+// K7's backward.  a, h (the forward's output), dout, da, dg: (B, T, R)
+// float32.
+int repro_rglru_scan_bwd(const float* a, const float* h, const float* dout, float* da,
+                         float* dg, int B, int T, int R, void* stream) {
+  if (B <= 0 || T <= 0 || R <= 0 || B > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((R + LRU_NT - 1) / LRU_NT), (unsigned)B);
+  rglru_scan_bwd_kernel<<<grid, LRU_NT, 0, static_cast<cudaStream_t>(stream)>>>(
+      a, h, dout, da, dg, T, R);
   return (int)cudaGetLastError();
 }
 

@@ -34,6 +34,12 @@ passes through n roundings is off by at most ``gamma_n`` of its size):
   recurrence run on absolute values: ``n_t = 2t + 2`` for the RG-LRU
   (a multiply and an add per step) and ``2t + hd + 6`` for RWKV6 (the
   state's steps, the bonus term and the length-hd read-out).
+* **The scans' gradients** (:func:`rglru_scan_grad_bound`,
+  :func:`rwkv6_scan_grad_bound`).  Each gradient is again a sum of
+  products; the magnitudes come from the plain backward run on absolute
+  values, times ``gamma`` of the longest chain of roundings a term passes
+  through in the kernel's order or the plain version's (their docstrings
+  count them).
 * **Attention** (:func:`flash_attention_bound`).  Each score is a length-d
   dot product (``gamma(d+1)`` of ``scale * |q| . |k|``); each weight
   ``exp(s - max)`` carries its score's error (the max is a factor common to
@@ -203,6 +209,65 @@ def rwkv6_scan_bound(r, k, v, w, u):
     gam = gamma(2.0 * torch.arange(t, device=r.device, dtype=torch.float64) + hd + 6)
     mag = rwkv6_scan_ref(r.abs(), k.abs(), v.abs(), w.abs(), u.abs()).double()
     return (gam / (1 - gam))[:, None] * mag
+
+
+def rglru_scan_grad_bound(a, g, dout):
+    """Bounds (da, dg), (B, T, R) each, on |an f32 evaluation of the RG-LRU
+    scan's gradients - exact|, for the cotangent ``dout`` of its output.
+    The terms and their roundings (t from 0, T steps):
+
+    * the saved output h_{t-1}: 2t roundings in the plain version's order (a
+      multiply and an add a step), t in the kernel's (one fma a step);
+    * Lambda_t = dout_t + a_{t+1} Lambda_{t+1}: a term of dout_s passes
+      2(s - t) roundings in the plain order, s - t in the kernel's (fma);
+      dg_t = Lambda_t, so at most 2(T - 1 - t);
+    * da_t = Lambda_t h_{t-1}: the two chains and the product, at most
+      2(T - 1 - t) + 2t + 1 < 2T.
+
+    So every term passes at most n = 2T + 2 roundings and the error is at
+    most ``gamma(n)`` times the sum of the terms' magnitudes: the plain
+    backward run in f64 on |a|, |g| and |dout| (whose forward gives the
+    magnitudes of h)."""
+    from .rglru_scan.ref import rglru_scan_bwd_ref, rglru_scan_ref
+
+    a64, g64, d64 = (x.detach().abs().double() for x in (a, g, dout))
+    gam = gamma(2.0 * a.shape[1] + 2)
+    return tuple(gam * m for m in rglru_scan_bwd_ref(a64, rglru_scan_ref(a64, g64), d64))
+
+
+def rwkv6_scan_grad_bound(r, k, v, w, u, dout):
+    """Bounds (dr, dk, dv, dw (B, H, T, hd), du (H, hd)) on |an f32
+    evaluation of the RWKV6 scan's gradients - exact|, for the cotangent
+    ``dout`` of its output (``rwkv6_scan_bwd_ref`` has the recurrences).
+    The chains of roundings, T steps, head width hd, B batches:
+
+    * S_{t-1} (recomputed): a term k_s v_s passes a product and one
+      rounding a step in the kernel (an fma), two in the plain order:
+      at most 2T;
+    * G_t: a term r_s^T dout_s likewise: at most 2T + 1;
+    * dr, dk and dv sum a product of one of those with an operand over hd
+      columns or rows, then add the bonus term u k (dout . v), u r (dout .
+      v) or dout sum r u k, itself a length-hd dot product.  The kernel
+      sums a row over its lane's columns, then over the lanes of the row
+      (dr, dk), or over a warp's rows by a butterfly and over the warps in
+      order (dv, at most 4 + 15 roundings at hd 128); any order of the
+      plain version's sums over hd terms passes at most hd: at most 2T +
+      hd + 24 in all;
+    * dw_t = sum_j G_t S_{t-1}: both chains, the product and the sum over
+      hd: at most 4T + hd + 24;
+    * du = sum over b and t of r k (dout . v): the dot product (hd + 6 in
+      the kernel's butterfly), the products, then T steps and B batches
+      added in order: at most T + B + hd + 10.
+
+    Each error is at most ``gamma`` of its chain times the sum of its
+    terms' magnitudes: the plain backward run in f64 on the absolute
+    values."""
+    from .rwkv6_scan.ref import rwkv6_scan_bwd_ref
+
+    b, _, t, hd = r.shape
+    mags = rwkv6_scan_bwd_ref(*(x.detach().abs().double() for x in (r, k, v, w, u, dout)))
+    chains = (2 * t + hd + 24,) * 3 + (4 * t + hd + 24, t + b + hd + 10)
+    return tuple(gamma(float(n)) * m for n, m in zip(chains, mags))
 
 
 FA_TILE = 64   # the CUDA kernel's KV tile: each tile rescales the running sums

@@ -144,8 +144,8 @@ def lib() -> ctypes.CDLL:
             so.repro_flash_smem_bytes.argtypes = [ci, ci, ci, ci, ci, ci]
             so.repro_flash_smem_bytes.restype = ctypes.c_size_t
             so.repro_flash_attention_bwd.argtypes = [
-                ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
-                ci, ci, ci, ci, ci, ci, ci, ci, cf, vp,
+                ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
+                ci, ci, ci, ci, ci, ci, ci, ci, cf, ci, vp,
             ]
             so.repro_flash_attention_bwd.restype = ci
             so.repro_flash_bwd_smem_bytes.argtypes = [ci, ci]
@@ -155,8 +155,15 @@ def lib() -> ctypes.CDLL:
                 ci, ci, ci, ci, ci, vp,
             ]
             so.repro_rwkv6_scan.restype = ci
+            so.repro_rwkv6_scan_bwd.argtypes = [
+                ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
+                ctypes.POINTER(ctypes.c_longlong), ci, ci, ci, ci, ci, vp,
+            ]
+            so.repro_rwkv6_scan_bwd.restype = ci
             so.repro_rglru_scan.argtypes = [vp, vp, vp, ci, ci, ci, vp]
             so.repro_rglru_scan.restype = ci
+            so.repro_rglru_scan_bwd.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
+            so.repro_rglru_scan_bwd.restype = ci
             _lib = so
         return _lib
 

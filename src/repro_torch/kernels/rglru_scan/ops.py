@@ -1,20 +1,42 @@
 """Public op: the RG-LRU recurrence from zero in the reference kernel's
 layout, a and g (B, T, R), computed in f32.  On CUDA tensors it launches the
 kernel or raises; on CPU tensors it runs the plain PyTorch version, which
-autograd differentiates.  The kernel has no backward yet (ROADMAP item 15):
-on CUDA tensors under autograd the op raises rather than return a result
-without a gradient."""
+autograd differentiates.
+
+On CUDA tensors under autograd (grad mode on and an input that requires
+grad) the op is :class:`RgLruScan`: its forward launches K7 and saves its
+output, its backward launches K7's backward kernel.  Without autograd the
+forward launch is the one serving has always made."""
 import torch
 
-from .kernel import rglru_scan_cuda
-from .ref import rglru_scan_ref
+from .kernel import rglru_scan_bwd_cuda, rglru_scan_cuda
+from .ref import rglru_scan_bwd_ref, rglru_scan_ref
+
+
+class RgLruScan(torch.autograd.Function):
+    """The scan with its backward: on CUDA tensors the two kernels, on CPU
+    tensors the two plain versions (as ``gradcheck`` takes them)."""
+
+    @staticmethod
+    def forward(ctx, a, g):
+        h = rglru_scan_cuda(a, g) if a.is_cuda else rglru_scan_ref(a, g)
+        ctx.save_for_backward(a, h)
+        ctx.g_dtype = g.dtype
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        a, h = ctx.saved_tensors
+        if a.is_cuda:
+            return rglru_scan_bwd_cuda(a, h, dh.float().contiguous())
+        da, dg = rglru_scan_bwd_ref(a, h, dh)
+        return da.to(a.dtype), dg.to(ctx.g_dtype)
 
 
 def rglru_scan(a, g):
     if a.is_cuda:
+        a, g = a.float().contiguous(), g.float().contiguous()
         if torch.is_grad_enabled() and (a.requires_grad or g.requires_grad):
-            raise NotImplementedError(
-                "the RG-LRU scan kernel (K7) has no backward yet (ROADMAP item 15); "
-                "train recurrentgemma models on the CPU")
-        return rglru_scan_cuda(a.float().contiguous(), g.float().contiguous())
+            return RgLruScan.apply(a, g)
+        return rglru_scan_cuda(a, g)
     return rglru_scan_ref(a, g)

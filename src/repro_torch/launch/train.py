@@ -14,9 +14,8 @@ published config with ``--full-width`` (the reference's ``--smoke-config``
 is ``store_true`` with ``default=True``, so it cannot be turned off).  A
 start finds the newest checkpoint under ``--ckpt`` and resumes from it:
 the loader restarts at that step, so the run replays the batches an
-uninterrupted one would have taken.  Families whose forward runs K6 or K7
-(``rwkv6-1.6b``, ``recurrentgemma-9b``) train on the CPU only until those
-kernels have a backward (ROADMAP item 15).
+uninterrupted one would have taken.  Every family trains on the card: K5,
+K6 and K7 have backward kernels.
 """
 from __future__ import annotations
 

@@ -3,8 +3,9 @@ and its gradients over microbatches, gradient compression, and the AdamW
 update.
 
 ``train_step(params, opt_state, batch)`` takes a :class:`~repro_torch.models.Model`
-and updates its parameters in place (it returns the same module), so a
-step holds one copy of the weights.  With microbatches each one's
+and updates its parameters and the optimizer state in place (it returns
+the same module and state; ``optimizer.adamw_update_``), so a step holds
+one copy of the weights and of the moments.  With microbatches each one's
 gradients come from ``torch.autograd.grad`` and are summed into f32
 buffers, as the reference's ``jax.lax.scan`` sums them (``.grad``
 accumulation would sum in the parameters' bf16).
@@ -17,7 +18,7 @@ import torch
 
 from ..models import loss_fn
 from ..models.config import ModelConfig
-from .optimizer import OptimizerConfig, adamw_update, compress_grads
+from .optimizer import OptimizerConfig, adamw_update_, compress_grads
 
 
 def _split_microbatches(batch: dict, n: int) -> list:
@@ -67,11 +68,7 @@ def make_train_step(
         else:
             loss, grads = loss_and_grads(cfg, params, batch)
         grads = compress_grads(grads, opt_cfg.grad_compression)
-        new_p, opt_state, stats = adamw_update(params, grads, opt_state, opt_cfg)
-        del grads
-        with torch.no_grad():
-            for name, p in params.named_parameters():
-                p.copy_(new_p[name])
+        stats = adamw_update_(params, grads, opt_state, opt_cfg)
         return params, opt_state, {"loss": loss, **stats}
 
     return train_step

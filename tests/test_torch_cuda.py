@@ -892,6 +892,7 @@ FLASH_BWD_SHAPES = [
     (1, 4, 4, 112, 300, 64, False, 0),      # cross-attention
     (3, 4, 2, 100, 100, 32, True, 0),       # a ragged Sq
     (1, 2, 1, 40, 10, 16, False, 5),        # rows whose keys are all masked
+    (2, 16, 1, 128, 128, 256, True, 2048),  # recurrentgemma's training MQA, batch cut
 ] + [(2, 4, 2, 70, 70, d, True, 0) for d in (16, 32, 64, 128, 256)]
 
 
@@ -934,6 +935,95 @@ def test_flash_attention_backward_refuses_other_head_widths(card):
     q = torch.zeros((1, 1, 4, 48), device=card)
     with pytest.raises(ValueError, match="head width"):
         flash_attention_bwd_cuda(q, q, q, q, q, torch.zeros((1, 1, 4), device=card))
+
+
+# ---------------------------------------------------------------------------
+# K6's and K7's backwards
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,t,r", [(4, 48, 4096), (1, 1000, 100), (3, 7, 65), (2, 1, 40)])
+def test_rglru_scan_backward_matches_f64(card, b, t, r):
+    """da and dg within ``checks.rglru_scan_grad_bound`` of an f64 autograd
+    of the plain version, the same bits twice, and the autograd op giving
+    the same gradients."""
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    from repro_torch.kernels.rglru_scan.kernel import rglru_scan_bwd_cuda
+
+    rng = np.random.default_rng(t + r)
+    a = torch.from_numpy(rng.uniform(0.5, 0.999, (b, t, r)).astype(np.float32)).to(card)
+    g, do = _normal(card, rng, (b, t, r)), _normal(card, rng, (b, t, r))
+    h = rglru_scan_cuda(a, g)
+    got = rglru_scan_bwd_cuda(a, h, do)
+    again = rglru_scan_bwd_cuda(a, h, do)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    ad, gd = (x.double().requires_grad_() for x in (a, g))
+    want = torch.autograd.grad(rglru_scan_ref(ad, gd), (ad, gd), do.double())
+    for x, y, e in zip(got, want, checks.rglru_scan_grad_bound(a, g, do)):
+        checks.check_model_kernel(x, y, e)
+    aa, ga = (x.clone().requires_grad_() for x in (a, g))
+    auto = torch.autograd.grad(rglru_scan(aa, ga), (aa, ga), do)
+    assert all(torch.equal(x, y) for x, y in zip(auto, got))
+
+
+def _rwkv6_backward(card, xs, do):
+    """K6's backward on ``xs`` against an f64 autograd of the plain version
+    under ``checks.rwkv6_scan_grad_bound``, twice bit for bit, and through
+    the autograd op; returns the largest ratio of error to tolerance."""
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+    from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_bwd_cuda
+
+    got = rwkv6_scan_bwd_cuda(*xs, do)
+    again = rwkv6_scan_bwd_cuda(*xs, do)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    for x, ref in zip(got, xs):
+        assert x.dtype == ref.dtype and x.shape == ref.shape
+    xd = [x.double().requires_grad_() for x in xs]
+    # at T 1 the last step's w reaches no output: its gradient is 0
+    want = torch.autograd.grad(rwkv6_scan_ref(*xd), xd, do.double(), materialize_grads=True)
+    ratio = max(checks.check_model_kernel(x, y, e)["err_over_tol"] for x, y, e in
+                zip(got, want, checks.rwkv6_scan_grad_bound(*xs, do)))
+    xa = [x.detach().clone().requires_grad_() for x in xs]
+    auto = torch.autograd.grad(rwkv6_scan(*xa), xa, do)
+    assert all(torch.equal(x, y) for x, y in zip(auto, got))
+    return ratio
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("t", [1, 23, 40])
+def test_rwkv6_scan_backward_model_layout_bf16(card, hd, t):
+    """bf16 r, k, v and f32 w as views of (B, T, H, hd) projections, the
+    cotangent in the output's layout; T 1, ragged and several chunks."""
+    rng = np.random.default_rng(hd * 100 + t)
+    xs = _rwkv_model_layout(card, rng, 2, 3, t, hd, torch.bfloat16)
+    do = _normal(card, rng, (2, t, 3, hd)).transpose(1, 2)
+    _rwkv6_backward(card, xs, do)
+
+
+@pytest.mark.parametrize("b,h,t,hd", [(2, 3, 48, 64), (1, 2, 300, 64), (1, 1, 70, 128),
+                                      (3, 2, 33, 16)])
+def test_rwkv6_scan_backward_f32(card, b, h, t, hd):
+    rng = np.random.default_rng(t + hd)
+    r, k, v = (_normal(card, rng, (b, h, t, hd), scale=0.5) for _ in range(3))
+    w = torch.from_numpy(rng.uniform(0.9, 0.999, (b, h, t, hd)).astype(np.float32)).to(card)
+    u = _normal(card, rng, (h, hd), scale=0.1)
+    _rwkv6_backward(card, (r, k, v, w, u), _normal(card, rng, (b, h, t, hd)))
+
+
+def test_scan_backwards_refuse_what_they_do_not_take(card):
+    from repro_torch.kernels.rglru_scan.kernel import rglru_scan_bwd_cuda
+    from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_bwd_cuda
+
+    x = torch.zeros(1, 2, 8, 48, device=card)
+    with pytest.raises(ValueError, match="head width"):
+        rwkv6_scan_bwd_cuda(x, x, x, x, torch.zeros(2, 48, device=card), x)
+    y = torch.zeros(1, 2, 8, 64, device=card)
+    with pytest.raises(ValueError, match="float32"):
+        rwkv6_scan_bwd_cuda(y, y, y, y, torch.zeros(2, 64, device=card), y.bfloat16())
+    a = torch.zeros(1, 8, 16, device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        rglru_scan_bwd_cuda(a, a, torch.zeros(1, 16, 8, device=card).transpose(1, 2))
 
 
 def test_train_step_on_card_matches_cpu(card):
@@ -1001,3 +1091,44 @@ def test_tuned_launch_keeps_tiles_and_lists(card, precision, tmp_path):
         assert torch.equal(bc, bc0) and torch.equal(vals, v0) and torch.equal(idx, i0)
     finally:
         autotune.reset()
+
+
+@pytest.mark.parametrize("arch,kernels", [
+    ("rwkv6-1.6b", {"rwkv6_scan": 2, "rwkv6_scan_bwd": 1}),
+    ("recurrentgemma-9b", {"rglru_scan": 2, "rglru_scan_bwd": 1,
+                           "flash_attention": 2, "flash_attention_bwd": 1}),
+])
+def test_recurrent_train_step_on_card_matches_cpu(card, arch, kernels):
+    """One f32 train step of the reduced recurrent models (remat on) on the
+    card, through K6 or K7 and their backward kernels (and K5 for
+    recurrentgemma's attention layer), against the CPU from the same
+    parameters: loss and gradients within 1e-4 of each leaf's largest |g|
+    (tests/test_torch_train.py's rule); launches a layer of each kind."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.train import loss_and_grads
+
+    cfg = dataclasses.replace(get_smoke_config(arch, dtype="float32"), remat=True)
+    cpu = init_params(cfg, 0, device="cpu")
+    gpu = init_params(cfg, 0, device=card)
+    with torch.no_grad():
+        for (_, a), b in zip(cpu.named_parameters(), gpu.parameters()):
+            b.copy_(a)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (4, 40))}
+    before = dict(cuda_lib.LAUNCHES)
+    lg, gg = loss_and_grads(cfg, gpu, batch)
+    launched = {k: v - before.get(k, 0) for k, v in cuda_lib.LAUNCHES.items()
+                if v - before.get(k, 0)}
+    lc, gc = loss_and_grads(cfg, cpu, batch)
+    kinds = cfg.layer_types()
+    layers = {"rwkv6_scan": kinds.count("rwkv"), "rglru_scan": kinds.count("rec"),
+              "flash_attention": kinds.count("attn")}
+    assert launched == {name: n * layers[name.replace("_bwd", "")]
+                        for name, n in kernels.items()}
+    assert float(lg) == pytest.approx(float(lc), rel=1e-5)
+    for name, g in gc.items():
+        np.testing.assert_allclose(gg[name].cpu().numpy(), g.numpy(), rtol=0,
+                                   atol=1e-4 * float(g.abs().max()), err_msg=name)

@@ -215,27 +215,34 @@ def test_entry_points_default_to_the_card():
 
 
 def test_scan_kernels_refuse_to_drop_a_gradient():
-    """K6 and K7 have no backward kernel yet: on CUDA tensors under autograd
-    they raise (naming the ROADMAP item) instead of returning a result
-    without a gradient; without autograd they launch as before."""
+    """K6 and K7 carry gradients on CUDA tensors: under autograd the ops are
+    their ``torch.autograd.Function``s, whose backwards launch the backward
+    kernels, so gradients reach r, k, v, w, u, a and g; without autograd
+    the launch is the forward alone, the one serving makes."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    from repro_torch.kernels import cuda_lib
     from repro_torch.kernels.rglru_scan import rglru_scan
     from repro_torch.kernels.rwkv6_scan import rwkv6_scan
 
     dev = torch.device("cuda")
-    r = torch.randn(1, 2, 4, 16, device=dev, requires_grad=True)
-    w = torch.rand(1, 2, 4, 16, device=dev)
-    u = torch.randn(2, 16, device=dev)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        rwkv6_scan(r, r, r, w, u)
-    a = torch.rand(1, 4, 32, device=dev)
+    r, k, v = (torch.randn(1, 2, 4, 16, device=dev, requires_grad=True) for _ in range(3))
+    w = torch.rand(1, 2, 4, 16, device=dev, requires_grad=True)
+    u = torch.randn(2, 16, device=dev, requires_grad=True)
+    a = torch.rand(1, 4, 32, device=dev, requires_grad=True)
     g = torch.randn(1, 4, 32, device=dev, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        rglru_scan(a, g)
+    cuda_lib.reset_launches()
+    grads = torch.autograd.grad(rwkv6_scan(r, k, v, w, u).sum() + rglru_scan(a, g).sum(),
+                                (r, k, v, w, u, a, g))
+    assert all(x is not None and torch.isfinite(x).all() for x in grads)
+    assert {n: c for n, c in cuda_lib.LAUNCHES.items() if c} == {
+        "rwkv6_scan": 1, "rwkv6_scan_bwd": 1, "rglru_scan": 1, "rglru_scan_bwd": 1}
+    cuda_lib.reset_launches()
     with torch.no_grad():
         assert rglru_scan(a, g).grad_fn is None
-        assert rwkv6_scan(r, r, r, w, u).shape == (1, 2, 4, 16)
+        assert rwkv6_scan(r, k, v, w, u).shape == (1, 2, 4, 16)
+    assert {n: c for n, c in cuda_lib.LAUNCHES.items() if c} == {
+        "rwkv6_scan": 1, "rglru_scan": 1}
 
 
 def test_plain_ops_keep_the_gradient_on_the_cpu():

@@ -19,8 +19,18 @@
   (rounds toward zero) after every product inside a slice, the worst
   rounding an mma could do, and its scores stay inside
   ``checks.exact_scores``' bf16 bound.
-* **K5's backward** recomputes P from the forward's row log-sum-exp:
-  :func:`emulate_flash_bwd` repeats the kernel's order in f32 (the online
+* **K5's backward at bf16** runs on the tensor cores:
+  :func:`emulate_flash_bwd_bf16` repeats its arithmetic (S and dP as bf16
+  products summed in f32 16 at a time, P and dS split exactly into three
+  bf16 terms for dQ, dK and dV, the head split's f32 partials summed in
+  split order) and is held to ``checks.flash_attention_grad_bound``,
+  with the head split's choices (``kernel.head_split``) at the training
+  shapes.
+* **K6's backward** stores S every ``BWD_CHUNK`` steps, recomputes each
+  chunk and walks it backward: :func:`emulate_rwkv6_bwd` repeats that
+  order and its sums and is held to ``checks.rwkv6_scan_grad_bound``.
+* **K5's backward at f32** (the SIMT kernels) recomputes P from the
+  forward's row log-sum-exp: :func:`emulate_flash_bwd` repeats the kernel's order in f32 (the online
   softmax's lse over 64-key tiles, D = rowsum(dO * O), then per KV tile P,
   dP and dS = P (dP - D) with masked scores at 0 for dQ, and per KV tile
   the sum over every q head of the group and its q tiles for dK and dV)
@@ -64,8 +74,9 @@ def split3(p):
     return hi, mid, lo
 
 
-def emulate_flash_bf16(q, k, v, causal=True, window=0):
-    """The bf16 tensor-core kernel's arithmetic: (B, Hq, Sq, d) bf16 out."""
+def emulate_flash_bf16(q, k, v, causal=True, window=0, with_lse=False):
+    """The bf16 tensor-core kernel's arithmetic: (B, Hq, Sq, d) bf16 out (and
+    with ``with_lse`` the f32 row log-sum-exp m + log(l) it saves)."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -94,8 +105,10 @@ def emulate_flash_bf16(q, k, v, causal=True, window=0):
             pv = pv + term @ vt
         acc = acc * alpha + pv
         m = m_new
-    o = acc / l.clamp_min(1e-30)
-    return o.reshape(b, hq, sq, d).to(torch.bfloat16)
+    o = (acc / l.clamp_min(1e-30)).reshape(b, hq, sq, d).to(torch.bfloat16)
+    if with_lse:
+        return o, (m + torch.log(l)).reshape(b, hq, sq)
+    return o
 
 
 def _bf16(rng, shape):
@@ -254,6 +267,254 @@ def test_flash_bwd_emulation_holds_the_grad_bound(shape):
     for gt, w, e in zip(got, want, bounds):
         res = checks.check_model_kernel(gt.to(dt), w, e)
         assert res["err_over_tol"] <= 1.0
+
+
+def _mma(acc, a, b):
+    """acc + a @ b as mma.sync takes it: per 16-wide k step the exact sum of
+    the step's products, rounded once into the f32 accumulator."""
+    for k0 in range(0, a.shape[-1], 16):
+        acc = (acc.double() + a[..., k0:k0 + 16].double() @ b[..., k0:k0 + 16, :].double()
+               ).float()
+    return acc
+
+
+def _mma3(acc, p, b):
+    """acc + p @ b with the f32 p split exactly into three bf16 terms, three
+    mmas per 16-wide k step, the smallest term first."""
+    hi, mid, lo = split3(p)
+    for k0 in range(0, p.shape[-1], 16):
+        for term in (lo, mid, hi):
+            acc = _mma(acc, term[..., k0:k0 + 16], b[..., k0:k0 + 16, :])
+    return acc
+
+
+def emulate_flash_bwd_bf16(q, k, v, do, causal=True, window=0, sms=132):
+    """The tensor-core backward's arithmetic for bf16 inputs: (dq, dk, dv)
+    bf16.  The lse and O of the bf16 forward; D = rowsum(dO * O); dQ per
+    16-key step: S and dP (bf16 products, f32 sums in 16-wide k steps), dS =
+    P (dP - D), dQ += dS K in three bf16 terms; dK and dV per KV head over
+    the q heads of each head split (``kernel.head_split`` at ``sms`` SMs) and
+    their 16-row q steps in order: S^T, dP^T, P^T and dS^T (P = 1 / Skv on
+    an all-masked row), dV += P^T dO and dK += dS^T Q in three bf16 terms
+    each; the splits' f32 partials summed in split order."""
+    from repro_torch.kernels.flash_attention.kernel import head_split
+
+    b, hq, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = d**-0.5
+    o, lse = emulate_flash_bf16(q, k, v, causal, window, with_lse=True)
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, do))
+    delta = (gf * o.float()).sum(-1)
+    mask = _mask(sq, skv, causal, window)
+    empty = lse < -0.5e30
+    kr, vr = kf.repeat_interleave(g, 1), vf.repeat_interleave(g, 1)
+    dq = torch.zeros((b, hq, sq, d))
+    for k0 in range(0, skv, 16):
+        kt, vt = kr[:, :, k0:k0 + 16], vr[:, :, k0:k0 + 16]
+        n = kt.shape[2]
+        s = _mma(torch.zeros((b, hq, sq, n)), qf, kt.transpose(-1, -2))
+        dp = _mma(torch.zeros((b, hq, sq, n)), gf, vt.transpose(-1, -2))
+        p = torch.exp(s * scale - lse[..., None])
+        ds = torch.where(mask[:, k0:k0 + 16], p * (dp - delta[..., None]), 0.0)
+        dq = _mma3(dq, ds, kt)
+    per, splits = head_split(b, hkv, skv, d, g, sms)
+    q5, g5 = qf.reshape(b, hkv, g, sq, d), gf.reshape(b, hkv, g, sq, d)
+    l5, d5, e5 = (x.reshape(b, hkv, g, sq) for x in (lse, delta, empty))
+    sk = torch.zeros((b, hkv, skv, d))
+    sv = torch.zeros((b, hkv, skv, d))
+    for split in range(splits):
+        ak = torch.zeros((b, hkv, skv, d))
+        av = torch.zeros((b, hkv, skv, d))
+        for hh in range(split * per, min(g, split * per + per)):
+            for r0 in range(0, sq, 16):
+                rows = slice(r0, r0 + 16)
+                qs, gs = q5[:, :, hh, rows], g5[:, :, hh, rows]
+                n = qs.shape[2]
+                st = _mma(torch.zeros((b, hkv, skv, n)), kf, qs.transpose(-1, -2))
+                dpt = _mma(torch.zeros((b, hkv, skv, n)), vf, gs.transpose(-1, -2))
+                live = mask[rows].T
+                emp = e5[:, :, hh, None, rows]
+                p = torch.where(live, torch.exp(st * scale - l5[:, :, hh, None, rows]), 0.0)
+                p = torch.where(emp, 1.0 / skv, p)
+                ds = torch.where(live & ~emp, p * (dpt - d5[:, :, hh, None, rows]), 0.0)
+                av = _mma3(av, p, gs)
+                ak = _mma3(ak, ds, qs)
+        sk, sv = sk + ak, sv + av
+    return ((dq * scale).to(torch.bfloat16), (sk * scale).to(torch.bfloat16),
+            sv.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("shape", [
+    (2, 4, 2, 70, 70, 16, True, 0),      # GQA, ragged tiles
+    (2, 4, 1, 40, 40, 32, True, 24),     # MQA, a window
+    (1, 4, 4, 33, 100, 16, False, 0),    # cross-attention
+    (1, 2, 1, 40, 10, 16, False, 5),     # rows whose keys are all masked
+    (1, 2, 2, 20, 20, 256, True, 0),     # the widest head
+    (1, 32, 2, 40, 40, 128, True, 0),    # qwen3's GQA 16:1 at d 128, cut
+    (2, 16, 1, 70, 70, 256, True, 24),   # recurrentgemma's MQA 16:1 at d 256, cut
+])
+def test_flash_bwd_bf16_emulation_holds_the_grad_bound(shape):
+    """The tensor-core backward (split3 P and dS, head-split partials summed
+    in order) within ``checks.flash_attention_grad_bound`` of an f64
+    autograd of the plain version, at bf16, under the rule the card's
+    kernel meets."""
+    b, hq, hkv, sq, skv, d, causal, window = shape
+    rng = np.random.default_rng(sq * d + hq)
+    q, do = (_bf16(rng, (b, hq, sq, d)) for _ in range(2))
+    k, v = (_bf16(rng, (b, hkv, skv, d)) for _ in range(2))
+    got = emulate_flash_bwd_bf16(q, k, v, do, causal, window)
+    qd, kd, vd = (t.double().requires_grad_() for t in (q, k, v))
+    want = torch.autograd.grad(flash_attention_ref(qd, kd, vd, causal, window),
+                               (qd, kd, vd), do.double())
+    bounds = checks.flash_attention_grad_bound(q, k, v, do, causal, window)
+    for gt, w, e in zip(got, want, bounds):
+        res = checks.check_model_kernel(gt, w, e)
+        assert res["err_over_tol"] <= 1.0
+
+
+@pytest.mark.parametrize("b,hkv,skv,d,group,sms,want", [
+    (16, 12, 128, 64, 1, 132, (1, 1)),     # joinml-oracle's training: MHA, no split
+    (16, 4, 128, 128, 16, 132, (6, 3)),    # qwen3's heads: 128 CTAs, 3 splits
+    (8, 1, 128, 256, 16, 132, (2, 8)),     # recurrentgemma's training: 32 CTAs, 8 splits
+    (1, 1, 4096, 256, 16, 132, (6, 3)),    # recurrentgemma at S 4,096
+    (4, 16, 1500, 64, 1, 132, (1, 1)),     # whisper's encoder
+    (1, 1, 128, 256, 16, 132, (1, 16)),    # 4 CTAs: every head a CTA of its own
+    (2, 4, 48, 128, 16, 132, (1, 16)),     # a KV tile part full
+])
+def test_flash_bwd_head_split(b, hkv, skv, d, group, sms, want):
+    from repro_torch.kernels.flash_attention.kernel import dkv_keys, head_split
+
+    per, splits = head_split(b, hkv, skv, d, group, sms)
+    assert (per, splits) == want
+    assert (splits - 1) * per < group <= splits * per
+    ctas = b * hkv * -(-skv // dkv_keys(d))
+    assert splits == 1 or ctas * (splits - 1) < 2 * sms
+
+
+# ----------------------------------------------------------------------------
+# K6's backward: checkpoints, recomputed chunks, the kernel's sums
+# ----------------------------------------------------------------------------
+
+def _fma(a, b, c):
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _halve(x, dim):
+    """A butterfly over ``dim`` (a power of two): pairs the two halves, then
+    their halves, ... (the lanes that differ in the top bit first)."""
+    while x.shape[dim] > 1:
+        h = x.shape[dim] // 2
+        x = x.narrow(dim, 0, h) + x.narrow(dim, h, h)
+    return x.squeeze(dim)
+
+
+def _lanes(a, b):
+    """sum_c a_c b_c as a warp sums it: lane l an fma chain over c = l, l +
+    32, ..., then the butterfly over the 32 lanes."""
+    hd = a.shape[-1]
+    parts = []
+    for lane in range(32):
+        acc = torch.zeros(a.shape[:-1])
+        for c in range(lane, hd, 32):
+            acc = _fma(a[..., c], b[..., c], acc)
+        parts.append(acc)
+    return _halve(torch.stack(parts, -1), -1)
+
+
+# lanes that share a row of S and G in K6's backward (TPR of rb_dispatch in
+# csrc/model_kernels.cu): a thread holds hd / TPR columns, a CTA hd * TPR
+# threads
+BWD_ROW_LANES = {16: 2, 32: 2, 64: 4, 128: 4}
+
+
+def emulate_rwkv6_bwd(r, k, v, w, u, dout):
+    """K6's backward in its order, f32: the forward with S saved before every
+    ``BWD_CHUNK``-th step; each chunk, last first, recomputed from its
+    checkpoint and walked backward; a thread (row i, lane tg of
+    ``BWD_ROW_LANES``) sums its columns tg, tg + TPR, ... by fma, then the
+    row's lanes by a butterfly (dr, dk, dw); dv's products summed over a
+    warp's rows by a butterfly, then over the warps in order; beta and dd
+    over a warp's lanes; du over time in reverse, then over the batch.
+    Returns (dr, dk, dv, dw, du) f32."""
+    from repro_torch.kernels.rwkv6_scan.kernel import BWD_CHUNK
+
+    rf, kf, vf, wf, df = (x.float() for x in (r, k, v, w, dout))
+    uf = u.float()[None]
+    b, h, t, hd = rf.shape
+    ck, tpr = BWD_CHUNK[hd], BWD_ROW_LANES[hd]
+    rpw = 32 // tpr  # rows of a warp
+
+    def step(s, i):
+        return _fma(wf[:, :, i, :, None], s, kf[:, :, i, :, None] * vf[:, :, i, None, :])
+
+    def rows(x):  # (B, H, hd, hd) products -> the row sums in the kernel's order
+        parts = []
+        for tg in range(tpr):
+            acc = torch.zeros((b, h, hd))
+            for j in range(tg, hd, tpr):
+                acc = _fma(x[0][..., j], x[1][..., j], acc)
+            parts.append(acc)
+        return _halve(torch.stack(parts, -1), -1)
+
+    nc = -(-t // ck)
+    s = torch.zeros((b, h, hd, hd))
+    checkpoints = []
+    for c in range(nc):
+        checkpoints.append(s)
+        if c < nc - 1:
+            for i in range(c * ck, c * ck + ck):
+                s = step(s, i)
+    g = torch.zeros((b, h, hd, hd))
+    du = torch.zeros((b, h, hd))
+    out = [[None] * t for _ in range(4)]
+    for c in reversed(range(nc)):
+        t0, n = c * ck, min(ck, t - c * ck)
+        states, s = [], checkpoints[c]
+        for i in range(t0, t0 + n):
+            states.append(s)
+            s = step(s, i)
+        for i in reversed(range(t0, t0 + n)):
+            ri, ki, vi, wi, di = (x[:, :, i] for x in (rf, kf, vf, wf, df))
+            sp = states[i - t0]
+            beta, dd = _lanes(ri * uf, ki), _lanes(di, vi)
+            dmat = di[..., None, :].expand(b, h, hd, hd)
+            vmat = vi[..., None, :].expand(b, h, hd, hd)
+            out[0][i] = _fma(uf * ki, dd[..., None], rows((dmat, sp)))
+            out[1][i] = _fma(uf * ri, dd[..., None], rows((g, vmat)))
+            out[3][i] = rows((g, sp))
+            du = _fma(ri * ki, dd[..., None], du)
+            pv = g * ki[..., :, None]
+            warps = [_halve(pv[:, :, w0:w0 + rpw], 2) for w0 in range(0, hd, rpw)]
+            acc = torch.zeros((b, h, hd))
+            for x in warps:
+                acc = acc + x
+            out[2][i] = _fma(di, beta[..., None], acc)
+            g = _fma(wi[..., :, None], g, ri[..., :, None] * di[..., None, :])
+    total = torch.zeros((h, hd))
+    for bi in range(b):
+        total = total + du[bi]
+    return (*(torch.stack(x, dim=2) for x in out), total)
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64])
+@pytest.mark.parametrize("t", [1, 7, 40])
+def test_rwkv6_bwd_emulation_holds_the_grad_bound(t, hd):
+    """The checkpoint-and-recompute order within ``checks.rwkv6_scan_grad_bound``
+    of the f64 gradients, on bf16 r, k, v and f32 w viewed from the model's
+    (B, T, H, hd) projections."""
+    from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_bwd_ref
+
+    rng = np.random.default_rng(t * hd + 1)
+    r, k, v = (_bf16(rng, (2, t, 3, hd)).transpose(1, 2) for _ in range(3))
+    w = torch.from_numpy(np.exp(-np.exp(rng.uniform(-6.0, -0.5, (2, t, 3, hd))))
+                         .astype(np.float32)).transpose(1, 2)
+    u = torch.from_numpy((0.1 * rng.standard_normal((3, hd))).astype(np.float32))
+    dout = torch.from_numpy(rng.standard_normal((2, 3, t, hd)).astype(np.float32))
+    got = emulate_rwkv6_bwd(r, k, v, w, u, dout)
+    exact = rwkv6_scan_bwd_ref(*(x.double() for x in (r, k, v, w, u, dout)))
+    for x, e, bound in zip(got, exact, checks.rwkv6_scan_grad_bound(r, k, v, w, u, dout)):
+        assert bool(((x.double() - e).abs() <= bound).all())
 
 
 # ----------------------------------------------------------------------------
