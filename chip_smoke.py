@@ -130,6 +130,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -1506,6 +1507,33 @@ def phase5(ds, retry_rows, hot):
     return times
 
 
+def ptxas_report(text, kernel):
+    """ptxas -v's registers and spill bytes of each instantiation of
+    ``kernel`` in a build log: [{entry, registers, spill_stores,
+    spill_loads}]."""
+    out, cur = [], None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+        if m:
+            name = m.group(1)
+            cur = None
+            if kernel in name:
+                cur = next((e for e in out if e["entry"] == name), None)
+                if cur is None:
+                    cur = {"entry": name}
+                    out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
 def _row(ms, plain_ms, flops, byts, peak):
     t_ops, t_bytes = flops / peak * 1e3, byts / HBM * 1e3
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
@@ -2305,6 +2333,8 @@ TRAIN_SHAPE = "joinml-oracle training"
 # the scans' backwards at phase 11's training shapes: K6 (B, H, T, hd) with
 # bf16 r, k, v in the model's (B, T, H, hd) layout, K7 (B, T, R)
 RWKV_BWD_SHAPE = ("rwkv6-1.6b training", (16, 32, 128, 64))
+# K6's backward also at few heads over a long sequence: 32 clusters of 4 CTAs
+RWKV_BWD_OTHER_SHAPES = {"few heads, T 4096": (1, 32, 4096, 64)}
 RGLRU_BWD_SHAPE = ("recurrentgemma-9b training", (8, 128, 4096))
 
 
@@ -2434,7 +2464,8 @@ def scan_backwards():
     r, k, v and f32 w as views of (B, T, H, hd) tensors, the model's decays)
     and K7's at recurrentgemma-9b's, each against an f64 autograd of the
     plain forward under ``checks.*_scan_grad_bound``, bit for bit on a
-    second run, beside the plain backward (``*_scan_bwd_ref``) and the bound:
+    second run, beside the plain backward (``*_scan_bwd_ref``) and the bound
+    (K6 also at ``RWKV_BWD_OTHER_SHAPES``, its row's ``other_shapes``):
     K6 14 f32 operations per state element and step (the forward's S and
     the backward's G, dr, dk, dw and dv, no recomputation) against r, k, v,
     dr, dk, dv at their size and w, dout, dw in f32; K7 20 bytes per element
@@ -2447,29 +2478,36 @@ def scan_backwards():
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = {}
-    label, (b, h, t, hd) = RWKV_BWD_SHAPE
-    model = lambda z: z.transpose(1, 2)  # noqa: E731
-    r, k, v = (model(torch.randn((b, t, h, hd), generator=gen, device="cuda")
-                     .to(torch.bfloat16)) for _ in range(3))
-    w = model(torch.exp(-torch.exp(torch.empty((b, t, h, hd), device="cuda")
-                                   .uniform_(-8.0, -4.0, generator=gen))))
-    u = 0.1 * torch.randn((h, hd), generator=gen, device="cuda")
-    do = model(torch.randn((b, t, h, hd), generator=gen, device="cuda"))
-    xs = (r, k, v, w, u)
+    k6_rows = []
+    for label, (b, h, t, hd) in [RWKV_BWD_SHAPE, *RWKV_BWD_OTHER_SHAPES.items()]:
+        # the other shapes draw from a generator of their own, so that the
+        # training shape's and K7's inputs stay as they were
+        g6 = gen if label == RWKV_BWD_SHAPE[0] else torch.Generator(
+            device="cuda").manual_seed(SEED + 1)
+        model = lambda z: z.transpose(1, 2)  # noqa: E731
+        r, k, v = (model(torch.randn((b, t, h, hd), generator=g6, device="cuda")
+                         .to(torch.bfloat16)) for _ in range(3))
+        w = model(torch.exp(-torch.exp(torch.empty((b, t, h, hd), device="cuda")
+                                       .uniform_(-8.0, -4.0, generator=g6))))
+        u = 0.1 * torch.randn((h, hd), generator=g6, device="cuda")
+        do = model(torch.randn((b, t, h, hd), generator=g6, device="cuda"))
+        xs = (r, k, v, w, u)
 
-    def rwkv_exact():
-        xd = [x.double().requires_grad_() for x in xs]
-        return torch.autograd.grad(rwkv6_scan_ref(*xd), xd, do.double(),
-                                   materialize_grads=True)
+        def rwkv_exact(xs=xs, do=do):
+            xd = [x.double().requires_grad_() for x in xs]
+            return torch.autograd.grad(rwkv6_scan_ref(*xd), xd, do.double(),
+                                       materialize_grads=True)
 
-    n = b * h * t * hd
-    rows["rwkv6_scan_bwd"] = _grad_row(
-        "rwkv6_scan_bwd", label, (b, h, t, hd), lambda: rwkv6_scan_bwd_cuda(*xs, do),
-        lambda: rwkv6_scan_bwd_ref(*xs, do), rwkv_exact,
-        lambda: checks.rwkv6_scan_grad_bound(*xs, do), 14.0 * n * hd,
-        n * (3 * 2 + 3 * 2 + 3 * 4) + 8 * h * hd)
-    del r, k, v, w, u, do, xs
-    torch.cuda.empty_cache()
+        n = b * h * t * hd
+        k6_rows.append(_grad_row(
+            "rwkv6_scan_bwd", label, (b, h, t, hd),
+            lambda xs=xs, do=do: rwkv6_scan_bwd_cuda(*xs, do),
+            lambda xs=xs, do=do: rwkv6_scan_bwd_ref(*xs, do), rwkv_exact,
+            lambda xs=xs, do=do: checks.rwkv6_scan_grad_bound(*xs, do), 14.0 * n * hd,
+            n * (3 * 2 + 3 * 2 + 3 * 4) + 8 * h * hd))
+        del r, k, v, w, u, do, xs, rwkv_exact
+        torch.cuda.empty_cache()
+    rows["rwkv6_scan_bwd"] = {**k6_rows[0], "other_shapes": k6_rows[1:]}
 
     label, (b, t, rr) = RGLRU_BWD_SHAPE
     a = torch.empty((b, t, rr), device="cuda").uniform_(0.5, 0.9999, generator=gen)
@@ -3245,6 +3283,7 @@ def main():
 
     # phase 2: build
     from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels.rwkv6_scan.kernel import bwd_plan
 
     cuda_lib.build()
     info = cuda_lib.BUILD_INFO
@@ -3252,6 +3291,12 @@ def main():
     for line in info["log"].splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("  " + line.strip())
+    k6_ptxas = ptxas_report(info["log"], "rwkv6_scan_bwd_kernel")
+    log(json.dumps({"rwkv6_scan_bwd_kernel ptxas": k6_ptxas}))
+    for hd in (16, 32, 64, 128):
+        for dt, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+            if cuda_lib.lib().repro_rwkv6_bwd_smem_bytes(code, hd) != bwd_plan(hd, dt).smem_bytes:
+                fail(f"kernel.bwd_plan's shared memory at hd {hd}, {dt} is not the kernel's")
     smem = cuda_lib.lib().repro_sim_smem_bytes
     fsmem = cuda_lib.lib().repro_flash_smem_bytes
     HIST, TOPK, SUMS = cuda_lib.HIST, cuda_lib.TOPK, cuda_lib.SUMS
@@ -3396,6 +3441,7 @@ def main():
                  "launches_by_path": {p: n.get("flash_attention_bwd", 0)
                                       for p, n in training.items()},
                  "other_shapes": other_bwd})
+    scan_bwd_rows["rwkv6_scan_bwd"]["ptxas"] = k6_ptxas
     for name, arch in (("rwkv6_scan_bwd", "rwkv6-1.6b"), ("rglru_scan_bwd", "recurrentgemma-9b")):
         rows.append({"name": name, "route": "cuda", "source": MODEL_SOURCE,
                      "replaces": SCAN_BWD_REPLACES[name],

@@ -5,6 +5,7 @@ compared in one call (run them in turns: A, B, B, A):
     python scripts/compare_kernels.py --src build/parent/src
     python scripts/compare_kernels.py --src src --epilogue-floor
     python scripts/compare_kernels.py --src src --few-row-cut
+    python scripts/compare_kernels.py --src src --scan-bwd
 
 ``--src`` is the ``src`` directory of the tree whose ``repro_torch`` is
 timed (another commit unpacked with ``git archive`` under ``build/``); its
@@ -33,6 +34,9 @@ kernels build into that tree's own ``build/``.  The inputs are those of
 kernels' range), as ``cuda_lib.launch`` launches it and through the tile
 kernel's own launch (``cuda_lib._launch_tile``), which ``launch`` takes
 above the cut.
+
+``--scan-bwd`` times K6's backward alone at ``chip_smoke.RWKV_BWD_SHAPE``
+(rwkv6-1.6b's training shape) and ``RWKV_BWD_OTHER_SHAPES``.
 
 ``--epilogue-floor`` builds the tree's kernels with
 ``-DREPRO_SIM_EPILOGUE_FLOOR`` (into its own library) and times the bf16
@@ -189,6 +193,25 @@ def rwkv_ms(cs, gen):
     return out
 
 
+def scan_bwd_ms(cs, gen):
+    """K6's backward at ``chip_smoke.RWKV_BWD_SHAPE`` and
+    ``RWKV_BWD_OTHER_SHAPES``, on bf16 (B, T, H, hd) projections seen as (B,
+    H, T, hd), the model's decays and an f32 cotangent in the same layout."""
+    from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_bwd_cuda
+
+    out = {}
+    for label, (b, h, t, hd) in [cs.RWKV_BWD_SHAPE, *cs.RWKV_BWD_OTHER_SHAPES.items()]:
+        view = lambda z: z.transpose(1, 2)  # noqa: E731
+        r, k, v = (view(torch.randn((b, t, h, hd), generator=gen, device="cuda").bfloat16())
+                   for _ in range(3))
+        w = view(torch.exp(-torch.exp(torch.empty((b, t, h, hd), device="cuda")
+                                      .uniform_(-8.0, -4.0, generator=gen))))
+        u = 0.1 * torch.randn((h, hd), generator=gen, device="cuda")
+        do = view(torch.randn((b, t, h, hd), generator=gen, device="cuda"))
+        out[label] = events_ms(lambda: rwkv6_scan_bwd_cuda(r, k, v, w, u, do), 10)
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", required=True, help="the src directory of the tree to time")
@@ -197,6 +220,8 @@ def main():
                     help="time the few-row and the tile top-k over 1 to 32 rows")
     ap.add_argument("--epilogue-floor", action="store_true",
                     help="time the bf16 and int8 sweeps of the epilogue-floor build only")
+    ap.add_argument("--scan-bwd", action="store_true",
+                    help="time K6's backward only, at phase 3c's shapes")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
@@ -211,6 +236,9 @@ def main():
     out = {"label": args.label or args.src}
     if args.few_row_cut:
         out["topk_k128_by_rows"] = few_row_cut(cs)
+    elif args.scan_bwd:
+        gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+        out["rwkv6_scan_bwd_ms"] = scan_bwd_ms(cs, gen)
     elif args.epilogue_floor:
         cuda_lib.NVCC_FLAGS = [*cuda_lib.NVCC_FLAGS, "-DREPRO_SIM_EPILOGUE_FLOOR"]
         out["epilogue_floor"] = True

@@ -148,20 +148,51 @@
 //   dr_t = dout_t S_{t-1}^T + u k_t (dout_t . v_t), dk_t = G_t v_t + u r_t
 //   (dout_t . v_t), dv_t = G_t^T k_t + dout_t beta_t, dw_t = rowsum(G_t *
 //   S_{t-1}), then G_{t-1} = diag(w_t) G_t + r_t^T dout_t; du = sum over
-//   batch and time of r k (dout . v).  One CTA per (batch, head) holds all of
-//   S and G (a thread: one row, hd / TPR columns, interleaved so the column
-//   sums coalesce), since dr, dk and dw sum over the columns and dv over
-//   the rows.  S_{t-1} is needed in reverse: a first pass runs the forward
-//   and stores S at every CK-th step into a scratch tensor (checkpoints;
-//   nothing divides by w, which can be tiny), then each chunk of CK steps,
-//   last first, is recomputed from its checkpoint into shared memory (each
-//   thread its own elements) and walked backward.  The row sums reduce over
-//   the TPR lanes of a row by xor shuffles; the column sums over the rows
-//   by a butterfly that halves the columns a lane carries at each level,
-//   then over the warps through shared memory, in a fixed order; du's per
-//   (batch, head) partials are summed over the batch in order by a second
-//   launch.  No atomics.  Bound: bytes (r, k, v, w, dout read, the five
-//   gradients written; the checkpoints stay mostly in L2).
+//   batch and time of r k (dout . v).  Bound: operations at the training
+//   shape (14 f32 operations per state element and step).  What limits it
+//   is how many warps hide a step's latency, the shuffles of its sums and
+//   the cluster barrier's release fence (~1,000 cycles a chunk).
+//   * A column j of S and of G evolves on its own, so a (batch, head) is a
+//     thread-block cluster of C = hd / 16 CTAs (1 at hd 16, 8 at hd 128),
+//     CTA rank q owning columns 16 q .. 16 q + 15: the forward pass, the
+//     recompute, the G walk and dv (a column sum) stay in the CTA.  A
+//     thread holds one row i and 8 consecutive of those columns (a row has
+//     two threads, a CTA 2 hd threads, a warp 16 rows).
+//   * S_{t-1} is needed in reverse: a first pass runs the forward and
+//     stores the CTA's columns of S before every CK-th step into a scratch
+//     tensor (checkpoints; nothing divides by w, which can be tiny); then
+//     each chunk of CK = 8 steps, last first, is recomputed from its
+//     checkpoint into registers (8 steps x 8 elements a thread, the loops
+//     unrolled; the zero-filled steps past T leave G at 0) and walked
+//     backward.  No state goes through shared memory.
+//   * Row sums (dr: dout S_{t-1}, dk: G v, dw: G * S_{t-1}): a thread's 8
+//     columns by fma, its row's two threads by one xor shuffle; each step's
+//     CTA partials go to an exchange buffer in shared memory.  After a
+//     cluster barrier, rank q sums rows 16 q .. 16 q + 15 of every rank's
+//     buffer through distributed shared memory in rank order 0 .. C - 1,
+//     adds the bonus terms and writes dr, dk, dw and its rows' du
+//     partials.  The barrier is split: a chunk's walk arrives (its release
+//     then waits on no global store), and its gradients are finished after
+//     the next chunk's walk, so a peer that runs late costs nothing and a
+//     peer may run one chunk ahead; what a chunk leaves for its finish
+//     (beta, dd, the bonus operands, the dv sums) is kept by chunk parity
+//     and the row sums, which the peers read, by chunk mod 4, and one CTA
+//     barrier a chunk remains.  The CTA ends with a cluster barrier, so no
+//     peer reads a CTA that has exited.
+//   * dv's column sums: a butterfly over the warp's 16 rows that halves the
+//     columns a lane carries at each level, then over the CTA's warps in
+//     order through shared memory; beta_t and dout_t . v_t are summed by
+//     every CTA from all hd staged values (a warp a step, the lanes by fma
+//     and a halving butterfly), so nothing else crosses the cluster.
+//   * Operands are read through their strides by 16-byte cp.async and
+//     widened to f32 where they are read (a bf16 is the top half of its
+//     f32).  The forward pass keeps up to 7 chunks of k, w and the CTA's
+//     columns of v in flight in a ring (in the memory the reverse pass's
+//     buffers take later); the reverse pass copies a chunk's r, k, v, w and
+//     dout into its parity buffer while the chunk before it runs (a
+//     thread's checkpoint is its own, loaded as the chunk starts).  du's
+//     per (batch, head) partials are summed over the batch in order by a
+//     second launch.  No atomics: every run gives the same bits.
 // K7, RG-LRU scan.  h_t = a_t * h_{t-1} + g_t from h = 0, per (batch,
 //   channel).  Bound: bytes (12 bytes per element: a, g read, h written, all
 //   f32).  One thread per (batch, channel) walks T, so neighbouring threads
@@ -181,6 +212,7 @@
 // function returns cudaGetLastError() after its launch (or
 // cudaErrorInvalidValue for arguments it does not take).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <limits.h>
@@ -1896,7 +1928,9 @@ struct RwBwdArgs {
   float* dw;
   float* du;       // (H, hd)
   float* du_part;  // (B, H, hd): a (batch, head)'s sum over time
-  float* ck;       // checkpoints: (B * H, ceil(T / CK), hd * hd), a thread's together
+  // checkpoints: (B * H, C, ceil(T / CK), 2 hd threads, 8), a CTA's
+  // columns of S before each chunk, a thread's 8 elements together
+  float* ck;
   long long st[9][3];
   int H, T;
 };
@@ -1906,49 +1940,131 @@ __device__ __forceinline__ void rb_store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
-// A CTA per (batch, head): thread t holds row i = t / TPR of S and G, columns
-// tg + TPR m (tg = t % TPR, m < CPT); CK steps a chunk.
-template <int HD, int TPR, int CK>
-struct RbLayout {
-  static constexpr int NT = HD * TPR;
-  static constexpr int CPT = HD / TPR;
-  static constexpr int NW = NT / 32;
-  static constexpr int RPW = 32 / TPR;  // rows of a warp
-  static constexpr int LV = RPW == 16 ? 4 : (RPW == 8 ? 3 : (RPW == 4 ? 2 : 5));
-  static_assert(NT % 32 == 0 && NT <= 1024 && (1 << LV) == RPW, "the thread layout");
+// The cluster at head width HD: C CTAs a (batch, head), CTA rank q owning
+// columns COLS q .. COLS q + COLS - 1 of S and G; thread t of a CTA (warp
+// t / 32, lane l) holds row 16 (t / 32) + l % 16 and columns EPT (l / 16)
+// .. + EPT - 1 of the CTA's; CK steps a chunk.
+template <int HD>
+struct RbPlan {
+  static constexpr int COLS = 16;             // columns a CTA owns
+  static constexpr int C = HD / COLS;         // CTAs a cluster
+  static constexpr int EPT = 8;               // columns a thread holds
+  static constexpr int NT = HD * COLS / EPT;  // threads a CTA: two a row
+  static constexpr int NW = NT / 32;          // warps a CTA, 16 rows each
+  static constexpr int CK = 8;                // steps a chunk
+  // at most 128 registers a thread, so that 65,536 hold 512 threads
+  static constexpr int MIN_CTAS = 512 / NT;
+  static_assert(C >= 1 && C <= 8 && NT % 32 == 0 && 2 * EPT == COLS, "the cluster plan");
 };
 
-// floats of shared memory: the chunk's states, r, k, w, v and dout, u, beta
-// and dd, the warps' dv sums, the chunk's dr, dk, dw and dv
-size_t rb_smem_floats(int hd, int nt, int ck) {
-  return (size_t)ck * hd * hd + 5 * (size_t)ck * hd + hd + 2 * (size_t)ck +
-         (size_t)ck * (nt / 32) * hd + 4 * (size_t)ck * hd;
+// A CTA's dynamic shared memory at head width hd with operands of eb bytes,
+// in bytes, region by region:
+//   misc  u, then by chunk parity beta, dd and the finalize's operands (u k,
+//         u r, dout and r k of the CTA's 16 rows and columns);
+//   rev   by chunk parity the chunk as copied (r, k, v in their type, w and
+//         dout f32; CK x hd each), by chunk mod 4 the row sums (dr, dk, dw
+//         of every step and row), by chunk parity the warps' dv sums.  The
+//         forward pass uses this region as its ring of fnb copy buffers of
+//         fslot bytes (k, the CTA's 16 columns of v and w of a chunk).
+struct RbBytes {
+  size_t misc, chunk, rev, fslot, total;
+  int fnb;
+};
+__host__ __device__ constexpr RbBytes rb_bytes(int hd, int eb) {
+  const size_t ck = 8, cols = 16, nw = (size_t)hd / 16, h = (size_t)hd;
+  const size_t misc = 4 * (h + 2 * 2 * ck + 2 * 4 * ck * cols);
+  const size_t chunk = ck * h * (3 * (size_t)eb + 2 * 4);
+  const size_t rev = 2 * chunk + 4 * (4 * 3 * ck * h + 2 * ck * nw * cols);
+  const size_t fslot = ck * ((h + cols) * (size_t)eb + 4 * h);
+  const int fnb = rev / fslot < 8 ? (int)(rev / fslot) : 8;
+  return {misc, chunk, rev, fslot, misc + rev, fnb};
 }
 
-template <int HD, int TPR, int CK, typename TIN>
-__global__ void __launch_bounds__(HD * TPR) rwkv6_scan_bwd_kernel(RwBwdArgs p) {
-  using L = RbLayout<HD, TPR, CK>;
-  constexpr int NT = L::NT, CPT = L::CPT, NW = L::NW, LV = L::LV;
-  constexpr int NK = (CPT >> LV) > 0 ? (CPT >> LV) : 1;  // dv sums a lane ends with
-  extern __shared__ __align__(16) float rb_smem[];
-  float* Sc = rb_smem;              // CK x CPT x NT: S_{t-1} of the chunk's steps
-  float* fr = Sc + CK * CPT * NT;   // CK x HD each: r, k, w (by row), v, dout (by column)
-  float* fk = fr + CK * HD;
-  float* fw = fk + CK * HD;
-  float* fv = fw + CK * HD;
-  float* fd = fv + CK * HD;
-  float* fu = fd + CK * HD;         // HD
-  float* beta = fu + HD;            // CK: sum_i (r_i u_i) k_i
-  float* dd = beta + CK;            // CK: dout . v
-  float* dvp = dd + CK;             // CK x NW x HD: a warp's column sums of G k
-  float* odr = dvp + CK * NW * HD;  // CK x HD each: the chunk's gradients
-  float* odk = odr + CK * HD;
-  float* odw = odk + CK * HD;
-  float* odv = odw + CK * HD;
+size_t rb_smem_bytes(int hd, int in_bytes) { return rb_bytes(hd, in_bytes).total; }
+
+// W elements of each of the steps t0 .. t0 + CK - 1 of an operand by 16-byte
+// cp.async into dst (a step every LD elements), zero-filled past T.  Thread
+// tid takes column tid % PER of steps tid / PER + SPI k, k < K: the counts
+// are compile-time, so the loop unrolls with no branch.
+template <int W, int LD, int CK, int NT, typename E>
+__device__ __forceinline__ void rb_copy(E* dst, const E* src, long long stride, int t0,
+                                        int T, int tid) {
+  constexpr int EPC = 16 / (int)sizeof(E);  // elements a copy
+  constexpr int PER = W / EPC;              // copies a step
+  constexpr int SPI = NT / PER;             // steps an iteration
+  constexpr int K = (CK + SPI - 1) / SPI;
+  static_assert(W % EPC == 0 && NT % PER == 0, "whole 16-byte copies");
+  const int c = (tid % PER) * EPC, s0 = tid / PER;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int s = s0 + SPI * k;
+    if (CK % SPI == 0 || s < CK) {
+      const bool in = t0 + s < T;
+      cp_async16(dst + s * LD + c, src + (long long)(in ? t0 + s : 0) * stride + c, in);
+    }
+  }
+}
+
+// 8 consecutive elements of shared memory as f32 (16-byte aligned; a bf16
+// is the top half of its f32: exact)
+__device__ __forceinline__ void rb_load8(const float* p, float (&x)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+  x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+}
+__device__ __forceinline__ void rb_load8(const __nv_bfloat16* p, float (&x)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    x[2 * q] = __uint_as_float(w[q] << 16);
+    x[2 * q + 1] = __uint_as_float(w[q] & 0xffff0000u);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void rb_wait_copies() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+// the two halves of a cluster barrier: arrive releases this thread's writes
+// to shared memory, wait acquires every arrived thread's
+__device__ __forceinline__ void rb_cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void rb_cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+template <int HD, typename TIN>
+__global__ void __launch_bounds__(RbPlan<HD>::NT, RbPlan<HD>::MIN_CTAS)
+rwkv6_scan_bwd_kernel(RwBwdArgs p) {
+  using P = RbPlan<HD>;
+  constexpr int C = P::C, COLS = P::COLS, EPT = P::EPT, NT = P::NT, NW = P::NW, CK = P::CK;
+  constexpr RbBytes L = rb_bytes(HD, (int)sizeof(TIN));
+  constexpr int FNB = L.fnb;
+  static_assert(FNB >= 2, "the forward ring");
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) unsigned char rb_smem[];
+  float* fu = reinterpret_cast<float*>(rb_smem);  // misc: HD
+  float* beta = fu + HD;                      // 2 x CK: sum_i (r_i u_i) k_i
+  float* dd = beta + 2 * CK;                  // 2 x CK: dout . v
+  float* fin = dd + 2 * CK;                   // 2 x 4 x CK x COLS
+  unsigned char* un = rb_smem + L.misc;       // rev: 2 chunks, then
+  float* xb = reinterpret_cast<float*>(un + 2 * L.chunk);  // 4 x 3 x CK x HD
+  float* dvp = xb + 4 * 3 * CK * HD;          // 2 x CK x NW x COLS
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int i = tid / TPR, tg = tid % TPR;
-  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
+  const int q = (int)cluster.block_rank();
+  const int i = warp * 16 + (lane & 15);      // the thread's row
+  const int c0 = q * COLS;                    // the CTA's first column
+  const int cl = (lane >> 4) * EPT;           // the thread's first column of the CTA's
+  const int cj = c0 + cl;                     // ... of the head's
+  // the column of the CTA's whose dv sum over the warp's rows lane l ends
+  // with: EPT (l / 16) + (l % 16) / 2
+  const int dvo = cl + ((lane & 15) >> 1);
+  const int bh = blockIdx.x / C, b = bh / p.H, h = bh % p.H;
   const int T = p.T, NC = (T + CK - 1) / CK;
   auto at = [&](int a) { return b * p.st[a][0] + h * p.st[a][1]; };
   const TIN* rb = static_cast<const TIN*>(p.r) + at(0);
@@ -1960,161 +2076,276 @@ __global__ void __launch_bounds__(HD * TPR) rwkv6_scan_bwd_kernel(RwBwdArgs p) {
   TIN* dkb = static_cast<TIN*>(p.dk) + at(6);
   TIN* dvb = static_cast<TIN*>(p.dv) + at(7);
   float* dwb = p.dw + at(8);
-  float* ckb = p.ck + (size_t)bh * NC * CPT * NT;
-  for (int c = tid; c < HD; c += NT) fu[c] = p.u[h * HD + c];
+  float* ckb = p.ck + ((size_t)bh * C + q) * NC * (NT * EPT) + tid * EPT;
+  if (tid < HD) fu[tid] = p.u[h * HD + tid];  // NT = 2 HD
 
-  // steps t0 .. t0 + n - 1 into shared memory, widened to f32: k, v and w,
-  // and with all r and dout too
-  auto stage = [&](int t0, int n, bool all) {
-    for (int e = tid; e < n * HD; e += NT) {
-      const int s = e / HD, c = e - s * HD;
-      const long long t = t0 + s;
-      fk[e] = fg_load(kb + t * p.st[1][2] + c);
-      fv[e] = fg_load(vb + t * p.st[2][2] + c);
-      fw[e] = wb[t * p.st[3][2] + c];
-      if (all) {
-        fr[e] = fg_load(rb + t * p.st[0][2] + c);
-        fd[e] = db[t * p.st[4][2] + c];
+  auto commit = [] { asm volatile("cp.async.commit_group;\n" ::); };
+  // the forward pass's copies of chunk j: k, the CTA's columns of v and w,
+  // into ring buffer j % FNB
+  auto fslot = [&](int j) { return un + (size_t)(j % FNB) * L.fslot; };
+  auto issue_fwd = [&](int j) {
+    TIN* sk = reinterpret_cast<TIN*>(fslot(j));
+    TIN* sv = sk + CK * HD;
+    float* sw = reinterpret_cast<float*>(sv + CK * COLS);
+    rb_copy<HD, HD, CK, NT>(sk, kb, p.st[1][2], j * CK, T, tid);
+    rb_copy<COLS, COLS, CK, NT>(sv, vb + c0, p.st[2][2], j * CK, T, tid);
+    rb_copy<HD, HD, CK, NT>(sw, wb, p.st[3][2], j * CK, T, tid);
+  };
+  // the reverse pass's chunk c as copied, in its parity buffer: r, k, v
+  // (TIN), w, dout (f32)
+  auto cr_ = [&](int c) { return reinterpret_cast<TIN*>(un + (size_t)(c & 1) * L.chunk); };
+  auto cw_ = [&](int c) { return reinterpret_cast<float*>(cr_(c) + 3 * CK * HD); };
+  auto issue_rev = [&](int c) {
+    const int t0 = c * CK;
+    TIN* br = cr_(c);
+    float* bw = cw_(c);
+    rb_copy<HD, HD, CK, NT>(br, rb, p.st[0][2], t0, T, tid);
+    rb_copy<HD, HD, CK, NT>(br + CK * HD, kb, p.st[1][2], t0, T, tid);
+    rb_copy<HD, HD, CK, NT>(br + 2 * CK * HD, vb, p.st[2][2], t0, T, tid);
+    rb_copy<HD, HD, CK, NT>(bw, wb, p.st[3][2], t0, T, tid);
+    rb_copy<HD, HD, CK, NT>(bw + CK * HD, db, p.st[4][2], t0, T, tid);
+  };
+  // chunk cc's gradients, once every rank's row sums of it are written:
+  // rank q's rows c0 .. c0 + COLS - 1 summed over the ranks in rank order
+  // (through distributed shared memory), then the bonus terms; dv of the
+  // CTA's columns, the warps' sums in order + dout beta; du of its rows
+  float du_acc = 0.f;  // the thread's row of the CTA's (tid < COLS)
+  auto finalize = [&](int cc) {
+    const int pc = cc & 1, t0 = cc * CK, n = min(CK, T - t0);
+    const float* xr = xb + (cc & 3) * 3 * CK * HD;
+    const float* fc = fin + pc * 4 * CK * COLS;
+    const float* dc = dd + pc * CK;
+#pragma unroll
+    for (int k = 0; k < (CK * COLS + NT - 1) / NT; ++k) {
+      const int e = tid + NT * k;
+      const int s = e / COLS, l = e % COLS, x = c0 + l;  // row x of dr, dk, dw; column x of dv
+      if (e >= CK * COLS || s >= n) continue;
+      float a[3];
+#pragma unroll
+      for (int r = 0; r < C; ++r) {
+        const float* xq = cluster.map_shared_rank(xr, r);
+#pragma unroll
+        for (int g = 0; g < 3; ++g) {
+          const float y = xq[(g * CK + s) * HD + x];
+          a[g] = r == 0 ? y : __fadd_rn(a[g], y);
+        }
       }
+      float a4 = 0.f;
+#pragma unroll
+      for (int w = 0; w < NW; ++w) a4 = __fadd_rn(a4, dvp[((pc * CK + s) * NW + w) * COLS + l]);
+      const float dds = dc[s];
+      const long long t = t0 + s;
+      rb_store(drb + t * p.st[5][2] + x, fmaf(fc[e], dds, a[0]));
+      rb_store(dkb + t * p.st[6][2] + x, fmaf(fc[CK * COLS + e], dds, a[1]));
+      dwb[t * p.st[8][2] + x] = a[2];
+      rb_store(dvb + t * p.st[7][2] + x, fmaf(fc[2 * CK * COLS + e], beta[pc * CK + s], a4));
+    }
+    if (tid < COLS) {
+#pragma unroll
+      for (int s = CK - 1; s >= 0; --s)
+        if (s < n) du_acc = fmaf(fc[3 * CK * COLS + s * COLS + tid], dc[s], du_acc);
     }
   };
-  // the forward from S = 0 (S <- diag(w) S + k^T v as the forward kernel
-  // steps it), with the state before each chunk saved
-  float S[CPT];
+
+  // ---- the forward pass from S = 0 (S <- diag(w) S + k^T v as the forward
+  // kernel steps it), S saved before each chunk but the last; FNB - 1
+  // chunks' copies in flight
+  float S[EPT], G[EPT];
 #pragma unroll
-  for (int m = 0; m < CPT; ++m) S[m] = 0.f;
-  for (int c = 0; c < NC; ++c) {
+  for (int m = 0; m < EPT; ++m) S[m] = G[m] = 0.f;
+  for (int j = 0; j < FNB - 1; ++j) {
+    if (j < NC - 1) issue_fwd(j);
+    commit();
+  }
+  for (int f = 0; f < NC - 1; ++f) {
+    rb_wait_copies<FNB - 2>();
+    __syncthreads();  // chunk f has landed; chunk f - 1's readers are done
+    if (f + FNB - 1 < NC - 1) issue_fwd(f + FNB - 1);
+    commit();
+    float4* dst = reinterpret_cast<float4*>(ckb + (size_t)f * NT * EPT);
+    dst[0] = make_float4(S[0], S[1], S[2], S[3]);
+    dst[1] = make_float4(S[4], S[5], S[6], S[7]);
+    const TIN* sk = reinterpret_cast<const TIN*>(fslot(f));
+    const TIN* sv = sk + CK * HD;
+    const float* sw = reinterpret_cast<const float*>(sv + CK * COLS);
 #pragma unroll
-    for (int m = 0; m < CPT; ++m) ckb[(size_t)(c * CPT + m) * NT + tid] = S[m];
-    if (c == NC - 1) break;
-    __syncthreads();  // the previous chunk's readers are done
-    stage(c * CK, CK, false);
-    __syncthreads();
     for (int s = 0; s < CK; ++s) {
-      const float wi = fw[s * HD + i], ki = fk[s * HD + i];
+      const float wi = sw[s * HD + i], ki = fg_load(sk + s * HD + i);
+      float vj[EPT];
+      rb_load8(sv + s * COLS + cl, vj);
 #pragma unroll
-      for (int m = 0; m < CPT; ++m)
-        S[m] = fmaf(wi, S[m], __fmul_rn(ki, fv[s * HD + tg + TPR * m]));
+      for (int m = 0; m < EPT; ++m) S[m] = fmaf(wi, S[m], __fmul_rn(ki, vj[m]));
     }
   }
+  __syncthreads();  // the ring's memory becomes the reverse pass's buffers
+  issue_rev(NC - 1);
+  commit();
 
-  // the chunks in reverse, each recomputed from its checkpoint
-  float G[CPT];
-#pragma unroll
-  for (int m = 0; m < CPT; ++m) G[m] = 0.f;
-  float du_acc = 0.f;
+  // ---- the chunks in reverse, one CTA barrier a chunk.  Chunk c + 1's
+  // gradients are finished after chunk c's walk, past the cluster barrier
+  // at which chunk c + 1's walk arrived; chunk c's walk arrives first (its
+  // release then waits on no global store), so a peer may be one chunk
+  // ahead: what a chunk leaves for its finish is kept by chunk parity, the
+  // row sums, which the peers read, by chunk mod 4.
   for (int c = NC - 1; c >= 0; --c) {
-    const int t0 = c * CK, n = min(CK, T - t0);
-    __syncthreads();  // the previous chunk's readers are done
-    stage(t0, n, true);
-    __syncthreads();
-    // beta and dd of each step: a warp a step, lanes over the rows, then a
-    // butterfly (fixed order)
-    for (int s = warp; s < n; s += NW) {
-      float pb = 0.f, pd = 0.f;
-      for (int c2 = lane; c2 < HD; c2 += 32) {
-        pb = fmaf(__fmul_rn(fr[s * HD + c2], fu[c2]), fk[s * HD + c2], pb);
-        pd = fmaf(fd[s * HD + c2], fv[s * HD + c2], pd);
-      }
-#pragma unroll
-      for (int off = 16; off >= 1; off >>= 1) {
-        pb = __fadd_rn(pb, __shfl_xor_sync(0xffffffffu, pb, off));
-        pd = __fadd_rn(pd, __shfl_xor_sync(0xffffffffu, pd, off));
-      }
-      if (lane == 0) {
-        beta[s] = pb;
-        dd[s] = pd;
-      }
+    const int par = c & 1, n = min(CK, T - c * CK);
+    const TIN* fr = cr_(c);
+    const TIN* fk = fr + CK * HD;
+    const TIN* fv = fk + CK * HD;
+    const float* fw = cw_(c);
+    const float* fd = fw + CK * HD;
+    if (c < NC - 1) {  // S before the chunk, saved by this thread
+      const float4* src = reinterpret_cast<const float4*>(ckb + (size_t)c * NT * EPT);
+      const float4 a = src[0], a2 = src[1];
+      S[0] = a.x; S[1] = a.y; S[2] = a.z; S[3] = a.w;
+      S[4] = a2.x; S[5] = a2.y; S[6] = a2.z; S[7] = a2.w;
     }
-    // S_{t-1} of the chunk's steps, each thread its own elements
+    rb_wait_copies<0>();
+    __syncthreads();  // the chunk has landed; the other parity's readers are done
+    if (c > 0) issue_rev(c - 1);
+    commit();
+
+    // beta and dd of each step: a warp a step (steps warp, warp + NW, ...),
+    // the lanes over the rows by fma, then a butterfly over the lanes that
+    // halves the sums a lane carries at each level while it has more than
+    // one (each sum is the plain butterfly's); the finalize's operands of
+    // the CTA's rows
+    {
+      constexpr int V = 2 * (CK / NW);  // sums a warp: beta, dd of its steps
+      float part[V];
 #pragma unroll
-    for (int m = 0; m < CPT; ++m) S[m] = ckb[(size_t)(c * CPT + m) * NT + tid];
-    for (int s = 0; s < n; ++s) {
+      for (int k2 = 0; k2 < V / 2; ++k2) {
+        const int s = warp + NW * k2;
+        float pb = 0.f, pd = 0.f;
 #pragma unroll
-      for (int m = 0; m < CPT; ++m) Sc[(s * CPT + m) * NT + tid] = S[m];
-      if (s + 1 < n) {
-        const float wi = fw[s * HD + i], ki = fk[s * HD + i];
-#pragma unroll
-        for (int m = 0; m < CPT; ++m)
-          S[m] = fmaf(wi, S[m], __fmul_rn(ki, fv[s * HD + tg + TPR * m]));
+        for (int k3 = 0; k3 < (HD + 31) / 32; ++k3) {
+          const int c2 = lane + 32 * k3;
+          if (HD % 32 == 0 || c2 < HD) {
+            pb = fmaf(__fmul_rn(fg_load(fr + s * HD + c2), fu[c2]), fg_load(fk + s * HD + c2), pb);
+            pd = fmaf(fd[s * HD + c2], fg_load(fv + s * HD + c2), pd);
+          }
+        }
+        part[2 * k2] = pb;
+        part[2 * k2 + 1] = pd;
       }
-    }
-    __syncthreads();  // beta and dd are written
-    const float ui = fu[i];
-    for (int s = n - 1; s >= 0; --s) {
-      const float ri = fr[s * HD + i], ki = fk[s * HD + i], wi = fw[s * HD + i];
-      float ar = 0.f, ak = 0.f, aw = 0.f, pv[CPT];
-#pragma unroll
-      for (int m = 0; m < CPT; ++m) {
-        const int j = tg + TPR * m;
-        const float sp = Sc[(s * CPT + m) * NT + tid];
-        const float dj = fd[s * HD + j], vj = fv[s * HD + j];
-        ar = fmaf(dj, sp, ar);
-        ak = fmaf(G[m], vj, ak);
-        aw = fmaf(G[m], sp, aw);
-        pv[m] = __fmul_rn(G[m], ki);
-        G[m] = fmaf(wi, G[m], __fmul_rn(ri, dj));
-      }
-      // the row sums over the TPR lanes of the row
-#pragma unroll
-      for (int off = 1; off < TPR; off <<= 1) {
-        ar = __fadd_rn(ar, __shfl_xor_sync(0xffffffffu, ar, off));
-        ak = __fadd_rn(ak, __shfl_xor_sync(0xffffffffu, ak, off));
-        aw = __fadd_rn(aw, __shfl_xor_sync(0xffffffffu, aw, off));
-      }
-      if (tg == 0) {
-        const float dds = dd[s];
-        odr[s * HD + i] = fmaf(__fmul_rn(ui, ki), dds, ar);
-        odk[s * HD + i] = fmaf(__fmul_rn(ui, ri), dds, ak);
-        odw[s * HD + i] = aw;
-        du_acc = fmaf(__fmul_rn(ri, ki), dds, du_acc);
-      }
-      // the column sums over the warp's rows: each level halves the columns
-      // a lane carries while it has more than one, then adds across lanes
       int m0 = 0;
       bool writer = true;
 #pragma unroll
-      for (int lvl = 0; lvl < LV; ++lvl) {
-        const int o = 16 >> lvl;
-        const int half = (CPT >> lvl) / 2;
+      for (int lvl = 0; lvl < 5; ++lvl) {
+        const int o = 16 >> lvl, half = (V >> lvl) / 2;
         const bool up = lane & o;
         if (half > 0) {
 #pragma unroll
-          for (int q = 0; q < half; ++q) {
-            const float send = up ? pv[q] : pv[q + half];
-            const float keep = up ? pv[q + half] : pv[q];
-            pv[q] = __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, send, o));
+          for (int e = 0; e < half; ++e) {
+            const float send = up ? part[e] : part[e + half];
+            const float keep = up ? part[e + half] : part[e];
+            part[e] = __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, send, o));
           }
           m0 += up ? half : 0;
         } else {
-          pv[0] = __fadd_rn(pv[0], __shfl_xor_sync(0xffffffffu, pv[0], o));
+          part[0] = __fadd_rn(part[0], __shfl_xor_sync(0xffffffffu, part[0], o));
           writer = writer && !up;
         }
       }
-      if (writer) {
+      if (writer) (m0 & 1 ? dd : beta)[par * CK + warp + NW * (m0 >> 1)] = part[0];
+    }
+    {
+      float* fc = fin + par * 4 * CK * COLS;
 #pragma unroll
-        for (int q = 0; q < NK; ++q) dvp[(s * NW + warp) * HD + tg + TPR * (m0 + q)] = pv[q];
+      for (int k = 0; k < (CK * COLS + NT - 1) / NT; ++k) {
+        const int e = tid + NT * k;
+        if (e >= CK * COLS) break;
+        const int s = e / COLS, x = c0 + e % COLS;
+        const float rx = fg_load(fr + s * HD + x), kx = fg_load(fk + s * HD + x);
+        fc[e] = __fmul_rn(fu[x], kx);
+        fc[CK * COLS + e] = __fmul_rn(fu[x], rx);
+        fc[2 * CK * COLS + e] = fd[s * HD + x];
+        fc[3 * CK * COLS + e] = __fmul_rn(rx, kx);
       }
     }
-    __syncthreads();
-    // dv = the warps' sums in order + dout beta
-    for (int e = tid; e < n * HD; e += NT) {
-      const int s = e / HD, j = e - s * HD;
-      float a = 0.f;
-      for (int w = 0; w < NW; ++w) a = __fadd_rn(a, dvp[(s * NW + w) * HD + j]);
-      odv[e] = fmaf(fd[e], beta[s], a);
+
+    // S_{t-1} of the chunk's steps in registers; steps past T are
+    // zero-filled and give S = 0, which nothing reads
+    float Sc[CK][EPT];
+#pragma unroll
+    for (int m = 0; m < EPT; ++m) Sc[0][m] = S[m];
+#pragma unroll
+    for (int s = 0; s + 1 < CK; ++s) {
+      const float wi = fw[s * HD + i], ki = fg_load(fk + s * HD + i);
+      float vj[EPT];
+      rb_load8(fv + s * HD + cj, vj);
+#pragma unroll
+      for (int m = 0; m < EPT; ++m) Sc[s + 1][m] = fmaf(wi, Sc[s][m], __fmul_rn(ki, vj[m]));
     }
-    __syncthreads();
-    for (int e = tid; e < n * HD; e += NT) {
-      const int s = e / HD, c2 = e - s * HD;
-      const long long t = t0 + s;
-      rb_store(drb + t * p.st[5][2] + c2, odr[e]);
-      rb_store(dkb + t * p.st[6][2] + c2, odk[e]);
-      rb_store(dvb + t * p.st[7][2] + c2, odv[e]);
-      dwb[t * p.st[8][2] + c2] = odw[e];
+
+    // the walk backward.  A step past T has r, k, v, w and dout zero, so G
+    // stays 0 through it (G_{T-1} = 0) and its sums are never written.  Each
+    // step's sums are reduced while the next step's products run (the
+    // registers of a step's S_{t-1} are free by then).
+    float* xw = xb + (c & 3) * 3 * CK * HD;
+    float* dvw = dvp + par * CK * NW * COLS + warp * COLS + dvo;
+    float ra[3], pa[EPT];  // the step before's row and column partials
+#pragma unroll
+    for (int s = CK - 1; s >= -1; --s) {
+      float ar = 0.f, ak = 0.f, aw = 0.f, pv[EPT];
+      if (s >= 0) {
+        const float ri = fg_load(fr + s * HD + i), ki = fg_load(fk + s * HD + i);
+        const float wi = fw[s * HD + i];
+        float dj[EPT], vj[EPT];
+        rb_load8(fd + s * HD + cj, dj);
+        rb_load8(fv + s * HD + cj, vj);
+#pragma unroll
+        for (int m = 0; m < EPT; ++m) {
+          ar = fmaf(dj[m], Sc[s][m], ar);
+          ak = fmaf(G[m], vj[m], ak);
+          aw = fmaf(G[m], Sc[s][m], aw);
+          pv[m] = __fmul_rn(G[m], ki);
+          G[m] = fmaf(wi, G[m], __fmul_rn(ri, dj[m]));
+        }
+      }
+      if (s + 1 < CK) {
+        // step s + 1: the row's two threads (lanes l and l ^ 16 hold the
+        // same sums after) into the exchange buffer; dv's column sums over
+        // the warp's 16 rows, each level halving the columns a lane carries
+        // while it has more than one, then adding across lanes (lanes l and
+        // l ^ 1 hold column dvo after)
+        const int t1 = s + 1;
+#pragma unroll
+        for (int g = 0; g < 3; ++g)
+          xw[(g * CK + t1) * HD + i] =
+              __fadd_rn(ra[g], __shfl_xor_sync(0xffffffffu, ra[g], 16));
+#pragma unroll
+        for (int lvl = 0; lvl < 4; ++lvl) {
+          const int o = 8 >> lvl, half = (EPT >> lvl) / 2;
+          const bool up = lane & o;
+          if (half > 0) {
+#pragma unroll
+            for (int e = 0; e < half; ++e) {
+              const float send = up ? pa[e] : pa[e + half];
+              const float keep = up ? pa[e + half] : pa[e];
+              pa[e] = __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, send, o));
+            }
+          } else {
+            pa[0] = __fadd_rn(pa[0], __shfl_xor_sync(0xffffffffu, pa[0], o));
+          }
+        }
+        dvw[t1 * NW * COLS] = pa[0];
+      }
+      ra[0] = ar;
+      ra[1] = ak;
+      ra[2] = aw;
+#pragma unroll
+      for (int m = 0; m < EPT; ++m) pa[m] = pv[m];
     }
+    if (c < NC - 1) rb_cluster_wait();  // every rank's row sums of chunk c + 1 are written
+    rb_cluster_arrive();                // ... and of chunk c
+    if (c < NC - 1) finalize(c + 1);
   }
-  if (tg == 0) p.du_part[(size_t)bh * HD + i] = du_acc;
+  rb_cluster_wait();
+  finalize(0);
+  rb_cluster_arrive();  // no peer reads this CTA's row sums after it exits
+  rb_cluster_wait();
+  if (tid < COLS) p.du_part[(size_t)bh * HD + c0 + tid] = du_acc;
 }
 
 // du = the (batch, head) partials summed over the batch in order
@@ -2127,16 +2358,32 @@ rwkv6_bwd_du_kernel(const float* __restrict__ part, float* __restrict__ du, int 
   du[e] = s;
 }
 
-template <int HD, int TPR, int CK, typename TIN>
+// A cluster of C CTAs per (batch, head) (cudaLaunchKernelEx with the
+// cluster dimension; a launch the card refuses returns its error), then
+// du's launch.
+template <int HD, typename TIN>
 cudaError_t rb_launch(const RwBwdArgs& p, int B, int ck_steps, cudaStream_t s) {
-  using L = RbLayout<HD, TPR, CK>;
-  if (ck_steps != CK || (long long)B * p.H > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * rb_smem_floats(HD, L::NT, CK);
-  auto fn = rwkv6_scan_bwd_kernel<HD, TPR, CK, TIN>;
+  using P = RbPlan<HD>;
+  if (ck_steps != P::CK || (long long)B * p.H * P::C > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const size_t smem = rb_smem_bytes(HD, (int)sizeof(TIN));
+  auto fn = rwkv6_scan_bwd_kernel<HD, TIN>;
   cudaError_t err =
       cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  fn<<<(unsigned)(B * p.H), L::NT, smem, s>>>(p);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = P::C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(B * p.H * P::C));
+  cfg.blockDim = dim3(P::NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, fn, p);
+  if (err != cudaSuccess) return err;
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int n = p.H * HD;
@@ -2144,15 +2391,13 @@ cudaError_t rb_launch(const RwBwdArgs& p, int B, int ck_steps, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-// (threads a row, chunk steps) per head width: the chunk's states fill at
-// most 128 KB of shared memory (64 KB at hd 32)
 template <typename TIN>
 cudaError_t rb_dispatch(const RwBwdArgs& p, int B, int hd, int ck_steps, cudaStream_t s) {
   switch (hd) {
-    case 16: return rb_launch<16, 2, 16, TIN>(p, B, ck_steps, s);
-    case 32: return rb_launch<32, 2, 16, TIN>(p, B, ck_steps, s);
-    case 64: return rb_launch<64, 4, 8, TIN>(p, B, ck_steps, s);
-    case 128: return rb_launch<128, 4, 2, TIN>(p, B, ck_steps, s);
+    case 16: return rb_launch<16, TIN>(p, B, ck_steps, s);
+    case 32: return rb_launch<32, TIN>(p, B, ck_steps, s);
+    case 64: return rb_launch<64, TIN>(p, B, ck_steps, s);
+    case 128: return rb_launch<128, TIN>(p, B, ck_steps, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -2297,10 +2542,11 @@ int repro_rwkv6_scan(int dtype, const void* r, const void* k, const void* v,
 // K6's backward.  dtype as repro_rwkv6_scan's: r, k, v, dr, dk and dv in
 // that type; w, u, dout, dw, du float32.  r, k, v, w, dout, dr, dk, dv, dw:
 // (B, H, T, hd) by their strides (strides: (batch, head, time) of each in
-// that order, in elements; the head width contiguous); u, du: (H, hd)
-// contiguous; du_part: float32 scratch of B * H * hd; ck: float32 scratch of
-// B * H * ceil(T / ck_steps) * hd * hd, ck_steps the chunk of hd's layout
-// (16 at hd 16 and 32, 8 at hd 64, 2 at hd 128).  Two launches.
+// that order, in elements, each a multiple of 16 bytes; the head width
+// contiguous); u, du: (H, hd) contiguous; du_part: float32 scratch of B * H
+// * hd; ck: float32 scratch of B * H * ceil(T / ck_steps) * hd * hd,
+// ck_steps the chunk (8 at every hd).  Two launches: a cluster of hd / 16
+// CTAs per (batch, head), then du's sum over the batch.
 int repro_rwkv6_scan_bwd(int dtype, const void* r, const void* k, const void* v,
                          const float* w, const float* u, const float* dout, void* dr,
                          void* dk, void* dv, float* dw, float* du, float* du_part,
@@ -2318,6 +2564,12 @@ int repro_rwkv6_scan_bwd(int dtype, const void* r, const void* k, const void* v,
   if (dtype == 0) return (int)rb_dispatch<float>(p, B, hd, ck_steps, s);
   if (dtype == 1) return (int)rb_dispatch<__nv_bfloat16>(p, B, hd, ck_steps, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory of one CTA of K6's backward in bytes at head width
+// hd, dtype as repro_rwkv6_scan_bwd's.
+size_t repro_rwkv6_bwd_smem_bytes(int dtype, int hd) {
+  return rb_smem_bytes(hd, dtype == 1 ? 2 : 4);
 }
 
 // K7.  a, g, out: (B, T, R) float32.

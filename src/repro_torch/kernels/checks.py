@@ -248,11 +248,13 @@ def rwkv6_scan_grad_bound(r, k, v, w, u, dout):
     * dr, dk and dv sum a product of one of those with an operand over hd
       columns or rows, then add the bonus term u k (dout . v), u r (dout .
       v) or dout sum r u k, itself a length-hd dot product.  The kernel
-      sums a row over its lane's columns, then over the lanes of the row
-      (dr, dk), or over a warp's rows by a butterfly and over the warps in
-      order (dv, at most 4 + 15 roundings at hd 128); any order of the
-      plain version's sums over hd terms passes at most hd: at most 2T +
-      hd + 24 in all;
+      splits a head's columns over a cluster of hd / 16 CTAs and sums a row
+      over a thread's 8 columns by fma, then over the row's two threads,
+      then over the cluster's ranks in order (dr, dk, dw: at most 8 + 1 + 7
+      roundings at hd 128), or a column over a warp's 16 rows by a
+      butterfly and over the CTA's warps in order (dv, at most 4 + 8 at hd
+      128); any order of the plain version's sums over hd terms passes at
+      most hd: at most 2T + hd + 24 in all;
     * dw_t = sum_j G_t S_{t-1}: both chains, the product and the sum over
       hd: at most 4T + hd + 24;
     * du = sum over b and t of r k (dout . v): the dot product (hd + 6 in

@@ -160,6 +160,8 @@ def lib() -> ctypes.CDLL:
                 ctypes.POINTER(ctypes.c_longlong), ci, ci, ci, ci, ci, vp,
             ]
             so.repro_rwkv6_scan_bwd.restype = ci
+            so.repro_rwkv6_bwd_smem_bytes.argtypes = [ci, ci]
+            so.repro_rwkv6_bwd_smem_bytes.restype = ctypes.c_size_t
             so.repro_rglru_scan.argtypes = [vp, vp, vp, ci, ci, ci, vp]
             so.repro_rglru_scan.restype = ci
             so.repro_rglru_scan_bwd.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]

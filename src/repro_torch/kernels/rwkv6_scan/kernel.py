@@ -9,6 +9,7 @@ backward has no Pallas counterpart: the reference differentiates its
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -21,10 +22,38 @@ HEAD_DIMS = (16, 32, 64, 128)
 HEAD_WARPS = {16: 1, 32: 1, 64: 1, 128: 4}
 SPLIT_COLS = 8
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# steps between the backward's checkpoints of S, per head width (CK of
-# rb_dispatch in csrc/model_kernels.cu: a chunk's states fill at most 128 KB
-# of shared memory)
-BWD_CHUNK = {16: 16, 32: 16, 64: 8, 128: 2}
+# The backward's launch (RbPlan and rb_bytes in csrc/model_kernels.cu):
+# a (batch, head) is a cluster of hd / BWD_COLS CTAs, each owning BWD_COLS
+# columns of S and G; a thread holds one row and BWD_COLS / 2 of its CTA's
+# columns (two threads a row); S is checkpointed before every BWD_CHUNK-th
+# step, and a chunk's S_{t-1} stays in the registers (8 steps x 8 elements a
+# thread), so BWD_CHUNK is 8 at every head width.
+BWD_COLS = 16
+BWD_CHUNK = {hd: 8 for hd in HEAD_DIMS}
+
+
+class BwdPlan(NamedTuple):
+    cluster: int     # CTAs a (batch, head): the grid is B * H * cluster
+    threads: int     # threads a CTA
+    chunk: int       # steps between checkpoints
+    smem_bytes: int  # dynamic shared memory a CTA
+
+
+def bwd_plan(hd: int, dtype=torch.bfloat16) -> BwdPlan:
+    """K6's backward launch at head width ``hd`` for r, k, v of ``dtype``,
+    as ``rb_launch`` makes it.  Shared memory (``rb_bytes``): u, and by
+    chunk parity beta, dd and the finalize's four operands of the CTA's
+    rows; by chunk parity the chunk as copied (r, k, v in their type, w and
+    dout f32), by chunk mod 4 the row sums (dr, dk, dw) and by chunk parity
+    the warps' dv sums (the forward pass's copy ring reuses this region)."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head width {hd} is not one of {HEAD_DIMS}")
+    ck, threads, cols = BWD_CHUNK[hd], 2 * hd, BWD_COLS
+    el = torch.empty((), dtype=dtype).element_size()
+    misc = 4 * (hd + 2 * 2 * ck + 2 * 4 * ck * cols)
+    chunk = ck * hd * (3 * el + 2 * 4)
+    rev = 2 * chunk + 4 * (4 * 3 * ck * hd + 2 * ck * (threads // 32) * cols)
+    return BwdPlan(hd // cols, threads, ck, misc + rev)
 
 
 def column_split(heads: int, hd: int, sms: int) -> bool:
@@ -75,9 +104,12 @@ def rwkv6_scan_bwd_cuda(r, k, v, w, u, dout):
     dout (B, H, T, hd) float32 with its head width contiguous (any other
     strides).  dr, dk, dv come in r's type and layout (a dense r's strides),
     dw in w's, du (H, hd) float32; the same bits on every run (no atomics).
-    Two launches: the recurrence in reverse, one CTA per (batch, head),
-    recomputing S from checkpoints in a scratch tensor allocated here; then
-    du summed over the batch."""
+    Two launches: the recurrence in reverse, a thread-block cluster of
+    ``bwd_plan(hd).cluster`` CTAs per (batch, head), each CTA owning
+    ``BWD_COLS`` columns of S and G, recomputing its columns of S from
+    checkpoints in a scratch tensor allocated here and summing the rows
+    across the cluster through distributed shared memory; then du summed
+    over the batch.  A launch the card refuses raises."""
     b, h, t, hd = r.shape
     if hd not in HEAD_DIMS:
         raise ValueError(f"head width {hd} is not one of {HEAD_DIMS}")
@@ -93,8 +125,8 @@ def rwkv6_scan_bwd_cuda(r, k, v, w, u, dout):
     dw = torch.empty_like(w)
     du = torch.empty_like(u)
     du_part = torch.empty((b, h, hd), dtype=torch.float32, device=r.device)
-    # the checkpoints: S (hd x hd) before every BWD_CHUNK[hd]-th step of each
-    # (batch, head)
+    # the checkpoints: S (hd x hd, by the cluster's CTAs) before every
+    # BWD_CHUNK[hd]-th step of each (batch, head)
     ck = torch.empty(b * h * -(-t // BWD_CHUNK[hd]) * hd * hd, dtype=torch.float32,
                      device=r.device)
     strides = (ctypes.c_longlong * 27)(*(s for x in (r, k, v, w, dout, dr, dk, dv, dw)

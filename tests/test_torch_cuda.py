@@ -1001,6 +1001,20 @@ def test_rwkv6_scan_backward_model_layout_bf16(card, hd, t):
     _rwkv6_backward(card, xs, do)
 
 
+@pytest.mark.parametrize("hd", [64, 128])
+def test_rwkv6_scan_backward_cluster_at_few_heads(card, hd):
+    """Few heads (B 1, H 4): each head's cluster spans its full hd / 16
+    CTAs, whose row sums meet through distributed shared memory, over 38
+    chunks with a ragged last one; bf16 in the model's layout."""
+    from repro_torch.kernels.rwkv6_scan.kernel import bwd_plan
+
+    assert bwd_plan(hd).cluster == hd // 16
+    rng = np.random.default_rng(hd + 300)
+    xs = _rwkv_model_layout(card, rng, 1, 4, 300, hd, torch.bfloat16)
+    do = _normal(card, rng, (1, 300, 4, hd)).transpose(1, 2)
+    _rwkv6_backward(card, xs, do)
+
+
 @pytest.mark.parametrize("b,h,t,hd", [(2, 3, 48, 64), (1, 2, 300, 64), (1, 1, 70, 128),
                                       (3, 2, 33, 16)])
 def test_rwkv6_scan_backward_f32(card, b, h, t, hd):

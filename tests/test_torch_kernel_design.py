@@ -27,8 +27,10 @@
   with the head split's choices (``kernel.head_split``) at the training
   shapes.
 * **K6's backward** stores S every ``BWD_CHUNK`` steps, recomputes each
-  chunk and walks it backward: :func:`emulate_rwkv6_bwd` repeats that
-  order and its sums and is held to ``checks.rwkv6_scan_grad_bound``.
+  chunk and walks it backward, a head's columns split over a cluster of
+  CTAs whose row sums meet in rank order: :func:`emulate_rwkv6_bwd`
+  repeats that order and its sums and is held to
+  ``checks.rwkv6_scan_grad_bound``; ``kernel.bwd_plan`` gives the launch.
 * **K5's backward at f32** (the SIMT kernels) recomputes P from the
   forward's row log-sum-exp: :func:`emulate_flash_bwd` repeats the kernel's order in f32 (the online
   softmax's lse over 64-key tiles, D = rowsum(dO * O), then per KV tile P,
@@ -422,40 +424,49 @@ def _lanes(a, b):
     return _halve(torch.stack(parts, -1), -1)
 
 
-# lanes that share a row of S and G in K6's backward (TPR of rb_dispatch in
-# csrc/model_kernels.cu): a thread holds hd / TPR columns, a CTA hd * TPR
-# threads
-BWD_ROW_LANES = {16: 2, 32: 2, 64: 4, 128: 4}
+# threads that share a row of S and G in a CTA of K6's backward (the
+# thread layout of RbPlan in csrc/model_kernels.cu): each holds half of the
+# CTA's kernel.BWD_COLS columns, consecutive
+BWD_ROW_LANES = 2
+BWD_WARP_ROWS = 16  # rows of a warp
+BWD_REGS = 128  # registers a thread at most (RbPlan::MIN_CTAS's launch bounds)
 
 
 def emulate_rwkv6_bwd(r, k, v, w, u, dout):
     """K6's backward in its order, f32: the forward with S saved before every
     ``BWD_CHUNK``-th step; each chunk, last first, recomputed from its
-    checkpoint and walked backward; a thread (row i, lane tg of
-    ``BWD_ROW_LANES``) sums its columns tg, tg + TPR, ... by fma, then the
-    row's lanes by a butterfly (dr, dk, dw); dv's products summed over a
-    warp's rows by a butterfly, then over the warps in order; beta and dd
-    over a warp's lanes; du over time in reverse, then over the batch.
+    checkpoint and walked backward.  A (batch, head) is a cluster of
+    ``bwd_plan(hd).cluster`` CTAs, rank q owning columns ``BWD_COLS`` q ..;
+    a row sum (dr, dk, dw) is, in each rank, each of the row's
+    ``BWD_ROW_LANES`` threads' consecutive columns by fma, then those
+    threads by a butterfly, then the ranks' partials in rank order, then the
+    bonus term by fma; dv's products are summed over a warp's 16 rows by a
+    butterfly, then over the CTA's warps in order; beta and dd over a warp's
+    lanes (every CTA alike); du over time in reverse, then over the batch.
     Returns (dr, dk, dv, dw, du) f32."""
-    from repro_torch.kernels.rwkv6_scan.kernel import BWD_CHUNK
+    from repro_torch.kernels.rwkv6_scan.kernel import BWD_CHUNK, BWD_COLS, bwd_plan
 
     rf, kf, vf, wf, df = (x.float() for x in (r, k, v, w, dout))
     uf = u.float()[None]
     b, h, t, hd = rf.shape
-    ck, tpr = BWD_CHUNK[hd], BWD_ROW_LANES[hd]
-    rpw = 32 // tpr  # rows of a warp
+    ck, ranks = BWD_CHUNK[hd], bwd_plan(hd).cluster
+    ept = BWD_COLS // BWD_ROW_LANES  # columns of a thread
 
     def step(s, i):
         return _fma(wf[:, :, i, :, None], s, kf[:, :, i, :, None] * vf[:, :, i, None, :])
 
     def rows(x):  # (B, H, hd, hd) products -> the row sums in the kernel's order
-        parts = []
-        for tg in range(tpr):
-            acc = torch.zeros((b, h, hd))
-            for j in range(tg, hd, tpr):
-                acc = _fma(x[0][..., j], x[1][..., j], acc)
-            parts.append(acc)
-        return _halve(torch.stack(parts, -1), -1)
+        total = None
+        for q in range(ranks):
+            parts = []
+            for tg in range(BWD_ROW_LANES):
+                acc = torch.zeros((b, h, hd))
+                for j in range(q * BWD_COLS + tg * ept, q * BWD_COLS + (tg + 1) * ept):
+                    acc = _fma(x[0][..., j], x[1][..., j], acc)
+                parts.append(acc)
+            part = _halve(torch.stack(parts, -1), -1)
+            total = part if total is None else total + part
+        return total
 
     nc = -(-t // ck)
     s = torch.zeros((b, h, hd, hd))
@@ -485,10 +496,9 @@ def emulate_rwkv6_bwd(r, k, v, w, u, dout):
             out[3][i] = rows((g, sp))
             du = _fma(ri * ki, dd[..., None], du)
             pv = g * ki[..., :, None]
-            warps = [_halve(pv[:, :, w0:w0 + rpw], 2) for w0 in range(0, hd, rpw)]
             acc = torch.zeros((b, h, hd))
-            for x in warps:
-                acc = acc + x
+            for w0 in range(0, hd, BWD_WARP_ROWS):
+                acc = acc + _halve(pv[:, :, w0:w0 + BWD_WARP_ROWS], 2)
             out[2][i] = _fma(di, beta[..., None], acc)
             g = _fma(wi[..., :, None], g, ri[..., :, None] * di[..., None, :])
     total = torch.zeros((h, hd))
@@ -497,7 +507,7 @@ def emulate_rwkv6_bwd(r, k, v, w, u, dout):
     return (*(torch.stack(x, dim=2) for x in out), total)
 
 
-@pytest.mark.parametrize("hd", [16, 32, 64])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
 @pytest.mark.parametrize("t", [1, 7, 40])
 def test_rwkv6_bwd_emulation_holds_the_grad_bound(t, hd):
     """The checkpoint-and-recompute order within ``checks.rwkv6_scan_grad_bound``
@@ -515,6 +525,34 @@ def test_rwkv6_bwd_emulation_holds_the_grad_bound(t, hd):
     exact = rwkv6_scan_bwd_ref(*(x.double() for x in (r, k, v, w, u, dout)))
     for x, e, bound in zip(got, exact, checks.rwkv6_scan_grad_bound(r, k, v, w, u, dout)):
         assert bool(((x.double() - e).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_rwkv6_bwd_plan(hd, dtype):
+    """K6's backward launch: a cluster of at most 8 CTAs (the portable
+    limit) that splits the head's columns evenly, a grid of whole clusters,
+    shared memory within a CTA's 227 KB, and at hd 64 at least two CTAs an
+    SM by shared memory, threads and registers (four with bf16 operands,
+    rwkv6-1.6b's)."""
+    from repro_torch.kernels.rwkv6_scan.kernel import BWD_COLS, bwd_plan
+
+    plan = bwd_plan(hd, dtype)
+    assert 1 <= plan.cluster <= 8 and hd % plan.cluster == 0
+    assert hd // plan.cluster == BWD_COLS
+    assert plan.threads == hd * BWD_COLS // (BWD_COLS // BWD_ROW_LANES) and plan.threads % 32 == 0
+    assert plan.threads // 32 * BWD_WARP_ROWS == hd  # the warps cover the rows
+    for b, h in ((16, 32), (1, 32), (1, 4), (3, 5)):
+        grid = b * h * plan.cluster  # rb_launch's
+        assert grid % plan.cluster == 0 and grid * BWD_COLS == b * h * hd
+    assert plan.smem_bytes <= 232_448
+    # an SM: 228 KB of shared memory (1 KB reserved a CTA), 2,048 threads,
+    # 65,536 registers
+    fit = min(233_472 // (plan.smem_bytes + 1024), 2048 // plan.threads,
+              65_536 // (plan.threads * BWD_REGS))  # BWD_REGS: the launch bounds' cap
+    assert fit >= 1
+    if hd == 64:
+        assert fit >= (4 if dtype == torch.bfloat16 else 2)
 
 
 # ----------------------------------------------------------------------------
