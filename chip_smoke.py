@@ -103,7 +103,19 @@ recurrent families, one model on the card at a time: the full
 cut to 8 layers (8 x 128), remat on, 6 steps each on a repeated batch, the
 loss finite and falling, the exact launches a step of K6, K7, K5 and their
 backward kernels, the median step, tokens/s, peak memory and idle share.
-The launcher check also runs ``--arch rwkv6-1.6b`` for two steps.  Phases 3 to
+The launcher check also runs ``--arch rwkv6-1.6b`` for two steps.  (12) The
+mesh: (12a) ``train.manual_dp.make_manual_dp_train_step`` on phase 11's
+model and batch, 2 steps in each of the none and int8 all-reduces, at world
+2 (two processes on the one card over gloo with CUDA tensors: NCCL refuses
+two ranks on one device) and at world 1 (NCCL, in this process): each
+rank's step ms, all-reduce ms, peak memory and exactly 24 + 12 K5 launches
+a step, int8's gradients summed as int32, and the world of 2's first step
+against the one-process step within the trainer's bf16 rule; (12c) the
+checkpoint rank 0 of the world of 2 saved, restored in the world of 1 as
+DTensors on ``param_shardings``, every leaf bit for bit; (12b)
+``PairScorer(mesh=make_host_mesh())`` over every pair of phase 6's tables
+against the unsharded scorer bit for bit, and ``launch/serve.py --mode
+score --shard`` as a subprocess.  Phases 3 to
 4c and 10c run with the launch autotuner on (``kernels.autotune``, its
 cache measured afresh under ``build/``; its entries and measuring seconds
 are printed apart from the timed queries); it is off again from phase 5,
@@ -112,8 +124,9 @@ estimates recorded before this run's changes bit for bit.  Launch counts
 are set to 0 just before each path (4; 4b's query path, dense baselines
 and Oracle cascade; 6; 8; each of 9's, where olmoe's path is the COUNT's
 ``execute`` and its timed scoring and batcher are counted apart; 10a's
-served queries; 10c's queries; 11's steps; each of 11b's; 10b's launches
-happen in its subprocesses)
+served queries; 10c's queries; 11's steps; each of 11b's; each of 12a's
+steps in each rank; 12b's sharded scoring; 10b's launches happen in its
+subprocesses)
 and read just after it; in 4c, just before each of the index
 path's own calls (its builds, queries and appends, not the rebuilds and
 kernel checks they are held against) and read just after it.
@@ -121,8 +134,8 @@ kernel checks they are held against) and read just after it.
 Any failed phase exits non-zero.  The last lines are one JSON object of
 kernels, the card's name and power limit, and ``{"ok": true, ...}``.
 Without a card (or without the repository beside it) it exits non-zero and
-prints no result.  The rehearsal runs phases 4, 4b, 4c, 6, 7, 8, 9, 10 and
-11 at a tiny size on the CPU and exits 3.
+prints no result.  The rehearsal runs phases 4, 4b, 4c, 6, 7, 8, 9, 10, 11
+and 12 at a tiny size on the CPU and exits 3.
 """
 import argparse
 import collections
@@ -2790,6 +2803,379 @@ def phase11(size, device):
 
 
 # ---------------------------------------------------------------------------
+# phase 12: the mesh (data-parallel training, sharded scoring, the elastic
+# restore)
+# ---------------------------------------------------------------------------
+
+DP_MODES = ("none", "int8")  # 12a's gradient all-reduces
+DP_STEPS = 2                 # steps in each mode, at each world size
+DP_WORLDS = (1, 2)           # ranks on the one card: NCCL in process, gloo in two processes
+DP_BOUND_S = 600.0           # 12a's wait on its two rank processes
+# the trainer's rule at bf16 (tests/test_torch_train.py): 6e-2 of a leaf's
+# largest |x|
+BF16_RULE = 6e-2
+
+
+def _dp_opt(mode):
+    """Phase 11's optimizer at ``eps = 1``: Adam's first step is then a
+    smooth function of each gradient (``lr * g / (|g| + 1)``), not ``lr *
+    sign(g)``, so two steps on gradients that differ by rounding compare
+    elementwise."""
+    from repro_torch.train import OptimizerConfig
+
+    return OptimizerConfig(peak_lr=TRAIN_LR, warmup_steps=2, decay_steps=1000, eps=1.0,
+                           grad_compression=mode)
+
+
+class _TimedAllReduce:
+    """``torch.distributed.all_reduce`` wrapped: the device is synchronised
+    before and after each call, and the calls' milliseconds are summed."""
+
+    def __init__(self, device):
+        import torch.distributed as dist
+
+        self.dist, self.inner, self.device, self.ms = dist, dist.all_reduce, device, 0.0
+
+    def __call__(self, t, *a, **kw):
+        sync(self.device)
+        t0 = time.perf_counter()
+        out = self.inner(t, *a, **kw)
+        sync(self.device)
+        self.ms += (time.perf_counter() - t0) * 1e3
+        return out
+
+    def __enter__(self):
+        self.dist.all_reduce = self
+        return self
+
+    def __exit__(self, *exc):
+        self.dist.all_reduce = self.inner
+
+
+def _digests(tree: dict) -> dict:
+    """SHA-256 of each tensor's bytes (bf16 as its bits), on the host."""
+    import hashlib
+
+    out = {}
+    for k, t in tree.items():
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        out[k] = hashlib.sha256(t.contiguous().numpy().tobytes()).hexdigest()
+    return out
+
+
+def _against_one_process(size, device, data, dp_params, dp_m):
+    """The world's first none step against the one-process step of phase 11
+    (``make_train_step``) from the same initial weights on the whole batch:
+    each leaf's update within the bf16 rule of its largest |update| plus one
+    ulp of the new parameter (both sides round it to the parameter's type),
+    and each first moment (0.1 of the clipped gradient) within the bf16 rule
+    of its largest |m|.  Returns the worst ratio of each to its tolerance."""
+    from repro_torch.train import make_train_step
+
+    cfg, p, o, _, _ = _train_setup(size, device)
+    p0 = {k: t.detach().float().clone() for k, t in p.named_parameters()}
+    p, o, _ = make_train_step(cfg, _dp_opt("none"))(p, o, data)
+    worst_p = worst_m = 0.0
+    for k, t in p.named_parameters():
+        new = t.detach().float()
+        want, got = new - p0[k], dp_params[k].float() - p0[k]
+        exp = torch.frexp(torch.maximum(new.abs(), dp_params[k].float().abs()))[1]
+        ulp = torch.ldexp(torch.ones_like(new), exp - (8 if t.dtype == torch.bfloat16 else 24))
+        tol = BF16_RULE * float(want.abs().max()) + ulp
+        worst_p = max(worst_p, float(((got - want).abs() / tol).max()))
+        m_tol = BF16_RULE * float(o["m"][k].abs().max()) + 1e-30
+        worst_m = max(worst_m, float((dp_m[k] - o["m"][k]).abs().max()) / m_tol)
+    return worst_p, worst_m
+
+
+def _dp_world(size, device, world, rank, ckpt_root=None):
+    """One rank's part of 12a (``torch.distributed`` is initialised):
+    ``DP_STEPS`` steps of ``make_manual_dp_train_step`` in each of
+    ``DP_MODES`` on phase 11's model and batch (its ``batch_at(0)``, of
+    which the rank takes its slice), with the launches, wire types and
+    all-reduce milliseconds of each step; rank 0 also holds the first none
+    step against the one-process step, and saves the trained state for 12c
+    under ``ckpt_root``.  Returns the logged row."""
+    from repro_torch.checkpoint.checkpoint import save
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.manual_dp import make_manual_dp_train_step
+
+    import torch.distributed as dist
+
+    cfg, params, opt, _, batch_at = _train_setup(size, device)
+    data = batch_at(0)
+    mesh = make_mesh((world,), ("data",), device=device)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    row = {"world": world, "rank": rank, "backend": dist.get_backend(),
+           "batch": list(np.shape(data["tokens"])), "rank_rows": len(data["tokens"]) // world,
+           "model": cfg.name, "layers": cfg.num_layers, "steps": {}}
+    first = None
+    for mode in DP_MODES:
+        step = make_manual_dp_train_step(cfg, mesh, _dp_opt(mode))
+        rows = []
+        for _ in range(DP_STEPS):
+            cuda_lib.reset_launches()
+            with _TimedAllReduce(device) as timed:
+                sync(device)
+                t0 = time.perf_counter()
+                params, opt, m = step(params, opt, data)
+                sync(device)
+            rows.append({"step_ms": (time.perf_counter() - t0) * 1e3,
+                         "all_reduce_ms": timed.ms, "loss": float(m["loss"]),
+                         "wire": step.wire,
+                         "launches": {k: v for k, v in cuda_lib.LAUNCHES.items() if v}})
+            if first is None:
+                first = ({k: t.detach().clone() for k, t in params.named_parameters()},
+                         {k: t.clone() for k, t in opt["m"].items()})
+        row["steps"][mode] = rows
+    if device == "cuda":
+        row["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    if ckpt_root is not None:
+        t0 = time.perf_counter()
+        save(ckpt_root, int(opt["step"]), {"params": params.state_dict(), "opt": opt})
+        row["save_s"] = time.perf_counter() - t0
+        row["digests"] = _digests(dict(params.state_dict()) | {
+            f"m/{k}": t for k, t in opt["m"].items()} | {f"v/{k}": t for k, t in opt["v"].items()})
+    del params, opt
+    _free()
+    if rank == 0:
+        row["vs_one_process"] = dict(zip(("update", "moment"),
+                                         _against_one_process(size, device, data, *first)))
+    return row
+
+
+def dp_rank(rank, world, store, device, full, ckpt_root, backend="gloo"):
+    """A rank process of a data-parallel world, on card ``rank`` modulo the
+    cards present; prints its row as JSON.  12a's world of 2 shares one card
+    over gloo with CUDA tensors (NCCL refuses two ranks on one device);
+    ``scripts/dp_scaling.py`` puts one rank on each card over NCCL."""
+    import datetime
+
+    import torch.distributed as dist
+
+    if device == "cuda":
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    dist.init_process_group(backend, store=dist.FileStore(store, world), rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=300))
+    try:
+        row = _dp_world(TRAIN_FULL if full else TRAIN_REHEARSAL, device, world, rank,
+                        ckpt_root if rank == 0 else None)
+    finally:
+        dist.destroy_process_group()
+    print(json.dumps(row), flush=True)
+
+
+def _dp_processes(size, device, world, ckpt_root, backend="gloo"):
+    """A data-parallel world of ``world`` ranks, one process each (12a's on
+    the one card); returns their rows."""
+    import uuid
+
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    store = os.path.join(HERE, "build", f"dp_store_{uuid.uuid4().hex}")
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    procs = []
+    for rank in range(world):
+        code = ("import sys; sys.path.insert(0, {here!r}); import chip_smoke; "
+                "chip_smoke.dp_rank({rank}, {world}, {store!r}, {device!r}, {full!r}, "
+                "{ckpt!r}, {backend!r})").format(here=HERE, rank=rank, world=world,
+                                                 store=store, device=device, full=size.full,
+                                                 ckpt=ckpt_root, backend=backend)
+        procs.append(subprocess.Popen([sys.executable, "-c", code], cwd=HERE, env=env,
+                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                      text=True))
+    rows, errs = [], []
+    try:
+        for rank, proc in enumerate(procs):
+            out, err = proc.communicate(timeout=DP_BOUND_S)
+            if proc.returncode != 0:
+                errs.append(f"rank {rank} exited {proc.returncode}:\n{err[-3000:]}")
+            else:
+                rows.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        if os.path.exists(store):
+            os.remove(store)
+    if errs:
+        fail(f"a rank of the world of {world} failed: " + "\n".join(errs))
+    return rows
+
+
+def _check_dp_row(row, device):
+    """Every step's loss finite; int8's gradient sum int32 on the wire; on
+    the card, exactly 24 + 12 K5 launches a step for joinml-oracle (each
+    layer's forward twice under remat, its backward once)."""
+    kinds = None
+    for mode, steps in row["steps"].items():
+        for i, st in enumerate(steps):
+            if not np.isfinite(st["loss"]):
+                fail(f"12a world {row['world']} rank {row['rank']}: {mode} step {i} loss "
+                     f"{st['loss']}")
+            grads = {k for k in st["wire"] if k.startswith("sum") and k != "sum float32"}
+            want = {"int8": {"sum int32"}, "none": set()}[mode]
+            if grads != want or (mode == "none" and st["wire"].get("sum float32", 0) < 2):
+                fail(f"12a world {row['world']}: {mode} step reduced {st['wire']}")
+            if device == "cuda":
+                if kinds is None:
+                    kinds = {"flash_attention": 2 * row["layers"],
+                             "flash_attention_bwd": row["layers"]}
+                if st["launches"] != kinds:
+                    fail(f"12a world {row['world']} rank {row['rank']}: launches a step "
+                         f"{st['launches']}, expected {kinds}")
+
+
+def _restore_at_world_one(size, device, ckpt_root, digests):
+    """12c: the checkpoint 12a's world of 2 saved, restored in this world of
+    one onto ``param_shardings`` (TRAIN_RULES: every leaf replicated on a
+    one-rank mesh) as DTensors on ``device``; every leaf's bytes equal those
+    rank 0 held."""
+    from repro_torch.checkpoint.checkpoint import latest_step, restore
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharding import TRAIN_RULES, sharding_for
+    from repro_torch.models.partition import param_shardings
+
+    cfg, params, opt, _, _ = _train_setup(size, device, seed=SEED + 1)
+    mesh = make_mesh((1,), ("data",), device=device)
+    sh = param_shardings(params, mesh, TRAIN_RULES)
+    shardings = {"params": sh, "opt": {"m": sh, "v": sh,
+                                       "step": sharding_for((), (), mesh, TRAIN_RULES)}}
+    step = latest_step(ckpt_root)
+    t0 = time.perf_counter()
+    tree, manifest = restore(ckpt_root, step, {"params": params.state_dict(), "opt": opt},
+                             shardings=shardings)
+    sync(device)
+    restore_s = time.perf_counter() - t0
+    got = _digests({k: t.full_tensor() for k, t in tree["params"].items()} | {
+        f"m/{k}": t.full_tensor() for k, t in tree["opt"]["m"].items()} | {
+        f"v/{k}": t.full_tensor() for k, t in tree["opt"]["v"].items()})
+    differ = sorted(k for k in digests if got.get(k) != digests[k])
+    kinds = {type(t).__name__ for t in tree["params"].values()}
+    row = {"check": "12c: saved at world 2, restored at world 1", "step": manifest["step"],
+           "leaves": len(got), "differing": differ[:8], "restore_s": restore_s,
+           "leaf_types": sorted(kinds),
+           "device": str(next(iter(tree["params"].values())).device)}
+    log(json.dumps(row))
+    if differ or set(got) != set(digests) or kinds != {"DTensor"}:
+        fail(f"12c: the restored checkpoint differs from what rank 0 saved: {row}")
+    return row
+
+
+def sharded_scoring(size, device):
+    """12b: phase 6's scorer (the full joinml-oracle, seed 0, batches of
+    ``size.batch``) over every pair of phase 6's tables, unsharded and over
+    ``make_host_mesh()`` (one card: the same shapes and kernels), bit for
+    bit; then ``launch/serve.py --mode score --shard`` as a subprocess.
+    Returns the launches of the sharded scoring."""
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import init_params
+    from repro_torch.serve import PairScorer
+
+    cfg = model_config(ORACLE_NAME, size)
+    params = init_params(cfg, seed=SEED, device=device)
+    left, right = entity_tables(size)
+    plain = make_scorer(cfg, params, left, right, size.batch, device)
+    mesh = make_host_mesh(device=device)
+    sharded = PairScorer(cfg, params, plain.tokenize_pair, plain.yes_id, plain.no_id,
+                         max_len=48, batch_size=size.batch, mesh=mesh, device=device)
+    pairs = _all_pairs(len(left), len(right))
+    sync(device)
+    t0 = time.perf_counter()
+    want = plain.score(pairs)
+    plain_s = time.perf_counter() - t0
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    got = sharded.score(pairs)
+    sharded_s = time.perf_counter() - t0
+    launches = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
+    row = {"path": "12b: sharded scoring", "mesh": dict(mesh.shape), "pairs": len(pairs),
+           "batch_size": sharded.batch_size, "forward_batches": sharded.forward_batches,
+           "equal": bool(np.array_equal(got, want)), "max_abs_diff": float(np.abs(got - want).max()),
+           "plain_s": plain_s, "sharded_s": sharded_s, "sharded_pairs_per_s": len(pairs) / sharded_s,
+           "launches": launches}
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+                          ORACLE_NAME, "--mode", "score", "--shard", "--device", device],
+                         capture_output=True, text=True, cwd=HERE, env=env, timeout=600)
+    row["launcher"] = {"rc": out.returncode, "wall_s": time.perf_counter() - t0,
+                       "stdout": out.stdout.strip().splitlines()[-3:]}
+    log(json.dumps(row))
+    # on the CPU the threaded reductions do not repeat their bits run to run
+    # (tests/test_torch_sharded_serve.py); the rehearsal holds P to CARD_CPU_ATOL
+    if not (row["equal"] if device == "cuda" else row["max_abs_diff"] <= CARD_CPU_ATOL):
+        fail(f"12b: the sharded scorer differs from the unsharded one: {row}")
+    if out.returncode != 0 or "sharding score batches over mesh" not in out.stdout:
+        fail(f"12b: launch/serve.py --shard exited {out.returncode}:\n{out.stderr[-3000:]}")
+    _path_launches("12b sharded scoring", launches, device)
+    del params, plain, sharded
+    _free()
+    return launches
+
+
+def phase12(size, model_size, device):
+    """Phase 12: (12a) ``make_manual_dp_train_step`` on phase 11's model and
+    batch at world 2 (two gloo processes on the one card) and at world 1
+    (NCCL on the card in this process; gloo on the CPU), ``DP_STEPS`` steps
+    in each of ``DP_MODES``; (12c) the world of 2's checkpoint restored in
+    the world of 1; (12b) the sharded scorer.  Launch counts are set to 0
+    just before each step and read just after.  Returns {path: launches}."""
+    import datetime
+    import shutil as _shutil
+
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    ckpt_root = os.path.join(HERE, "build", "dp_ckpt")
+    _shutil.rmtree(ckpt_root, ignore_errors=True)
+    rows = {2: _dp_processes(size, device, 2, ckpt_root)}
+    store = os.path.join(HERE, "build", "dp_store_world1")
+    if os.path.exists(store):
+        os.remove(store)
+    backend = "nccl" if device == "cuda" else "gloo"
+    dist.init_process_group(backend, store=dist.FileStore(store, 1), rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        rows[1] = [_dp_world(size, device, 1, 0)]
+        saved = next(r for r in rows[2] if r["rank"] == 0)
+        restored = _restore_at_world_one(size, device, ckpt_root, saved["digests"])
+    finally:
+        dist.destroy_process_group()
+        os.remove(store)
+    _shutil.rmtree(ckpt_root, ignore_errors=True)
+    for world, rs in rows.items():
+        for r in rs:
+            r.pop("digests", None)
+            log(json.dumps({"path": "12a: data-parallel training", **r}))
+            _check_dp_row(r, device)
+    vs = rows[2][0]["vs_one_process"]
+    if max(vs.values()) > 1.0:
+        fail(f"12a: the world of 2's none step differs from the one-process step: {vs}")
+    summary = {"phase": "12a summary", "step_ms": {
+        f"world {w} {mode}": [st["step_ms"] for r in rs for st in r["steps"][mode]]
+        for w, rs in rows.items() for mode in DP_MODES}, "all_reduce_ms": {
+        f"world {w} {mode}": [st["all_reduce_ms"] for r in rs for st in r["steps"][mode]]
+        for w, rs in rows.items() for mode in DP_MODES},
+        "max_memory_allocated_bytes": {f"world {w} rank {r['rank']}":
+                                       r.get("max_memory_allocated_bytes") for w, rs in
+                                       rows.items() for r in rs},
+        "vs_one_process": vs, "restore_s": restored["restore_s"],
+        "phase12a_c_s": time.perf_counter() - t0}
+    log(json.dumps(summary))
+    launches = {f"DP training, world {w} rank {r['rank']}, a step (12a)":
+                rs_last for w, rs in rows.items() for r in rs
+                for rs_last in [r["steps"][DP_MODES[-1]][-1]["launches"]]}
+    launches["sharded scoring (12b)"] = sharded_scoring(model_size, device)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 10: the serving plane
 # ---------------------------------------------------------------------------
 
@@ -3248,7 +3634,7 @@ def serving_index(size, device, catalogs, warm_count):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--rehearse-cpu", action="store_true",
-                    help="run phases 4, 4b, 4c, 6, 7, 8, 9, 10 and 11 at a tiny size on the "
+                    help="run phases 4, 4b, 4c, 6, 7, 8, 9, 10, 11 and 12 at a tiny size on the "
                          "CPU (exits 3)")
     if ap.parse_args().rehearse_cpu:
         from repro_torch.kernels import cuda_lib
@@ -3265,6 +3651,7 @@ def main():
         served = serving_in_process(REHEARSAL_MODEL, "cpu")
         serving_fleet(REHEARSAL_MODEL, "cpu", served)
         phase11(TRAIN_REHEARSAL, "cpu")
+        phase12(TRAIN_REHEARSAL, REHEARSAL_MODEL, "cpu")
         log(f"rehearsal complete: {len(results) + len(results_4b) + len(results_4c)} "
             "queries, the Oracle queries, the recurrent paths, the model families, "
             "the serving plane and training on the CPU (no result)")
@@ -3411,7 +3798,12 @@ def main():
     for name, n in recurrent_launches.items():
         paths[f"{name} training (11b)"] = n
     _free()
-    log(json.dumps({"phase10_s": phase10_s, "phase11_s": time.perf_counter() - t11,
+    phase11_s = time.perf_counter() - t11
+    # phase 12: the mesh, counts set to 0 just before each step and read just after
+    t12 = time.perf_counter()
+    paths.update(phase12(TRAIN_FULL, FULL_MODEL, "cuda"))
+    log(json.dumps({"phase10_s": phase10_s, "phase11_s": phase11_s,
+                    "phase12_s": time.perf_counter() - t12,
                     "script_s": time.perf_counter() - t_script}))
     main_path = {"flash_attention": "Oracle COUNT", "rwkv6_scan": "rwkv6-1.6b",
                  "rglru_scan": "recurrentgemma-9b"}

@@ -16,8 +16,11 @@ its ``state_dict()``.  A leaf's path is its keys joined by ``/``.
 * async — :class:`AsyncCheckpointer` copies the tree to host memory on the
   caller's thread, then writes on a worker thread.
 
-Restoring onto other shardings (``shardings=``) waits for the multi-device
-half of the trainer (ROADMAP item 11).
+Elastic resharding: the checkpoint carries no device layout.  A DTensor
+leaf is saved whole (``full_tensor()``, a collective: every rank of its
+mesh calls ``save``, and global rank 0 writes), and ``restore(shardings=)``
+brings each leaf back as a DTensor on the current mesh, so a checkpoint
+saved at one world size restores at another.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def _flatten(tree, prefix=()):
@@ -45,11 +49,24 @@ def _flatten(tree, prefix=()):
         yield prefix, tree
 
 
+def _is_dtensor(leaf) -> bool:
+    if not isinstance(leaf, torch.Tensor) or not dist.is_available():
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(leaf, DTensor)
+
+
+def _whole(leaf):
+    """A DTensor leaf gathered whole (a collective), else the leaf."""
+    return leaf.full_tensor() if _is_dtensor(leaf) else leaf
+
+
 def _host(leaf) -> np.ndarray:
     """A leaf as a numpy array np.save writes (bf16 as its uint16 bits),
     with its logical type name."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().to("cpu", copy=True)
+        t = _whole(leaf).detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
         name = str(t.dtype).removeprefix("torch.")
@@ -69,12 +86,27 @@ def _snapshot(tree):
     if isinstance(tree, (list, tuple)):
         return type(tree)(_snapshot(v) for v in tree)
     if isinstance(tree, torch.Tensor):
-        return tree.detach().to("cpu", copy=True)
+        return _whole(tree).detach().to("cpu", copy=True)
     return np.array(tree)
 
 
 def save(root: str, step: int, tree, extra: Optional[dict] = None) -> str:
-    """Synchronous atomic save.  Returns the final checkpoint directory."""
+    """Synchronous atomic save.  Returns the final checkpoint directory.
+    With DTensor leaves every rank calls it; rank 0 writes, and the others
+    wait for the checkpoint to be in place."""
+    final = os.path.join(root, f"step_{step:08d}")
+    if any(_is_dtensor(leaf) for _, leaf in _flatten(tree)):
+        tree = _snapshot(tree)  # gathers every DTensor on every rank
+        if dist.get_rank() != 0:
+            dist.barrier()
+            return final
+        _write(root, step, tree, extra)
+        dist.barrier()
+        return final
+    return _write(root, step, tree, extra)
+
+
+def _write(root: str, step: int, tree, extra: Optional[dict]) -> str:
     os.makedirs(root, exist_ok=True)
     tmp = os.path.join(root, f".tmp_{step:08d}")
     final = os.path.join(root, f"step_{step:08d}")
@@ -164,20 +196,37 @@ def _load_leaf(ckpt: str, entry: dict, key: str, expect) -> torch.Tensor:
     return torch.from_numpy(np.array(arr))
 
 
+def _distribute(t: torch.Tensor, sharding, key: str):
+    """``t`` (the whole leaf, loaded on every rank) as a DTensor laid out
+    by ``sharding`` (a ``launch.sharding.NamedSharding``); each rank keeps
+    its own shard of its own copy, so nothing crosses the wire."""
+    from torch.distributed.tensor import distribute_tensor
+
+    mesh = sharding.mesh
+    if not mesh.multi_process:
+        raise ValueError(f"{key}: restoring onto shardings needs a multi-process mesh")
+    return distribute_tensor(t.to(mesh.device), mesh.device_mesh, sharding.placements,
+                             src_data_rank=None)
+
+
 def restore(root: str, step: int, target_tree, shardings=None):
     """Restore into the structure of ``target_tree``.  A tensor leaf comes
     back on its target's device, a numpy leaf as a tensor on the CPU; an
     ``nn.Module`` target is loaded in place (each parameter's type must
-    match) and returned.  Returns (tree, manifest)."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restoring onto shardings needs the multi-device trainer (ROADMAP item 11)")
+    match) and returned.  ``shardings``: optional matching tree of
+    ``launch.sharding.NamedSharding`` on the *current* mesh (e.g. from
+    ``models.partition.param_shardings``) — each leaf comes back as a
+    DTensor laid out so, the elastic-resharding path; the target is then
+    a tree of tensors or arrays, not a module.  Returns (tree, manifest)."""
+    if shardings is not None and isinstance(target_tree, torch.nn.Module):
+        raise TypeError("restoring onto shardings takes a tree of tensors (a module's "
+                        "state_dict()), not a module")
     ckpt = os.path.join(root, f"step_{step:08d}")
     with open(os.path.join(ckpt, "manifest.json")) as f:
         manifest = json.load(f)
     by_path = {leaf["path"]: leaf for leaf in manifest["leaves"]}
 
-    def load(tree, prefix):
+    def load(tree, prefix, sh=None):
         if isinstance(tree, torch.nn.Module):
             state = load(tree.state_dict(), prefix)
             with torch.no_grad():
@@ -188,17 +237,21 @@ def restore(root: str, step: int, target_tree, shardings=None):
                     t.copy_(state[name])
             return tree
         if isinstance(tree, dict):  # leaves in the reference's (sorted) order
-            done = {k: load(tree[k], prefix + (str(k),)) for k in sorted(tree)}
+            done = {k: load(tree[k], prefix + (str(k),), None if sh is None else sh[k])
+                    for k in sorted(tree)}
             return {k: done[k] for k in tree}
         if isinstance(tree, (list, tuple)):
-            return type(tree)(load(v, prefix + (str(i),)) for i, v in enumerate(tree))
+            return type(tree)(load(v, prefix + (str(i),), None if sh is None else sh[i])
+                              for i, v in enumerate(tree))
         key = "/".join(prefix)
         if key not in by_path:
             raise KeyError(f"checkpoint missing leaf {key}")
         t = _load_leaf(ckpt, by_path[key], key, getattr(tree, "shape", None))
+        if sh is not None:
+            return _distribute(t, sh, key)
         return t.to(tree.device) if isinstance(tree, torch.Tensor) else t
 
-    return load(target_tree, ()), manifest
+    return load(target_tree, (), shardings), manifest
 
 
 def restore_latest(root: str, target_tree, shardings=None):

@@ -50,9 +50,10 @@ queries under deadline-based admission control (docs/serving.md).  A server
 or worker scores the pairs of ``--records`` (a JSON file
 ``{"left": [...], "right": [...]}`` of record strings) when given, else the
 reference's synthetic records, at ``--threshold`` and in batches of
-``--score-batch`` pairs.  ``--shard`` (pair scoring over a device mesh)
-needs the port's mesh and raises ``NotImplementedError`` (ROADMAP queue 1,
-item 11).
+``--score-batch`` pairs.  With ``--shard`` every scorer splits its batch
+dimension over the one-process host mesh of the local cards
+(``launch.mesh.make_host_mesh``, ``launch.sharding.data_parallel``; with
+``--device cpu`` one CPU slot).
 
 Index maintenance modes (no model; see ``repro_torch.core.index``)::
 
@@ -158,18 +159,25 @@ def _run_refresh_index(args) -> None:
           f"tile(s) in {time.time()-t0:.2f}s on {args.device} -> {path}")
 
 
-def _make_scorer(cfg, params, tok, left, right, batch_size: int, device):
+def _make_scorer(cfg, params, tok, left, right, batch_size: int, device, shard=False):
     """Record-pair scorer: pair ``(i, j)`` tokenizes ``left[i]`` against
-    ``right[j]``."""
+    ``right[j]``; with ``shard``, data-parallel over the host mesh."""
     from ..data.pipeline import pair_example
     from ..serve import PairScorer
+
+    mesh = None
+    if shard:
+        from .mesh import make_host_mesh
+
+        mesh = make_host_mesh(device=device)
+        print(f"[serve] sharding score batches over mesh {dict(mesh.shape)}", flush=True)
 
     def tok_pair(pair):
         t, _ = pair_example(tok, left[pair[0]], right[pair[1]], None, 48)
         return t[t != tok.PAD]
 
     return PairScorer(cfg, params, tok_pair, tok.YES, tok.NO, max_len=48,
-                      batch_size=batch_size, device=device)
+                      batch_size=batch_size, mesh=mesh, device=device)
 
 
 def _fleet_records(args, n_side: int) -> tuple[list, list]:
@@ -398,7 +406,7 @@ def _run_service(args, cfg, params, tok) -> None:
                                seed=0)
     left, right = _fleet_records(args, n_side)
     scorer = _make_scorer(cfg, params, tok, left, right, args.score_batch,
-                          args.device)
+                          args.device, args.shard)
     cfg_bas = BASConfig(n_bootstrap=100)
     # named oracles share one LabelStore segment group (an unnamed
     # ModelOracle's group is process-local and can never be persisted)
@@ -485,8 +493,8 @@ def main(argv=None):
     ap.add_argument("--workers", type=int, default=1,
                     help="service/server/worker mode: scorer worker threads")
     ap.add_argument("--shard", action="store_true",
-                    help="data-parallel pair scoring over a device mesh "
-                         "(not ported: ROADMAP queue 1, item 11)")
+                    help="data-parallel pair scoring over the host mesh "
+                         "of the local cards")
     ap.add_argument("--host", default="127.0.0.1",
                     help="server/worker mode: bind address")
     ap.add_argument("--port", type=int, default=0,
@@ -551,10 +559,6 @@ def main(argv=None):
                     help="refresh-index mode: .npy of rows to append "
                          "(overrides --append-rows)")
     args = ap.parse_args(argv)
-    if args.shard:
-        raise NotImplementedError(
-            "--shard scores pairs over a device mesh, which is not ported "
-            "yet (ROADMAP queue 1, item 11)")
     if args.mode in FLEET_MODES:
         resolve_device(args.device)
     if args.mode == "client":
@@ -604,14 +608,14 @@ def main(argv=None):
     elif args.mode in ("server", "worker"):
         left, right = _fleet_records(args, args.n_side)
         scorer = _make_scorer(cfg, params, tok, left, right,
-                              args.score_batch, args.device)
+                              args.score_batch, args.device, args.shard)
         _run_fleet_role(args, scorer)
     elif args.mode == "service":
         _run_service(args, cfg, params, tok)
     else:
         records = [f"entity {i % 16} record {i}" for i in range(64)]
         scorer = _make_scorer(cfg, params, tok, records, records, 16,
-                              args.device)
+                              args.device, args.shard)
         rng = np.random.default_rng(0)
         pairs = rng.integers(0, 64, size=(args.pairs, 2))
         t0 = time.time()

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.flash_attention import flash_attention
+from ..launch.sharding import num_batch_shards
 from .config import ModelConfig
 
 
@@ -299,7 +300,7 @@ def mlp(p: MLP, cfg: ModelConfig, x):
 
 
 # ----------------------------------------------------------------------------
-# MoE: top-k routing + sort-based capacity dispatch (one group on one card)
+# MoE: top-k routing + sort-based capacity dispatch, one group per batch shard
 # ----------------------------------------------------------------------------
 
 class MoE(nn.Module):
@@ -351,25 +352,42 @@ def moe_route(p: MoE, cfg: ModelConfig, xt):
 
 
 def moe_mlp(p: MoE, cfg: ModelConfig, x):
-    """x: (B, S, d).  Tokens go to their top-k experts through an (E, cap,
-    d) capacity buffer; overflow is dropped (Switch behaviour).  The expert
-    products are batched matmuls.  A token's k contributions are put back
-    in (token, choice) order and summed over k, so the same batch gives the
+    """x: (B, S, d).  Tokens go to their top-k experts through a (G, E,
+    cap, d) capacity buffer; overflow is dropped per group (Switch
+    behaviour).  G is the number of batch shards under an active sharding
+    context (``launch.sharding.num_batch_shards``; 1 outside one, or when
+    it does not divide B): each group of B / G rows routes alone, with the
+    capacity of its own (B / G) * S tokens, as each shard of the
+    reference's batch does.  The expert products are batched matmuls over
+    every group's slots.  A token's k contributions are put back in
+    (token, choice) order and summed over k, so the same batch gives the
     same bits on every run (no atomic scatter-add)."""
     b, s, d = x.shape
     e = cfg.num_experts
-    xt = x.reshape(b * s, d)
-    top_e, top_w, keep, slot = moe_route(p, cfg, xt)
-    cap = moe_capacity(cfg, b * s)
-    k = top_e.shape[1]
-    tok = torch.arange(b * s, device=x.device)[:, None].expand(-1, k)
-    buf = x.new_zeros((e * cap, d))
-    buf[slot[keep]] = xt[tok[keep]]
-    buf = buf.reshape(e, cap, d)
+    g = num_batch_shards()
+    if b % g:
+        g = 1
+    t = (b // g) * s                                    # tokens per group
+    xt = x.reshape(g, t, d)
+    cap = moe_capacity(cfg, t)
+    routes = [moe_route(p, cfg, xt[i]) for i in range(g)]
+    top_w = torch.stack([r[1] for r in routes])          # (G, T, k)
+    keep = torch.stack([r[2] for r in routes])
+    # a group's slots follow the groups before it in the flat (G * E * cap) buffer
+    base = (torch.arange(g, device=x.device) * (e * cap))[:, None, None]
+    slot = torch.stack([r[3] for r in routes]) + base
+    k = top_w.shape[2]
+    tok = torch.arange(g * t, device=x.device).reshape(g, t, 1).expand(-1, -1, k)
+    buf = x.new_zeros((g * e * cap, d))
+    buf[slot[keep]] = xt.reshape(g * t, d)[tok[keep]]
+    # (G, E, cap, d) -> (E, G * cap, d): one matmul an expert over every group
+    buf = buf.reshape(g, e, cap, d).transpose(0, 1).reshape(e, g * cap, d)
     act = F.silu if cfg.act in ("silu", "geglu") else gelu
     h = act(torch.bmm(buf, p.w_gate)) * torch.bmm(buf, p.w_up)
-    out_buf = torch.bmm(h, p.w_down).reshape(e * cap, d)
-    picked = out_buf[slot.clamp_max(e * cap - 1)]           # (T, k, d)
+    out_buf = torch.bmm(h, p.w_down).reshape(e, g, cap, d).transpose(0, 1)
+    out_buf = out_buf.reshape(g * e * cap, d)
+    last = base + (e * cap - 1)
+    picked = out_buf[torch.minimum(slot, last)]          # (G, T, k, d)
     contrib = torch.where(keep[..., None], picked, picked.new_zeros(()))
     contrib = contrib * top_w[..., None].to(x.dtype)
-    return contrib.sum(dim=1).reshape(b, s, d)
+    return contrib.sum(dim=2).reshape(b, s, d)

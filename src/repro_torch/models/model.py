@@ -19,8 +19,10 @@ the hybrid pattern and a ``tail``), named after the reference tree's keys,
 so ``repro_torch.interop.params_from_jax`` is a name map that unstacks the
 reference's scanned axes.  A cache is the reference's tree of tensors,
 stacked over layers the same way, and ``decode_step`` updates it in place.
-The reference's activation-sharding annotations are dropped: they do
-nothing on one card.
+The reference's activation-sharding annotations are layout hints with no
+numeric effect; ``launch/sharding.py`` holds the rules, the parameters'
+specs come from ``models/partition.py``, and the MoE dispatch keeps one
+capacity group per batch shard under a sharding context.
 
 Under ``cfg.remat`` a forward that records gradients runs each layer in
 ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of its layer

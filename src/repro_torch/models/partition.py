@@ -1,0 +1,109 @@
+"""Parameter partitioning (the reference's ``models/partition.py``): logical
+axes per parameter, derived from the parameter's name and rank (t5x-style
+path rules) so the spec never drifts from the model's structure.
+
+Logical names used on params:
+  "fsdp"      — dim sharded over the FSDP axes (pod, data) in training rules
+  "model_dim" — dim sharded over the tensor-parallel "model" axis
+  "vocab"     — vocabulary dim ("model" axis)
+  "expert"    — MoE expert dim ("model" axis, expert parallelism)
+
+The rules key on a parameter's last name (``layers.3.attn.wq`` -> ``wq``),
+and an expert matrix under ``moe`` takes the MoE rules.  The reference
+stacks a layer's parameters over the layers and pads a spec with ``None``
+on the left for the stacked axes; the port keeps each layer's parameters
+apart, so a parameter's spec is the reference's with those axes dropped.
+"""
+from __future__ import annotations
+
+from torch import nn
+
+# (key name) -> base logical axes (without any stacked-layer leading dims)
+_RULES = {
+    "embed": ("vocab", "fsdp"),
+    "head": ("fsdp", "vocab"),
+    "patch_proj": ("fsdp", "model_dim"),
+    # attention
+    "wq": ("fsdp", "model_dim"),
+    "wk": ("fsdp", "model_dim"),
+    "wv": ("fsdp", "model_dim"),
+    "wo": ("model_dim", "fsdp"),
+    "bq": ("model_dim",),
+    "bk": ("model_dim",),
+    "bv": ("model_dim",),
+    # mlp
+    "w_gate": ("fsdp", "model_dim"),
+    "w_up": ("fsdp", "model_dim"),
+    "w_down": ("model_dim", "fsdp"),
+    "b_up": ("model_dim",),
+    "b_down": (None,),
+    # moe (rank-3 leaves resolved below)
+    "router": (None, "expert"),
+    # rwkv time mix
+    "w_r": ("fsdp", "model_dim"),
+    "w_k": ("fsdp", "model_dim"),
+    "w_v": ("model_dim", "fsdp"),
+    "w_g": ("fsdp", "model_dim"),
+    "w_o": ("model_dim", "fsdp"),
+    "decay_a": ("fsdp", None),
+    "decay_b": (None, "fsdp"),
+    "bonus_u": (None, None),
+    # rglru
+    "w_x": ("fsdp", "model_dim"),
+    "w_y": ("fsdp", "model_dim"),
+    "conv_w": (None, "model_dim"),
+    "conv_b": ("model_dim",),
+    "w_gate_a": ("fsdp", "model_dim"),
+    "b_gate_a": ("model_dim",),
+    "w_gate_x": ("fsdp", "model_dim"),
+    "b_gate_x": ("model_dim",),
+    "lambda": ("model_dim",),
+}
+
+# Expert weights: EP over "model" on the expert dim; the ff dim shards over
+# the FSDP axes without per-layer gathers.
+_MOE_RULES = {
+    "w_gate": ("expert", None, "fsdp"),
+    "w_up": ("expert", None, "fsdp"),
+    "w_down": ("expert", "fsdp", None),
+}
+
+
+def _leaf_spec(name: str, ndim: int) -> tuple:
+    keys = [k for k in name.split(".") if not k.isdigit()]  # list indices carry no key
+    last = keys[-1] if keys else ""
+    if "moe" in keys and last in _MOE_RULES:
+        base = _MOE_RULES[last]
+    elif last in _RULES:
+        base = _RULES[last]
+    else:
+        base = (None,) * ndim  # norms, scalars, mus
+    extra = ndim - len(base)
+    if extra < 0:  # e.g. tied/unstacked variant; truncate from the left
+        base = base[-ndim:] if ndim else ()
+        extra = 0
+    return (None,) * extra + tuple(base)
+
+
+def _named(params) -> dict:
+    if isinstance(params, nn.Module):
+        return dict(params.named_parameters())
+    return dict(params)
+
+
+def param_logical_axes(params) -> dict:
+    """{name: logical-axis tuple} for a model (or a {name: tensor} dict)."""
+    return {k: _leaf_spec(k, p.ndim) for k, p in _named(params).items()}
+
+
+def param_shardings(params, mesh, rules) -> dict:
+    """{name: ``launch.sharding.NamedSharding``} for a model (or a {name:
+    tensor} dict) on ``mesh`` under ``rules``."""
+    from ..launch.sharding import sharding_for
+
+    named = _named(params)
+    return {k: sharding_for(spec, tuple(named[k].shape), mesh, rules)
+            for k, spec in param_logical_axes(named).items()}
+
+
+__all__ = ["param_logical_axes", "param_shardings"]

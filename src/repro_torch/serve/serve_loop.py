@@ -8,8 +8,9 @@ the YES/NO token ids.  The Oracle batch layer (``repro_torch.core.oracle``)
 hands it one deduped request per pipeline stage; the scorer buckets those
 requests into a small set of padded (batch, length) shapes — power-of-two
 sequence buckets × a fixed batch dim — as the reference does, so every
-forward runs at one of O(log max_len) shapes.  The reference's data-parallel
-``mesh=`` path is not ported yet (ROADMAP queue 1, item 10.4).
+forward runs at one of O(log max_len) shapes.  With ``mesh=`` (a
+one-process mesh, ``launch.mesh.make_host_mesh``) each padded batch is
+split over the mesh's batch axes (``launch.sharding.data_parallel``).
 
 ContinuousBatcher — fixed B decode slots; finished sequences vacate their
 slot and queued requests are admitted mid-flight (per-slot positions) where
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..launch.sharding import data_parallel, mesh_batch_shards
 from ..models import Model, decode_step, forward, init_cache
 from ..models.config import ModelConfig
 
@@ -48,20 +50,34 @@ def _on_device(params: Model, device) -> torch.device:
 class PairScorer:
     """Batched Oracle scoring: score(idx_pairs) -> P(match) per pair.
 
-    ``params`` lie on ``device`` (default the card).  ``forward_batches``
-    counts forward invocations — the unit the ceil(unique / batch_size)
-    bound is stated in — and ``pairs_scored`` the pairs scored.
+    ``params`` lie on ``device`` (default the card).  ``mesh`` (optional, a
+    one-process mesh) enables the data-parallel path: ``batch_size`` is
+    rounded up to a multiple of the mesh's batch shards (SERVE_RULES), the
+    parameters are replicated once onto each device that takes a slice,
+    and each slice runs its own forward — so an MoE's capacity is counted
+    per slice, as inside the reference's ``shard_map``.
+    ``forward_batches`` counts forward invocations of the whole batch —
+    the unit the ceil(unique / batch_size) bound is stated in — and
+    ``pairs_scored`` the pairs scored.
     """
 
     def __init__(self, cfg: ModelConfig, params: Model, tokenize_pair: Callable,
                  yes_id: int, no_id: int, max_len: int = 128,
-                 batch_size: int = 32, min_bucket: int = 16, device="cuda"):
+                 batch_size: int = 32, mesh=None, min_bucket: int = 16,
+                 device="cuda"):
         self.cfg = cfg
         self.params = params
         self.device = _on_device(params, device)
         self.tokenize_pair = tokenize_pair
         self.yes_id, self.no_id = yes_id, no_id
         self.max_len = max_len
+        self.mesh = mesh
+        fwd = lambda p, b: forward(cfg, p, b)  # noqa: E731
+        if mesh is not None:
+            shards = mesh_batch_shards(mesh)
+            batch_size = -(-batch_size // shards) * shards
+            fwd = data_parallel(fwd, mesh)
+        self._fwd = fwd
         self.batch_size = batch_size
         self.forward_batches = 0
         self.pairs_scored = 0
@@ -118,8 +134,8 @@ class PairScorer:
                         [toks, np.zeros((pad_rows, int(pad_len)), np.int32)]
                     )
                     last = np.concatenate([last, np.zeros(pad_rows, np.int32)])
-                logits = forward(self.cfg, self.params,
-                                 {"tokens": torch.from_numpy(toks).to(self.device)})
+                logits = self._fwd(self.params, {
+                    "tokens": torch.from_numpy(toks).to(self.device)}).to(self.device)
                 self.forward_batches += 1
                 last_t = torch.from_numpy(last).to(self.device).long()
                 lg = logits[rows, last_t][:, cols].double().cpu().numpy()

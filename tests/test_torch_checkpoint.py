@@ -197,9 +197,19 @@ def test_preemption_checkpoint_flow(tmp_path):
 
 
 def test_shardings_wait_for_the_multi_device_trainer(tmp_path):
+    """Restoring onto shardings lays leaves out as DTensors over the ranks of
+    a multi-process mesh (tests/test_torch_reshard.py); a one-process mesh's
+    layout, or a module target, is refused."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharding import TRAIN_RULES, sharding_for
+
     save(str(tmp_path), 1, {"w": torch.zeros(2)})
-    with pytest.raises(NotImplementedError, match="item 11"):
-        restore(str(tmp_path), 1, {"w": torch.zeros(2)}, shardings={"w": None})
+    mesh = make_mesh((2,), ("data",), devices=["cpu", "cpu"])
+    sh = {"w": sharding_for(("batch",), (2,), mesh, TRAIN_RULES)}
+    with pytest.raises(ValueError, match="multi-process mesh"):
+        restore(str(tmp_path), 1, {"w": torch.zeros(2)}, shardings=sh)
+    with pytest.raises(TypeError, match="state_dict"):
+        restore(str(tmp_path), 1, torch.nn.Linear(1, 2), shardings=sh)
 
 
 def test_module_restores_in_place(tmp_path):

@@ -3,8 +3,10 @@ the cascade, a baseline), scoring pairs with the Oracle model, an MoE
 forward and an encoder-decoder decode step, building,
 saving, loading, appending to and querying through a stratification index,
 serving queries through the oracle service (with its label store and
-metrics exporter) and over its TCP transport, and training (a train step,
-a checkpoint, the training launcher, the autotuner's cache)
+metrics exporter) and over its TCP transport, training (a train step,
+a checkpoint, the training launcher, the autotuner's cache) and the mesh
+layer (a data-parallel step in a world of one gloo rank, the parameters'
+shardings, a scorer over the host mesh)
 load neither JAX nor the reference package, and its entry points run on
 the card unless the caller asks for the CPU.  On CUDA tensors no op
 returns a result without a gradient where an input requires one: the scan
@@ -123,9 +125,29 @@ with tempfile.TemporaryDirectory() as d:
     train_main(["--steps", "2", "--batch", "2", "--seq", "8", "--ckpt", d,
                 "--device", "cpu"])
     assert restore_latest(d, {"params": tp, "opt": to})[1]["step"] == 2
+import datetime
+import torch.distributed as dist
+from repro_torch.launch.mesh import make_host_mesh, make_mesh
+from repro_torch.launch.sharding import TRAIN_RULES
+from repro_torch.models.partition import param_shardings
+from repro_torch.train.manual_dp import make_manual_dp_train_step
+
+with tempfile.TemporaryDirectory() as d:
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(d, "store"), 1),
+                            rank=0, world_size=1, timeout=datetime.timedelta(seconds=60))
+    mesh = make_mesh((1,), ("data",), device="cpu")
+    dp = make_manual_dp_train_step(mcfg, mesh, OptimizerConfig(grad_compression="int8"))
+    tp, to, tm = dp(tp, to, {"tokens": [[1, 2, 3, 4, 5]]})
+    assert float(tm["loss"]) > 0 and dp.wire["sum int32"] > 0
+    param_shardings(tp, mesh, TRAIN_RULES)
+    dist.destroy_process_group()
+PairScorer(mcfg, tp, tok_pair, tok.YES, tok.NO, max_len=48, batch_size=16,
+           mesh=make_host_mesh(device="cpu"), device="cpu").score([[1, 2], [3, 4]])
 for name in ("repro_torch.train", "repro_torch.checkpoint.checkpoint",
              "repro_torch.runtime.fault_tolerance", "repro_torch.kernels.autotune",
-             "repro_torch.launch.train"):
+             "repro_torch.launch.train", "repro_torch.launch.mesh",
+             "repro_torch.launch.sharding", "repro_torch.models.partition",
+             "repro_torch.train.manual_dp"):
     assert name in sys.modules, name
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
@@ -165,6 +187,7 @@ def test_entry_points_default_to_the_card():
     from repro_torch.configs import get_smoke_config
     from repro_torch.interop import params_from_jax
     from repro_torch.models import init_cache, init_params
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh
     from repro_torch.launch.serve import main as serve_main
     from repro_torch.launch.train import main as train_main
     from repro_torch.serve import ContinuousBatcher, PairScorer
@@ -208,6 +231,9 @@ def test_entry_points_default_to_the_card():
         lambda: serve_main(["--mode", "client"]),
         lambda: train_main(["--steps", "1"]),
         lambda: train_main(["--steps", "1", "--full-width"]),
+        lambda: make_host_mesh(),
+        lambda: make_mesh((1,), ("data",)),
+        lambda: serve_main(["--mode", "score", "--shard"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA card"):

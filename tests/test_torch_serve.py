@@ -237,8 +237,12 @@ def test_launcher_scores_on_the_cpu_and_names_what_is_missing(capsys):
     main(["--arch", "joinml-oracle", "--mode", "score", "--pairs", "8",
           "--device", "cpu"])
     assert "scored 8 pairs" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 11"):
-        main(["--mode", "service", "--shard", "--device", "cpu"])
+    # --shard, once missing, scores over the host mesh (one CPU slot here)
+    main(["--arch", "joinml-oracle", "--mode", "score", "--pairs", "8", "--shard",
+          "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "sharding score batches over mesh {'data': 1, 'model': 1}" in out
+    assert "scored 8 pairs" in out
 
 
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "rwkv6-1.6b", "recurrentgemma-9b",
