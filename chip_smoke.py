@@ -115,7 +115,18 @@ checkpoint rank 0 of the world of 2 saved, restored in the world of 1 as
 DTensors on ``param_shardings``, every leaf bit for bit; (12b)
 ``PairScorer(mesh=make_host_mesh())`` over every pair of phase 6's tables
 against the unsharded scorer bit for bit, and ``launch/serve.py --mode
-score --shard`` as a subprocess.  Phases 3 to
+score --shard`` as a subprocess.  (13) The dry run and the roofline:
+(13a) ``python -m repro_torch.launch.dryrun --all --both-meshes`` as a
+subprocess (a worker process a core, up to 8): 80 records, 64 ok and 16
+skipped, each ok record with its FLOPs, bytes, bound and ``fits``, every
+train record with its all-reduce; the 16 x 16 roofline table and the cells
+whose rank does not fit the card; (13b) phase 11's step as a 1 x 1-mesh
+cell traced on meta tensors in a subprocess of its own (phase 12a's NCCL
+world holds this process): its charged launches equal phase 11's a step,
+and phase 11's median step may not be shorter than its roofline bound (the
+step's share of the bound is printed); (13c) the four
+``examples/*_torch.py`` on the card, each exiting 0.  Every bound the
+script prints is ``repro_torch.roofline.kernel_work``'s.  Phases 3 to
 4c and 10c run with the launch autotuner on (``kernels.autotune``, its
 cache measured afresh under ``build/``; its entries and measuring seconds
 are printed apart from the timed queries); it is off again from phase 5,
@@ -134,8 +145,8 @@ kernel checks they are held against) and read just after it.
 Any failed phase exits non-zero.  The last lines are one JSON object of
 kernels, the card's name and power limit, and ``{"ok": true, ...}``.
 Without a card (or without the repository beside it) it exits non-zero and
-prints no result.  The rehearsal runs phases 4, 4b, 4c, 6, 7, 8, 9, 10, 11
-and 12 at a tiny size on the CPU and exits 3.
+prints no result.  The rehearsal runs phases 4, 4b, 4c, 6, 7, 8, 9, 10,
+11, 12 and 13 (13a on one cell) at a tiny size on the CPU and exits 3.
 """
 import argparse
 import collections
@@ -180,10 +191,9 @@ SCAN_BWD_REPLACES = {
     "rglru_scan_bwd": "src/repro/models/recurrent.py:212 (jax.grad of the RG-LRU lax.scan; "
                       "no Pallas kernel)",
 }
-# published H100 SXM peaks (dense): FP32 on the CUDA cores, bf16 and int8 on
-# the tensor cores, HBM3 bandwidth
-PEAK = {"fp32": 67e12, "bf16": 989e12, "int8": 1979e12}
-HBM = 3.35e12
+# every bound printed here is ``repro_torch.roofline.kernel_work``'s: the
+# kernel's work at its shape against the H100's peaks and HBM rate
+# (``roofline.hw``), the definition the dry run charges launches with
 
 
 def log(*a):
@@ -1464,6 +1474,7 @@ def phase5(ds, retry_rows, hot):
     from repro_torch.kernels.sim_sweep.kernel import kernel_operand
     from repro_torch.kernels.sim_topk.kernel import sim_topk_cuda
     from repro_torch.kernels.sim_topk.ref import sim_topk_ref
+    from repro_torch.roofline import kernel_work
 
     n = ds.emb1.shape[0]
     d = ds.emb1.shape[1]
@@ -1473,11 +1484,8 @@ def phase5(ds, retry_rows, hot):
         m = a.shape[0]
         ms = _events_ms(kern, 3)
         pms = _events_ms(plain, 1)
-        elt = 1 if precision == "int8" else (2 if precision == "bf16" else 4)
-        byts = (m + n) * d * elt + (m + n) * 4 + (m // 256) * 4096 * 4 + m * 32 * 8 + m * 4
-        if precision == "int8":
-            byts += (m + n) * 4
-        times[name] = _row(ms, pms, 2.0 * m * n * d, byts, PEAK[precision])
+        times[name] = _row(ms, pms, *kernel_work.work("sim_sweep", m=m, n=n, d=d,
+                                                      precision=precision))
         if precision == "int8":  # context only: no one call computes K2's outputs
             int_mm_ms = _events_ms(lambda: torch._int_mm(a, b.T), 3)
         del kern, plain, a, b
@@ -1486,14 +1494,12 @@ def phase5(ds, retry_rows, hot):
     e2 = torch.from_numpy(ds.emb2).cuda()
     a4, b4 = kernel_operand(e1, "fp32"), kernel_operand(e2, "fp32")
     ones = torch.ones(n, device="cuda")
-    flops = 2.0 * n * n * d
-    inb = 2 * n * d * 4
     times["sim_hist"] = _row(_events_ms(lambda: sim_hist_cuda(a4, b4, ones, n_bins=4096), 3),
                              _events_ms(lambda: sim_hist_ref(e1, e2, ones, n_bins=4096), 1),
-                             flops, inb + n * 4 + 4096 * 4, PEAK["fp32"])
+                             *kernel_work.work("sim_hist", m=n, n=n, d=d, n_bins=4096))
     times["sim_topk[k=32]"] = _row(_events_ms(lambda: sim_topk_cuda(a4, b4, k=32), 3),
                                    _events_ms(lambda: sim_topk_ref(e1, e2, k=32), 1),
-                                   flops, inb + n * 32 * 8, PEAK["fp32"])
+                                   *kernel_work.work("sim_topk", m=n, n=n, d=d, k=32))
     # the retry's shape: the rows the hot query retried, against the full E2
     r = max(int(retry_rows or 0), 1)
     h1p, hb = retry_operands(hot, r)
@@ -1504,8 +1510,7 @@ def phase5(ds, retry_rows, hot):
     retry = lambda: sim_topk_cuda(h14, hb4, k=128)  # noqa: E731
     times["sim_topk[k=128]"] = _row(
         _events_ms(retry, 20), _events_ms(lambda: sim_topk_ref(h1p, hb, k=128), 3),
-        2.0 * h1p.shape[0] * n * d, (h1p.shape[0] + n) * d * 4 + h1p.shape[0] * 128 * 8,
-        PEAK["fp32"])
+        *kernel_work.work("sim_topk", m=h1p.shape[0], n=n, d=d, k=128))
     by_kernel = device_ms_by_kernel(retry, 20)
     times["sim_topk[k=128]"].update(device_ms=sum(by_kernel.values()),
                                     device_ms_by_kernel=by_kernel)
@@ -1548,10 +1553,12 @@ def ptxas_report(text, kernel):
 
 
 def _row(ms, plain_ms, flops, byts, peak):
-    t_ops, t_bytes = flops / peak * 1e3, byts / HBM * 1e3
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None}
+    """A kernel's row: its time and its plain version's beside the bound of
+    its work (``roofline.kernel_work``)."""
+    from repro_torch.roofline import kernel_work
+
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": kernel_work.bound_ms(flops, byts, peak),
+            "bound_by": kernel_work.bound_by(flops, byts, peak), "library_ms": None}
 
 
 # ---------------------------------------------------------------------------
@@ -2159,18 +2166,6 @@ def family_paths(size, device):
     return paths
 
 
-def _attention_pairs(sq, skv, causal, window):
-    """The (query, key) pairs the masks leave: the work a causal or windowed
-    attention needs."""
-    qp, kp = np.arange(sq)[:, None], np.arange(skv)[None, :]
-    ok = np.ones((sq, skv), bool)
-    if causal:
-        ok &= qp >= kp
-    if window:
-        ok &= qp - kp < window
-    return int(ok.sum())
-
-
 # (B, Hq, Hkv, Sq, Skv, d, causal, window), bf16 as the models run it.  The
 # rows named "path" are shapes the main paths give the kernel (the entity
 # pairs are 35-45 tokens, so every batch is padded to the 48-token bucket);
@@ -2202,6 +2197,7 @@ def _flash_case(gen, shape, dtype=torch.bfloat16):
     from repro_torch.kernels import checks
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.roofline import kernel_work
 
     b, hq, hkv, sq, skv, d, causal, window = shape
     q = torch.randn((b, hq, sq, d), generator=gen, device="cuda").to(dtype)
@@ -2216,12 +2212,11 @@ def _flash_case(gen, shape, dtype=torch.bfloat16):
     else:
         library = lambda: F.scaled_dot_product_attention(  # noqa: E731
             q, k, v, is_causal=causal, enable_gqa=True)
-    flops = 4.0 * b * hq * d * _attention_pairs(sq, skv, causal, window)
-    byts = q.element_size() * (2 * b * hq * sq * d + 2 * b * hkv * skv * d)
     return (lambda: flash_attention_cuda(q, k, v, causal=causal, window=window),
             lambda: flash_attention_ref(q, k, v, causal=causal, window=window),
             lambda: checks.flash_attention_bound(q, k, v, causal=causal, window=window),
-            library, flops, byts, PEAK["bf16" if dtype == torch.bfloat16 else "fp32"])
+            library, *kernel_work.work("flash_attention", b=b, hq=hq, hkv=hkv, sq=sq, skv=skv,
+                                       d=d, causal=causal, window=window, dtype=dtype))
 
 
 def _flash_f32_case(gen, shape):
@@ -2232,12 +2227,12 @@ def _flash_f32_case(gen, shape):
 
 def _rwkv_case(gen, shape, model_layout=True):
     """K6 as the model calls it (bf16 r, k, v and f32 w as (B, H, T, hd)
-    views of (B, T, H, hd) projections), or on f32 (B, H, T, hd) operands.
-    Work: a multiply and two FMAs per state element and step (5 flops);
-    bytes: r, k, v at their size, w, out and u in f32."""
+    views of (B, T, H, hd) projections), or on f32 (B, H, T, hd) operands,
+    with its work (``kernel_work.rwkv6_scan``)."""
     from repro_torch.kernels import checks
     from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_cuda
     from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
+    from repro_torch.roofline import kernel_work
 
     b, h, t, hd = shape
     dims = (b, t, h, hd) if model_layout else (b, h, t, hd)
@@ -2249,13 +2244,10 @@ def _rwkv_case(gen, shape, model_layout=True):
     w = view(torch.exp(-torch.exp(torch.empty(dims, device="cuda")
                                   .uniform_(-8.0, -4.0, generator=gen))))
     u = 0.1 * torch.randn((h, hd), generator=gen, device="cuda")
-    n = b * h * t * hd
-    flops = 5.0 * n * hd
-    byts = 3 * n * r.element_size() + 4 * (2 * n + h * hd)
     return (lambda: rwkv6_scan_cuda(r, k, v, w, u),
             lambda: rwkv6_scan_ref(r, k, v, w, u),
             lambda: checks.rwkv6_scan_bound(r, k, v, w, u),
-            None, flops, byts, PEAK["fp32"])
+            None, *kernel_work.work("rwkv6_scan", b=b, h=h, t=t, hd=hd, dtype=dtype))
 
 
 def _rwkv_f32_case(gen, shape):
@@ -2266,6 +2258,7 @@ def _rglru_case(gen, shape):
     from repro_torch.kernels import checks
     from repro_torch.kernels.rglru_scan.kernel import rglru_scan_cuda
     from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+    from repro_torch.roofline import kernel_work
 
     b, t, r = shape
     # the model's gates: a in (0, 1), g scaled by sqrt(1 - a^2)
@@ -2273,7 +2266,7 @@ def _rglru_case(gen, shape):
     g = torch.sqrt(1 - a * a) * torch.randn((b, t, r), generator=gen, device="cuda")
     return (lambda: rglru_scan_cuda(a, g), lambda: rglru_scan_ref(a, g),
             lambda: checks.rglru_scan_bound(a, g),
-            None, 2.0 * b * t * r, 12 * b * t * r, PEAK["fp32"])
+            None, *kernel_work.work("rglru_scan", b=b, t=t, r=r))
 
 
 def model_kernels():
@@ -2381,16 +2374,17 @@ def flash_backward():
     second run equal bit for bit, and its times (CUDA events) beside the
     plain version's backward (autograd through ``flash_attention_ref``), our
     forward + backward, SDPA's forward + backward and its backward alone,
-    and the bound: 2.5 times the forward's operations over the unmasked
-    pairs against the peak of the input type, or the bytes (q, k, v, o, dO
-    and the lse read, dq, dk, dv written).  Returns the row per shape, the
-    training shape's first."""
+    and the bound (``kernel_work.flash_attention_bwd``: 2.5 times the
+    forward's operations over the unmasked pairs against the peak of the
+    input type, or the bytes of q, k, v, o, dO and the lse read, dq, dk, dv
+    written).  Returns the row per shape, the training shape's first."""
     from repro_torch.kernels import checks
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_bwd_cuda,
         flash_attention_cuda,
     )
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.roofline import kernel_work
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
@@ -2424,12 +2418,9 @@ def flash_backward():
 
         sdpa, sdpa_bwd = _sdpa_grad_fns(q, k, v, do, causal, window)
         reps = 10 if sq * skv <= 1 << 16 else 3
-        pairs = _attention_pairs(sq, skv, causal, window)
-        flops = 2.5 * 4.0 * b * hq * d * pairs
-        el = q.element_size()
-        byts = el * 4 * (b * hq * sq * d + b * hkv * skv * d) + 4 * b * hq * sq
-        row = _row(_events_ms(kern, reps), _events_ms(plain, 1), flops, byts,
-                   PEAK["bf16" if dt == torch.bfloat16 else "fp32"])
+        row = _row(_events_ms(kern, reps), _events_ms(plain, 1),
+                   *kernel_work.work("flash_attention_bwd", b=b, hq=hq, hkv=hkv, sq=sq,
+                                     skv=skv, d=d, causal=causal, window=window, dtype=dt))
         row.update(fwd_bwd_ms=_events_ms(ours, reps), library_ms=_events_ms(sdpa, reps),
                    library_note="scaled_dot_product_attention forward + backward",
                    library_bwd_ms=_events_ms(sdpa_bwd, reps), shape=label,
@@ -2447,10 +2438,11 @@ def flash_backward():
     return rows
 
 
-def _grad_row(name, label, dims, kern, plain, exact, bounds, flops, byts):
+def _grad_row(name, label, dims, kern, plain, exact, bounds, work):
     """A backward kernel ``kern`` (a tuple of gradients) against ``exact()``
     (f64) under ``bounds()`` (``check_model_kernel``), a second run equal bit
-    for bit, and its time beside the plain version's and the f32 bound."""
+    for bit, and its time beside the plain version's and the bound of its
+    ``work`` (``kernel_work.work``'s (operations, bytes, peak))."""
     from repro_torch.kernels import checks
 
     got, again = kern(), kern()
@@ -2460,7 +2452,7 @@ def _grad_row(name, label, dims, kern, plain, exact, bounds, flops, byts):
     rules = [checks.check_model_kernel(g, w, e) for g, w, e in zip(got, exact(), bounds())]
     del got
     torch.cuda.empty_cache()
-    row = _row(_events_ms(kern, 10), _events_ms(plain, 1), flops, byts, PEAK["fp32"])
+    row = _row(_events_ms(kern, 10), _events_ms(plain, 1), *work)
     row.update(share=row["bound_ms"] / row["ms"], shape=label, dims=list(dims),
                same_bits_twice=same, max_abs_err=max(r["max_abs_err"] for r in rules),
                err_over_tol=max(r["err_over_tol"] for r in rules),
@@ -2478,16 +2470,15 @@ def scan_backwards():
     and K7's at recurrentgemma-9b's, each against an f64 autograd of the
     plain forward under ``checks.*_scan_grad_bound``, bit for bit on a
     second run, beside the plain backward (``*_scan_bwd_ref``) and the bound
-    (K6 also at ``RWKV_BWD_OTHER_SHAPES``, its row's ``other_shapes``):
-    K6 14 f32 operations per state element and step (the forward's S and
-    the backward's G, dr, dk, dw and dv, no recomputation) against r, k, v,
-    dr, dk, dv at their size and w, dout, dw in f32; K7 20 bytes per element
-    (a, h, dout read, da, dg written).  Returns {kernel: row}."""
+    (K6 also at ``RWKV_BWD_OTHER_SHAPES``, its row's ``other_shapes``;
+    ``kernel_work.rwkv6_scan_bwd`` and ``rglru_scan_bwd``).  Returns
+    {kernel: row}."""
     from repro_torch.kernels import checks
     from repro_torch.kernels.rglru_scan.kernel import rglru_scan_bwd_cuda, rglru_scan_cuda
     from repro_torch.kernels.rglru_scan.ref import rglru_scan_bwd_ref, rglru_scan_ref
     from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_bwd_cuda
     from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_bwd_ref, rwkv6_scan_ref
+    from repro_torch.roofline import kernel_work
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = {}
@@ -2511,13 +2502,12 @@ def scan_backwards():
             return torch.autograd.grad(rwkv6_scan_ref(*xd), xd, do.double(),
                                        materialize_grads=True)
 
-        n = b * h * t * hd
         k6_rows.append(_grad_row(
             "rwkv6_scan_bwd", label, (b, h, t, hd),
             lambda xs=xs, do=do: rwkv6_scan_bwd_cuda(*xs, do),
             lambda xs=xs, do=do: rwkv6_scan_bwd_ref(*xs, do), rwkv_exact,
-            lambda xs=xs, do=do: checks.rwkv6_scan_grad_bound(*xs, do), 14.0 * n * hd,
-            n * (3 * 2 + 3 * 2 + 3 * 4) + 8 * h * hd))
+            lambda xs=xs, do=do: checks.rwkv6_scan_grad_bound(*xs, do),
+            kernel_work.work("rwkv6_scan_bwd", b=b, h=h, t=t, hd=hd, dtype=r.dtype)))
         del r, k, v, w, u, do, xs, rwkv_exact
         torch.cuda.empty_cache()
     rows["rwkv6_scan_bwd"] = {**k6_rows[0], "other_shapes": k6_rows[1:]}
@@ -2535,7 +2525,8 @@ def scan_backwards():
     rows["rglru_scan_bwd"] = _grad_row(
         "rglru_scan_bwd", label, (b, t, rr), lambda: rglru_scan_bwd_cuda(a, hs, do),
         lambda: rglru_scan_bwd_ref(a, hs, do), lru_exact,
-        lambda: checks.rglru_scan_grad_bound(a, g, do), 2.0 * b * t * rr, 20 * b * t * rr)
+        lambda: checks.rglru_scan_grad_bound(a, g, do),
+        kernel_work.work("rglru_scan_bwd", b=b, t=t, r=rr))
     return rows
 
 
@@ -2780,10 +2771,11 @@ def phase11(size, device):
     repeated batch of ``size.batch`` x ``size.seq`` pair tokens through
     ``_train_run``; then 4 microbatches against 1, the resume check and the
     launcher; then phase 11b, the recurrent families.  Returns the launch
-    counts of the joinml-oracle steps and {arch: launch counts} of 11b's."""
+    counts of the joinml-oracle steps, {arch: launch counts} of 11b's and
+    the joinml-oracle steps' logged row (its median step, for phase 13b)."""
     from repro_torch.train import OptimizerConfig, make_train_step
 
-    _, launches, cfg, params, opt, batch = _train_run("11: training", size, device)
+    row, launches, cfg, params, opt, batch = _train_run("11: training", size, device)
 
     # 4 microbatches against 1 at lr 0 (tests/test_substrates.py's tolerances)
     still = OptimizerConfig(peak_lr=0.0, warmup_steps=0, weight_decay=0.0)
@@ -2799,7 +2791,7 @@ def phase11(size, device):
     _free()
     _subprocess_resume(device, size)
     _train_launcher(device, size)
-    return launches, recurrent_training(size, device)
+    return launches, recurrent_training(size, device), row
 
 
 # ---------------------------------------------------------------------------
@@ -3631,11 +3623,212 @@ def serving_index(size, device, catalogs, warm_count):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 13: the dry run and the roofline (repro_torch.launch.dryrun,
+# repro_torch.roofline), the examples
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class DryRunSize:
+    cells: tuple      # the dry run's arguments: which cells, which meshes
+    ok: int           # records it must write, by status
+    skipped: int
+    budget_s: float   # 13a's time budget (logged against its seconds)
+
+
+DRYRUN_FULL = DryRunSize(("--all", "--both-meshes"), ok=64, skipped=16, budget_s=150.0)
+DRYRUN_REHEARSAL = DryRunSize(("--arch", "llama3.2-1b", "--shape", "decode_32k",
+                               "--both-meshes"), ok=2, skipped=0, budget_s=150.0)
+EXAMPLES = ("plagiarism_analysis_torch", "traffic_video_join_torch",
+            "multiway_join_optimizer_torch", "serve_oracle_torch")
+
+
+def _src_env():
+    return dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+
+
+class _Started:
+    """A subprocess started now, its output in temporary files (no pipe to
+    fill while other work runs) and its end time taken by a watcher thread;
+    :meth:`wait` returns (exit code, stdout, stderr, its seconds)."""
+
+    def __init__(self, argv):
+        import tempfile
+        import threading
+
+        self.out, self.err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(argv, stdout=self.out, stderr=self.err, text=True,
+                                     cwd=HERE, env=_src_env())
+        self.t1 = None
+        self.watch = threading.Thread(target=self._watch, daemon=True)
+        self.watch.start()
+
+    def _watch(self):
+        self.proc.wait()
+        self.t1 = time.perf_counter()
+
+    def wait(self, timeout):
+        self.watch.join(max(1.0, timeout - (time.perf_counter() - self.t0)))
+        if self.watch.is_alive():
+            self.proc.kill()
+            self.watch.join()
+        rc = self.proc.returncode
+        seconds = self.t1 - self.t0
+        texts = []
+        for f in (self.out, self.err):
+            f.seek(0)
+            texts.append(f.read())
+            f.close()
+        return rc, texts[0], texts[1], seconds
+
+
+def start_dry_run(size):
+    """Phase 13a: ``python -m repro_torch.launch.dryrun`` over ``size.cells``
+    as a subprocess, a cell a worker process (one a core, two cores left to
+    13b and 13c, which run beside it)."""
+    import shutil
+
+    out = os.path.join(HERE, "build", "dryrun_smoke")
+    shutil.rmtree(out, ignore_errors=True)
+    jobs = max(1, min(8, os.cpu_count() or 1) - 2)
+    return _Started([sys.executable, "-m", "repro_torch.launch.dryrun", *size.cells,
+                     "--out", out, "--jobs", str(jobs)]), out, jobs
+
+
+def check_dry_run(size, started):
+    """Phase 13a's records read back: the counts by status, each ok record's
+    FLOPs, bytes, bound and ``fits``, every train record's all-reduce; then
+    the 16 x 16 roofline table and the cells that do not fit.  Returns the
+    records."""
+    from repro_torch.roofline import report
+
+    handle, out, jobs = started
+    rc, stdout, stderr, seconds = handle.wait(900)
+    if rc != 0:
+        fail(f"the dry run exited {rc}:\n{stdout[-2000:]}\n{stderr[-3000:]}")
+    recs = report.load_records(out)
+    status = collections.Counter(r["status"] for r in recs)
+    want = {"ok": size.ok, "skipped": size.skipped}
+    if dict(status) != {k: v for k, v in want.items() if v}:
+        fail(f"the dry run wrote {dict(status)} records, expected {want} and no error")
+    for r in recs:
+        if r["status"] != "ok":
+            continue
+        if not (r["hlo_flops"] > 0 and r["hlo_bytes"] > 0 and r["roofline"]["bound_s"] > 0
+                and isinstance(r.get("fits"), bool)):
+            fail(f"dry-run record {r['arch']} {r['shape']} {r['mesh']} lacks its counts")
+        if r["shape"] == "train_4k" and not r["collective_bytes"] > 0:
+            fail(f"dry-run train record {r['arch']} {r['mesh']} has no all-reduce")
+    ok = [r for r in recs if r["status"] == "ok"]
+    log(report.roofline_table(recs, "16x16"))
+    log(json.dumps({"phase": "13a: dry run", "seconds": seconds, "jobs": jobs,
+                    "budget_s": size.budget_s, "within_budget": seconds <= size.budget_s,
+                    "records": dict(status), "fit": sum(r["fits"] for r in ok),
+                    "do_not_fit": sorted(
+                        [r["arch"], r["shape"], r["mesh"], r["memory"]["hbm_fraction"],
+                         r["param_bytes_sharded"]] for r in ok if not r["fits"]),
+                    "slowest_trace_s": max(r["compile_s"] for r in ok)}))
+    return recs
+
+
+def roofline_cell(full: bool, batch: int, seq: int):
+    """Phase 13b's trace, run in a process of its own (a fake world of one
+    rank cannot share a process with another world): phase 11's step as a
+    1 x 1-mesh cell (joinml-oracle, remat, the data-parallel step with the
+    default AdamW) at ``batch`` x ``seq`` on meta tensors; prints one JSON
+    line of its roofline and charged launches."""
+    import repro_torch.launch.cells as C
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data.pipeline import ByteTokenizer
+    from repro_torch.launch.dryrun import _roofline, fake_world
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.roofline import hw
+
+    C.SHAPES = {"train_4k": dict(kind="train", seq=seq, batch=batch)}
+    C.get_config = (lambda n: dataclasses.replace(get_config(n), remat=True)) if full else (
+        lambda n: get_smoke_config(n, vocab_size=ByteTokenizer().vocab_size, remat=True))
+    with fake_world(1):
+        mesh = make_mesh((1, 1), ("data", "model"), device="meta")
+        cell = C.build_cell(ORACLE_NAME, "train_4k", mesh)
+        cost, memory = C.trace_cell(cell, mesh)
+        roof = _roofline(cost.flops, cost.bytes, cell.trace.links, hw.PEAK_FLOPS_BF16)
+    print(json.dumps({"flops": cost.flops, "bytes": cost.bytes,
+                      "collective_bytes": cost.collective_bytes, "roofline": roof,
+                      "memory": memory, "kernels": cell.trace.kernels}), flush=True)
+
+
+def start_roofline_cell(size):
+    """Phase 13b: ``roofline_cell`` in a subprocess."""
+    code = ("import sys; sys.path.insert(0, {here!r}); import chip_smoke; "
+            "chip_smoke.roofline_cell({full!r}, {batch!r}, {seq!r})").format(
+                here=HERE, full=size.full, batch=size.batch, seq=size.seq)
+    return _Started([sys.executable, "-c", code])
+
+
+def check_roofline_cell(started, device, train_row):
+    """Phase 13b's result: its charged launches must equal phase 11's a
+    step, and phase 11's median step must not be shorter than the cell's
+    ``bound_s`` (else a count is wrong).  Logs the step's share of its
+    roofline."""
+    rc, stdout, stderr, seconds = started.wait(600)
+    if rc != 0:
+        fail(f"phase 13b's trace exited {rc}:\n{stderr[-3000:]}")
+    res = json.loads(stdout.strip().splitlines()[-1])
+    charged = {k: v["launches"] for k, v in res["kernels"].items()}
+    # on the CPU no kernel launches: the launches phase 11 holds the card to
+    card = train_row["launches_per_step" if device == "cuda" else "expected_launches_per_step"]
+    bound_ms = res["roofline"]["bound_s"] * 1e3
+    med = train_row["median_step_ms"]
+    log(json.dumps({"phase": "13b: the roofline of phase 11's step", "trace_s": seconds,
+                    **res, "charged_launches": charged,
+                    "phase11_launches_per_step": card, "phase11_median_step_ms": med,
+                    "bound_ms": bound_ms, "share_of_roofline": bound_ms / med}))
+    if charged != card:
+        fail(f"phase 13b charged {charged} launches a step, phase 11 counted {card}")
+    if med < bound_ms:
+        fail(f"phase 11's median step {med:.3f} ms is shorter than its roofline bound "
+             f"{bound_ms:.3f} ms: a count is wrong")
+
+
+def start_examples(device):
+    """Phase 13c: the four ``examples/*_torch.py`` copies of the reference's
+    examples, all at once as subprocesses (on the card without
+    ``--device``)."""
+    argv = [] if device == "cuda" else ["--device", device]
+    return {name: _Started([sys.executable, os.path.join("examples", f"{name}.py"), *argv])
+            for name in EXAMPLES}
+
+
+def check_examples(started):
+    """Each example exited 0 and printed its result; their output is
+    logged."""
+    for name, handle in started.items():
+        rc, stdout, stderr, seconds = handle.wait(600)
+        if rc != 0 or not stdout.strip():
+            fail(f"example {name} exited {rc}:\n{stderr[-3000:]}")
+        log(json.dumps({"phase": "13c: example", "example": name, "seconds": seconds}))
+        for line in stdout.strip().splitlines():
+            log(f"  [{name}] {line}")
+
+
+def phase13(size, train_size, device, train_row):
+    """Phase 13: 13a, 13b and 13c run at once (each in subprocesses: the
+    dry run and the trace on the host's cores, the examples on the card),
+    then each is checked."""
+    dry = start_dry_run(size)
+    cell = start_roofline_cell(train_size)
+    runs = start_examples(device)
+    check_dry_run(size, dry)
+    check_roofline_cell(cell, device, train_row)
+    check_examples(runs)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--rehearse-cpu", action="store_true",
-                    help="run phases 4, 4b, 4c, 6, 7, 8, 9, 10, 11 and 12 at a tiny size on the "
-                         "CPU (exits 3)")
+                    help="run phases 4, 4b, 4c, 6, 7, 8, 9, 10, 11, 12 and 13 at a tiny size "
+                         "on the CPU (exits 3)")
     if ap.parse_args().rehearse_cpu:
         from repro_torch.kernels import cuda_lib
 
@@ -3650,11 +3843,12 @@ def main():
         family_paths(REHEARSAL_MODEL, "cpu")
         served = serving_in_process(REHEARSAL_MODEL, "cpu")
         serving_fleet(REHEARSAL_MODEL, "cpu", served)
-        phase11(TRAIN_REHEARSAL, "cpu")
+        train_row = phase11(TRAIN_REHEARSAL, "cpu")[2]
         phase12(TRAIN_REHEARSAL, REHEARSAL_MODEL, "cpu")
+        phase13(DRYRUN_REHEARSAL, TRAIN_REHEARSAL, "cpu", train_row)
         log(f"rehearsal complete: {len(results) + len(results_4b) + len(results_4c)} "
             "queries, the Oracle queries, the recurrent paths, the model families, "
-            "the serving plane and training on the CPU (no result)")
+            "the serving plane, training, the mesh and the dry run on the CPU (no result)")
         sys.exit(3)
     if not torch.cuda.is_available():
         log("no CUDA card: nothing to measure")
@@ -3666,7 +3860,8 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True,
     ).stdout.strip().splitlines()[0]
-    log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    log(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}; total_memory "
+        f"{torch.cuda.get_device_properties(0).total_memory} bytes")
 
     # phase 2: build
     from repro_torch.kernels import cuda_lib
@@ -3793,7 +3988,7 @@ def main():
     phase10_s += time.perf_counter() - t10
     # phase 11: training, counts set to 0 just before its steps
     t11 = time.perf_counter()
-    train_launches, recurrent_launches = phase11(TRAIN_FULL, "cuda")
+    train_launches, recurrent_launches, train_row = phase11(TRAIN_FULL, "cuda")
     paths["training (11)"] = train_launches
     for name, n in recurrent_launches.items():
         paths[f"{name} training (11b)"] = n
@@ -3802,8 +3997,12 @@ def main():
     # phase 12: the mesh, counts set to 0 just before each step and read just after
     t12 = time.perf_counter()
     paths.update(phase12(TRAIN_FULL, FULL_MODEL, "cuda"))
+    phase12_s = time.perf_counter() - t12
+    # phase 13: the dry run, the roofline against phase 11's step, the examples
+    t13 = time.perf_counter()
+    phase13(DRYRUN_FULL, TRAIN_FULL, "cuda", train_row)
     log(json.dumps({"phase10_s": phase10_s, "phase11_s": phase11_s,
-                    "phase12_s": time.perf_counter() - t12,
+                    "phase12_s": phase12_s, "phase13_s": time.perf_counter() - t13,
                     "script_s": time.perf_counter() - t_script}))
     main_path = {"flash_attention": "Oracle COUNT", "rwkv6_scan": "rwkv6-1.6b",
                  "rglru_scan": "recurrentgemma-9b"}

@@ -23,7 +23,9 @@ _no_tf32()
 
 
 def resolve_device(device="cuda") -> torch.device:
-    """``"cuda"`` / ``"cpu"`` / a :class:`torch.device` -> torch.device.
+    """``"cuda"`` / ``"cpu"`` / ``"meta"`` / a :class:`torch.device` ->
+    torch.device.  ``"meta"`` (asked for by name) makes tensors without
+    storage, on which the dry run traces a step (``launch.dryrun``).
 
     Raises :class:`RuntimeError` for a CUDA device when no card is present.
     """
@@ -36,7 +38,7 @@ def resolve_device(device="cuda") -> torch.device:
             )
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
+    elif dev.type not in ("cpu", "meta"):
         raise ValueError(f"unsupported device {device!r}")
     assert not torch.backends.cuda.matmul.allow_tf32, "TF32 matmul is on"
     assert not torch.backends.cudnn.allow_tf32, "TF32 convolution is on"

@@ -10,6 +10,7 @@ gradient stops at the ctypes launch.  Without autograd the forward launch
 is the one serving has always made."""
 import torch
 
+from ...roofline.trace_analysis import charge
 from .kernel import flash_attention_bwd_cuda, flash_attention_cuda
 from .ref import flash_attention_ref
 
@@ -31,7 +32,38 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+def _shape(q, k, causal, window):
+    b, hq, sq, d = q.shape
+    return dict(b=b, hq=hq, hkv=k.shape[1], sq=sq, skv=k.shape[2], d=d, causal=causal,
+                window=window, dtype=q.dtype)
+
+
+class MetaFlashAttention(torch.autograd.Function):
+    """K5 and its backward on meta tensors: what they would launch, and the
+    tensors they would make and keep."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        charge("flash_attention", **_shape(q, k, causal, window))
+        o = q.new_empty(q.shape)
+        ctx.save_for_backward(q, k, v, o, q.new_empty(q.shape[:3], dtype=torch.float32))
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, _, _ = ctx.saved_tensors
+        charge("flash_attention_bwd", **_shape(q, k, ctx.causal, ctx.window))
+        return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape), None, None
+
+
 def flash_attention(q, k, v, causal=True, window=0):
+    if q.is_meta:
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return MetaFlashAttention.apply(q, k, v, causal, window)
+        charge("flash_attention", **_shape(q, k, causal, window))
+        return q.new_empty(q.shape)
     if q.is_cuda:
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad

@@ -6,9 +6,15 @@ autograd differentiates.
 On CUDA tensors under autograd (grad mode on and an input that requires
 grad) the op is :class:`RgLruScan`: its forward launches K7 and saves its
 output, its backward launches K7's backward kernel.  Without autograd the
-forward launch is the one serving has always made."""
+forward launch is the one serving has always made.
+
+On meta tensors (the dry run) the op computes nothing: it returns an empty
+f32 output and charges K7's launch to the roofline's count; under autograd
+:class:`MetaRgLruScan`'s backward charges K7's backward and returns empty
+gradients."""
 import torch
 
+from ...roofline.trace_analysis import charge
 from .kernel import rglru_scan_bwd_cuda, rglru_scan_cuda
 from .ref import rglru_scan_bwd_ref, rglru_scan_ref
 
@@ -33,7 +39,30 @@ class RgLruScan(torch.autograd.Function):
         return da.to(a.dtype), dg.to(ctx.g_dtype)
 
 
+class MetaRgLruScan(torch.autograd.Function):
+    """K7 and its backward on meta tensors."""
+
+    @staticmethod
+    def forward(ctx, a, g):
+        charge("rglru_scan", b=a.shape[0], t=a.shape[1], r=a.shape[2])
+        h = a.new_empty(a.shape, dtype=torch.float32)
+        ctx.save_for_backward(a, h)
+        ctx.g_shape = g.shape
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        a, _ = ctx.saved_tensors
+        charge("rglru_scan_bwd", b=a.shape[0], t=a.shape[1], r=a.shape[2])
+        return a.new_empty(a.shape), a.new_empty(ctx.g_shape, dtype=torch.float32)
+
+
 def rglru_scan(a, g):
+    if a.is_meta:
+        if torch.is_grad_enabled() and (a.requires_grad or g.requires_grad):
+            return MetaRgLruScan.apply(a, g)
+        charge("rglru_scan", b=a.shape[0], t=a.shape[1], r=a.shape[2])
+        return a.new_empty(a.shape, dtype=torch.float32)
     if a.is_cuda:
         a, g = a.float().contiguous(), g.float().contiguous()
         if torch.is_grad_enabled() and (a.requires_grad or g.requires_grad):

@@ -9,9 +9,15 @@ version, which autograd differentiates.
 On CUDA tensors under autograd (grad mode on and an input that requires
 grad) the op is :class:`Rwkv6Scan`: its forward launches K6, its backward
 launches K6's backward kernel on the saved operands.  Without autograd the
-forward launch is the one serving has always made."""
+forward launch is the one serving has always made.
+
+On meta tensors (the dry run) the op computes nothing: it returns an empty
+f32 output in r's shape and charges K6's launch to the roofline's count;
+under autograd :class:`MetaRwkv6Scan`'s backward charges K6's backward
+and returns empty gradients."""
 import torch
 
+from ...roofline.trace_analysis import charge
 from .kernel import rwkv6_scan_bwd_cuda, rwkv6_scan_cuda
 from .ref import rwkv6_scan_bwd_ref, rwkv6_scan_ref
 
@@ -39,7 +45,33 @@ class Rwkv6Scan(torch.autograd.Function):
         return tuple(g.to(x.dtype) for g, x in zip(grads, (r, k, v, w, u)))
 
 
+def _shape(r):
+    b, h, t, hd = r.shape
+    return dict(b=b, h=h, t=t, hd=hd, dtype=r.dtype)
+
+
+class MetaRwkv6Scan(torch.autograd.Function):
+    """K6 and its backward on meta tensors."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u):
+        ctx.save_for_backward(r, k, v, w, u)
+        charge("rwkv6_scan", **_shape(r))
+        return r.new_empty(r.shape, dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, dout):
+        xs = ctx.saved_tensors
+        charge("rwkv6_scan_bwd", **_shape(xs[0]))
+        return tuple(x.new_empty(x.shape) for x in xs)
+
+
 def rwkv6_scan(r, k, v, w, u):
+    if r.is_meta:
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (r, k, v, w, u)):
+            return MetaRwkv6Scan.apply(r, k, v, w, u)
+        charge("rwkv6_scan", **_shape(r))
+        return r.new_empty(r.shape, dtype=torch.float32)
     if r.is_cuda:
         if torch.is_grad_enabled() and any(t.requires_grad for t in (r, k, v, w, u)):
             return Rwkv6Scan.apply(r, k, v, w, u)

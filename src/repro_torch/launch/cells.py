@@ -1,0 +1,331 @@
+"""Dry-run cell definitions (the reference's ``launch/cells.py``):
+(architecture x input shape) -> the step one rank of the port runs on the
+production mesh, its inputs as meta tensors with their shardings, and the
+loop counts that the trace unrolls.
+
+Shapes: train_4k (a data-parallel train step), prefill_32k (forward),
+decode_32k / long_500k (one decode token against a KV cache or state).
+``long_500k`` requires sub-quadratic sequence mixing and is skipped for pure
+full-attention architectures.
+
+**A cell is the program one rank of the port runs on that mesh.**  The
+port computes each layer on whole local tensors (``launch.sharding``):
+
+* the input's batch dim is split as ``sharding.spec_for`` splits it under
+  the cell's rules (the local shape from the DTensor placements), and not
+  split where the rules give no divisible axis (long_500k's batch of 1);
+* parameters and optimizer state are whole on every rank, as
+  ``train.manual_dp`` replicates them; ``param_bytes_sharded`` (in the dry
+  run's record) is what the reference's layout (``models.partition``)
+  would hold a rank;
+* train is ``train.manual_dp.make_manual_dp_train_step`` over the batch's
+  mesh axes with the default :class:`OptimizerConfig`, one microbatch (it
+  takes none; the reference's step takes 8: the same FLOPs, other
+  activation memory); prefill is ``models.forward``; decode is
+  ``models.decode_step`` against ``init_cache(cfg, local batch, seq)``.
+
+No sharding context is entered: a rank's step runs outside one, so the MoE
+dispatch routes the local batch as one group, which is the reference's
+group of that batch shard.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+
+from ..configs import ARCHS, get_config
+from ..models import decode_step, forward, init_cache, init_params
+from ..models.config import ModelConfig
+from ..models.partition import param_shardings
+from ..train import OptimizerConfig, init_opt_state
+from ..train.manual_dp import make_manual_dp_train_step
+from .sharding import (
+    DECODE_RULES,
+    SERVE_RULES,
+    TRAIN_RULES,
+    mesh_batch_axes,
+    sharding_for,
+)
+
+SHAPES = {
+    "train_4k": dict(kind="train", seq=4096, batch=256),
+    "prefill_32k": dict(kind="prefill", seq=32768, batch=32),
+    "decode_32k": dict(kind="decode", seq=32768, batch=128),
+    "long_500k": dict(kind="decode", seq=524288, batch=1),
+}
+
+DEFAULT_MICROBATCHES = 8
+
+
+def cell_supported(cfg: ModelConfig, shape_name: str) -> tuple[bool, str]:
+    if shape_name == "long_500k" and not cfg.supports_long_context:
+        return False, "needs sub-quadratic attention (pure full-attention arch)"
+    return True, ""
+
+
+def all_cells():
+    out = []
+    for arch in ARCHS:
+        for shape in SHAPES:
+            out.append((arch, shape))
+    return out
+
+
+# ----------------------------------------------------------------------------
+# logical axes for batch inputs and caches
+# ----------------------------------------------------------------------------
+
+def _cache_logical_axes(cache) -> dict:
+    """The reference's logical axes of each cache leaf, by the leaf's last
+    key (``l{i}_k`` / ``l{i}_v`` as ``k`` / ``v``), left-padded with
+    ``None`` for stacked layer axes."""
+    base = {
+        "k": ("batch", "seq", "kv_heads", "head_dim"),
+        "v": ("batch", "seq", "kv_heads", "head_dim"),
+        "xk": ("batch", "frames", "kv_heads", "head_dim"),
+        "xv": ("batch", "frames", "kv_heads", "head_dim"),
+        "s": ("batch", "heads", None, None),
+        "last_time": ("batch", "embed"),
+        "last_chan": ("batch", "embed"),
+        "h": ("batch", "rnn"),
+        "conv": ("batch", None, "rnn"),
+        "window": (),
+    }
+
+    def spec(name, leaf):
+        if name.startswith("l") and name.endswith("_k"):
+            name = "k"
+        if name.startswith("l") and name.endswith("_v"):
+            name = "v"
+        ndim = getattr(leaf, "ndim", 0)
+        b = base.get(name, (None,) * ndim)
+        extra = ndim - len(b)
+        if extra < 0:
+            b = b[-ndim:] if ndim else ()
+            extra = 0
+        return (None,) * extra + tuple(b)
+
+    def walk(node, name=""):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, name) for v in node]
+        return spec(name, node)
+
+    return walk(cache)
+
+
+def _meta(shape, dtype, logical, mesh, rules) -> torch.Tensor:
+    """A meta tensor of the global ``shape`` carrying its ``NamedSharding``
+    (``.sharding``), the port's ``ShapeDtypeStruct``."""
+    x = torch.empty(shape, dtype=dtype, device="meta")
+    x.sharding = sharding_for(logical, shape, mesh, rules)
+    return x
+
+
+def local_shape(shape, sharding) -> tuple:
+    """The shape of one rank's block of a tensor of ``shape`` laid out by
+    ``sharding`` (each dim over the mesh axes its spec names)."""
+    out = list(shape)
+    for dim, entry in enumerate(sharding.spec):
+        axes = () if entry is None else entry if isinstance(entry, tuple) else (entry,)
+        for a in axes:
+            out[dim] //= sharding.mesh.shape[a]
+    return tuple(out)
+
+
+def local(x: torch.Tensor) -> torch.Tensor:
+    """The meta block one rank holds of a meta input from
+    :func:`input_specs`."""
+    return torch.empty(local_shape(x.shape, x.sharding), dtype=x.dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape_name: str, mesh, rules) -> dict:
+    """Meta stand-ins for every model input of this cell, at the global
+    shape, each with its ``NamedSharding`` as ``.sharding``: nothing is
+    allocated."""
+    sh = SHAPES[shape_name]
+    b, s = sh["batch"], sh["seq"]
+    batch: dict = {}
+    if sh["kind"] in ("train", "prefill"):
+        s_text = s - (cfg.num_patches if cfg.num_patches else 0)
+        batch["tokens"] = _meta((b, s_text), torch.int32, ("batch", None), mesh, rules)
+        if cfg.family == "encdec":
+            batch["frames"] = _meta((b, cfg.encoder_seq, cfg.d_model), torch.bfloat16,
+                                    ("batch", None, None), mesh, rules)
+        if cfg.num_patches:
+            batch["patches"] = _meta((b, cfg.num_patches, cfg.d_model), torch.bfloat16,
+                                     ("batch", None, None), mesh, rules)
+    else:
+        batch["tokens"] = _meta((b, 1), torch.int32, ("batch", None), mesh, rules)
+    return batch
+
+
+@dataclasses.dataclass
+class Cell:
+    arch: str
+    shape_name: str
+    cfg: ModelConfig
+    fn: object              # the rank's step
+    args: tuple             # meta tensors (parameters, state, inputs)
+    trip_hints: dict
+    rules: dict
+    num_microbatches: int = 1
+    trace: object = None    # the ``roofline.CostMode`` of the last trace_cell
+
+    @property
+    def kind(self):
+        return SHAPES[self.shape_name]["kind"]
+
+
+def _trip_hints(cfg: ModelConfig, shape_name: str, num_micro: int) -> dict:
+    """The reference's while-loop trip counts of this cell: the loops that
+    the port's trace runs out (layers, microbatches, attention's query
+    chunks, the scans' time steps)."""
+    sh = SHAPES[shape_name]
+    s = sh["seq"]
+    kind = sh["kind"]
+    hints: dict = {"accum_scan": num_micro}
+    if cfg.family == "hybrid":
+        hints["layers_scan"] = cfg.num_layers // len(cfg.pattern)
+    elif cfg.family == "encdec":
+        hints["layers_scan"] = cfg.num_layers
+        hints["encoder_scan"] = cfg.encoder_layers
+    else:
+        hints["layers_scan"] = cfg.num_layers
+    if kind in ("train", "prefill"):
+        qc = cfg.attn_q_chunk
+        hints["attn_q_scan"] = max(math.ceil(s / qc), 1)
+        if cfg.family == "encdec":
+            hints["enc&attn_q_scan"] = max(math.ceil(cfg.encoder_seq / qc), 1)
+        hints["rwkv_time_scan"] = s
+        hints["rglru_time_scan"] = s
+    else:
+        hints["attn_q_scan"] = 1
+        hints["rwkv_time_scan"] = 1
+        hints["rglru_time_scan"] = 1
+    return hints
+
+
+def build_cell(
+    arch: str,
+    shape_name: str,
+    mesh,
+    rules_override: Optional[dict] = None,
+    num_microbatches: Optional[int] = None,
+    cfg_overrides: Optional[dict] = None,
+) -> Cell:
+    """The cell's rank program on ``mesh`` (a multi-process mesh; a world of
+    one rank serves for a 1-device mesh): meta parameters, state and
+    inputs, and the step.  ``num_microbatches`` other than 1 is refused for
+    train: the data-parallel step takes none."""
+    cfg = get_config(arch)
+    if cfg_overrides:
+        cfg = dataclasses.replace(cfg, **cfg_overrides)
+    ok, why = cell_supported(cfg, shape_name)
+    if not ok:
+        raise ValueError(f"{arch} x {shape_name} unsupported: {why}")
+    sh = SHAPES[shape_name]
+    kind = sh["kind"]
+
+    if kind == "train":
+        rules = rules_override or TRAIN_RULES
+    elif kind == "prefill":
+        rules = rules_override or SERVE_RULES
+    else:
+        rules = rules_override or DECODE_RULES
+    if (num_microbatches or 1) != 1:
+        raise ValueError("the port's data-parallel step takes no microbatches")
+
+    params = init_params(cfg, device="meta")
+    batch = input_specs(cfg, shape_name, mesh, rules)
+    if kind == "train":
+        # the gradients are summed over the ranks that split the batch: the
+        # rules' batch axes (on a 1 x 1 mesh a group of one)
+        fn = make_manual_dp_train_step(cfg, mesh, OptimizerConfig(),
+                                       dp_axes=mesh_batch_axes(mesh, rules))
+        args = (params, init_opt_state(params), batch)
+    elif kind == "prefill":
+        fn = lambda p, b: forward(cfg, p, b)  # noqa: E731
+        args = (params, {k: local(x) for k, x in batch.items()})
+    else:
+        tokens = local(batch["tokens"])
+        cache = init_cache(cfg, tokens.shape[0], sh["seq"], "meta")
+        fn = lambda p, c, t, pos: decode_step(cfg, p, c, t, pos)  # noqa: E731
+        pos = torch.empty((), dtype=torch.int32, device="meta")
+        args = (params, cache, tokens, pos)
+
+    return Cell(
+        arch=arch, shape_name=shape_name, cfg=cfg, fn=fn, args=args,
+        trip_hints=_trip_hints(cfg, shape_name, 1), rules=rules,
+        num_microbatches=1,
+    )
+
+
+def tree_bytes(x) -> int:
+    """Bytes of the tensors of a tree (a module's parameters, dicts, lists,
+    tuples)."""
+    if isinstance(x, torch.nn.Module):
+        return sum(p.numel() * p.element_size() for p in x.parameters())
+    if isinstance(x, dict):
+        return sum(tree_bytes(v) for v in x.values())
+    if isinstance(x, (list, tuple)):
+        return sum(tree_bytes(v) for v in x)
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    return 0
+
+
+def argument_bytes(cell: Cell) -> int:
+    """Bytes a rank holds at rest for the step: its arguments (parameters,
+    optimizer state or cache, and the inputs: the data-parallel step takes
+    the global batch on every rank and slices its block)."""
+    return tree_bytes(cell.args)
+
+
+def param_bytes_sharded(cell: Cell, mesh) -> int:
+    """Bytes a rank would hold of the parameters in the reference's layout
+    (``models.partition.param_shardings`` under the cell's rules)."""
+    params = cell.args[0]
+    named = dict(params.named_parameters())
+    out = 0
+    for k, sh in param_shardings(params, mesh, cell.rules).items():
+        p = named[k]
+        out += math.prod(local_shape(tuple(p.shape), sh)) * p.element_size()
+    return out
+
+
+def trace_cell(cell: Cell, mesh) -> tuple:
+    """Run the cell's step once on its meta arguments under
+    ``roofline.CostMode``.  Returns (its :class:`~repro_torch.roofline.Cost`,
+    memory {argument_bytes, output_bytes, temp_bytes, total_bytes}) and
+    keeps the mode (its ``kernels``, ``links``, ``ops`` and
+    ``flop_counter_flops``, ``torch.utils.flop_counter``'s total over the
+    same ops) as ``cell.trace``.  ``temp_bytes`` is the peak of the bytes the step
+    allocates and holds at once (the mode's weak-reference counter over new
+    storages)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from ..roofline.trace_analysis import CostMode
+
+    at_rest = argument_bytes(cell)
+    # the flop counter under the cost mode: the cost mode sees the ops as
+    # the step dispatches them, before the counter decomposes any, and
+    # passes every op with FLOPs on to it
+    with FlopCounterMode(display=False) as counter, CostMode() as mode:
+        out = cell.fn(*cell.args)
+    mode.flop_counter_flops = float(counter.get_total_flops())
+    produced = tree_bytes(out[0] if cell.kind == "decode" else out
+                           if cell.kind == "prefill" else out[2])
+    memory = dict(argument_bytes=at_rest, output_bytes=produced,
+                  temp_bytes=mode.peak_bytes, total_bytes=at_rest + mode.peak_bytes)
+    cell.trace = mode
+    return mode.cost, memory
+
+
+__all__ = ["SHAPES", "DEFAULT_MICROBATCHES", "Cell", "cell_supported", "all_cells",
+           "input_specs", "build_cell", "trace_cell", "local", "local_shape", "tree_bytes",
+           "argument_bytes", "param_bytes_sharded"]

@@ -63,11 +63,20 @@ def grad_cast(x, dt):
 
 def dense_init(gen: torch.Generator, shape, dtype, scale: Optional[float] = None):
     """Normal draws from ``gen`` (on its device) times ``scale``, default
-    ``1/sqrt(fan_in)``, cast to ``dtype`` — the reference's scales."""
+    ``1/sqrt(fan_in)``, cast to ``dtype`` — the reference's scales.  On the
+    meta device (:class:`MetaGenerator`) an empty tensor of the shape."""
+    if gen.device.type == "meta":  # the dry run's shapes: nothing is drawn
+        return torch.empty(shape, dtype=dtype, device=gen.device)
     fan_in = shape[0] if len(shape) >= 2 else 1
     scale = scale if scale is not None else 1.0 / np.sqrt(max(fan_in, 1))
     x = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
     return (x * scale).to(dtype)
+
+
+class MetaGenerator:
+    """What ``init_params`` hands the layers on the meta device, where
+    ``torch.Generator`` cannot be made: a device and no draws."""
+    device = torch.device("meta")
 
 
 def full(gen: torch.Generator, shape, value, dtype):
@@ -240,9 +249,9 @@ def ring_decode_attention(p: Attention, cfg: ModelConfig, x, k_cache, v_cache,
     pos = position.expand(b)[:, None]
     q = apply_rope(q.transpose(1, 2), pos[:, None, :], cfg.rope_theta).transpose(1, 2)
     k = apply_rope(k.transpose(1, 2), pos[:, None, :], cfg.rope_theta).transpose(1, 2)
-    slot = position % w
-    k_cache[:, slot] = k[:, 0].to(k_cache.dtype)
-    v_cache[:, slot] = v[:, 0].to(v_cache.dtype)
+    slot = (position % w).reshape(1)  # an index tensor: no read of its value
+    k_cache[:, slot] = k.to(k_cache.dtype)
+    v_cache[:, slot] = v.to(v_cache.dtype)
     idx = torch.arange(w, device=x.device)
     slot_pos = position - ((position - idx) % w)  # absolute position a slot holds
     valid = (slot_pos <= position) & (slot_pos > position - w) & (slot_pos >= 0)
@@ -378,10 +387,13 @@ def moe_mlp(p: MoE, cfg: ModelConfig, x):
     slot = torch.stack([r[3] for r in routes]) + base
     k = top_w.shape[2]
     tok = torch.arange(g * t, device=x.device).reshape(g, t, 1).expand(-1, -1, k)
-    buf = x.new_zeros((g * e * cap, d))
-    buf[slot[keep]] = xt.reshape(g * t, d)[tok[keep]]
+    # a dropped pair writes the scratch row past the buffer (the reference's
+    # ``e * cap``), so the dispatch has the same shapes whatever is dropped
+    buf = x.new_zeros((g * e * cap + 1, d))
+    buf[torch.where(keep, slot, g * e * cap).reshape(-1)] = \
+        xt.reshape(g * t, d)[tok.reshape(-1)]
     # (G, E, cap, d) -> (E, G * cap, d): one matmul an expert over every group
-    buf = buf.reshape(g, e, cap, d).transpose(0, 1).reshape(e, g * cap, d)
+    buf = buf[:-1].reshape(g, e, cap, d).transpose(0, 1).reshape(e, g * cap, d)
     act = F.silu if cfg.act in ("silu", "geglu") else gelu
     h = act(torch.bmm(buf, p.w_gate)) * torch.bmm(buf, p.w_up)
     out_buf = torch.bmm(h, p.w_down).reshape(e, g, cap, d).transpose(0, 1)

@@ -47,6 +47,7 @@ from .config import ModelConfig
 from .layers import (
     MLP,
     Attention,
+    MetaGenerator,
     MoE,
     chunked_attention,
     cross_decode_attention,
@@ -362,9 +363,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Model:
     """Parameters at the reference's initial scales, drawn from a
     ``torch.Generator`` seeded with ``seed`` on ``device`` (the reference's
     ``jax.random`` draws cannot be reproduced; tests carry the reference's
-    parameters across with ``interop.params_from_jax``)."""
+    parameters across with ``interop.params_from_jax``).  On ``"meta"`` the
+    same modules, leaf for leaf and shape for shape, with nothing drawn."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = MetaGenerator() if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
     return Model(cfg, gen)
 
 

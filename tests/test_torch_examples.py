@@ -1,8 +1,9 @@
-"""The port's training entry points as a user runs them, on the CPU, as
-subprocesses: ``examples/train_oracle_torch.py`` trains the Oracle for a
-few steps and answers a BaS COUNT with it, and the training launcher
-(``python -m repro_torch.launch.train``) started twice resumes from its
-own checkpoint."""
+"""The port's examples and training entry points as a user runs them, on
+the CPU, as subprocesses: ``examples/train_oracle_torch.py`` trains the
+Oracle for a few steps and answers a BaS COUNT with it, the training
+launcher (``python -m repro_torch.launch.train``) started twice resumes
+from its own checkpoint, and the copies of the reference's other examples
+(``examples/*_torch.py``) print their results at the reference's sizes."""
 import os
 import subprocess
 import sys
@@ -37,3 +38,31 @@ def test_train_launcher_resumes_from_its_checkpoint(tmp_path):
     assert f"resumed at step 3 from {tmp_path}" in second
     assert "done at step 5" in second
     assert sorted(os.listdir(tmp_path)) == ["step_00000004", "step_00000005"]
+
+
+def test_plagiarism_analysis_example_runs_on_the_cpu():
+    out = _run(["examples/plagiarism_analysis_torch.py", "--device", "cpu"], timeout=60)
+    assert "article: 120 sentences; reference db: 2500; device cpu" in out
+    assert "BAS      COUNT ~=" in out and "UNIFORM  COUNT ~=" in out
+
+
+def test_traffic_video_join_example_runs_on_the_cpu():
+    out = _run(["examples/traffic_video_join_torch.py", "--device", "cpu"], timeout=60)
+    assert "true AVG transit = " in out
+    assert "bas   AVG ~=" in out and "wwj   AVG ~=" in out
+
+
+def test_multiway_join_optimizer_example_runs_on_the_cpu():
+    out = _run(["examples/multiway_join_optimizer_torch.py", "--device", "cpu"], timeout=60)
+    assert "|T0..T3| = " in out
+    for name in ("BAS", "UNIFORM", "TRUE"):
+        assert f"{name:8s} plan: " in out
+    assert out.count("true execution cost (Oracle probes)") == 3
+
+
+def test_serve_oracle_example_runs_on_the_cpu():
+    out = _run(["examples/serve_oracle_torch.py", "--device", "cpu"], timeout=60)
+    assert "continuous batching: 8/8 requests finished" in out
+    assert "pair scoring: 64 pairs" in out and "oracle batch: 144 requests" in out
+    assert "oracle service: 2 concurrent queries" in out
+    assert out.count("q0: estimate=") == 2 and "multi-process fleet: 2 client processes" in out

@@ -6,7 +6,8 @@ serving queries through the oracle service (with its label store and
 metrics exporter) and over its TCP transport, training (a train step,
 a checkpoint, the training launcher, the autotuner's cache) and the mesh
 layer (a data-parallel step in a world of one gloo rank, the parameters'
-shardings, a scorer over the host mesh)
+shardings, a scorer over the host mesh), the roofline and the dry run (one
+cell traced on meta tensors in a fake world of 256 ranks)
 load neither JAX nor the reference package, and its entry points run on
 the card unless the caller asks for the CPU.  On CUDA tensors no op
 returns a result without a gradient where an input requires one: the scan
@@ -143,11 +144,19 @@ with tempfile.TemporaryDirectory() as d:
     dist.destroy_process_group()
 PairScorer(mcfg, tp, tok_pair, tok.YES, tok.NO, max_len=48, batch_size=16,
            mesh=make_host_mesh(device="cpu"), device="cpu").score([[1, 2], [3, 4]])
+import repro_torch.roofline
+from repro_torch.launch.dryrun import run_cell
+
+with tempfile.TemporaryDirectory() as d:
+    rec = run_cell("llama3.2-1b", "decode_32k", False, d)
+    assert rec["status"] == "ok" and rec["hlo_flops"] > 0, rec
 for name in ("repro_torch.train", "repro_torch.checkpoint.checkpoint",
              "repro_torch.runtime.fault_tolerance", "repro_torch.kernels.autotune",
              "repro_torch.launch.train", "repro_torch.launch.mesh",
              "repro_torch.launch.sharding", "repro_torch.models.partition",
-             "repro_torch.train.manual_dp"):
+             "repro_torch.train.manual_dp", "repro_torch.roofline",
+             "repro_torch.roofline.trace_analysis", "repro_torch.launch.cells",
+             "repro_torch.launch.dryrun"):
     assert name in sys.modules, name
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
