@@ -2556,10 +2556,11 @@ RECURRENT_TRAIN = (("rwkv6-1.6b", {}, 16),
 RECURRENT_TRAIN_STEPS = 6
 
 
-def _train_setup(size, device, seed=SEED, name=None, over=None, batch=None):
-    """``name`` (joinml-oracle unless named; remat on, as published), AdamW,
-    and a loader of ``batch`` (else ``size.batch``) pair sequences from the
-    entity corpus (``make_pair_batch``, loss on the label token)."""
+def _train_setup(size, device, seed=SEED, name=None, over=None, batch=None, with_opt=True):
+    """``name`` (joinml-oracle unless named; remat on, as published), AdamW
+    (its zero state unless ``with_opt`` is false), and a loader of ``batch``
+    (else ``size.batch``) pair sequences from the entity corpus
+    (``make_pair_batch``, loss on the label token)."""
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.data.pipeline import ByteTokenizer, make_entity_corpus, make_pair_batch
     from repro_torch.models import init_params
@@ -2568,10 +2569,11 @@ def _train_setup(size, device, seed=SEED, name=None, over=None, batch=None):
     tok = ByteTokenizer()
     name = name or ORACLE_NAME
     cfg = dataclasses.replace(get_config(name), remat=True, **(over or {})) if size.full \
-        else get_smoke_config(name, vocab_size=tok.vocab_size, remat=True)
+        else get_smoke_config(name, vocab_size=tok.vocab_size, remat=True,
+                              **{k: v for k, v in (over or {}).items() if k == "dtype"})
     batch = batch or size.batch
     params = init_params(cfg, seed, device=device)
-    opt = init_opt_state(params)
+    opt = init_opt_state(params) if with_opt else None
     ocfg = OptimizerConfig(peak_lr=TRAIN_LR, warmup_steps=2, decay_steps=1000)
     records, ids = make_entity_corpus(n_entities=64, records_per_entity=4, noise=0.08,
                                       seed=seed)
@@ -2819,31 +2821,6 @@ def _dp_opt(mode):
                            grad_compression=mode)
 
 
-class _TimedAllReduce:
-    """``torch.distributed.all_reduce`` wrapped: the device is synchronised
-    before and after each call, and the calls' milliseconds are summed."""
-
-    def __init__(self, device):
-        import torch.distributed as dist
-
-        self.dist, self.inner, self.device, self.ms = dist, dist.all_reduce, device, 0.0
-
-    def __call__(self, t, *a, **kw):
-        sync(self.device)
-        t0 = time.perf_counter()
-        out = self.inner(t, *a, **kw)
-        sync(self.device)
-        self.ms += (time.perf_counter() - t0) * 1e3
-        return out
-
-    def __enter__(self):
-        self.dist.all_reduce = self
-        return self
-
-    def __exit__(self, *exc):
-        self.dist.all_reduce = self.inner
-
-
 def _digests(tree: dict) -> dict:
     """SHA-256 of each tensor's bytes (bf16 as its bits), on the host."""
     import hashlib
@@ -2911,13 +2888,13 @@ def _dp_world(size, device, world, rank, ckpt_root=None):
         rows = []
         for _ in range(DP_STEPS):
             cuda_lib.reset_launches()
-            with _TimedAllReduce(device) as timed:
+            with _TimedCollectives(device) as timed:
                 sync(device)
                 t0 = time.perf_counter()
                 params, opt, m = step(params, opt, data)
                 sync(device)
             rows.append({"step_ms": (time.perf_counter() - t0) * 1e3,
-                         "all_reduce_ms": timed.ms, "loss": float(m["loss"]),
+                         "all_reduce_ms": timed.ms["all_reduce"], "loss": float(m["loss"]),
                          "wire": step.wire,
                          "launches": {k: v for k, v in cuda_lib.LAUNCHES.items() if v}})
             if first is None:
@@ -3718,13 +3695,22 @@ def check_dry_run(size, started):
         if not (r["hlo_flops"] > 0 and r["hlo_bytes"] > 0 and r["roofline"]["bound_s"] > 0
                 and isinstance(r.get("fits"), bool)):
             fail(f"dry-run record {r['arch']} {r['shape']} {r['mesh']} lacks its counts")
-        if r["shape"] == "train_4k" and not r["collective_bytes"] > 0:
-            fail(f"dry-run train record {r['arch']} {r['mesh']} has no all-reduce")
+        if r["shape"] == "train_4k" and not (
+                r["num_microbatches"] == 8 and all(
+                    sum(r["collective_by_op"].get(op, {}).values()) > 0
+                    for op in ("_allgather_base_", "_reduce_scatter_base_", "allreduce_"))):
+            fail(f"dry-run train record {r['arch']} {r['mesh']} lacks its 8 microbatches "
+                 f"or a collective: {r['num_microbatches']}, {r['collective_by_op']}")
     ok = [r for r in recs if r["status"] == "ok"]
     log(report.roofline_table(recs, "16x16"))
     log(json.dumps({"phase": "13a: dry run", "seconds": seconds, "jobs": jobs,
                     "budget_s": size.budget_s, "within_budget": seconds <= size.budget_s,
                     "records": dict(status), "fit": sum(r["fits"] for r in ok),
+                    "train_collectives_by_op": {
+                        f"{r['arch']} {r['mesh']}": r["collective_by_op"] for r in ok
+                        if r["shape"] == "train_4k"},
+                    "hbm_fraction": {f"{r['arch']} {r['shape']} {r['mesh']}":
+                                     r["memory"]["hbm_fraction"] for r in ok},
                     "do_not_fit": sorted(
                         [r["arch"], r["shape"], r["mesh"], r["memory"]["hbm_fraction"],
                          r["param_bytes_sharded"]] for r in ok if not r["fits"]),
@@ -3737,7 +3723,8 @@ def roofline_cell(full: bool, batch: int, seq: int):
     rank cannot share a process with another world): phase 11's step as a
     1 x 1-mesh cell (joinml-oracle, remat, the data-parallel step with the
     default AdamW) at ``batch`` x ``seq`` on meta tensors; prints one JSON
-    line of its roofline and charged launches."""
+    line of its roofline and charged launches.  One microbatch, as phase 11
+    steps (the sharded step on a 1 x 1 mesh)."""
     import repro_torch.launch.cells as C
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.data.pipeline import ByteTokenizer
@@ -3750,7 +3737,7 @@ def roofline_cell(full: bool, batch: int, seq: int):
         lambda n: get_smoke_config(n, vocab_size=ByteTokenizer().vocab_size, remat=True))
     with fake_world(1):
         mesh = make_mesh((1, 1), ("data", "model"), device="meta")
-        cell = C.build_cell(ORACLE_NAME, "train_4k", mesh)
+        cell = C.build_cell(ORACLE_NAME, "train_4k", mesh, num_microbatches=1)
         cost, memory = C.trace_cell(cell, mesh)
         roof = _roofline(cost.flops, cost.bytes, cell.trace.links, hw.PEAK_FLOPS_BF16)
     print(json.dumps({"flops": cost.flops, "bytes": cost.bytes,
@@ -3824,6 +3811,353 @@ def phase13(size, train_size, device, train_row):
     check_examples(runs)
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the sharded train step (FSDP over "data", tensor parallelism
+# over "model", 8 microbatches)
+# ---------------------------------------------------------------------------
+
+SHARDED_MICRO = 8      # the reference's DEFAULT_MICROBATCHES
+SHARDED_STEPS = 2      # phase 14's steps on each mesh
+SHARDED_BOUND_S = 600.0
+# phase 14's jobs: phase 11's joinml-oracle and batch (16 rows, also in the
+# rehearsal: 8 microbatches over 2 batch shards) at f32 (the one-process step is
+# held to the trainer's f32 rule) on each (data, model) mesh of worlds 1 and 2
+SHARDED_ORACLE = {"name": ORACLE_NAME, "over": {"dtype": "float32"}, "batch": 16,
+                  "steps": SHARDED_STEPS, "opt": "rule", "compare": "one_process"}
+SHARDED_JOBS = [dict(SHARDED_ORACLE, mesh=m) for m in ((1, 1), (2, 1), (1, 2))]
+
+
+def _sharded_opt(kind):
+    """``"rule"``: lr 1e-2, no warmup, eps 1, no clipping (Adam's first step
+    ``lr * g / (|g| + 1)``, far above a parameter's ulp, so an update
+    compares elementwise); ``"phase11"``: phase 11's AdamW."""
+    from repro_torch.train import OptimizerConfig
+
+    if kind == "rule":
+        return OptimizerConfig(peak_lr=1e-2, warmup_steps=0, decay_steps=10, eps=1.0,
+                               clip_norm=1e6)
+    return OptimizerConfig(peak_lr=TRAIN_LR, warmup_steps=2, decay_steps=1000)
+
+
+class _TimedCollectives:
+    """The collectives the trainers of phases 12 and 14 call (``all_reduce``,
+    ``all_gather_into_tensor``, ``reduce_scatter_tensor`` and their
+    ``*_single`` names) wrapped: the device synchronised before and after
+    each outermost call, the calls' milliseconds summed by kind."""
+
+    NAMES = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor",
+             "all_gather_single", "reduce_scatter_single")
+
+    def __init__(self, device):
+        import torch.distributed as dist
+
+        self.dist, self.device = dist, device
+        self.inner = {n: getattr(dist, n) for n in self.NAMES if hasattr(dist, n)}
+        self.ms = collections.Counter()
+        self.depth = 0
+
+    def _wrap(self, name, fn):
+        kind = "all_reduce" if name == "all_reduce" else \
+            "reduce_scatter" if "scatter" in name else "all_gather"
+
+        def timed(*a, **kw):
+            if self.depth:
+                return fn(*a, **kw)
+            self.depth += 1
+            try:
+                sync(self.device)
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                sync(self.device)
+                self.ms[kind] += (time.perf_counter() - t0) * 1e3
+                return out
+            finally:
+                self.depth -= 1
+        return timed
+
+    def __enter__(self):
+        for n, fn in self.inner.items():
+            setattr(self.dist, n, self._wrap(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.inner.items():
+            setattr(self.dist, n, fn)
+
+
+def _expected_launches(cfg, micro):
+    """K5, K6 and K7 launches a rank's step makes: each layer's forward
+    twice under remat and its backward once, a microbatch."""
+    kinds = cfg.layer_types()
+    n_attn = sum(kinds.count(kd) for kd in ("dense", "moe", "attn"))
+    want = {"rwkv6_scan": 2 * kinds.count("rwkv"), "rwkv6_scan_bwd": kinds.count("rwkv"),
+            "rglru_scan": 2 * kinds.count("rec"), "rglru_scan_bwd": kinds.count("rec"),
+            "flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn}
+    return {k: micro * v for k, v in want.items() if v}
+
+
+def _block_loss(cfg, params, data, micro, shards):
+    """``loss_fn`` of the whole model on this card, forward only, over the
+    blocks the sharded step computes (each microbatch's rows split over the
+    batch shards; their MoE groups), averaged: the sharded step's first
+    loss without a collective."""
+    from repro_torch.models import loss_fn
+
+    rows = len(data["tokens"]) // (micro * shards)
+    losses = []
+    with torch.no_grad():
+        for i in range(micro * shards):
+            block = {k: v[i * rows:(i + 1) * rows] for k, v in data.items()}
+            losses.append(float(loss_fn(cfg, params, block)))
+    return float(np.mean(losses))
+
+
+def _sharded_job(size, device, job, out_dir):
+    """One job of a rank of phase 14 (``torch.distributed`` is initialised
+    with a world of the mesh's size): its model from the seed, whole on
+    every rank, then laid out by ``shard_params`` under TRAIN_RULES with
+    sharded AdamW moments; ``job["steps"]`` steps of ``make_train_step(...,
+    SHARDED_MICRO)`` under ``sharding_context`` on phase 11's first batch,
+    each with its ms, its collectives' ms, loss, grad norm and launches.
+    Rank 0 also writes the first step's parameters (gathered whole) for
+    the one-process comparison, or holds the first loss against
+    ``_block_loss``.  Returns the logged row."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharding import TRAIN_RULES, sharding_context
+    from repro_torch.models.partition import shard_params
+    from repro_torch.train import init_opt_state, make_train_step
+    from repro_torch.train.sharded import whole
+
+    rank = dist.get_rank()
+    cfg, params, _, _, batch_at = _train_setup(size, device, name=job["name"],
+                                               over=job["over"], batch=job["batch"],
+                                               with_opt=False)
+    data = batch_at(0)
+    shape = tuple(job["mesh"])
+    tag = f"{cfg.name} {shape[0]}x{shape[1]}"
+    row = {"phase": "14: sharded training", "job": tag, "rank": rank,
+           "world": dist.get_world_size(), "backend": dist.get_backend(),
+           "mesh": {"data": shape[0], "model": shape[1]}, "model": cfg.name,
+           "layers": cfg.num_layers, "dtype": cfg.dtype, "micro": SHARDED_MICRO,
+           "batch": list(np.shape(data["tokens"])),
+           "params": sum(p.numel() for p in params.parameters())}
+    if job["compare"] == "forward_loss" and rank == 0:
+        t0 = time.perf_counter()
+        row["one_card_loss"] = _block_loss(cfg, params, data, SHARDED_MICRO, shape[0])
+        row["one_card_loss_s"] = time.perf_counter() - t0
+    mesh = make_mesh(shape, ("data", "model"), device=device)
+    shard_params(params, mesh, TRAIN_RULES)
+    _free()
+    opt = init_opt_state(params)
+    row["held_bytes"] = sum(p._local_tensor.numel() * p.element_size()
+                            for p in params.parameters())
+    step = make_train_step(cfg, _sharded_opt(job["opt"]), SHARDED_MICRO)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    row["steps"] = []
+    for i in range(job["steps"]):
+        cuda_lib.reset_launches()
+        with _TimedCollectives(device) as timed:
+            sync(device)
+            t0 = time.perf_counter()
+            with sharding_context(mesh, TRAIN_RULES):
+                params, opt, m = step(params, opt, data)
+            sync(device)
+        row["steps"].append({"step_ms": (time.perf_counter() - t0) * 1e3,
+                             "collective_ms": dict(timed.ms), "loss": float(m["loss"]),
+                             "grad_norm": float(m["grad_norm"]),
+                             "launches": {k: v for k, v in cuda_lib.LAUNCHES.items() if v}})
+        if i == 0 and job["compare"] == "one_process":
+            first = {k: whole(p).cpu() for k, p in params.named_parameters()}
+            if rank == 0:
+                path = os.path.join(out_dir, f"phase14_{shape[0]}x{shape[1]}.pt")
+                torch.save({"params": first, **row["steps"][0]}, path)
+                row["first_step"] = path
+            del first
+    if device == "cuda":
+        row["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+        row["expected_launches"] = _expected_launches(cfg, SHARDED_MICRO)
+    del params, opt
+    _free()
+    return row
+
+
+def sharded_rank(rank, world, store, device, full, jobs, out_dir, backend="gloo"):
+    """A rank process of a phase-14 world, on card ``rank`` modulo the cards
+    present; runs every job whose mesh has ``world`` ranks; prints its rows
+    as JSON.  Phase 14's world of 2 shares one card over gloo with CUDA
+    tensors; ``scripts/sharded_step.py`` puts one rank on each card over
+    NCCL."""
+    import datetime
+
+    import torch.distributed as dist
+
+    if device == "cuda":
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    dist.init_process_group(backend, store=dist.FileStore(store, world), rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=600))
+    try:
+        size = TRAIN_FULL if full else TRAIN_REHEARSAL
+        rows = [_sharded_job(size, device, job, out_dir) for job in jobs
+                if int(np.prod(job["mesh"])) == world]
+    finally:
+        dist.destroy_process_group()
+    print(json.dumps(rows), flush=True)
+
+
+def sharded_processes(size, device, world, jobs, out_dir, backend="gloo"):
+    """A phase-14 world of ``world`` rank processes; returns their rows."""
+    import uuid
+
+    os.makedirs(out_dir, exist_ok=True)
+    store = os.path.join(HERE, "build", f"sharded_store_{uuid.uuid4().hex}")
+    # a rank that dies of a signal prints its threads' Python stacks
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"), PYTHONFAULTHANDLER="1")
+    procs = []
+    for rank in range(world):
+        code = ("import sys; sys.path.insert(0, {here!r}); import chip_smoke; "
+                "chip_smoke.sharded_rank({rank}, {world}, {store!r}, {device!r}, {full!r}, "
+                "{jobs!r}, {out!r}, {backend!r})").format(
+                    here=HERE, rank=rank, world=world, store=store, device=device,
+                    full=size.full, jobs=jobs, out=out_dir, backend=backend)
+        procs.append(subprocess.Popen([sys.executable, "-c", code], cwd=HERE, env=env,
+                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                      text=True))
+    rows, errs = [], []
+    try:
+        for rank, proc in enumerate(procs):
+            out, err = proc.communicate(timeout=SHARDED_BOUND_S)
+            if proc.returncode != 0:
+                errs.append(f"rank {rank} exited {proc.returncode}:\n{err[-3000:]}")
+            else:
+                rows += json.loads(out.strip().splitlines()[-1])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        if os.path.exists(store):
+            os.remove(store)
+    if errs:
+        fail(f"a rank of the sharded world of {world} failed: " + "\n".join(errs))
+    return rows
+
+
+def one_process_first_step(size, device, job):
+    """The one-process step (``make_train_step(..., SHARDED_MICRO)`` on the
+    whole model and batch) from the jobs' initial weights: (parameters
+    before, after, loss, grad norm), on the host."""
+    from repro_torch.train import make_train_step
+
+    cfg, params, opt, _, batch_at = _train_setup(size, device, name=job["name"],
+                                                 over=job["over"], batch=job["batch"])
+    before = {k: p.detach().cpu().clone() for k, p in params.named_parameters()}
+    params, opt, m = make_train_step(cfg, _sharded_opt(job["opt"]), SHARDED_MICRO)(
+        params, opt, batch_at(0))
+    after = {k: p.detach().cpu().clone() for k, p in params.named_parameters()}
+    del params, opt
+    _free()
+    return before, after, float(m["loss"]), float(m["grad_norm"])
+
+
+def hold_first_step(one, path):
+    """A sharded world's first step (saved at ``path``) against the
+    one-process step, the trainer's f32 rule (``tests/test_torch_manual_dp.py``):
+    the loss within 1e-5 relative, the grad norm within 1e-4, each
+    element's update within 1e-4 of its leaf's largest |update| plus one
+    ulp of the new parameter (both sides round it to its type).  Returns
+    the worst ratio of each to its tolerance."""
+    before, after, loss, gnorm = one
+    got = torch.load(path)
+    worst = 0.0
+    for k, b in before.items():
+        new, mine = after[k].float(), got["params"][k].float()
+        want, du = new - b.float(), mine - b.float()
+        exp = torch.frexp(torch.maximum(new.abs(), mine.abs()))[1]
+        ulp = torch.ldexp(torch.ones_like(new), exp - 24)
+        tol = 1e-4 * float(want.abs().max()) + ulp
+        worst = max(worst, float(((du - want).abs() / tol).max()))
+    return {"loss": abs(got["loss"] / loss - 1) / 1e-5,
+            "grad_norm": abs(got["grad_norm"] / gnorm - 1) / 1e-4, "update": worst}
+
+
+def check_sharded_rows(rows, device, ones=None):
+    """Every step's loss finite and the same on every rank of a job; on the
+    card the launches a step what ``_expected_launches`` says; each
+    one-process job's first step held by ``hold_first_step`` against
+    ``ones[rows of its batch]``; each
+    forward-loss job's first loss within the trainer's bf16 rule (6e-2) of
+    the one-card loss.  Returns {job: {the held ratios}}."""
+    held = {}
+    jobs = collections.defaultdict(list)
+    for r in rows:
+        jobs[r["job"]].append(r)
+    for tag, rs in jobs.items():
+        for r in rs:
+            for i, st in enumerate(r["steps"]):
+                if not np.isfinite(st["loss"]):
+                    fail(f"14 {tag} rank {r['rank']}: step {i} loss {st['loss']}")
+                if device == "cuda" and st["launches"] != r["expected_launches"]:
+                    fail(f"14 {tag} rank {r['rank']}: launches a step {st['launches']}, "
+                         f"expected {r['expected_launches']}")
+        if len({json.dumps([st["loss"] for st in r["steps"]]) for r in rs}) != 1:
+            fail(f"14 {tag}: the ranks report other losses")
+        lead = next(r for r in rs if r["rank"] == 0)
+        if "first_step" in lead:
+            held[tag] = hold_first_step(ones[lead["batch"][0]], lead["first_step"])
+            os.remove(lead["first_step"])
+        if "one_card_loss" in lead:
+            first, want = lead["steps"][0]["loss"], lead["one_card_loss"]
+            held[tag] = {"loss": abs(first - want) / (BF16_RULE * abs(want))}
+        if held.get(tag) and max(held[tag].values()) > 1.0:
+            fail(f"14 {tag}: the first step differs: {held[tag]}")
+    return held
+
+
+def phase14(size, device):
+    """Phase 14: ``SHARDED_JOBS`` (phase 11's model at f32, 8 microbatches,
+    ``SHARDED_STEPS`` steps) at world 1 over NCCL in this process on a 1 x
+    1 mesh, and at world 2 as two processes on the one card over gloo with
+    CUDA tensors on the 2 x 1 and 1 x 2 meshes; each world's first step
+    held against the one-process step.  Launch counts are set to 0 just
+    before each step and read just after.  Returns {path: launches}."""
+    import datetime
+
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    out_dir = os.path.join(HERE, "build", "phase14")
+    one = one_process_first_step(size, device, SHARDED_ORACLE)
+    rows = sharded_processes(size, device, 2, SHARDED_JOBS, out_dir)
+    store = os.path.join(HERE, "build", "sharded_store_world1")
+    if os.path.exists(store):
+        os.remove(store)
+    dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                            store=dist.FileStore(store, 1), rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        rows += [_sharded_job(size, device, job, out_dir) for job in SHARDED_JOBS
+                 if int(np.prod(job["mesh"])) == 1]
+    finally:
+        dist.destroy_process_group()
+        os.remove(store)
+    for r in rows:
+        log(json.dumps(r))
+    held = check_sharded_rows(rows, device, {SHARDED_ORACLE["batch"]: one})
+    log(json.dumps({"phase": "14 summary", "held_ratios": held, "step_ms": {
+        f"{r['job']} rank {r['rank']}": [st["step_ms"] for st in r["steps"]] for r in rows},
+        "collective_ms": {f"{r['job']} rank {r['rank']}":
+                          [st["collective_ms"] for st in r["steps"]] for r in rows},
+        "max_memory_allocated_bytes": {f"{r['job']} rank {r['rank']}":
+                                       r.get("max_memory_allocated_bytes") for r in rows},
+        "phase14_s": time.perf_counter() - t0}))
+    return {f"sharded training, {r['job']} rank {r['rank']}, a step (14)":
+            r["steps"][-1]["launches"] for r in rows}
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--rehearse-cpu", action="store_true",
@@ -3846,6 +4180,7 @@ def main():
         train_row = phase11(TRAIN_REHEARSAL, "cpu")[2]
         phase12(TRAIN_REHEARSAL, REHEARSAL_MODEL, "cpu")
         phase13(DRYRUN_REHEARSAL, TRAIN_REHEARSAL, "cpu", train_row)
+        phase14(TRAIN_REHEARSAL, "cpu")
         log(f"rehearsal complete: {len(results) + len(results_4b) + len(results_4c)} "
             "queries, the Oracle queries, the recurrent paths, the model families, "
             "the serving plane, training, the mesh and the dry run on the CPU (no result)")
@@ -4001,8 +4336,13 @@ def main():
     # phase 13: the dry run, the roofline against phase 11's step, the examples
     t13 = time.perf_counter()
     phase13(DRYRUN_FULL, TRAIN_FULL, "cuda", train_row)
+    phase13_s = time.perf_counter() - t13
+    # phase 14: the sharded step, counts set to 0 just before each step and read just after
+    t14 = time.perf_counter()
+    paths.update(phase14(TRAIN_FULL, "cuda"))
     log(json.dumps({"phase10_s": phase10_s, "phase11_s": phase11_s,
-                    "phase12_s": phase12_s, "phase13_s": time.perf_counter() - t13,
+                    "phase12_s": phase12_s, "phase13_s": phase13_s,
+                    "phase14_s": time.perf_counter() - t14,
                     "script_s": time.perf_counter() - t_script}))
     main_path = {"flash_attention": "Oracle COUNT", "rwkv6_scan": "rwkv6-1.6b",
                  "rglru_scan": "recurrentgemma-9b"}

@@ -17,10 +17,13 @@ its ``state_dict()``.  A leaf's path is its keys joined by ``/``.
   caller's thread, then writes on a worker thread.
 
 Elastic resharding: the checkpoint carries no device layout.  A DTensor
-leaf is saved whole (``full_tensor()``, a collective: every rank of its
+leaf is saved whole (gathered by collectives: every rank of its
 mesh calls ``save``, and global rank 0 writes), and ``restore(shardings=)``
 brings each leaf back as a DTensor on the current mesh, so a checkpoint
-saved at one world size restores at another.
+saved at one world size restores at another.  Restoring onto sharded state
+needs no ``shardings``: a DTensor target leaf (a sharded model's parameter
+or moment) comes back laid out as it is, and a module whose parameters are
+DTensors is loaded in place, each rank its own blocks.
 """
 from __future__ import annotations
 
@@ -58,8 +61,11 @@ def _is_dtensor(leaf) -> bool:
 
 
 def _whole(leaf):
-    """A DTensor leaf gathered whole (a collective), else the leaf."""
-    return leaf.full_tensor() if _is_dtensor(leaf) else leaf
+    """A DTensor leaf gathered whole (collectives over its mesh's groups,
+    ``train.sharded.whole``), else the leaf."""
+    from ..train.sharded import whole
+
+    return whole(leaf)
 
 
 def _host(leaf) -> np.ndarray:
@@ -196,6 +202,15 @@ def _load_leaf(ckpt: str, entry: dict, key: str, expect) -> torch.Tensor:
     return torch.from_numpy(np.array(arr))
 
 
+def _like(t: torch.Tensor, target) -> torch.Tensor:
+    """``t`` (the whole leaf) as a DTensor laid out as the DTensor
+    ``target``, on its device."""
+    from torch.distributed.tensor import distribute_tensor
+
+    return distribute_tensor(t.to(target.device), target.device_mesh, target.placements,
+                             src_data_rank=None)
+
+
 def _distribute(t: torch.Tensor, sharding, key: str):
     """``t`` (the whole leaf, loaded on every rank) as a DTensor laid out
     by ``sharding`` (a ``launch.sharding.NamedSharding``); each rank keeps
@@ -217,7 +232,9 @@ def restore(root: str, step: int, target_tree, shardings=None):
     ``launch.sharding.NamedSharding`` on the *current* mesh (e.g. from
     ``models.partition.param_shardings``) — each leaf comes back as a
     DTensor laid out so, the elastic-resharding path; the target is then
-    a tree of tensors or arrays, not a module.  Returns (tree, manifest)."""
+    a tree of tensors or arrays, not a module.  Without ``shardings`` a
+    DTensor target leaf comes back as a DTensor of its layout (a sharded
+    module is loaded in place).  Returns (tree, manifest)."""
     if shardings is not None and isinstance(target_tree, torch.nn.Module):
         raise TypeError("restoring onto shardings takes a tree of tensors (a module's "
                         "state_dict()), not a module")
@@ -234,7 +251,10 @@ def restore(root: str, step: int, target_tree, shardings=None):
                     if state[name].dtype != t.dtype:
                         raise ValueError(f"{'/'.join(prefix + (name,))}: checkpoint "
                                          f"type {state[name].dtype} != {t.dtype}")
-                    t.copy_(state[name])
+                    if _is_dtensor(t):
+                        t._local_tensor.copy_(state[name]._local_tensor)
+                    else:
+                        t.copy_(state[name])
             return tree
         if isinstance(tree, dict):  # leaves in the reference's (sorted) order
             done = {k: load(tree[k], prefix + (str(k),), None if sh is None else sh[k])
@@ -249,6 +269,8 @@ def restore(root: str, step: int, target_tree, shardings=None):
         t = _load_leaf(ckpt, by_path[key], key, getattr(tree, "shape", None))
         if sh is not None:
             return _distribute(t, sh, key)
+        if _is_dtensor(tree):
+            return _like(t, tree)
         return t.to(tree.device) if isinstance(tree, torch.Tensor) else t
 
     return load(target_tree, (), shardings), manifest

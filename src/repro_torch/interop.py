@@ -77,11 +77,21 @@ def _named_leaves(tree: dict, model: Model) -> dict:
     return state
 
 
-def opt_state_from_jax(cfg: ModelConfig, state: dict, device="cuda") -> dict:
+def opt_state_from_jax(cfg: ModelConfig, state: dict, device="cuda", mesh=None,
+                       rules=None) -> dict:
     """The port's optimizer state (``repro_torch.train.init_opt_state``'s
     layout) from the reference's ``{"m", "v", "step"}`` with numpy leaves:
     ``m`` and ``v`` map by the names of :func:`params_from_jax` and must
-    be f32 of the parameters' shapes."""
+    be f32 of the parameters' shapes.  With a multi-process ``mesh`` and
+    ``rules``, the moments are laid out as :func:`params_from_jax` lays
+    out the parameters (``models.partition.shard_opt_state``); the device
+    is then the mesh's."""
+    if mesh is not None:
+        from .models.layers import MetaGenerator
+        from .models.partition import shard_opt_state
+
+        shapes = Model(cfg, MetaGenerator())  # the parameters' names and shapes
+        return shard_opt_state(opt_state_from_jax(cfg, state, "cpu"), shapes, mesh, rules)
     dev = resolve_device(device)
     model = Model(cfg, torch.Generator(device=dev).manual_seed(0))
     shapes = {k: p.shape for k, p in model.named_parameters()}
@@ -96,7 +106,8 @@ def opt_state_from_jax(cfg: ModelConfig, state: dict, device="cuda") -> dict:
     return out
 
 
-def params_from_jax(cfg: ModelConfig, tree: dict, device="cuda") -> Model:
+def params_from_jax(cfg: ModelConfig, tree: dict, device="cuda", mesh=None,
+                    rules=None) -> Model:
     """The port's parameters (a :class:`~repro_torch.models.Model`) from the
     reference's ``init_params`` tree with numpy leaves, for every family.
     The stacked ``layers`` / ``enc`` / ``blocks`` leaves are split along
@@ -104,7 +115,14 @@ def params_from_jax(cfg: ModelConfig, tree: dict, device="cuda") -> Model:
     expert leaves (L, e, d, ff) into (e, d, ff) each); ``tail`` is a list
     already; the others (``embed``, ``head``, ``ln_f``, ``ln_enc``,
     ``patch_proj``) map by name.  Every name and type must match: a
-    missing, extra or retyped parameter raises."""
+    missing, extra or retyped parameter raises.  With a multi-process
+    ``mesh`` and ``rules`` the model comes back sharded
+    (``models.partition.shard_params``: each rank keeps its blocks, on the
+    mesh's device), ready for the sharded train step."""
+    if mesh is not None:
+        from .models.partition import shard_params
+
+        return shard_params(params_from_jax(cfg, tree, "cpu"), mesh, rules)
     dev = resolve_device(device)
     model = Model(cfg, torch.Generator(device=dev).manual_seed(0))
     state = _named_leaves(tree, model)

@@ -8,25 +8,26 @@ decode_32k / long_500k (one decode token against a KV cache or state).
 ``long_500k`` requires sub-quadratic sequence mixing and is skipped for pure
 full-attention architectures.
 
-**A cell is the program one rank of the port runs on that mesh.**  The
-port computes each layer on whole local tensors (``launch.sharding``):
+**A cell is the program one rank of the port runs on that mesh.**
 
-* the input's batch dim is split as ``sharding.spec_for`` splits it under
-  the cell's rules (the local shape from the DTensor placements), and not
-  split where the rules give no divisible axis (long_500k's batch of 1);
-* parameters and optimizer state are whole on every rank, as
-  ``train.manual_dp`` replicates them; ``param_bytes_sharded`` (in the dry
-  run's record) is what the reference's layout (``models.partition``)
-  would hold a rank;
-* train is ``train.manual_dp.make_manual_dp_train_step`` over the batch's
-  mesh axes with the default :class:`OptimizerConfig`, one microbatch (it
-  takes none; the reference's step takes 8: the same FLOPs, other
-  activation memory); prefill is ``models.forward``; decode is
-  ``models.decode_step`` against ``init_cache(cfg, local batch, seq)``.
-
-No sharding context is entered: a rank's step runs outside one, so the MoE
-dispatch routes the local batch as one group, which is the reference's
-group of that batch shard.
+* train is the reference's: ``train.make_train_step`` with the default
+  :class:`OptimizerConfig` and ``DEFAULT_MICROBATCHES`` (8) microbatches,
+  run under ``sharding_context(mesh, TRAIN_RULES)`` on parameters and
+  moments sharded by ``models.partition.shard_params`` (meta DTensors: the
+  rank holds its blocks, ``param_bytes_sharded``).  The step takes the
+  global batch and computes its block of each microbatch; the layers
+  gather their FSDP shards and split heads, channels, experts and the
+  vocabulary over "model" (``train.sharded``).  :func:`trace_cell` traces
+  one microbatch and counts it ``num_microbatches`` times, as the
+  reference's analyzer expands its ``accum_scan``, then the reductions
+  and the optimizer once;
+* prefill is ``models.forward`` and decode ``models.decode_step`` against
+  ``init_cache(cfg, local batch, seq)`` on whole parameters (the serving
+  rules' 2-D layout is not ported yet); their input's batch dim is split
+  as ``sharding.spec_for`` splits it under the cell's rules, and not where
+  the rules give no divisible axis (long_500k's batch of 1).  No sharding
+  context is entered for them, so the MoE dispatch routes the local batch
+  as one group, which is the reference's group of that batch shard.
 """
 from __future__ import annotations
 
@@ -39,14 +40,14 @@ import torch
 from ..configs import ARCHS, get_config
 from ..models import decode_step, forward, init_cache, init_params
 from ..models.config import ModelConfig
-from ..models.partition import param_shardings
-from ..train import OptimizerConfig, init_opt_state
-from ..train.manual_dp import make_manual_dp_train_step
+from ..models.partition import param_shardings, shard_params
+from ..train import OptimizerConfig, init_opt_state, make_train_step
+from ..train.sharded import local as local_shard
 from .sharding import (
     DECODE_RULES,
     SERVE_RULES,
     TRAIN_RULES,
-    mesh_batch_axes,
+    sharding_context,
     sharding_for,
 )
 
@@ -220,8 +221,8 @@ def build_cell(
 ) -> Cell:
     """The cell's rank program on ``mesh`` (a multi-process mesh; a world of
     one rank serves for a 1-device mesh): meta parameters, state and
-    inputs, and the step.  ``num_microbatches`` other than 1 is refused for
-    train: the data-parallel step takes none."""
+    inputs, and the step.  Train takes ``num_microbatches`` (default
+    ``DEFAULT_MICROBATCHES``); prefill and decode one."""
     cfg = get_config(arch)
     if cfg_overrides:
         cfg = dataclasses.replace(cfg, **cfg_overrides)
@@ -237,16 +238,13 @@ def build_cell(
         rules = rules_override or SERVE_RULES
     else:
         rules = rules_override or DECODE_RULES
-    if (num_microbatches or 1) != 1:
-        raise ValueError("the port's data-parallel step takes no microbatches")
+    n_micro = num_microbatches or (DEFAULT_MICROBATCHES if kind == "train" else 1)
 
     params = init_params(cfg, device="meta")
     batch = input_specs(cfg, shape_name, mesh, rules)
     if kind == "train":
-        # the gradients are summed over the ranks that split the batch: the
-        # rules' batch axes (on a 1 x 1 mesh a group of one)
-        fn = make_manual_dp_train_step(cfg, mesh, OptimizerConfig(),
-                                       dp_axes=mesh_batch_axes(mesh, rules))
+        shard_params(params, mesh, rules)
+        fn = _in_context(make_train_step(cfg, OptimizerConfig(), n_micro), mesh, rules)
         args = (params, init_opt_state(params), batch)
     elif kind == "prefill":
         fn = lambda p, b: forward(cfg, p, b)  # noqa: E731
@@ -260,29 +258,48 @@ def build_cell(
 
     return Cell(
         arch=arch, shape_name=shape_name, cfg=cfg, fn=fn, args=args,
-        trip_hints=_trip_hints(cfg, shape_name, 1), rules=rules,
-        num_microbatches=1,
+        trip_hints=_trip_hints(cfg, shape_name, n_micro), rules=rules,
+        num_microbatches=n_micro,
     )
 
 
+def _in_context(step, mesh, rules):
+    """``step`` and its two parts run under ``sharding_context(mesh, rules)``."""
+    def run(fn):
+        def inner(*args, **kw):
+            with sharding_context(mesh, rules):
+                return fn(*args, **kw)
+        return inner
+
+    out = run(step)
+    out.accumulate, out.apply = run(step.accumulate), run(step.apply)
+    return out
+
+
 def tree_bytes(x) -> int:
-    """Bytes of the tensors of a tree (a module's parameters, dicts, lists,
-    tuples)."""
+    """Bytes a rank holds of the tensors of a tree (a module's parameters,
+    dicts, lists, tuples): a DTensor's local shard."""
     if isinstance(x, torch.nn.Module):
-        return sum(p.numel() * p.element_size() for p in x.parameters())
+        return tree_bytes(list(x.parameters()))
     if isinstance(x, dict):
         return sum(tree_bytes(v) for v in x.values())
     if isinstance(x, (list, tuple)):
         return sum(tree_bytes(v) for v in x)
     if isinstance(x, torch.Tensor):
-        return x.numel() * x.element_size()
+        t = local_shard(x)
+        return t.numel() * t.element_size()
     return 0
+
+
+def whole_bytes(model: torch.nn.Module) -> int:
+    """Bytes of a model's parameters, whole."""
+    return sum(p.numel() * p.element_size() for p in model.parameters())
 
 
 def argument_bytes(cell: Cell) -> int:
     """Bytes a rank holds at rest for the step: its arguments (parameters,
-    optimizer state or cache, and the inputs: the data-parallel step takes
-    the global batch on every rank and slices its block)."""
+    optimizer state or cache, and the inputs: the train step takes the
+    global batch on every rank and slices its block)."""
     return tree_bytes(cell.args)
 
 
@@ -302,30 +319,52 @@ def trace_cell(cell: Cell, mesh) -> tuple:
     """Run the cell's step once on its meta arguments under
     ``roofline.CostMode``.  Returns (its :class:`~repro_torch.roofline.Cost`,
     memory {argument_bytes, output_bytes, temp_bytes, total_bytes}) and
-    keeps the mode (its ``kernels``, ``links``, ``ops`` and
+    keeps the mode (its ``kernels``, ``links``, ``op_links``, ``ops`` and
     ``flop_counter_flops``, ``torch.utils.flop_counter``'s total over the
-    same ops) as ``cell.trace``.  ``temp_bytes`` is the peak of the bytes the step
-    allocates and holds at once (the mode's weak-reference counter over new
-    storages)."""
-    from torch.utils.flop_counter import FlopCounterMode
+    same ops) as ``cell.trace``.  ``temp_bytes`` is the peak of the bytes
+    the step allocates and holds at once (the mode's weak-reference counter
+    over new storages).
 
-    from ..roofline.trace_analysis import CostMode
-
+    A train cell is traced in two parts: one microbatch, counted
+    ``num_microbatches`` times, then the reductions and the optimizer once.
+    Its ``temp_bytes`` is the f32 gradient sums (alive from the first
+    microbatch to the update) plus the larger of the two parts' peaks."""
     at_rest = argument_bytes(cell)
-    # the flop counter under the cost mode: the cost mode sees the ops as
-    # the step dispatches them, before the counter decomposes any, and
-    # passes every op with FLOPs on to it
-    with FlopCounterMode(display=False) as counter, CostMode() as mode:
-        out = cell.fn(*cell.args)
-    mode.flop_counter_flops = float(counter.get_total_flops())
-    produced = tree_bytes(out[0] if cell.kind == "decode" else out
-                           if cell.kind == "prefill" else out[2])
+    if cell.kind == "train":
+        params, opt_state, batch = cell.args
+        part, flops = _traced(lambda: cell.fn.accumulate(params, batch, range(1)))
+        loss_sum, grads = part.result
+        mode, flops2 = _traced(lambda: cell.fn.apply(params, opt_state, loss_sum, grads))
+        mode.absorb(part, cell.num_microbatches)
+        mode.flop_counter_flops = flops * cell.num_microbatches + flops2
+        held = tree_bytes(grads)
+        mode.peak_bytes = held + max(part.peak_bytes, mode.peak_bytes)
+        produced = tree_bytes(mode.result[2])
+    else:
+        mode, mode.flop_counter_flops = _traced(lambda: cell.fn(*cell.args))
+        produced = tree_bytes(mode.result[0] if cell.kind == "decode" else mode.result)
     memory = dict(argument_bytes=at_rest, output_bytes=produced,
                   temp_bytes=mode.peak_bytes, total_bytes=at_rest + mode.peak_bytes)
+    del mode.result
     cell.trace = mode
     return mode.cost, memory
 
 
+def _traced(fn):
+    """(the ``CostMode`` of ``fn()``, with its value as ``.result``, and
+    ``torch.utils.flop_counter``'s total over the same ops)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from ..roofline.trace_analysis import CostMode
+
+    # the flop counter under the cost mode: the cost mode sees the ops as
+    # the step dispatches them, before the counter decomposes any, and
+    # passes every op with FLOPs on to it
+    with FlopCounterMode(display=False) as counter, CostMode() as mode:
+        mode.result = fn()
+    return mode, float(counter.get_total_flops())
+
+
 __all__ = ["SHAPES", "DEFAULT_MICROBATCHES", "Cell", "cell_supported", "all_cells",
            "input_specs", "build_cell", "trace_cell", "local", "local_shape", "tree_bytes",
-           "argument_bytes", "param_bytes_sharded"]
+           "whole_bytes", "argument_bytes", "param_bytes_sharded"]

@@ -22,9 +22,12 @@ a kernel launch is charged its ``roofline.kernel_work``);
 kernel program; ``flop_counter`` is ``torch.utils.flop_counter``'s total
 over the same trace, an independent count of the aten FLOPs that cannot
 see the kernels; ``memory`` and ``fits`` say whether a rank's step fits the
-card (``hw.HBM_BYTES``), ``param_bytes_sharded`` what the reference's
-parameter layout would hold a rank; ``kernels`` lists each kernel's charged
-launches and work.
+card (``hw.HBM_BYTES``), ``param_bytes`` the parameters whole and
+``param_bytes_sharded`` what a rank holds of them in the reference's layout
+(a train cell's step holds just that: its parameters and moments are
+sharded); ``collective_by_op`` splits ``collective_links`` by collective
+(all-gather, reduce-scatter, all-reduce); ``kernels`` lists each kernel's
+charged launches and work.
 """
 from __future__ import annotations
 
@@ -127,7 +130,7 @@ def _traced(arch, shape_name, multi_pod, out_dir, save_ops, rules_name, num_micr
         compile_s=round(t_trace, 1),
         memory=memory,
         fits=memory["hbm_fraction"] <= 1.0,
-        param_bytes=C.tree_bytes(cell.args[0]),
+        param_bytes=C.whole_bytes(cell.args[0]),
         param_bytes_sharded=C.param_bytes_sharded(cell, mesh),
         flop_counter=dict(flops=mode.flop_counter_flops),
         hlo_flops=cost.flops,
@@ -135,6 +138,7 @@ def _traced(arch, shape_name, multi_pod, out_dir, save_ops, rules_name, num_micr
         collective_bytes=cost.collective_bytes,
         collective_ops=cost.collective_ops,
         collective_links=dict(mode.links),
+        collective_by_op={op: dict(links) for op, links in mode.op_links.items()},
         unresolved_whiles=cost.unresolved_whiles[:8],
         roofline=roof,
         roofline_kernel_adj={k: roof[k] for k in ("compute_s", "memory_s", "collective_s")},

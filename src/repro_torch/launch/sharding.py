@@ -15,10 +15,20 @@ one-process mesh :func:`data_parallel` runs one batch slice per device.
 
 :func:`shard_activation` returns its input: in the reference it is a layout
 hint (``with_sharding_constraint``) that tells XLA's partitioner where an
-intermediate lives, and it changes no value.  The port runs each layer's
-ops on whole local tensors, so there is nothing to hint.  What does change
-values under a sharding context is :func:`num_batch_shards`, which the MoE
-dispatch reads to keep its capacity per batch shard.
+intermediate lives, and it changes no value.  The port's sharded step
+(``train.sharded``) moves its activations between layouts by hand, where
+the compute layout below asks for it.  What does change values under a
+sharding context is :func:`num_batch_shards`, which the MoE dispatch reads
+to keep its capacity per batch shard.
+
+**Storage and compute layouts.**  A parameter is stored as its spec says
+(:func:`local_block` is a rank's block of it; ``train.sharded`` gathers
+its split dims over the mesh's groups of the axes that split them).  It is computed on as
+:func:`compute_split` says: a weight whose spec splits a dim over "model"
+is used split only where its block can split its heads (or channels,
+experts) over that axis; qwen2's 12 heads on a 16-way axis split ``wq``'s
+columns in storage (12 x 128 divides 16) but not in compute, so its model
+shards are gathered first and every head computed on every rank.
 """
 from __future__ import annotations
 
@@ -102,6 +112,22 @@ def sharding_context(mesh: Mesh, rules: Rules):
         yield
     finally:
         _CTX.mesh, _CTX.rules = prev
+
+
+def in_same_context(fn):
+    """``fn`` wrapped to run in the sharding context active now, wherever
+    and whenever it is called (``fn`` itself when none is active): a remat
+    recomputation runs on the autograd engine's device thread, where the
+    caller's context is not active."""
+    mesh, rules = _CTX.mesh, _CTX.rules
+    if mesh is None:
+        return fn
+
+    def run(*args, **kw):
+        with sharding_context(mesh, rules):
+            return fn(*args, **kw)
+
+    return run
 
 
 def active() -> bool:
@@ -202,6 +228,33 @@ def sharding_for(logical, shape, mesh=None, rules=None) -> NamedSharding:
     return NamedSharding(mesh, spec, placements_for(spec, mesh))
 
 
+def _axes_of(entry) -> tuple:
+    return () if entry is None else entry if isinstance(entry, tuple) else (entry,)
+
+
+def local_block(t: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
+    """This rank's block of the whole tensor ``t`` laid out by ``sharding``
+    on a multi-process mesh: each dim cut along the mesh axes its spec
+    names, major first (DTensor's layout of the placements).  A view."""
+    mesh = sharding.mesh
+    coord = mesh.coordinate()
+    for dim, entry in enumerate(sharding.spec):
+        for a in _axes_of(entry):
+            size = t.shape[dim] // mesh.shape[a]
+            t = t.narrow(dim, coord[a] * size, size)
+    return t
+
+
+def compute_split(spec: tuple, heads: Optional[int], mesh: Mesh) -> bool:
+    """Whether a weight of ``spec`` is computed on split over "model": its
+    spec splits a dim over it and ``heads`` (the block's head, channel or
+    expert count along that dim; None where the dim is no head dim) divide
+    the axis."""
+    n = mesh.shape.get("model", 1)
+    split = any("model" in _axes_of(e) for e in spec)
+    return n > 1 and split and (heads is None or heads % n == 0)
+
+
 def shard_activation(x, logical: Sequence[Optional[str]]):
     """``x`` unchanged: a layout hint with no numeric effect (module
     docstring)."""
@@ -300,7 +353,8 @@ def tree_shardings(specs_tree, shapes_tree, mesh=None, rules=None):
 
 __all__ = [
     "TRAIN_RULES", "SERVE_RULES", "DECODE_RULES", "TRAIN_RULES_SP", "DECODE_RULES_1D",
-    "NamedSharding", "sharding_context", "active", "num_batch_shards", "spec_for",
+    "NamedSharding", "sharding_context", "in_same_context", "active", "num_batch_shards", "spec_for",
     "placements_for", "sharding_for", "shard_activation", "mesh_batch_axes",
-    "mesh_batch_shards", "data_parallel", "tree_shardings",
+    "mesh_batch_shards", "data_parallel", "tree_shardings", "local_block",
+    "compute_split",
 ]

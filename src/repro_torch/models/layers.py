@@ -10,7 +10,15 @@ functions below take such a holder where the reference takes its dict.
 Full-sequence attention goes through ``kernels.flash_attention`` (K5), where
 the reference computes the same function in jnp (``chunked_attention``).
 Single-token decode attention stays plain torch, as the reference computes
-it outside any kernel.  Activations follow JAX's definitions: ``gelu`` is
+it outside any kernel.
+
+On a sharded model (``models.partition.shard_params``) each block reads
+its parameters through ``train.sharded``'s prologue, which gathers their
+FSDP shards and says whether the block splits its heads, channels or
+experts over the "model" axis (a :class:`~repro_torch.train.sharded.Tp`)
+or computes them replicated; the same code runs unsharded, where every
+``Tp`` method is the identity.  Head counts come from the local
+projections' widths.  Activations follow JAX's definitions: ``gelu`` is
 the tanh approximation, ``rms_norm`` scales by ``1 + weight``, RoPE rotates
 the two halves of a head.  Parameters are made with ``requires_grad=False``
 (serving needs no gradients); the trainer (``repro_torch.train``) turns
@@ -27,8 +35,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.flash_attention import flash_attention
-from ..launch.sharding import num_batch_shards
 from .config import ModelConfig
+
+
+def sharded_ops():
+    """``repro_torch.train.sharded``, imported at first use (the training
+    package imports the models)."""
+    from ..train import sharded
+
+    return sharded
 
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
@@ -144,18 +159,26 @@ class Attention(nn.Module):
             self.bv = param(full(gen, (nkv * hd,), 0.0, dt))
 
 
-def _qkv(p: Attention, cfg: ModelConfig, x, kv_x=None):
+def _qkv(p: Attention, cfg: ModelConfig, x, kv_x=None, tp=None, kv_head=None):
     """Project to (B, S, n, hd) heads; keys and values from ``kv_x`` (B,
-    Skv, d) when given (cross-attention), else from ``x``."""
+    Skv, d) when given (cross-attention), else from ``x``.  With ``tp`` the
+    projections are the rank's heads: the inputs enter the split block
+    (``tp.enter``), except where ``kv_head`` names the one kv head this
+    rank's query heads read, which it takes from K and V computed whole."""
     b, s, _ = x.shape
-    kv_x = x if kv_x is None else kv_x
-    skv = kv_x.shape[1]
-    q, k, v = x @ p.wq, kv_x @ p.wk, kv_x @ p.wv
+    tp = tp or sharded_ops().NO_TP
+    src = x if kv_x is None else kv_x
+    skv = src.shape[1]
+    xin = tp.enter(x)
+    kin = src if kv_head is not None else xin if kv_x is None else tp.enter(kv_x)
+    q, k, v = xin @ p.wq, kin @ p.wk, kin @ p.wv
     if hasattr(p, "bq"):
         q, k, v = q + p.bq, k + p.bk, v + p.bv
-    return (q.reshape(b, s, cfg.num_heads, cfg.head_dim),
-            k.reshape(b, skv, cfg.num_kv_heads, cfg.head_dim),
-            v.reshape(b, skv, cfg.num_kv_heads, cfg.head_dim))
+    hd = cfg.head_dim
+    q, k, v = q.reshape(b, s, -1, hd), k.reshape(b, skv, -1, hd), v.reshape(b, skv, -1, hd)
+    if kv_head is not None:
+        k, v = (tp.enter(t)[:, :, kv_head:kv_head + 1] for t in (k, v))
+    return q, k, v
 
 
 def _grouped_scores(q, k):
@@ -188,7 +211,8 @@ def chunked_attention(p: Attention, cfg: ModelConfig, x, positions,
     where the reference casts the probabilities to the model type first, so
     at bf16 the two differ by bf16 rounding."""
     b, s, _ = x.shape
-    q, k, v = (t.transpose(1, 2) for t in _qkv(p, cfg, x, kv_x))
+    p, tp, kv_head = sharded_ops().attention(p, cfg)
+    q, k, v = (t.transpose(1, 2) for t in _qkv(p, cfg, x, kv_x, tp, kv_head))
     kv_positions = positions if kv_positions is None else kv_positions
     if use_rope:
         q = apply_rope(q, positions[:, None, :], cfg.rope_theta)
@@ -197,7 +221,7 @@ def chunked_attention(p: Attention, cfg: ModelConfig, x, positions,
         # the reference's dtype barrier at the attention's f32 island
         q, k, v = (grad_cast(t, x.dtype) for t in (q, k, v))
     out = flash_attention(q, k, v, causal=causal, window=window)
-    return out.transpose(1, 2).reshape(b, s, -1) @ p.wo
+    return tp.reduce(out.transpose(1, 2).reshape(b, s, -1) @ p.wo)
 
 
 def decode_attention(p: Attention, cfg: ModelConfig, x, cache_k, cache_v,
@@ -302,10 +326,14 @@ gelu = functools.partial(F.gelu, approximate="tanh")  # jax.nn.gelu's default
 
 
 def mlp(p: MLP, cfg: ModelConfig, x):
+    """Column-parallel ``w_gate`` / ``w_up`` and row-parallel ``w_down``
+    when the block splits its ``mlp`` dim over "model"."""
+    p, tp = sharded_ops().mlp(p)
+    x = tp.enter(x)
     if hasattr(p, "w_gate"):
         act = F.silu if cfg.act == "silu" else gelu
-        return (act(x @ p.w_gate) * (x @ p.w_up)) @ p.w_down
-    return gelu(x @ p.w_up + p.b_up) @ p.w_down + p.b_down
+        return tp.reduce((act(x @ p.w_gate) * (x @ p.w_up)) @ p.w_down)
+    return tp.reduce(gelu(x @ p.w_up + p.b_up) @ p.w_down) + p.b_down
 
 
 # ----------------------------------------------------------------------------
@@ -367,39 +395,45 @@ def moe_mlp(p: MoE, cfg: ModelConfig, x):
     context (``launch.sharding.num_batch_shards``; 1 outside one, or when
     it does not divide B): each group of B / G rows routes alone, with the
     capacity of its own (B / G) * S tokens, as each shard of the
-    reference's batch does.  The expert products are batched matmuls over
-    every group's slots.  A token's k contributions are put back in
-    (token, choice) order and summed over k, so the same batch gives the
-    same bits on every run (no atomic scatter-add)."""
+    reference's batch does.  On a sharded model a rank's rows are one batch
+    shard, so one group, and with the experts split over "model" the rank
+    fills and runs only its own experts' slots (expert parallelism); the
+    routing is computed whole on every rank and the combine summed over the
+    model ranks.  The expert products are batched matmuls over every
+    group's slots.  A token's k contributions are put back in (token,
+    choice) order and summed over k, so the same batch gives the same bits
+    on every run (no atomic scatter-add)."""
     b, s, d = x.shape
-    e = cfg.num_experts
-    g = num_batch_shards()
+    p, tp, e0, g = sharded_ops().moe(p)
+    el = p.w_gate.shape[0]                               # the rank's experts
     if b % g:
         g = 1
     t = (b // g) * s                                    # tokens per group
     xt = x.reshape(g, t, d)
     cap = moe_capacity(cfg, t)
     routes = [moe_route(p, cfg, xt[i]) for i in range(g)]
-    top_w = torch.stack([r[1] for r in routes])          # (G, T, k)
+    top_w = tp.enter(torch.stack([r[1] for r in routes]))  # (G, T, k)
     keep = torch.stack([r[2] for r in routes])
-    # a group's slots follow the groups before it in the flat (G * E * cap) buffer
-    base = (torch.arange(g, device=x.device) * (e * cap))[:, None, None]
-    slot = torch.stack([r[3] for r in routes]) + base
+    # a slot of the rank's experts: its row in the group's (el * cap) rows
+    at = torch.stack([r[3] for r in routes]) - e0 * cap
+    keep = keep & (at >= 0) & (at < el * cap)
+    # a group's slots follow the groups before it in the flat (G * el * cap) buffer
+    base = (torch.arange(g, device=x.device) * (el * cap))[:, None, None]
+    slot = at.clamp(0, el * cap - 1) + base
     k = top_w.shape[2]
     tok = torch.arange(g * t, device=x.device).reshape(g, t, 1).expand(-1, -1, k)
     # a dropped pair writes the scratch row past the buffer (the reference's
     # ``e * cap``), so the dispatch has the same shapes whatever is dropped
-    buf = x.new_zeros((g * e * cap + 1, d))
-    buf[torch.where(keep, slot, g * e * cap).reshape(-1)] = \
-        xt.reshape(g * t, d)[tok.reshape(-1)]
+    buf = x.new_zeros((g * el * cap + 1, d))
+    buf[torch.where(keep, slot, g * el * cap).reshape(-1)] = \
+        tp.enter(xt).reshape(g * t, d)[tok.reshape(-1)]
     # (G, E, cap, d) -> (E, G * cap, d): one matmul an expert over every group
-    buf = buf[:-1].reshape(g, e, cap, d).transpose(0, 1).reshape(e, g * cap, d)
+    buf = buf[:-1].reshape(g, el, cap, d).transpose(0, 1).reshape(el, g * cap, d)
     act = F.silu if cfg.act in ("silu", "geglu") else gelu
     h = act(torch.bmm(buf, p.w_gate)) * torch.bmm(buf, p.w_up)
-    out_buf = torch.bmm(h, p.w_down).reshape(e, g, cap, d).transpose(0, 1)
-    out_buf = out_buf.reshape(g * e * cap, d)
-    last = base + (e * cap - 1)
-    picked = out_buf[torch.minimum(slot, last)]          # (G, T, k, d)
+    out_buf = torch.bmm(h, p.w_down).reshape(el, g, cap, d).transpose(0, 1)
+    out_buf = out_buf.reshape(g * el * cap, d)
+    picked = out_buf[slot]                               # (G, T, k, d)
     contrib = torch.where(keep[..., None], picked, picked.new_zeros(()))
     contrib = contrib * top_w[..., None].to(x.dtype)
-    return contrib.sum(dim=2).reshape(b, s, d)
+    return tp.reduce(contrib.sum(dim=2).reshape(b, s, d))

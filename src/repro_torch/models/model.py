@@ -24,6 +24,14 @@ numeric effect; ``launch/sharding.py`` holds the rules, the parameters'
 specs come from ``models/partition.py``, and the MoE dispatch keeps one
 capacity group per batch shard under a sharding context.
 
+On a sharded model (``models.partition.shard_params``, run under
+``sharding_context`` on a multi-process mesh by ``train.make_train_step``)
+every layer reads its parameters through ``train.sharded``'s prologue
+inside the layer, so a remat recomputation gathers its weights again; the
+vocabulary splits over "model" (the lookup masks other ranks' rows and
+sums, the logits are the rank's columns and ``loss_fn``'s cross entropy
+all-reduces their max and sum of exponents).
+
 Under ``cfg.remat`` a forward that records gradients runs each layer in
 ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of its layer
 scan); ``remat_policy="dots"`` keeps the matrix products' outputs and
@@ -43,6 +51,7 @@ from torch.utils.checkpoint import (
 )
 
 from ..device import resolve_device
+from ..launch.sharding import in_same_context
 from .config import ModelConfig
 from .layers import (
     MLP,
@@ -56,6 +65,7 @@ from .layers import (
     dtype_of,
     full,
     mlp,
+    sharded_ops,
     moe_mlp,
     param,
     ring_decode_attention,
@@ -104,11 +114,11 @@ class AttentionLayer(_Layer):
         return mlp(self.mlp, self.cfg, h)
 
     def forward(self, x, positions):
-        cfg = self.cfg
-        h = rms_norm(x, self.ln1, cfg.norm_eps)
+        cfg, own = self.cfg, sharded_ops().view(self)
+        h = rms_norm(x, own.ln1, cfg.norm_eps)
         x = x + chunked_attention(self.attn, cfg, h, positions,
                                   causal=cfg.causal, window=cfg.window)
-        return x + self.ffn(rms_norm(x, self.ln2, cfg.norm_eps))
+        return x + self.ffn(rms_norm(x, own.ln2, cfg.norm_eps))
 
     def decode(self, x, k_cache, v_cache, position):
         cfg = self.cfg
@@ -148,11 +158,11 @@ class EncLayer(_Layer):
         self.mlp = MLP(cfg, gen)
 
     def forward(self, x, positions):
-        cfg = self.cfg
-        h = rms_norm(x, self.ln1, cfg.norm_eps)
+        cfg, own = self.cfg, sharded_ops().view(self)
+        h = rms_norm(x, own.ln1, cfg.norm_eps)
         x = x + chunked_attention(self.attn, cfg, h, positions, causal=False,
                                   window=cfg.window, use_rope=False)
-        return x + mlp(self.mlp, cfg, rms_norm(x, self.ln2, cfg.norm_eps))
+        return x + mlp(self.mlp, cfg, rms_norm(x, own.ln2, cfg.norm_eps))
 
 
 class DecLayer(_Layer):
@@ -167,15 +177,15 @@ class DecLayer(_Layer):
         self.mlp = MLP(cfg, gen)
 
     def forward(self, x, positions, enc_out, enc_positions):
-        cfg = self.cfg
-        h = rms_norm(x, self.ln1, cfg.norm_eps)
+        cfg, own = self.cfg, sharded_ops().view(self)
+        h = rms_norm(x, own.ln1, cfg.norm_eps)
         x = x + chunked_attention(self.attn, cfg, h, positions, causal=cfg.causal,
                                   window=cfg.window, use_rope=False)
-        hx = rms_norm(x, self.lnx, cfg.norm_eps)
+        hx = rms_norm(x, own.lnx, cfg.norm_eps)
         x = x + chunked_attention(self.xattn, cfg, hx, positions, kv_x=enc_out,
                                   kv_positions=enc_positions, causal=False,
                                   use_rope=False)
-        return x + mlp(self.mlp, cfg, rms_norm(x, self.ln2, cfg.norm_eps))
+        return x + mlp(self.mlp, cfg, rms_norm(x, own.ln2, cfg.norm_eps))
 
     def decode(self, x, k_cache, v_cache, position, xk, xv):
         cfg = self.cfg
@@ -197,11 +207,11 @@ class RecurrentLayer(_Layer):
         self.mlp = MLP(cfg, gen)
 
     def _mix(self, x, h0, conv):
-        cfg = self.cfg
-        out, h_t, conv = rglru_mix(self.rec, cfg, rms_norm(x, self.ln1, cfg.norm_eps),
+        cfg, own = self.cfg, sharded_ops().view(self)
+        out, h_t, conv = rglru_mix(self.rec, cfg, rms_norm(x, own.ln1, cfg.norm_eps),
                                    h0, conv)
         x = x + out
-        return x + mlp(self.mlp, cfg, rms_norm(x, self.ln2, cfg.norm_eps)), h_t, conv
+        return x + mlp(self.mlp, cfg, rms_norm(x, own.ln2, cfg.norm_eps)), h_t, conv
 
     def forward(self, x, positions):
         return self._mix(x, None, None)[0]  # from zeros, through K7
@@ -221,12 +231,12 @@ class RwkvLayer(_Layer):
         self.channel = ChannelMix(cfg, gen)
 
     def _mix(self, x, s, last_time, last_chan):
-        cfg = self.cfg
-        out, s, last_t = rwkv_time_mix(self.time, cfg, rms_norm(x, self.ln1, cfg.norm_eps),
+        cfg, own = self.cfg, sharded_ops().view(self)
+        out, s, last_t = rwkv_time_mix(self.time, cfg, rms_norm(x, own.ln1, cfg.norm_eps),
                                        s, last_time)
         x = x + out
         out2, last_c = rwkv_channel_mix(self.channel, cfg,
-                                        rms_norm(x, self.ln2, cfg.norm_eps), last_chan)
+                                        rms_norm(x, own.ln2, cfg.norm_eps), last_chan)
         return x + out2, {"s": s, "last_time": last_t, "last_chan": last_c}
 
     def forward(self, x, positions):
@@ -260,9 +270,12 @@ def _save_dots(ctx, op, *args, **kwargs):
 
 def _run_layer(cfg: ModelConfig, layer, *args):
     """``layer(*args)``, under activation checkpointing when ``cfg.remat``
-    holds and autograd is recording."""
+    holds and autograd is recording.  The recomputation runs in the sharding
+    context of the forward (``launch.sharding.in_same_context``): on a card
+    the autograd engine runs it on a thread of its own."""
     if not (cfg.remat and torch.is_grad_enabled()):
         return layer(*args)
+    layer = in_same_context(layer)
     if cfg.remat_policy == "dots":
         return checkpoint(layer, *args, use_reentrant=False,
                           context_fn=functools.partial(create_selective_checkpoint_contexts,
@@ -321,42 +334,55 @@ class Model(nn.Module):
         else:
             yield from self.layers
 
-    def logits(self, x):
-        x = rms_norm(x, self.ln_f, self.cfg.norm_eps)
-        head = self.embed.T if self.cfg.tied_embeddings else self.head
+    def logits(self, x, top=None):
+        """(B, S, V) logits of the last hidden states; on a sharded model
+        whose vocabulary is split, the rank's columns."""
+        top, tp = top or sharded_ops().top(self)
+        x = tp.enter(rms_norm(x, top.ln_f, self.cfg.norm_eps))
+        head = top.embed.T if self.cfg.tied_embeddings else top.head
         return x @ head
 
     def forward(self, tokens, patches=None, frames=None):
         """tokens: (B, S) integer on the parameters' device; patches (B, P,
         d) for a VLM (optional), frames (B, T_enc, d) for the
         encoder-decoder -> (B, P + S, V)."""
+        top = sharded_ops().top(self)
+        return self.logits(self.hidden(tokens, patches, frames, top), top)
+
+    def hidden(self, tokens, patches=None, frames=None, top=None):
+        """The last layer's output (B, P + S, d), before the final norm;
+        ``top`` is :func:`train.sharded.top` of the model when the caller
+        has it (the embedding gathered once for the lookup and the tied
+        logits)."""
+        top, tp = top or sharded_ops().top(self)
         if self.cfg.family == "encdec":
-            return self._forward_encdec(tokens, frames)
-        x = self.embed[tokens]
+            return self._hidden_encdec(top, tp, tokens, frames)
+        x = sharded_ops().embed(top.embed, tokens, tp)
         if self.cfg.num_patches and patches is not None:
-            x = torch.cat([patches.to(x.dtype) @ self.patch_proj, x], dim=1)
+            x = torch.cat([patches.to(x.dtype) @ top.patch_proj, x], dim=1)
         b, s = x.shape[:2]
         positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
         for layer in self.stack():
             x = _run_layer(self.cfg, layer, x, positions)
-        return self.logits(x)
+        return x
 
-    def _forward_encdec(self, tokens, frames):
+    def _hidden_encdec(self, top, tp, tokens, frames):
         if frames is None:
             raise ValueError("the encoder-decoder reads batch['frames'] (B, T_enc, d)")
-        cfg, dt = self.cfg, self.embed.dtype
+        cfg, dt = self.cfg, top.embed.dtype
         b, t_enc, _ = frames.shape
         enc = frames.to(dt) + sinusoidal(t_enc, cfg.d_model, frames.device).to(dt)
         enc_pos = torch.arange(t_enc, device=enc.device)[None, :].expand(b, t_enc)
         for layer in self.enc:
             enc = _run_layer(cfg, layer, enc, enc_pos)
-        enc = rms_norm(enc, self.ln_enc, cfg.norm_eps)
+        enc = rms_norm(enc, top.ln_enc, cfg.norm_eps)
         s = tokens.shape[1]
-        x = self.embed[tokens] + sinusoidal(s, cfg.d_model, tokens.device).to(dt)
+        x = sharded_ops().embed(top.embed, tokens, tp) + \
+            sinusoidal(s, cfg.d_model, tokens.device).to(dt)
         pos = torch.arange(s, device=x.device)[None, :].expand(b, s)
         for layer in self.layers:
             x = _run_layer(cfg, layer, x, pos, enc, enc_pos)
-        return self.logits(x)
+        return x
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Model:
@@ -417,24 +443,40 @@ def loss_fn(cfg: ModelConfig, params: Model, batch) -> torch.Tensor:
     """Next-token cross entropy over the text positions (the reference's
     ``loss_fn``): a VLM's patch positions are dropped, and ``loss_mask``
     (B, S), when given, weights the targets of positions 1.. .  Runs the
-    model with autograd recording (``forward`` does not)."""
+    model with autograd recording (``forward`` does not).
+
+    On a sharded model ``batch`` is the rank's rows of the (micro)batch:
+    the loss is their share of the whole batch's, their weighted sum over
+    the weight of every rank's rows (``train.sharded.batch_total``), so
+    summing it over the batch axes gives the reference's loss; with the
+    vocabulary split the cross entropy is vocab-parallel."""
     if cfg != params.cfg:
         raise ValueError("the parameters were built for another config")
+    sh = sharded_ops()
     tokens = _on(params, batch["tokens"]).long()
     patches = batch.get("patches")
-    logits = params(tokens, _on(params, patches), _on(params, batch.get("frames")))
+    top = sh.top(params)
+    x = params.hidden(tokens, _on(params, patches), _on(params, batch.get("frames")), top)
+    logits = params.logits(x, top)
     if cfg.num_patches and patches is not None:
         logits = logits[:, patches.shape[1]:, :]
     targets = tokens[:, 1:]
     logits = logits[:, :-1, :]
-    if cfg.bf16_backward:
+    if top[1].n > 1:
+        nll = sh.vocab_parallel_nll(logits, targets, top[1])
+    elif cfg.bf16_backward:
         nll = _ce_bf16(logits, targets)
     else:
         logp = torch.log_softmax(logits.float(), dim=-1)
         nll = -logp.gather(-1, targets[..., None])[..., 0]
     mask = batch.get("loss_mask")
+    mask = None if mask is None else _on(params, mask, torch.float32)[:, 1:]
+    if sh.sharded(params):
+        weight = nll.new_tensor(float(nll.numel())) if mask is None else mask.sum()
+        total = sh.batch_total(weight)
+        nll = nll if mask is None else nll * mask
+        return nll.sum() / total.clamp_min(1.0)
     if mask is not None:
-        mask = _on(params, mask, torch.float32)[:, 1:]
         return (nll * mask).sum() / mask.sum().clamp_min(1.0)
     return nll.mean()
 

@@ -16,6 +16,7 @@ apart, so a parameter's spec is the reference's with those axes dropped.
 """
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 # (key name) -> base logical axes (without any stacked-layer leading dims)
@@ -106,4 +107,46 @@ def param_shardings(params, mesh, rules) -> dict:
             for k, spec in param_logical_axes(named).items()}
 
 
-__all__ = ["param_logical_axes", "param_shardings"]
+def distribute(t: torch.Tensor, sharding) -> torch.Tensor:
+    """The whole tensor ``t`` (the same on every rank) as a DTensor laid out
+    by ``sharding`` (a ``launch.sharding.NamedSharding`` on a multi-process
+    mesh): the rank keeps a copy of its own block, so nothing crosses the
+    wire and the whole tensor can be freed."""
+    from torch.distributed.tensor import DTensor
+
+    from ..launch.sharding import local_block
+
+    mesh = sharding.mesh
+    block = local_block(t, sharding).to(mesh.device).contiguous().clone()
+    with torch.no_grad():
+        return DTensor.from_local(block, mesh.device_mesh, sharding.placements,
+                                  run_check=False, shape=t.shape, stride=t.stride())
+
+
+def shard_params(model: nn.Module, mesh, rules) -> nn.Module:
+    """Lay every parameter of ``model`` out by :func:`param_shardings` under
+    ``rules``, in place: each becomes a DTensor of which the rank holds its
+    block (``model`` must be whole and the same on every rank, e.g. drawn
+    from one seed).  The sharded train step (``train.make_train_step``
+    under ``sharding_context(mesh, rules)``) computes on it.  Returns
+    ``model``."""
+    shardings = param_shardings(model, mesh, rules)
+    for name, p in list(model.named_parameters()):
+        owner_name, _, leaf = name.rpartition(".")
+        owner = model.get_submodule(owner_name) if owner_name else model
+        owner._parameters[leaf] = nn.Parameter(distribute(p.detach(), shardings[name]),
+                                               requires_grad=False)
+    return model
+
+
+def shard_opt_state(state: dict, model: nn.Module, mesh, rules) -> dict:
+    """The optimizer state ``{"m", "v", "step"}`` (whole, f32) laid out as
+    ``model``'s parameters under ``rules``: each moment a DTensor placed
+    as its parameter; the step stays a plain tensor."""
+    shardings = param_shardings(model, mesh, rules)
+    return {key: {k: distribute(t, shardings[k]) for k, t in state[key].items()}
+            for key in ("m", "v")} | {"step": state["step"]}
+
+
+__all__ = ["param_logical_axes", "param_shardings", "distribute", "shard_params",
+           "shard_opt_state"]

@@ -11,6 +11,11 @@ neither does the mixer (``forward`` discards it, as the reference's does).
 Given a state, it runs the recurrence's update step by step in plain torch,
 as the reference does in ``jnp`` for decode (T = 1): the kernels take no
 initial state.
+
+On a sharded model (``train.sharded``) the time mix splits its heads, the
+channel mix its ``d_ff`` and the RG-LRU its ``rnn`` channels over the
+"model" axis where their specs do: the scans run on the rank's heads and
+channels, the row-parallel outputs are summed over the model ranks.
 """
 from __future__ import annotations
 
@@ -22,7 +27,7 @@ from torch import nn
 from ..kernels.rglru_scan import rglru_scan
 from ..kernels.rwkv6_scan import rwkv6_scan
 from .config import ModelConfig
-from .layers import dense_init, dtype_of, full, gelu, param
+from .layers import dense_init, dtype_of, full, gelu, param, sharded_ops
 
 
 # ----------------------------------------------------------------------------
@@ -87,41 +92,49 @@ def rwkv_time_mix(p: TimeMix, cfg: ModelConfig, x, state, last_x):
     Returns (out, new_state, new_last_x)."""
     b, t, d = x.shape
     hd = cfg.rwkv_head_dim
-    h = d // hd
+    p, tp = sharded_ops().time_mix(p, cfg)
     prev = _token_shift(x, last_x)
 
     def mix(mu):
         return x + (prev - x) * mu
 
-    r = (mix(p.mu_r) @ p.w_r).reshape(b, t, h, hd)
-    k = (mix(p.mu_k) @ p.w_k).reshape(b, t, h, hd)
-    v = (mix(p.mu_v) @ p.w_v).reshape(b, t, h, hd)
-    g = F.silu(mix(p.mu_g) @ p.w_g)
+    # split: r, k, g column-parallel; w_v row-parallel by its spec, its
+    # partial sums reduce-scattered onto the rank's heads; the decay and
+    # the bonus computed whole and sliced
+    r = (tp.enter(mix(p.mu_r)) @ p.w_r).reshape(b, t, -1, hd)
+    k = (tp.enter(mix(p.mu_k)) @ p.w_k).reshape(b, t, -1, hd)
+    v = tp.reduce_scatter(tp.split(mix(p.mu_v), -1) @ p.w_v, -1).reshape(b, t, -1, hd)
+    g = F.silu(tp.enter(mix(p.mu_g)) @ p.w_g)
     dec = p.decay_w0 + torch.tanh(mix(p.mu_w) @ p.decay_a) @ p.decay_b
-    w = torch.exp(-torch.exp(dec.float())).reshape(b, t, h, hd)
+    w = tp.split(torch.exp(-torch.exp(dec.float())), -1).reshape(b, t, -1, hd)
+    u = tp.split(p.bonus_u, 0)
     if state is None:
         # (B, H, T, hd) views of the (B, T, H, hd) projections, in the
         # model's type: the kernel reads them through their strides, widens
         # to f32, and writes its output in r's layout
-        out = rwkv6_scan(*(z.transpose(1, 2) for z in (r, k, v, w)), p.bonus_u)
+        out = rwkv6_scan(*(z.transpose(1, 2) for z in (r, k, v, w)), u)
         out = out.transpose(1, 2)  # (B, T, H, hd)
     else:
-        out, state = _rwkv_steps(r, k, v, w, p.bonus_u, state)
+        out, state = _rwkv_steps(r, k, v, w, u, state)
     # per-head group norm (ln_x), population variance as jnp.var
     mu_ = out.mean(-1, keepdim=True)
     var = out.var(-1, keepdim=True, correction=0)
     out = (out - mu_) * torch.rsqrt(var + 1e-5)
-    out = out.reshape(b, t, d) * p.ln_x
-    out = (out.to(x.dtype) * g) @ p.w_o
+    out = out.reshape(b, t, -1) * tp.split(p.ln_x, 0)
+    out = tp.reduce((out.to(x.dtype) * g) @ p.w_o)
     return out, state, x[:, -1, :]
 
 
 def rwkv_channel_mix(p: ChannelMix, cfg: ModelConfig, x, last_x):
+    """Split: ``w_k`` and ``w_r`` column-parallel, ``w_v`` row-parallel; the
+    gate meets the value on the rank's channels, gathered whole after."""
+    p, tp = sharded_ops().channel_mix(p)
     prev = _token_shift(x, last_x)
     xk = x + (prev - x) * p.mu_k
     xr = x + (prev - x) * p.mu_r
-    k = torch.square(F.relu(xk @ p.w_k))
-    return torch.sigmoid(xr @ p.w_r) * (k @ p.w_v), x[:, -1, :]
+    k = torch.square(F.relu(tp.enter(xk) @ p.w_k))
+    kv = tp.reduce_scatter(k @ p.w_v, -1)
+    return tp.gather(torch.sigmoid(tp.enter(xr) @ p.w_r) * kv, -1), x[:, -1, :]
 
 
 def rwkv_state_init(cfg: ModelConfig, batch: int, device):
@@ -185,12 +198,17 @@ def rglru_mix(p: RGLRU, cfg: ModelConfig, x, h0, conv_state):
 
     x: (B, T, d); h0: (B, r) f32, or None for zeros (the full sequence
     through K7, and no final h back); conv_state: (B, W-1, r), or None for
-    zeros.  Returns (out, h_T, new_conv_state)."""
-    y = gelu(x @ p.w_y)
-    u = x @ p.w_x
+    zeros.  Returns (out, h_T, new_conv_state).  Split over "model": the
+    rank's ``rnn`` channels; the gates read every channel of the conv's
+    output (gathered) and write the rank's."""
+    p, tp = sharded_ops().rglru(p)
+    xin = tp.enter(x)
+    y = gelu(xin @ p.w_y)
+    u = xin @ p.w_x
     u, conv_state = _causal_conv(u, p.conv_w, p.conv_b, conv_state)
-    rg = torch.sigmoid((u @ p.w_gate_a).float() + p.b_gate_a)
-    ig = torch.sigmoid((u @ p.w_gate_x).float() + p.b_gate_x)
+    whole = tp.gather(u, -1, bwd="sum")
+    rg = torch.sigmoid((whole @ p.w_gate_a).float() + p.b_gate_a)
+    ig = torch.sigmoid((whole @ p.w_gate_x).float() + p.b_gate_x)
     log_a = -RG_LRU_C * F.softplus(getattr(p, "lambda")) * rg  # (B, T, r) f32
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12)) * (
@@ -206,7 +224,7 @@ def rglru_mix(p: RGLRU, cfg: ModelConfig, x, h0, conv_state):
             h_t = a[:, t] * h_t + gated[:, t]
             steps.append(h_t)
         hs = torch.stack(steps, dim=1)
-    return (y * hs.to(x.dtype)) @ p.w_o, h_t, conv_state
+    return tp.reduce((y * hs.to(x.dtype)) @ p.w_o), h_t, conv_state
 
 
 def rglru_state_init(cfg: ModelConfig, batch: int, device):

@@ -19,11 +19,14 @@ Byte rules (the reference's, ``hlo_analysis.py``):
 * views, ``t``, ``expand``, ``reshape``, ``detach``, the ``empty*``
   allocations and constant fills (``zeros``, ``full``, ``arange``: the
   reference's ``broadcast``, ``constant``, ``iota``) — no bytes;
-* collectives — ``allreduce_`` 2 x its bytes, ``allgather*``,
-  ``reduce_scatter*`` and ``alltoall*`` 1 x, each recorded in
-  ``collective_ops`` by name and, in :attr:`CostMode.links`, by the link
-  its group crosses (``hw.link_bw``; a group of one rank crosses none:
-  ``"local"``).
+* collectives — ``allreduce*`` 2 x its bytes, ``allgather*`` 1 x its
+  gathered output, ``reduce_scatter*`` 1 x its input (the operand, as the
+  reference charges a reduce-scatter), ``alltoall*`` and ``broadcast_``
+  1 x, each recorded in ``collective_ops`` by name and, in
+  :attr:`CostMode.links`, by the link its group crosses (``hw.link_bw``; a
+  group of one rank crosses none: ``"local"``).  An op's tensors and its
+  process group are read by their names in its schema (:data:`_COLLECTIVES`),
+  not by position: the ops order their arguments differently.
 
 **Kernels count as what the card launches.**  On meta tensors the model's
 kernel ops (K5, K6, K7 and their backwards) run no plain version: they
@@ -89,10 +92,19 @@ _NO_BYTES = {
 # writes into part of an existing tensor: (argument index of the values)
 _PARTIAL_WRITES = {"index_put_": 2, "_index_put_impl_": 2, "index_copy_": 3,
                    "copy_": 1, "scatter_": 3, "masked_scatter_": 2}
-_COLLECTIVES = {"allreduce_": 2.0, "allreduce_coalesced_": 2.0, "allgather_": 1.0,
-                "_allgather_base_": 1.0, "allgather_into_tensor_coalesced_": 1.0,
-                "reduce_scatter_": 1.0, "_reduce_scatter_base_": 1.0,
-                "alltoall_": 1.0, "alltoall_base_": 1.0}
+# c10d op -> (the schema argument whose tensors are charged, factor): the
+# all-reduce's tensors (in and out), the all-gather's gathered output, the
+# reduce-scatter's input
+_COLLECTIVES = {"allreduce_": ("tensors", 2.0), "allreduce_coalesced_": ("tensors", 2.0),
+                "allgather_": ("output_tensors", 1.0),
+                "_allgather_base_": ("output_tensor", 1.0),
+                "allgather_into_tensor_coalesced_": ("outputs", 1.0),
+                "allgather_coalesced_": ("output_lists", 1.0),
+                "reduce_scatter_": ("input_tensors", 1.0),
+                "_reduce_scatter_base_": ("input_tensor", 1.0),
+                "reduce_scatter_tensor_coalesced_": ("inputs", 1.0),
+                "alltoall_": ("output_tensors", 1.0), "alltoall_base_": ("output", 1.0),
+                "broadcast_": ("tensors", 1.0)}
 
 _ACTIVE: list = []
 
@@ -118,6 +130,13 @@ def _tensors(x, out=None) -> list:
         for v in x.values():
             _tensors(v, out)
     return out
+
+
+def _by_name(func, args, kwargs) -> dict:
+    """An op's arguments by their names in its schema."""
+    named = {a.name: v for a, v in zip(func._schema.arguments, args)}
+    named.update(kwargs)
+    return named
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -160,14 +179,15 @@ class CostMode(TorchDispatchMode):
     """Counts what the ops run under it dispatch.  After the block:
     :attr:`cost` (a :class:`Cost`), :attr:`kernels` ({kernel: {"launches",
     "flops", "bytes"}}), :attr:`links` ({"nvlink" | "net" | "local":
-    collective bytes}), :attr:`ops` ({aten op: [calls, flops, bytes]}) and
-    :attr:`peak_bytes`."""
+    collective bytes}), :attr:`op_links` ({collective op: {link: bytes}}),
+    :attr:`ops` ({aten op: [calls, flops, bytes]}) and :attr:`peak_bytes`."""
 
     def __init__(self):
         super().__init__()
         self.cost = Cost()
         self.kernels: dict = {}
         self.links: dict = collections.Counter()
+        self.op_links: dict = collections.defaultdict(collections.Counter)
         self.ops: dict = collections.defaultdict(lambda: [0, 0.0, 0.0])
         self.live_bytes = 0
         self.peak_bytes = 0
@@ -182,6 +202,26 @@ class CostMode(TorchDispatchMode):
     def __exit__(self, *exc):
         _ACTIVE.remove(self)
         return super().__exit__(*exc)
+
+    def absorb(self, other: "CostMode", times: float = 1.0) -> None:
+        """Add ``times`` x what ``other`` counted (its cost, kernels, links
+        and ops; not its memory): a loop body traced once and counted for
+        its trip count."""
+        self.cost = self.cost + other.cost.scaled(times)
+        for k, v in other.kernels.items():
+            mine = self.kernels.setdefault(k, {"launches": 0, "flops": 0.0, "bytes": 0.0})
+            for key in mine:
+                mine[key] += v[key] * times
+        for link, b in other.links.items():
+            self.links[link] += b * times
+        for op, links in other.op_links.items():
+            for link, b in links.items():
+                self.op_links[op][link] += b * times
+        for op, (n, fl, by) in other.ops.items():
+            rec = self.ops[op]
+            rec[0] += n * times
+            rec[1] += fl * times
+            rec[2] += by * times
 
     def _charge(self, kernel, flops, byts):
         k = self.kernels.setdefault(kernel, {"launches": 0, "flops": 0.0, "bytes": 0.0})
@@ -253,11 +293,16 @@ class CostMode(TorchDispatchMode):
         flops = byts = 0.0
         if func.namespace == "c10d":
             if name in _COLLECTIVES:
-                size = sum(_nbytes(t) for t in _tensors(args[0]))
-                cb = size * _COLLECTIVES[name]
-                ranks = dist.get_process_group_ranks(dist.ProcessGroup.unbox(args[1]))
+                arg, factor = _COLLECTIVES[name]
+                named = _by_name(func, args, kwargs)
+                size = sum(_nbytes(t) for t in _tensors(named[arg]))
+                cb = size * factor
+                group = dist.ProcessGroup.unbox(named["process_group"])
+                ranks = dist.get_process_group_ranks(group)
                 link = "nvlink" if hw.link_bw(ranks) == hw.NVLINK_BW else "net"
-                self.links["local" if len(ranks) == 1 else link] += cb
+                link = "local" if len(ranks) == 1 else link
+                self.links[link] += cb
+                self.op_links[name][link] += cb
                 self.cost.collective_bytes += cb
                 self.cost.collective_ops[name] = self.cost.collective_ops.get(name, 0.0) + cb
                 byts = size

@@ -1,6 +1,7 @@
-"""Training on one card: AdamW with its schedule and clipping, gradient
-compression, and the microbatched train step (the reference's
-``repro.train``)."""
+"""Training: AdamW with its schedule and clipping, gradient compression,
+and the microbatched train step (the reference's ``repro.train``), on one
+card or, on a sharded model under ``sharding_context``, over a mesh
+(``train.sharded``)."""
 from .optimizer import (  # noqa: F401
     OptimizerConfig,
     adamw_update,

@@ -36,8 +36,7 @@ import torch
 import torch.distributed as dist
 
 from ..models.config import ModelConfig
-from ..models.model import STACKED
-from .optimizer import OptimizerConfig, adamw_update_
+from .optimizer import OptimizerConfig, adamw_update_, reference_leaf
 from .train_loop import loss_and_grads
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
@@ -61,14 +60,6 @@ def _unflat(flat: torch.Tensor, like: dict) -> dict:
     return out
 
 
-def _reference_leaf(name: str) -> str:
-    """The reference tree's leaf that parameter ``name`` is a slice of."""
-    top, _, rest = name.partition(".")
-    if top in STACKED:
-        return f"{top}.{rest.partition('.')[2]}"
-    return name
-
-
 def _quantise_all_reduce(grads: dict, group, mode: str, wire) -> dict:
     """The SUM over the group's ranks of each gradient, with on-the-wire
     compression; f32 out."""
@@ -79,7 +70,7 @@ def _quantise_all_reduce(grads: dict, group, mode: str, wire) -> dict:
         s = _all_reduce(_flat(grads.values(), torch.bfloat16), "sum", group, wire)
         return _unflat(s.float(), grads)
     if mode == "int8":
-        leaves = {k: _reference_leaf(k) for k in grads}
+        leaves = {k: reference_leaf(k) for k in grads}
         order = {r: i for i, r in enumerate(dict.fromkeys(leaves.values()))}
         peak = torch.stack([g.float().abs().max() for g in grads.values()])
         at = torch.tensor([order[leaves[k]] for k in grads], device=peak.device)

@@ -15,6 +15,13 @@ per-layer parameter over the layers (``layers``, ``enc``, ``blocks``), so
 a layer's vectors (norm scales, biases, RWKV's mixes) decay too.  The port
 keeps a layer's parameters unstacked and decays a leaf under those names
 whatever its axes, so the two take the same step.
+
+On a sharded model (``train.sharded``) the moments are DTensors laid out
+as their parameters, and the update runs on each rank's local shards: the
+global norm sums each shard's squares once over the whole world
+(:func:`sharded_global_norm`), and int8 compression scales each of the
+reference's leaves by its largest |g| over every shard
+(:func:`compress_sharded`).
 """
 from __future__ import annotations
 
@@ -22,8 +29,10 @@ import dataclasses
 import math
 
 import torch
+import torch.distributed as dist
 
 from ..models.model import STACKED
+from . import sharded as SH
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,14 +67,27 @@ def lr_schedule(step, cfg: OptimizerConfig) -> torch.Tensor:
     return cfg.peak_lr * torch.where(step < cfg.warmup_steps, warm, cos)
 
 
+def _zeros_like(p) -> torch.Tensor:
+    """f32 zeros of ``p``'s shape; of a DTensor, a DTensor of its layout
+    whose shard alone is allocated."""
+    z = torch.zeros(SH.local(p).shape, dtype=torch.float32, device=p.device)
+    if not SH.is_dtensor(p):
+        return z
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(z, p.device_mesh, p.placements, run_check=False,
+                              shape=p.shape, stride=p.stride())
+
+
 def init_opt_state(params) -> dict:
     """Zero f32 moments for every leaf of ``params`` (a flat dict or a
-    module's parameters) and step 0, on the leaves' device."""
+    module's parameters) and step 0, on the leaves' device; a sharded
+    parameter's moments are sharded as it is."""
     params = _tree(params)
     dev = next(iter(params.values())).device
     return {
-        "m": {k: torch.zeros(p.shape, dtype=torch.float32, device=dev) for k, p in params.items()},
-        "v": {k: torch.zeros(p.shape, dtype=torch.float32, device=dev) for k, p in params.items()},
+        "m": {k: _zeros_like(p) for k, p in params.items()},
+        "v": {k: _zeros_like(p) for k, p in params.items()},
         "step": torch.zeros((), dtype=torch.int32, device=dev),
     }
 
@@ -80,9 +102,60 @@ def global_norm(tree: dict) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tree.values()))
 
 
-def _clip_scale(grads: dict, max_norm: float):
-    """(the factor clipping multiplies every gradient by, the global norm)"""
-    norm = global_norm(grads)
+def sharded_global_norm(grads: dict, params: dict) -> torch.Tensor:
+    """The global norm of gradients held as ``params``' local shards: each
+    rank sums the squares of the shards it is the first replica of (index
+    0 on every mesh axis that does not split the parameter), and the sums
+    are added over the whole world."""
+    total = None
+    for k, g in grads.items():
+        p = params[k]
+        mesh = p.device_mesh
+        if any(not pl.is_shard() and mesh.get_local_rank(i) != 0
+               for i, pl in enumerate(p.placements)):
+            continue
+        ss = torch.sum(torch.square(g.float()))
+        total = ss if total is None else total + ss
+    g0 = next(iter(grads.values()))
+    total = torch.zeros((), dtype=torch.float32, device=g0.device) if total is None else total
+    return torch.sqrt(SH.all_reduce(total, None))
+
+
+def reference_leaf(name: str) -> str:
+    """The reference tree's leaf that parameter ``name`` is a slice of: it
+    stacks a per-layer parameter over the layers (``layers``, ``enc``,
+    ``blocks``), so ``layers.3.attn.wq`` is a slice of ``layers.attn.wq``."""
+    top, _, rest = name.partition(".")
+    if top in STACKED:
+        return f"{top}.{rest.partition('.')[2]}"
+    return name
+
+
+def compress_sharded(grads: dict, mode: str) -> dict:
+    """:func:`compress_grads` of local shards: int8 scales each of the
+    reference's leaves by its largest |g| over every shard of every layer
+    (a MAX all-reduce over the world), as the reference scales its stacked
+    leaf."""
+    if mode != "int8":
+        return compress_grads(grads, mode)
+    leaves = {k: reference_leaf(k) for k in grads}
+    order = {r: i for i, r in enumerate(dict.fromkeys(leaves.values()))}
+    peak = torch.stack([g.float().abs().max() for g in grads.values()])
+    at = torch.tensor([order[leaves[k]] for k in grads], device=peak.device)
+    scale = torch.zeros(len(order), device=peak.device).scatter_reduce(0, at, peak, "amax")
+    dist.all_reduce(scale, op=dist.ReduceOp.MAX)
+    scale = torch.clamp_min(scale, 1e-12) / 127.0
+    out = {}
+    for i, (k, g) in enumerate(grads.items()):
+        q = torch.clamp(torch.round(g.float() / scale[at[i]]), -127, 127).to(torch.int8)
+        out[k] = q.float() * scale[at[i]]
+    return out
+
+
+def _clip_scale(grads: dict, max_norm: float, norm=None):
+    """(the factor clipping multiplies every gradient by, the global norm:
+    ``norm`` when given, else the norm of ``grads``)"""
+    norm = global_norm(grads) if norm is None else norm
     return torch.minimum(_f32(1.0, norm.device), max_norm / torch.clamp_min(norm, 1e-12)), norm
 
 
@@ -145,7 +218,8 @@ def adamw_update(params: dict, grads: dict, state: dict, cfg: OptimizerConfig):
 CHUNK = 1 << 24  # elements of a leaf that the in-place update takes at once
 
 
-def adamw_update_(params, grads: dict, state: dict, cfg: OptimizerConfig) -> dict:
+def adamw_update_(params, grads: dict, state: dict, cfg: OptimizerConfig,
+                  norm=None) -> dict:
     """One AdamW step in place (what :func:`adamw_update` returns as new
     trees), one leaf at a time and a large leaf ``CHUNK`` elements of whole
     rows at a time (the same bits: the update is elementwise): each leaf's
@@ -156,10 +230,12 @@ def adamw_update_(params, grads: dict, state: dict, cfg: OptimizerConfig) -> dic
     new trees holds over 20 bytes a bf16 parameter at its end, this one 12
     and a few hundred MB, which lets recurrentgemma-9b at full width, 8 layers and
     3.88 B parameters (a 1.05 B-parameter embedding among them), train on
-    one 80 GB card.  Returns {"lr", "grad_norm"}."""
+    one 80 GB card.  ``norm``: the global norm, where the gradients are
+    shards of it (:func:`sharded_global_norm`).  Returns {"lr",
+    "grad_norm"}."""
     tree = _tree(params)
     step, lr, c1, c2 = _schedule(state, cfg)
-    scale, gnorm = _clip_scale(grads, cfg.clip_norm)
+    scale, gnorm = _clip_scale(grads, cfg.clip_norm, norm)
     with torch.no_grad():
         for k, p in tree.items():
             g, m, v = grads.pop(k), state["m"][k], state["v"][k]

@@ -15,9 +15,14 @@ reference's (``repro.launch.{cells,dryrun}``).
   charges (``roofline.kernel_work``: K5 over the pairs its masks leave, K6
   and K7 by their recurrences).  What is left is held within 2%, and the
   reference's attention term is held to its analytic count.
+* The train cell at 2 microbatches: FLOPs against the reference's
+  analyzer as above (one microbatch traced, counted twice, as the
+  reference's analyzer expands its ``accum_scan``) and its trip hints.
 * A trace's FLOPs grow with the layers; the launches charged on meta at
   full width equal what ``chip_smoke.py`` phases 11 and 11b count on the
-  card; the all-reduce a 16 x 16 train cell records is its step's wire.
+  card; a sharded train cell's all-gathers and reduce-scatters move its
+  FSDP shards, and a 16 x 16 cell reduces the gradients of the parameters
+  that no batch axis splits.
 * The CLI writes a record with the reference's keys.
 
 Every fake world runs in a subprocess (one for all the port's traces), so
@@ -162,10 +167,24 @@ out = {"smoke": {}, "launches": {}}
 full = C.get_config
 
 
-def trace(arch, shape, mesh, **over):
-    cell = C.build_cell(arch, shape, mesh, cfg_overrides=over or None)
+def trace(arch, shape, mesh, micro=1, **over):
+    cell = C.build_cell(arch, shape, mesh, num_microbatches=micro, cfg_overrides=over or None)
     cost, memory = C.trace_cell(cell, mesh)
     return cell, cost, memory
+
+
+def fsdp_bytes(cell, mesh):
+    # bytes of each parameter gathered over the batch axes that split it
+    # (its local block times their size), summed
+    total = 0
+    for p in cell.args[0].parameters():
+        n = 1
+        for axis, pl in zip(p.device_mesh.mesh_dim_names, p.placements):
+            if pl.is_shard() and axis in ("pod", "data"):
+                n *= mesh.shape[axis]
+        if n > 1:
+            total += n * p._local_tensor.numel() * p.element_size()
+    return total
 
 
 with fake_world(1):
@@ -178,6 +197,11 @@ with fake_world(1):
             out["smoke"][f"{arch} {shape}"] = dict(
                 flops=cost.flops, kernels=cell.trace.kernels,
                 flop_counter=cell.trace.flop_counter_flops)
+        cell, cost, _ = trace(arch, "train_4k", mesh, micro=2)
+        out["smoke"][f"{arch} train_4k x2"] = dict(
+            flops=cost.flops, kernels=cell.trace.kernels,
+            flop_counter=cell.trace.flop_counter_flops, trip_hints=cell.trip_hints,
+            num_microbatches=cell.num_microbatches)
     out["layers"] = [trace("llama3.2-1b", "train_4k", mesh, num_layers=n)[1].flops
                      for n in (1, 2)]
     # chip_smoke.py phases 11 and 11b at full width: 16 x 128 (joinml-oracle,
@@ -193,20 +217,23 @@ C.SHAPES = {"train_4k": dict(kind="train", seq=32, batch=4)}
 C.get_config = lambda name: get_smoke_config(name)
 with fake_world(4):
     mesh = make_mesh((2, 2), ("data", "model"), device="meta")
-    cell, cost, _ = trace("llama3.2-1b", "train_4k", mesh)
-    out["mesh_2x2"] = dict(collective_ops=cost.collective_ops, links=dict(cell.trace.links))
+    cell, cost, _ = trace("llama3.2-1b", "train_4k", mesh, micro=2)
+    out["mesh_2x2"] = dict(collective_ops=cost.collective_ops, links=dict(cell.trace.links),
+                           fsdp_bytes=fsdp_bytes(cell, mesh))
 
 C.SHAPES = {"train_4k": dict(kind="train", seq=4096, batch=256)}
 C.get_config = full
 with fake_world(256):
     from repro_torch.launch.mesh import make_production_mesh
     mesh = make_production_mesh(device="meta")
-    cell, cost, memory = trace("llama3.2-1b", "train_4k", mesh)
+    cell, cost, memory = trace("llama3.2-1b", "train_4k", mesh, micro=None)
     out["prod_train"] = dict(
         collective_bytes=cost.collective_bytes, collective_ops=cost.collective_ops,
-        links=dict(cell.trace.links), wire=cell.fn.wire,
-        params=sum(p.numel() for p in cell.args[0].parameters()),
-        memory=memory, tokens=list(C.local(cell.args[2]["tokens"]).shape))
+        links=dict(cell.trace.links), num_microbatches=cell.num_microbatches,
+        fsdp_bytes=fsdp_bytes(cell, mesh), memory=memory,
+        replicated=[4 * p.numel() for p in cell.args[0].parameters()
+                    if not any(pl.is_shard() for pl in p.placements)],
+        tokens=list(C.local(cell.args[2]["tokens"]).shape))
 print("RESULT " + json.dumps(out))
 """
 
@@ -251,6 +278,36 @@ def test_flops_match_the_references_analyzer(family, port, monkeypatch):
             assert kernels == 0 and ref_all == ref_rest
 
 
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_microbatched_train_flops_match_the_references_analyzer(family, port, monkeypatch):
+    """The train cell at 2 microbatches: the port traces one and counts it
+    twice, the reference's analyzer runs its ``accum_scan`` twice; the FLOPs
+    left when each side's attention and scan terms are out agree to 1e-6,
+    and so do the trip hints."""
+    from repro.configs import get_smoke_config as ref_smoke
+    from repro.launch.mesh import make_host_mesh
+    from repro.roofline.hlo_analysis import analyze
+
+    arch = FAMILIES[family]
+    monkeypatch.setattr(RC, "SHAPES", SMOKE_SHAPES)
+    monkeypatch.setattr(RC, "get_config", ref_smoke)
+    mesh = make_host_mesh()
+    named = ("attn_q_scan", "enc&attn_q_scan", "rwkv_time_scan", "rglru_time_scan")
+    cell = RC.build_cell(arch, "train_4k", mesh, num_microbatches=2)
+    hlo = RC.lower_cell(cell, mesh).compile().as_text()
+    ref_rest = analyze(hlo, {**cell.trip_hints, **dict.fromkeys(named, 0)}).flops
+    got = port["smoke"][f"{arch} train_4k x2"]
+    assert got["num_microbatches"] == 2
+    assert got["trip_hints"] == cell.trip_hints
+    assert got["trip_hints"]["accum_scan"] == 2
+    rest = got["flops"] - sum(k["flops"] for k in got["kernels"].values())
+    assert rest == pytest.approx(ref_rest, rel=1e-6), (rest, ref_rest)
+    assert got["flop_counter"] == pytest.approx(rest, rel=1e-12)
+    one = port["smoke"][f"{arch} train_4k"]
+    assert {k: v["launches"] for k, v in got["kernels"].items()} == \
+        {k: 2 * v["launches"] for k, v in one["kernels"].items()}
+
+
 def test_flops_grow_with_the_layers(port):
     one, two = port["layers"]
     assert two > one * 1.3
@@ -270,21 +327,34 @@ def test_charged_launches_equal_the_cards(port):
 
 
 def test_production_train_cell_all_reduces_its_gradients(port):
-    """A 16 x 16 train cell: the default ``grad_compression="none"`` sums one
-    flat f32 buffer of every gradient and the loss over the 16 data ranks
-    (a group across nodes), 2 x its bytes."""
+    """A 16 x 16 train cell, 8 microbatches: every gradient split over the
+    data axis is reduce-scattered once a microbatch (the reduce-scatter is
+    charged its input, the shard gathered back: ``fsdp_bytes``); under
+    remat each layer's weights are gathered again for the recomputation;
+    the gradients of the parameters no batch axis splits (the norms) are
+    all-reduced in f32 once a step, among the step's other all-reduces;
+    every group crosses nodes."""
     rec = port["prod_train"]
-    assert rec["wire"] == {"sum float32": rec["params"] + 1}
-    want = 2 * 4 * (rec["params"] + 1)
-    assert rec["collective_bytes"] == rec["collective_ops"]["allreduce_"] == want
-    assert rec["links"] == {"net": want}
+    assert rec["num_microbatches"] == 8
+    ops = rec["collective_ops"]
+    assert ops["_reduce_scatter_base_"] == 8 * rec["fsdp_bytes"]
+    assert ops["_allgather_base_"] > 1.9 * ops["_reduce_scatter_base_"]
+    assert rec["replicated"] and ops["allreduce_"] > 2 * sum(rec["replicated"])
+    assert rec["collective_bytes"] == sum(ops.values())
+    assert set(rec["links"]) == {"net"}
     assert rec["tokens"] == [16, 4096]
     assert rec["memory"]["total_bytes"] > rec["memory"]["argument_bytes"] > 0
 
 
 def test_two_by_two_mesh_records_its_all_reduce(port):
+    """A 2 x 2 cell (smoke llama3.2-1b, no remat, 2 microbatches): each
+    FSDP shard is gathered once a microbatch and its gradient
+    reduce-scattered once, so both move the sum of the gathered shards
+    twice; the tensor-parallel pairs all-reduce."""
     rec = port["mesh_2x2"]
     assert rec["collective_ops"]["allreduce_"] > 0
+    assert rec["collective_ops"]["_allgather_base_"] == 2 * rec["fsdp_bytes"] > 0
+    assert rec["collective_ops"]["_reduce_scatter_base_"] == 2 * rec["fsdp_bytes"]
     assert set(rec["links"]) == {"nvlink"}  # ranks 0-3: one node
 
 

@@ -5,8 +5,8 @@ saving, loading, appending to and querying through a stratification index,
 serving queries through the oracle service (with its label store and
 metrics exporter) and over its TCP transport, training (a train step,
 a checkpoint, the training launcher, the autotuner's cache) and the mesh
-layer (a data-parallel step in a world of one gloo rank, the parameters'
-shardings, a scorer over the host mesh), the roofline and the dry run (one
+layer (a data-parallel step and a sharded step in a world of one gloo
+rank, the parameters' shardings, a scorer over the host mesh), the roofline and the dry run (one
 cell traced on meta tensors in a fake world of 256 ranks)
 load neither JAX nor the reference package, and its entry points run on
 the card unless the caller asks for the CPU.  On CUDA tensors no op
@@ -141,6 +141,14 @@ with tempfile.TemporaryDirectory() as d:
     tp, to, tm = dp(tp, to, {"tokens": [[1, 2, 3, 4, 5]]})
     assert float(tm["loss"]) > 0 and dp.wire["sum int32"] > 0
     param_shardings(tp, mesh, TRAIN_RULES)
+    from repro_torch.launch.sharding import sharding_context
+    from repro_torch.models.partition import shard_params
+
+    sp = shard_params(init_params(mcfg, device="cpu"), mesh, TRAIN_RULES)
+    with sharding_context(mesh, TRAIN_RULES):
+        sp, so, sm = make_train_step(mcfg, OptimizerConfig(warmup_steps=1), 2)(
+            sp, init_opt_state(sp), {"tokens": [[1, 2, 3, 4, 5], [6, 7, 8, 9, 10]]})
+    assert float(sm["loss"]) > 0 and int(so["step"]) == 1
     dist.destroy_process_group()
 PairScorer(mcfg, tp, tok_pair, tok.YES, tok.NO, max_len=48, batch_size=16,
            mesh=make_host_mesh(device="cpu"), device="cpu").score([[1, 2], [3, 4]])
@@ -154,7 +162,8 @@ for name in ("repro_torch.train", "repro_torch.checkpoint.checkpoint",
              "repro_torch.runtime.fault_tolerance", "repro_torch.kernels.autotune",
              "repro_torch.launch.train", "repro_torch.launch.mesh",
              "repro_torch.launch.sharding", "repro_torch.models.partition",
-             "repro_torch.train.manual_dp", "repro_torch.roofline",
+             "repro_torch.train.manual_dp", "repro_torch.train.sharded",
+             "repro_torch.roofline",
              "repro_torch.roofline.trace_analysis", "repro_torch.launch.cells",
              "repro_torch.launch.dryrun"):
     assert name in sys.modules, name

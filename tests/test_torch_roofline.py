@@ -185,3 +185,101 @@ def test_cost_mode_reuse_counts_what_running_every_op_counts(arch):
     assert len(a._cache) > 0
     params = init_params(cfg, device="meta")
     assert vars(analyze(step, params, init_opt_state(params), batch)) == vars(a.cost)
+
+
+# ----------------------------------------------------------------------------
+# collectives on meta tensors over a fake world of 256 ranks
+# ----------------------------------------------------------------------------
+
+COLLECTIVES = r"""
+import json
+import torch
+import torch.distributed as dist
+from repro_torch.launch.dryrun import fake_world
+from repro_torch.roofline.trace_analysis import CostMode
+
+
+def m(n):
+    return torch.empty(n, device="meta", dtype=torch.float32)
+
+
+out = {}
+with fake_world(256):
+    groups = {"nvlink": list(range(8)), "net": list(range(16)), "local": [0]}
+    for link, ranks in groups.items():
+        g, n = dist.new_group(ranks), len(ranks)
+        calls = {
+            "allreduce_": lambda: dist.all_reduce(m(64), group=g),
+            "_allgather_base_": lambda: dist.all_gather_into_tensor(m(64 * n), m(64), group=g),
+            "allgather_": lambda: dist.all_gather([m(64) for _ in range(n)], m(64), group=g),
+            "_reduce_scatter_base_": lambda: dist.reduce_scatter_tensor(m(64), m(64 * n),
+                                                                        group=g),
+            "reduce_scatter_": lambda: dist.reduce_scatter(m(64), [m(64) for _ in range(n)],
+                                                           group=g),
+            "alltoall_base_": lambda: dist.all_to_all_single(m(64 * n), m(64 * n), group=g),
+            "broadcast_": lambda: dist.broadcast(m(64), src=0, group=g),
+        }
+        for name, fn in calls.items():
+            with CostMode() as mode:
+                fn()
+            out[f"{link} {name}"] = {"ops": mode.cost.collective_ops,
+                                     "bytes": mode.cost.collective_bytes,
+                                     "links": dict(mode.links),
+                                     "op_links": {k: dict(v) for k, v in mode.op_links.items()}}
+print("RESULT " + json.dumps(out))
+"""
+
+# the bytes each op is charged for 64 f32 elements a rank over n ranks: the
+# all-reduce 2 x its tensor, the all-gather its gathered output, the
+# reduce-scatter its input (the reference's ``hlo_analysis`` rule), the
+# all-to-all its output, the broadcast its tensor
+CHARGED = {"allreduce_": lambda n: 2 * 256, "_allgather_base_": lambda n: 256 * n,
+           "allgather_": lambda n: 256 * n, "_reduce_scatter_base_": lambda n: 256 * n,
+           "reduce_scatter_": lambda n: 256 * n, "alltoall_base_": lambda n: 256 * n,
+           "broadcast_": lambda n: 256}
+GROUPS = {"nvlink": 8, "net": 16, "local": 1}
+
+
+@pytest.fixture(scope="module")
+def collectives():
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"), OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", COLLECTIVES], capture_output=True, text=True,
+                         cwd=root, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    return json.loads(out.stdout.split("RESULT ", 1)[1])
+
+
+@pytest.mark.parametrize("link", sorted(GROUPS))
+@pytest.mark.parametrize("op", sorted(CHARGED))
+def test_collectives_are_charged_on_meta(collectives, op, link):
+    """Each collective on meta tensors over a group of ranks 0-7 (one node:
+    NVLink), 0-15 (two nodes: the network, ``hw.link_bw``) or rank 0 alone
+    (no link): its bytes by the reference's rule, under its own name and
+    link."""
+    rec = collectives[f"{link} {op}"]
+    want = float(CHARGED[op](GROUPS[link]))
+    assert rec["ops"] == {op: want} and rec["bytes"] == want
+    assert rec["links"] == {link: want} and rec["op_links"] == {op: {link: want}}
+    if link != "local":
+        ranks = range(GROUPS[link])
+        assert (hw.link_bw(ranks) == hw.NVLINK_BW) == (link == "nvlink")
+
+
+def test_collective_table_reads_each_op_by_its_schema():
+    """Every op the table charges names its charged tensors and its process
+    group by arguments of its own schema (the ops order them differently),
+    the coalesced ones too, which have no meta kernel to run."""
+    from repro_torch.roofline.trace_analysis import _COLLECTIVES
+
+    assert "reduce_scatter_tensor_coalesced_" in _COLLECTIVES
+    for name, (arg, factor) in _COLLECTIVES.items():
+        schema = getattr(torch.ops.c10d, name).default._schema
+        names = {a.name for a in schema.arguments}
+        assert arg in names and "process_group" in names, name
+        assert factor == (2.0 if name.startswith("allreduce") else 1.0)
