@@ -119,13 +119,22 @@ score --shard`` as a subprocess.  (13) The dry run and the roofline:
 (13a) ``python -m repro_torch.launch.dryrun --all --both-meshes`` as a
 subprocess (a worker process a core, up to 8): 80 records, 64 ok and 16
 skipped, each ok record with its FLOPs, bytes, bound and ``fits``, every
-train record with its all-reduce; the 16 x 16 roofline table and the cells
-whose rank does not fit the card; (13b) phase 11's step as a 1 x 1-mesh
+train record with its all-reduce; the 16 x 16 roofline table; a cell
+whose rank does not fit the card fails the phase; (13b) phase 11's step as a 1 x 1-mesh
 cell traced on meta tensors in a subprocess of its own (phase 12a's NCCL
 world holds this process): its charged launches equal phase 11's a step,
 and phase 11's median step may not be shorter than its roofline bound (the
 step's share of the bound is printed); (13c) the four
-``examples/*_torch.py`` on the card, each exiting 0.  Every bound the
+``examples/*_torch.py`` on the card, each exiting 0.  (14) The sharded
+train step (phase 11's model at f32, 8 microbatches) at world 1 over NCCL
+and world 2 (two gloo processes on the card), against the one-process
+step.  (15) Sharded serving on the same worlds: the prefill of phase 14's
+batch under ``SERVE_RULES`` and 24 decode steps into 32 slots under
+``DECODE_RULES`` (the cache's slots over "model"), and the full
+whisper-medium's 8 decode steps over 1,536 frames split over "model" on
+1 x 2, each world's logits against the one-process run (bit for bit on 1
+x 1, else within 2e-5 of the largest |logit|), K5's launches a prefill,
+step and collective ms and peak memory.  Every bound the
 script prints is ``repro_torch.roofline.kernel_work``'s.  Phases 3 to
 4c and 10c run with the launch autotuner on (``kernels.autotune``, its
 cache measured afresh under ``build/``; its entries and measuring seconds
@@ -136,8 +145,8 @@ are set to 0 just before each path (4; 4b's query path, dense baselines
 and Oracle cascade; 6; 8; each of 9's, where olmoe's path is the COUNT's
 ``execute`` and its timed scoring and batcher are counted apart; 10a's
 served queries; 10c's queries; 11's steps; each of 11b's; each of 12a's
-steps in each rank; 12b's sharded scoring; 10b's launches happen in its
-subprocesses)
+steps in each rank; 12b's sharded scoring; 14's steps and 15's prefills
+and decodes in each rank; 10b's launches happen in its subprocesses)
 and read just after it; in 4c, just before each of the index
 path's own calls (its builds, queries and appends, not the rebuilds and
 kernel checks they are held against) and read just after it.
@@ -146,7 +155,8 @@ Any failed phase exits non-zero.  The last lines are one JSON object of
 kernels, the card's name and power limit, and ``{"ok": true, ...}``.
 Without a card (or without the repository beside it) it exits non-zero and
 prints no result.  The rehearsal runs phases 4, 4b, 4c, 6, 7, 8, 9, 10,
-11, 12 and 13 (13a on one cell) at a tiny size on the CPU and exits 3.
+11, 12, 13 (13a on one cell), 14 and 15 at a tiny size on the CPU and
+exits 3.
 """
 import argparse
 import collections
@@ -3702,6 +3712,10 @@ def check_dry_run(size, started):
             fail(f"dry-run train record {r['arch']} {r['mesh']} lacks its 8 microbatches "
                  f"or a collective: {r['num_microbatches']}, {r['collective_by_op']}")
     ok = [r for r in recs if r["status"] == "ok"]
+    if not all(r["fits"] for r in ok):
+        fail("dry-run cells do not fit a rank: " + ", ".join(
+            f"{r['arch']} {r['shape']} {r['mesh']} ({r['memory']['hbm_fraction']})"
+            for r in ok if not r["fits"]))
     log(report.roofline_table(recs, "16x16"))
     log(json.dumps({"phase": "13a: dry run", "seconds": seconds, "jobs": jobs,
                     "budget_s": size.budget_s, "within_budget": seconds <= size.budget_s,
@@ -3986,9 +4000,10 @@ def _sharded_job(size, device, job, out_dir):
 
 
 def sharded_rank(rank, world, store, device, full, jobs, out_dir, backend="gloo"):
-    """A rank process of a phase-14 world, on card ``rank`` modulo the cards
-    present; runs every job whose mesh has ``world`` ranks; prints its rows
-    as JSON.  Phase 14's world of 2 shares one card over gloo with CUDA
+    """A rank process of a phase-14 or 15 world, on card ``rank`` modulo the
+    cards present; runs every job whose mesh has ``world`` ranks (a train
+    job by ``_sharded_job``, a serve job by ``_serving_job``); prints its
+    rows as JSON.  Phase 14's world of 2 shares one card over gloo with CUDA
     tensors; ``scripts/sharded_step.py`` puts one rank on each card over
     NCCL."""
     import datetime
@@ -4001,7 +4016,8 @@ def sharded_rank(rank, world, store, device, full, jobs, out_dir, backend="gloo"
                             world_size=world, timeout=datetime.timedelta(seconds=600))
     try:
         size = TRAIN_FULL if full else TRAIN_REHEARSAL
-        rows = [_sharded_job(size, device, job, out_dir) for job in jobs
+        run = {"train": _sharded_job, "serve": _serving_job}
+        rows = [run[job.get("kind", "train")](size, device, job, out_dir) for job in jobs
                 if int(np.prod(job["mesh"])) == world]
     finally:
         dist.destroy_process_group()
@@ -4117,6 +4133,27 @@ def check_sharded_rows(rows, device, ones=None):
     return held
 
 
+def _in_world_of_one(device, run):
+    """``run()`` in a process group of this process alone (NCCL on the
+    card, gloo on the CPU), destroyed after."""
+    import datetime
+
+    import torch.distributed as dist
+
+    store = os.path.join(HERE, "build", "world_of_one_store")
+    if os.path.exists(store):
+        os.remove(store)
+    dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                            store=dist.FileStore(store, 1), rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        return run()
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(store):  # the store may have removed its file itself
+            os.remove(store)
+
+
 def phase14(size, device):
     """Phase 14: ``SHARDED_JOBS`` (phase 11's model at f32, 8 microbatches,
     ``SHARDED_STEPS`` steps) at world 1 over NCCL in this process on a 1 x
@@ -4124,26 +4161,13 @@ def phase14(size, device):
     CUDA tensors on the 2 x 1 and 1 x 2 meshes; each world's first step
     held against the one-process step.  Launch counts are set to 0 just
     before each step and read just after.  Returns {path: launches}."""
-    import datetime
-
-    import torch.distributed as dist
-
     t0 = time.perf_counter()
     out_dir = os.path.join(HERE, "build", "phase14")
     one = one_process_first_step(size, device, SHARDED_ORACLE)
     rows = sharded_processes(size, device, 2, SHARDED_JOBS, out_dir)
-    store = os.path.join(HERE, "build", "sharded_store_world1")
-    if os.path.exists(store):
-        os.remove(store)
-    dist.init_process_group("nccl" if device == "cuda" else "gloo",
-                            store=dist.FileStore(store, 1), rank=0, world_size=1,
-                            timeout=datetime.timedelta(seconds=300))
-    try:
-        rows += [_sharded_job(size, device, job, out_dir) for job in SHARDED_JOBS
-                 if int(np.prod(job["mesh"])) == 1]
-    finally:
-        dist.destroy_process_group()
-        os.remove(store)
+    rows += _in_world_of_one(device, lambda: [
+        _sharded_job(size, device, job, out_dir) for job in SHARDED_JOBS
+        if int(np.prod(job["mesh"])) == 1])
     for r in rows:
         log(json.dumps(r))
     held = check_sharded_rows(rows, device, {SHARDED_ORACLE["batch"]: one})
@@ -4158,11 +4182,246 @@ def phase14(size, device):
             r["steps"][-1]["launches"] for r in rows}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: sharded prefill and decode (SERVE_RULES' 2-D weights, DECODE_RULES'
+# cache slots over "model")
+# ---------------------------------------------------------------------------
+
+SERVE_RULE = 2e-5      # the port's f32 forward rule, of the largest |logit|
+# phase 15's jobs: phase 14's joinml-oracle at f32, the prefill of its 16 x
+# 128 batch, then 24 decode steps from position 0 into a cache of 32 slots
+# (on 1 x 2 the steps cross slot 16, the slots' shard boundary); and
+# whisper-medium at f32 (the rehearsal: reduced), 8 steps over a seeded
+# cache of (4, 1,500) frames (padded to 1,536, 768 a model rank), on 1 x 2
+SERVING_ORACLE = {"kind": "serve", "name": ORACLE_NAME, "over": {"dtype": "float32"},
+                  "batch": 16, "prefill": True, "steps": 24, "slots": 32}
+SERVING_WHISPER = {"kind": "serve", "name": "whisper-medium", "over": {"dtype": "float32"},
+                   "batch": 4, "prefill": False, "steps": 8, "slots": 32}
+SERVING_JOBS = [dict(SERVING_ORACLE, mesh=m) for m in ((1, 1), (2, 1), (1, 2))] + [
+    dict(SERVING_WHISPER, mesh=(1, 2))]
+
+
+def _serving_inputs(size, device, job):
+    """A serve job's model (whole, from the seed), its prefill batch (phase
+    11's first batch for the Oracle), the decode's tokens a step (B, 1)
+    and its whole cache: zeros, but for whisper's encoder K/V, drawn from
+    the seed over every frame."""
+    from repro_torch.models import init_cache, init_params
+
+    if job["name"] == ORACLE_NAME:
+        cfg, params, _, _, batch_at = _train_setup(size, device, over=job["over"],
+                                                   batch=job["batch"], with_opt=False)
+        batch = {"tokens": torch.as_tensor(batch_at(0)["tokens"])}
+    else:
+        cfg = model_config(job["name"], size, **job["over"])
+        params = init_params(cfg, SEED + 4, device=device)
+        rng = np.random.default_rng(SEED + 12)
+        batch = {"tokens": torch.from_numpy(
+            rng.integers(8, cfg.vocab_size, (job["batch"], job["steps"])))}
+    tokens = [batch["tokens"][:, i:i + 1].long() for i in range(job["steps"])]
+    cache = init_cache(cfg, job["batch"], job["slots"], device)
+    if "xk" in cache:
+        gen = torch.Generator(device=device).manual_seed(SEED + 15)
+        for key in ("xk", "xv"):
+            cache[key].copy_(torch.randn(cache[key].shape, generator=gen, device=device,
+                                         dtype=torch.float32))
+    return cfg, params, batch, tokens, cache
+
+
+def _serving_decode(cfg, params, cache, tokens, device, rows=slice(None), timed=None):
+    """``len(tokens)`` decode steps from position 0, each timed; returns
+    (logits a step (on the device), ms a step)."""
+    from repro_torch.models import decode_step
+
+    logits, ms = [], []
+    for i, tok in enumerate(tokens):
+        sync(device)
+        t0 = time.perf_counter()
+        lg, cache = decode_step(cfg, params, cache, tok[rows].to(device), i)
+        sync(device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        logits.append(lg)
+    return logits, ms
+
+
+def one_process_serving(size, device, job):
+    """The one-process prefill and decode of ``job`` on the card: {prefill
+    logits, decode logits a step}, on the host."""
+    from repro_torch.models import forward
+
+    cfg, params, batch, tokens, cache = _serving_inputs(size, device, job)
+    out = {}
+    if job["prefill"]:
+        out["prefill"] = forward(cfg, params, batch).cpu()
+    logits, _ = _serving_decode(cfg, params, cache, tokens, device)
+    out["steps"] = [lg.cpu() for lg in logits]
+    del params, cache
+    _free()
+    return out
+
+
+def _serving_job(size, device, job, out_dir):
+    """One serve job of a rank of phase 15: the model from the seed, whole
+    on every rank, laid out by ``shard_params`` under SERVE_RULES (whose
+    parameter layout DECODE_RULES shares), the cache by ``shard_cache``
+    under DECODE_RULES; the prefill of the rank's rows under SERVE_RULES
+    (its ms, collectives, launches), then the decode steps under
+    DECODE_RULES.  Rank 0 writes the logits, rows and vocabulary columns
+    gathered, for the one-process comparison.  Returns the logged row."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.launch.cells import tree_bytes
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharding import DECODE_RULES, SERVE_RULES, sharding_context
+    from repro_torch.models import forward
+    from repro_torch.models.partition import shard_cache, shard_params
+    from repro_torch.train.sharded import gather_dim, top
+
+    rank = dist.get_rank()
+    cfg, params, batch, tokens, cache = _serving_inputs(size, device, job)
+    shape = tuple(job["mesh"])
+    tag = f"{cfg.name} {shape[0]}x{shape[1]}"
+    mesh = make_mesh(shape, ("data", "model"), device=device)
+    shard_params(params, mesh, SERVE_RULES)
+    cache = shard_cache(cache, mesh, DECODE_RULES)
+    _free()
+    at = mesh.coordinate()
+    n = job["batch"] // shape[0]
+    rows = slice(at["data"] * n, (at["data"] + 1) * n)
+    with sharding_context(mesh, SERVE_RULES):
+        split = top(params)[1].n > 1
+
+    def whole(lg):
+        if split:
+            lg = gather_dim(lg, lg.ndim - 1, mesh.group(("model",)), shape[1])
+        return gather_dim(lg, 0, mesh.group(("data",)), shape[0]).cpu()
+
+    row = {"phase": "15: sharded serving", "job": tag, "rank": rank,
+           "world": dist.get_world_size(), "backend": dist.get_backend(),
+           "mesh": {"data": shape[0], "model": shape[1]}, "model": cfg.name,
+           "layers": cfg.num_layers, "dtype": cfg.dtype, "batch": job["batch"],
+           "held_param_bytes": tree_bytes(params), "held_cache_bytes": tree_bytes(cache)}
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    saved = {}
+    if job["prefill"]:
+        cuda_lib.reset_launches()
+        with _TimedCollectives(device) as timed:
+            sync(device)
+            t0 = time.perf_counter()
+            with sharding_context(mesh, SERVE_RULES):
+                logits = forward(cfg, params, {k: v[rows] for k, v in batch.items()})
+            sync(device)
+        row.update(prefill_ms=(time.perf_counter() - t0) * 1e3,
+                   prefill_collective_ms=dict(timed.ms),
+                   prefill_launches={k: v for k, v in cuda_lib.LAUNCHES.items() if v},
+                   prefill_finite=bool(torch.isfinite(logits).all()))
+        saved["prefill"] = whole(logits)
+    cuda_lib.reset_launches()
+    with _TimedCollectives(device) as timed, sharding_context(mesh, DECODE_RULES):
+        logits, ms = _serving_decode(cfg, params, cache, tokens, device, rows)
+    row.update(decode_step_ms=ms, decode_collective_ms=dict(timed.ms),
+               decode_launches={k: v for k, v in cuda_lib.LAUNCHES.items() if v},
+               decode_finite=bool(all(torch.isfinite(lg).all() for lg in logits)))
+    saved["steps"] = [whole(lg) for lg in logits]
+    if device == "cuda":
+        row["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    if rank == 0:
+        path = os.path.join(out_dir, f"phase15_{cfg.name}_{shape[0]}x{shape[1]}.pt")
+        torch.save(saved, path)
+        row["logits"] = path
+    del params, cache
+    _free()
+    return row
+
+
+def hold_serving(one, path, exact):
+    """A world's gathered logits (saved at ``path``) against the one-process
+    run's: bit for bit where ``exact`` (a 1 x 1 mesh), else each within
+    ``SERVE_RULE`` of its largest |logit|.  Returns the worst ratio of an
+    error to its tolerance (0 for equal bits)."""
+    got = torch.load(path)
+    pairs = list(zip(got["steps"], one["steps"]))
+    if "prefill" in one:
+        pairs.append((got["prefill"], one["prefill"]))
+    worst = 0.0
+    for mine, want in pairs:
+        if mine.shape != want.shape:
+            fail(f"15: logits of shape {tuple(mine.shape)}, expected {tuple(want.shape)}")
+        if exact:
+            worst = max(worst, 0.0 if torch.equal(mine, want) else float("inf"))
+        else:
+            tol = SERVE_RULE * float(want.abs().max())
+            worst = max(worst, float((mine - want).abs().max()) / tol)
+    return worst
+
+
+def check_serving_rows(rows, device, ones):
+    """Every rank's logits finite; on the card each prefill launches K5 once
+    an attention layer a rank and the decode no kernel; each job's
+    logits held by ``hold_serving`` against the one-process run.  Returns
+    {job: the worst held ratio}."""
+    held = {}
+    for r in rows:
+        if not r["decode_finite"] or not r.get("prefill_finite", True):
+            fail(f"15 {r['job']} rank {r['rank']}: logits not finite")
+        if device == "cuda":
+            if "prefill_launches" in r and r["prefill_launches"] != {
+                    "flash_attention": r["layers"]}:
+                fail(f"15 {r['job']} rank {r['rank']}: prefill launched "
+                     f"{r['prefill_launches']}, expected {r['layers']} K5")
+            if r["decode_launches"]:
+                fail(f"15 {r['job']} rank {r['rank']}: decode launched {r['decode_launches']}")
+        if "logits" in r:
+            exact = r["mesh"] == {"data": 1, "model": 1}
+            held[r["job"]] = hold_serving(ones[r["model"]], r["logits"], exact)
+            os.remove(r["logits"])
+            if held[r["job"]] > 1.0:
+                fail(f"15 {r['job']}: the logits differ from one process's "
+                     f"({held[r['job']]} of the rule)")
+    return held
+
+
+def phase15(size, device):
+    """Phase 15: ``SERVING_JOBS`` (joinml-oracle's prefill and 24 decode
+    steps, whisper-medium's decode over split frames) at world 1 over NCCL
+    in this process on a 1 x 1 mesh, and at world 2 as two processes on the
+    one card over gloo with CUDA tensors on the 2 x 1 and 1 x 2 meshes; each
+    world's logits held against the one-process run.  Launch counts are
+    set to 0 just before each prefill and decode and read just after.
+    Returns {path: launches}."""
+    t0 = time.perf_counter()
+    out_dir = os.path.join(HERE, "build", "phase15")
+    os.makedirs(out_dir, exist_ok=True)
+    ones = {job["name"]: one_process_serving(size, device, job)
+            for job in (SERVING_ORACLE, SERVING_WHISPER)}
+    rows = sharded_processes(size, device, 2, SERVING_JOBS, out_dir)
+    rows += _in_world_of_one(device, lambda: [
+        _serving_job(size, device, job, out_dir) for job in SERVING_JOBS
+        if int(np.prod(job["mesh"])) == 1])
+    for r in rows:
+        log(json.dumps(r))
+    held = check_serving_rows(rows, device, ones)
+    log(json.dumps({"phase": "15 summary", "held_ratios": held, "prefill_ms": {
+        f"{r['job']} rank {r['rank']}": r.get("prefill_ms") for r in rows},
+        "decode_step_ms_median": {f"{r['job']} rank {r['rank']}":
+                                  float(np.median(r["decode_step_ms"])) for r in rows},
+        "collective_ms": {f"{r['job']} rank {r['rank']}":
+                          [r.get("prefill_collective_ms"), r["decode_collective_ms"]]
+                          for r in rows},
+        "max_memory_allocated_bytes": {f"{r['job']} rank {r['rank']}":
+                                       r.get("max_memory_allocated_bytes") for r in rows},
+        "phase15_s": time.perf_counter() - t0}))
+    return {f"sharded prefill, {r['job']} rank {r['rank']} (15)": r["prefill_launches"]
+            for r in rows if "prefill_launches" in r}
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--rehearse-cpu", action="store_true",
-                    help="run phases 4, 4b, 4c, 6, 7, 8, 9, 10, 11, 12 and 13 at a tiny size "
-                         "on the CPU (exits 3)")
+                    help="run phases 4, 4b, 4c, 6, 7, 8, 9, 10, 11, 12, 13, 14 and 15 at a "
+                         "tiny size on the CPU (exits 3)")
     if ap.parse_args().rehearse_cpu:
         from repro_torch.kernels import cuda_lib
 
@@ -4181,6 +4440,7 @@ def main():
         phase12(TRAIN_REHEARSAL, REHEARSAL_MODEL, "cpu")
         phase13(DRYRUN_REHEARSAL, TRAIN_REHEARSAL, "cpu", train_row)
         phase14(TRAIN_REHEARSAL, "cpu")
+        phase15(TRAIN_REHEARSAL, "cpu")
         log(f"rehearsal complete: {len(results) + len(results_4b) + len(results_4c)} "
             "queries, the Oracle queries, the recurrent paths, the model families, "
             "the serving plane, training, the mesh and the dry run on the CPU (no result)")
@@ -4340,9 +4600,14 @@ def main():
     # phase 14: the sharded step, counts set to 0 just before each step and read just after
     t14 = time.perf_counter()
     paths.update(phase14(TRAIN_FULL, "cuda"))
+    phase14_s = time.perf_counter() - t14
+    # phase 15: sharded prefill and decode, counts set to 0 just before each
+    # prefill and decode and read just after
+    t15 = time.perf_counter()
+    paths.update(phase15(TRAIN_FULL, "cuda"))
     log(json.dumps({"phase10_s": phase10_s, "phase11_s": phase11_s,
                     "phase12_s": phase12_s, "phase13_s": phase13_s,
-                    "phase14_s": time.perf_counter() - t14,
+                    "phase14_s": phase14_s, "phase15_s": time.perf_counter() - t15,
                     "script_s": time.perf_counter() - t_script}))
     main_path = {"flash_attention": "Oracle COUNT", "rwkv6_scan": "rwkv6-1.6b",
                  "rglru_scan": "recurrentgemma-9b"}

@@ -106,6 +106,52 @@ def opt_state_from_jax(cfg: ModelConfig, state: dict, device="cuda", mesh=None,
     return out
 
 
+def cache_from_jax(cfg: ModelConfig, cache: dict, device="cuda", mesh=None,
+                   rules=None) -> dict:
+    """The port's decode cache (``models.init_cache``'s tree) from the
+    reference's ``init_cache`` tree with numpy leaves, e.g. a seeded
+    non-zero cache that both packages decode from.  Every leaf must have
+    the port's name, shape and type for the cache's batch and slots; a
+    missing, extra or reshaped leaf raises.  With a multi-process ``mesh``
+    and ``rules`` the cache comes back laid out by
+    ``models.partition.shard_cache`` on the mesh's device."""
+    from .models.model import init_cache
+
+    if mesh is not None:
+        from .models.partition import shard_cache
+
+        return shard_cache(cache_from_jax(cfg, cache, "cpu"), mesh, rules)
+    dev = resolve_device(device)
+    leaves = dict(_flatten(cache))
+    if cfg.family == "ssm":
+        batch, slots = np.shape(leaves["state.s"])[1], 1
+    else:  # the K/V rows or the ring: (..., B, slots, nkv, hd)
+        kv = next(v for k, v in leaves.items() if k == "k" or k.endswith(("_k", ".k")))
+        batch, slots = np.shape(kv)[-4:-2]
+    shapes = dict(_flatten(init_cache(cfg, int(batch), int(slots), "meta")))
+    if set(shapes) != set(leaves):
+        raise ValueError(f"cache leaves differ: missing {sorted(set(shapes) - set(leaves))}, "
+                         f"extra {sorted(set(leaves) - set(shapes))}")
+    out = {}
+    for name, leaf in leaves.items():
+        t = _to_torch(leaf)
+        if t.dtype != shapes[name].dtype or t.shape != shapes[name].shape:
+            raise ValueError(f"cache {name}: {t.dtype} {tuple(t.shape)} where the port has "
+                             f"{shapes[name].dtype} {tuple(shapes[name].shape)}")
+        out[name] = t.to(dev)
+    return _unflatten(cache, out)
+
+
+def _unflatten(like, flat: dict, prefix=""):
+    """``like``'s tree (dicts, lists) with the leaves of ``flat`` by dotted
+    name."""
+    if isinstance(like, dict):
+        return {k: _unflatten(v, flat, f"{prefix}{k}.") for k, v in like.items()}
+    if isinstance(like, (list, tuple)):
+        return [_unflatten(v, flat, f"{prefix}{i}.") for i, v in enumerate(like)]
+    return flat[prefix[:-1]]
+
+
 def params_from_jax(cfg: ModelConfig, tree: dict, device="cuda", mesh=None,
                     rules=None) -> Model:
     """The port's parameters (a :class:`~repro_torch.models.Model`) from the

@@ -21,13 +21,17 @@ full-attention architectures.
   one microbatch and counts it ``num_microbatches`` times, as the
   reference's analyzer expands its ``accum_scan``, then the reductions
   and the optimizer once;
-* prefill is ``models.forward`` and decode ``models.decode_step`` against
-  ``init_cache(cfg, local batch, seq)`` on whole parameters (the serving
-  rules' 2-D layout is not ported yet); their input's batch dim is split
-  as ``sharding.spec_for`` splits it under the cell's rules, and not where
-  the rules give no divisible axis (long_500k's batch of 1).  No sharding
-  context is entered for them, so the MoE dispatch routes the local batch
-  as one group, which is the reference's group of that batch shard.
+* prefill is ``models.forward`` under ``SERVE_RULES`` and decode
+  ``models.decode_step`` under ``DECODE_RULES``, as the reference lowers
+  them: the parameters sharded by ``shard_params`` under those rules (2-D,
+  "fsdp" over "data" alone, each layer gathering its "data" shards), and
+  decode's cache made by ``init_cache(..., mesh=, rules=)`` at the cell's
+  global batch (``models.partition.shard_cache``'s layout: its slots over
+  "model", its batch over the batch axes, each rank holding its blocks).
+  Their inputs are the rank's rows: the batch dim split as
+  ``sharding.spec_for`` splits it, and whole where the rules give no
+  divisible axis (long_500k's batch of 1).  The MoE dispatch routes the
+  rank's rows as one group, the reference's group of that batch shard.
 """
 from __future__ import annotations
 
@@ -40,7 +44,7 @@ import torch
 from ..configs import ARCHS, get_config
 from ..models import decode_step, forward, init_cache, init_params
 from ..models.config import ModelConfig
-from ..models.partition import param_shardings, shard_params
+from ..models.partition import cache_logical_axes, param_shardings, shard_params
 from ..train import OptimizerConfig, init_opt_state, make_train_step
 from ..train.sharded import local as local_shard
 from .sharding import (
@@ -79,44 +83,7 @@ def all_cells():
 # logical axes for batch inputs and caches
 # ----------------------------------------------------------------------------
 
-def _cache_logical_axes(cache) -> dict:
-    """The reference's logical axes of each cache leaf, by the leaf's last
-    key (``l{i}_k`` / ``l{i}_v`` as ``k`` / ``v``), left-padded with
-    ``None`` for stacked layer axes."""
-    base = {
-        "k": ("batch", "seq", "kv_heads", "head_dim"),
-        "v": ("batch", "seq", "kv_heads", "head_dim"),
-        "xk": ("batch", "frames", "kv_heads", "head_dim"),
-        "xv": ("batch", "frames", "kv_heads", "head_dim"),
-        "s": ("batch", "heads", None, None),
-        "last_time": ("batch", "embed"),
-        "last_chan": ("batch", "embed"),
-        "h": ("batch", "rnn"),
-        "conv": ("batch", None, "rnn"),
-        "window": (),
-    }
-
-    def spec(name, leaf):
-        if name.startswith("l") and name.endswith("_k"):
-            name = "k"
-        if name.startswith("l") and name.endswith("_v"):
-            name = "v"
-        ndim = getattr(leaf, "ndim", 0)
-        b = base.get(name, (None,) * ndim)
-        extra = ndim - len(b)
-        if extra < 0:
-            b = b[-ndim:] if ndim else ()
-            extra = 0
-        return (None,) * extra + tuple(b)
-
-    def walk(node, name=""):
-        if isinstance(node, dict):
-            return {k: walk(v, k) for k, v in node.items()}
-        if isinstance(node, list):
-            return [walk(v, name) for v in node]
-        return spec(name, node)
-
-    return walk(cache)
+_cache_logical_axes = cache_logical_axes  # the reference's name
 
 
 def _meta(shape, dtype, logical, mesh, rules) -> torch.Tensor:
@@ -240,21 +207,22 @@ def build_cell(
         rules = rules_override or DECODE_RULES
     n_micro = num_microbatches or (DEFAULT_MICROBATCHES if kind == "train" else 1)
 
-    params = init_params(cfg, device="meta")
+    params = shard_params(init_params(cfg, device="meta"), mesh, rules)
     batch = input_specs(cfg, shape_name, mesh, rules)
     if kind == "train":
-        shard_params(params, mesh, rules)
-        fn = _in_context(make_train_step(cfg, OptimizerConfig(), n_micro), mesh, rules)
+        step = make_train_step(cfg, OptimizerConfig(), n_micro)
+        fn = _in_context(step, mesh, rules)
+        fn.accumulate, fn.apply = (_in_context(f, mesh, rules)
+                                   for f in (step.accumulate, step.apply))
         args = (params, init_opt_state(params), batch)
     elif kind == "prefill":
-        fn = lambda p, b: forward(cfg, p, b)  # noqa: E731
+        fn = _in_context(lambda p, b: forward(cfg, p, b), mesh, rules)
         args = (params, {k: local(x) for k, x in batch.items()})
     else:
-        tokens = local(batch["tokens"])
-        cache = init_cache(cfg, tokens.shape[0], sh["seq"], "meta")
-        fn = lambda p, c, t, pos: decode_step(cfg, p, c, t, pos)  # noqa: E731
+        cache = init_cache(cfg, sh["batch"], sh["seq"], mesh=mesh, rules=rules)
+        fn = _in_context(lambda p, c, t, pos: decode_step(cfg, p, c, t, pos), mesh, rules)
         pos = torch.empty((), dtype=torch.int32, device="meta")
-        args = (params, cache, tokens, pos)
+        args = (params, cache, local(batch["tokens"]), pos)
 
     return Cell(
         arch=arch, shape_name=shape_name, cfg=cfg, fn=fn, args=args,
@@ -263,17 +231,12 @@ def build_cell(
     )
 
 
-def _in_context(step, mesh, rules):
-    """``step`` and its two parts run under ``sharding_context(mesh, rules)``."""
-    def run(fn):
-        def inner(*args, **kw):
-            with sharding_context(mesh, rules):
-                return fn(*args, **kw)
-        return inner
-
-    out = run(step)
-    out.accumulate, out.apply = run(step.accumulate), run(step.apply)
-    return out
+def _in_context(fn, mesh, rules):
+    """``fn`` run under ``sharding_context(mesh, rules)``."""
+    def inner(*args, **kw):
+        with sharding_context(mesh, rules):
+            return fn(*args, **kw)
+    return inner
 
 
 def tree_bytes(x) -> int:

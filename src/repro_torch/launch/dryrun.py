@@ -24,8 +24,8 @@ over the same trace, an independent count of the aten FLOPs that cannot
 see the kernels; ``memory`` and ``fits`` say whether a rank's step fits the
 card (``hw.HBM_BYTES``), ``param_bytes`` the parameters whole and
 ``param_bytes_sharded`` what a rank holds of them in the reference's layout
-(a train cell's step holds just that: its parameters and moments are
-sharded); ``collective_by_op`` splits ``collective_links`` by collective
+(every cell's step holds just that: its parameters, and a train cell's
+moments or a decode cell's cache, are sharded); ``collective_by_op`` splits ``collective_links`` by collective
 (all-gather, reduce-scatter, all-reduce); ``kernels`` lists each kernel's
 charged launches and work.
 """

@@ -10,7 +10,8 @@ functions below take such a holder where the reference takes its dict.
 Full-sequence attention goes through ``kernels.flash_attention`` (K5), where
 the reference computes the same function in jnp (``chunked_attention``).
 Single-token decode attention stays plain torch, as the reference computes
-it outside any kernel.
+it outside any kernel; on a sharded model whose cache splits its slots over
+"model" it is sequence-parallel (``train.sharded.split_softmax``).
 
 On a sharded model (``models.partition.shard_params``) each block reads
 its parameters through ``train.sharded``'s prologue, which gathers their
@@ -224,8 +225,50 @@ def chunked_attention(p: Attention, cfg: ModelConfig, x, positions,
     return tp.reduce(out.transpose(1, 2).reshape(b, s, -1) @ p.wo)
 
 
+def _decode_qkv(p, cfg: ModelConfig, x, tp, kv_head, all_heads: bool):
+    """This step's (B, 1, n, hd) q, k, v under attention's plan (``tp``,
+    ``kv_head``: ``train.sharded.attention``).  Where the cache holds every
+    kv head (``all_heads``), every head: heads the plan splits are gathered
+    over "model", and a plan that reads one kv head a rank takes K and V
+    whole (its ``wk`` / ``wv`` are gathered whole).  Else the rank's heads,
+    which must be the kv heads its cache block holds."""
+    q, k, v = _qkv(p, cfg, x, tp=tp)
+    if tp.n > 1 and all_heads:
+        q = tp.gather(q, 2)
+        if kv_head is None:
+            k, v = tp.gather(k, 2), tp.gather(v, 2)
+    elif not all_heads and (tp.n == 1 or kv_head is not None):
+        raise ValueError("the cache splits its kv heads over 'model' where the attention "
+                         "does not")
+    return q, k, v
+
+
+def _attend(q, cache_k, cache_v, mask, slots, head_dim: int):
+    """q (B, 1, H, hd) over the cache's slots where ``mask`` holds (the
+    reference's -1e30 elsewhere) -> (B, 1, H, hd); with the slots split
+    over ``slots``' ranks, the softmax combined over them
+    (``train.sharded.split_softmax``)."""
+    scores = _grouped_scores(q, cache_k) * head_dim**-0.5  # (B, nkv, G, 1, T)
+    scores = torch.where(mask, scores, torch.tensor(-1e30, device=q.device))
+    if slots.n > 1:
+        return sharded_ops().split_softmax(scores, cache_v, slots)
+    probs = torch.softmax(scores, dim=-1)
+    return _grouped_out(probs, cache_v)
+
+
+def _decode_out(p, tp, out, all_heads: bool):
+    """(B, 1, H, hd) through ``wo``: with the heads split over "model", the
+    rank's heads into its rows of the row-parallel ``wo``, summed over the
+    model ranks."""
+    b = out.shape[0]
+    if tp.n > 1 and all_heads:
+        per = out.shape[2] // tp.n
+        out = out.narrow(2, tp.index * per, per)
+    return tp.reduce(out.reshape(b, 1, -1) @ p.wo)
+
+
 def decode_attention(p: Attention, cfg: ModelConfig, x, cache_k, cache_v,
-                     position, window: int = 0, use_rope: bool = True):
+                     position, window: int = 0, use_rope: bool = True, slots=None):
     """Single-token decode: write this step's K/V into the cache and attend
     over it (plain torch, no kernel).
 
@@ -233,9 +276,18 @@ def decode_attention(p: Attention, cfg: ModelConfig, x, cache_k, cache_v,
     row at the same step) or (B,) per-slot positions in [0, T_max), so a
     freshly admitted request never attends to a previous occupant's stale
     entries.  The cache is updated in place (the reference returns a new
-    one); returns (out, cache_k, cache_v)."""
+    one); returns (out, cache_k, cache_v).
+
+    On a sharded model ``slots`` (a ``train.sharded.Tp``) is the model axis
+    where the cache holds this rank's block of T_max / n slots: the owner
+    of a row's slot writes it, and the softmax runs over every rank's
+    slots (``train.sharded.split_softmax``)."""
     b = x.shape[0]
-    q, k, v = _qkv(p, cfg, x)
+    sh = sharded_ops()
+    slots = slots or sh.NO_TP
+    p, tp, kv_head = sh.attention(p, cfg)
+    all_heads = cache_k.shape[2] == cfg.num_kv_heads
+    q, k, v = _decode_qkv(p, cfg, x, tp, kv_head, all_heads)
     position = torch.as_tensor(position, dtype=torch.int64, device=x.device)
     per_slot = position.ndim == 1
     pos_b = position if per_slot else position.expand(b)
@@ -243,59 +295,81 @@ def decode_attention(p: Attention, cfg: ModelConfig, x, cache_k, cache_v,
     if use_rope:
         q = apply_rope(q.transpose(1, 2), pos[:, None, :], cfg.rope_theta).transpose(1, 2)
         k = apply_rope(k.transpose(1, 2), pos[:, None, :], cfg.rope_theta).transpose(1, 2)
-    rows = torch.arange(b, device=x.device)
-    cache_k[rows, pos_b] = k[:, 0].to(cache_k.dtype)
-    cache_v[rows, pos_b] = v[:, 0].to(cache_v.dtype)
-    kv_pos = torch.arange(cache_k.shape[1], device=x.device)[None, :]
-    scores = _grouped_scores(q, cache_k) * cfg.head_dim**-0.5  # (B, nkv, G, 1, T)
+    if slots.n > 1:
+        sh.write_slot(cache_k, pos_b, k[:, 0], slots)
+        sh.write_slot(cache_v, pos_b, v[:, 0], slots)
+    else:
+        rows = torch.arange(b, device=x.device)
+        cache_k[rows, pos_b] = k[:, 0].to(cache_k.dtype)
+        cache_v[rows, pos_b] = v[:, 0].to(cache_v.dtype)
+    tl = cache_k.shape[1]
+    kv_pos = torch.arange(slots.index * tl, (slots.index + 1) * tl, device=x.device)[None, :]
     mask = kv_pos[:, None, None, None, :] <= pos_b[:, None, None, None, None]
     if window > 0:
         mask = mask & (kv_pos[:, None, None, None, :] > pos_b[:, None, None, None, None] - window)
-    scores = torch.where(mask, scores, torch.tensor(-1e30, device=x.device))
-    probs = torch.softmax(scores, dim=-1)
-    out = _grouped_out(probs, cache_v).reshape(b, 1, -1) @ p.wo
-    return out, cache_k, cache_v
+    out = _attend(q, cache_k, cache_v, mask, slots, cfg.head_dim)
+    return _decode_out(p, tp, out, all_heads), cache_k, cache_v
 
 
 def ring_decode_attention(p: Attention, cfg: ModelConfig, x, k_cache, v_cache,
-                          position, w: int):
+                          position, w: int, slots=None):
     """Sliding-window decode over a ring-buffer cache of ``w`` slots (the
     hybrid's local attention): this step's K/V go to slot ``position % w``,
     and a slot is read while the absolute position it holds lies in
     ``(position - w, position]``.  x: (B, 1, d); k/v_cache: (B, w, nkv,
     hd), updated in place; position: one scalar for the batch (the ring
-    cannot be rewound per slot).  Returns out (B, 1, d)."""
+    cannot be rewound per slot).  With ``slots`` split (a sharded model's
+    ring, as :func:`decode_attention`), the rank holds ring slots ``index *
+    w / n`` onward and a slot's validity comes from its global index.
+    Returns out (B, 1, d)."""
     b = x.shape[0]
-    q, k, v = _qkv(p, cfg, x)
+    sh = sharded_ops()
+    slots = slots or sh.NO_TP
+    p, tp, kv_head = sh.attention(p, cfg)
+    all_heads = k_cache.shape[2] == cfg.num_kv_heads
+    q, k, v = _decode_qkv(p, cfg, x, tp, kv_head, all_heads)
     position = torch.as_tensor(position, dtype=torch.int64, device=x.device)
     if position.ndim:
         raise ValueError("a ring-buffer cache takes one position for the whole batch")
     pos = position.expand(b)[:, None]
     q = apply_rope(q.transpose(1, 2), pos[:, None, :], cfg.rope_theta).transpose(1, 2)
     k = apply_rope(k.transpose(1, 2), pos[:, None, :], cfg.rope_theta).transpose(1, 2)
-    slot = (position % w).reshape(1)  # an index tensor: no read of its value
-    k_cache[:, slot] = k.to(k_cache.dtype)
-    v_cache[:, slot] = v.to(v_cache.dtype)
-    idx = torch.arange(w, device=x.device)
+    if slots.n > 1:
+        slot = (position % w).expand(b)
+        sh.write_slot(k_cache, slot, k[:, 0], slots)
+        sh.write_slot(v_cache, slot, v[:, 0], slots)
+    else:
+        slot = (position % w).reshape(1)  # an index tensor: no read of its value
+        k_cache[:, slot] = k.to(k_cache.dtype)
+        v_cache[:, slot] = v.to(v_cache.dtype)
+    wl = k_cache.shape[1]
+    idx = torch.arange(slots.index * wl, (slots.index + 1) * wl, device=x.device)
     slot_pos = position - ((position - idx) % w)  # absolute position a slot holds
     valid = (slot_pos <= position) & (slot_pos > position - w) & (slot_pos >= 0)
-    scores = _grouped_scores(q, k_cache) * cfg.head_dim**-0.5
-    scores = torch.where(valid, scores, torch.tensor(-1e30, device=x.device))
-    probs = torch.softmax(scores, dim=-1)
-    return _grouped_out(probs, v_cache).reshape(b, 1, -1) @ p.wo
+    out = _attend(q, k_cache, v_cache, valid, slots, cfg.head_dim)
+    return _decode_out(p, tp, out, all_heads)
 
 
-def cross_decode_attention(p: Attention, cfg: ModelConfig, x, xk, xv, n_valid: int):
+def cross_decode_attention(p: Attention, cfg: ModelConfig, x, xk, xv, n_valid: int,
+                           frames=None):
     """One decoder token's cross-attention over precomputed encoder K/V
     (B, T, nkv, hd), of which the first ``n_valid`` frames are real and the
-    rest cache padding (masked).  x: (B, 1, d).  Returns out (B, 1, d)."""
+    rest cache padding (masked).  x: (B, 1, d).  With ``frames`` split (a
+    sharded model's cache, as :func:`decode_attention`'s slots) the rank
+    holds frames ``index * T / n`` onward, masked by their global index.
+    Returns out (B, 1, d)."""
     b = x.shape[0]
-    q = (x @ p.wq).reshape(b, 1, cfg.num_heads, cfg.head_dim)
-    scores = _grouped_scores(q, xk) * cfg.head_dim**-0.5
-    valid = torch.arange(xk.shape[1], device=x.device) < n_valid
-    scores = torch.where(valid, scores, torch.tensor(-1e30, device=x.device))
-    probs = torch.softmax(scores, dim=-1)
-    return _grouped_out(probs, xv).reshape(b, 1, -1) @ p.wo
+    sh = sharded_ops()
+    frames = frames or sh.NO_TP
+    p, tp, _ = sh.attention(p, cfg)
+    all_heads = xk.shape[2] == cfg.num_kv_heads
+    q = (tp.enter(x) @ p.wq).reshape(b, 1, -1, cfg.head_dim)
+    if tp.n > 1 and all_heads:
+        q = tp.gather(q, 2)
+    tl = xk.shape[1]
+    valid = torch.arange(frames.index * tl, (frames.index + 1) * tl, device=x.device) < n_valid
+    out = _attend(q, xk, xv, valid, frames, cfg.head_dim)
+    return _decode_out(p, tp, out, all_heads)
 
 
 # ----------------------------------------------------------------------------

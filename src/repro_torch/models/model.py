@@ -120,20 +120,23 @@ class AttentionLayer(_Layer):
                                   causal=cfg.causal, window=cfg.window)
         return x + self.ffn(rms_norm(x, own.ln2, cfg.norm_eps))
 
-    def decode(self, x, k_cache, v_cache, position):
-        cfg = self.cfg
-        h = rms_norm(x, self.ln1, cfg.norm_eps)
+    def decode(self, x, k_cache, v_cache, position, slots=None):
+        """One token against this layer's cache block; ``slots``: the model
+        ranks that split its slots (``train.sharded.slots_tp``)."""
+        cfg, own = self.cfg, sharded_ops().view(self)
+        h = rms_norm(x, own.ln1, cfg.norm_eps)
         a, _, _ = decode_attention(self.attn, cfg, h, k_cache, v_cache, position,
-                                   window=cfg.window)
+                                   window=cfg.window, slots=slots)
         x = x + a
-        return x + self.ffn(rms_norm(x, self.ln2, cfg.norm_eps))
+        return x + self.ffn(rms_norm(x, own.ln2, cfg.norm_eps))
 
-    def ring_decode(self, x, k_cache, v_cache, position, w):
+    def ring_decode(self, x, k_cache, v_cache, position, w, slots=None):
         """The hybrid's decode: local attention over a ring of ``w`` slots."""
-        cfg = self.cfg
-        h = rms_norm(x, self.ln1, cfg.norm_eps)
-        x = x + ring_decode_attention(self.attn, cfg, h, k_cache, v_cache, position, w)
-        return x + self.ffn(rms_norm(x, self.ln2, cfg.norm_eps))
+        cfg, own = self.cfg, sharded_ops().view(self)
+        h = rms_norm(x, own.ln1, cfg.norm_eps)
+        x = x + ring_decode_attention(self.attn, cfg, h, k_cache, v_cache, position, w,
+                                      slots=slots)
+        return x + self.ffn(rms_norm(x, own.ln2, cfg.norm_eps))
 
 
 class MoeLayer(AttentionLayer):
@@ -187,15 +190,16 @@ class DecLayer(_Layer):
                                   use_rope=False)
         return x + mlp(self.mlp, cfg, rms_norm(x, own.ln2, cfg.norm_eps))
 
-    def decode(self, x, k_cache, v_cache, position, xk, xv):
-        cfg = self.cfg
-        h = rms_norm(x, self.ln1, cfg.norm_eps)
+    def decode(self, x, k_cache, v_cache, position, xk, xv, slots=None, frames=None):
+        cfg, own = self.cfg, sharded_ops().view(self)
+        h = rms_norm(x, own.ln1, cfg.norm_eps)
         a, _, _ = decode_attention(self.attn, cfg, h, k_cache, v_cache, position,
-                                   window=cfg.window, use_rope=False)
+                                   window=cfg.window, use_rope=False, slots=slots)
         x = x + a
-        hx = rms_norm(x, self.lnx, cfg.norm_eps)
-        x = x + cross_decode_attention(self.xattn, cfg, hx, xk, xv, cfg.encoder_seq)
-        return x + mlp(self.mlp, cfg, rms_norm(x, self.ln2, cfg.norm_eps))
+        hx = rms_norm(x, own.lnx, cfg.norm_eps)
+        x = x + cross_decode_attention(self.xattn, cfg, hx, xk, xv, cfg.encoder_seq,
+                                       frames=frames)
+        return x + mlp(self.mlp, cfg, rms_norm(x, own.ln2, cfg.norm_eps))
 
 
 class RecurrentLayer(_Layer):
@@ -490,12 +494,19 @@ def _stacked(state: dict, n: int) -> dict:
     return {k: v.new_zeros((n,) + tuple(v.shape)) for k, v in state.items()}
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda") -> dict:
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda", mesh=None,
+               rules=None) -> dict:
     """The reference's cache tree: K/V rows by absolute position (dense,
     moe, vlm; encdec adds ``xk`` / ``xv`` over the encoder frames, padded
     to a multiple of 64), the RWKV6 state stacked over layers (ssm), or
     the hybrid's RG-LRU states and ring buffers of ``min(window, max_len)``
-    slots for its ``blocks`` and ``tail``."""
+    slots for its ``blocks`` and ``tail``.  With a multi-process ``mesh``
+    and ``rules``, zeros laid out as ``partition.shard_cache`` lays out a
+    cache (each rank allocates only its blocks, on the mesh's device)."""
+    if mesh is not None:
+        from .partition import zeros_cache
+
+        return zeros_cache(init_cache(cfg, batch, max_len, "meta"), mesh, rules)
     dev = resolve_device(device)
     dt = dtype_of(cfg)
     nkv, hd = cfg.num_kv_heads, cfg.head_dim
@@ -549,47 +560,72 @@ def decode_step(cfg: ModelConfig, params: Model, cache: dict, tokens, position):
     without it attending to the previous occupant's stale entries.  The
     recurrent families (ssm, hybrid) take the scalar form only; their
     batcher gates admission instead.  The cache is updated in place and
-    returned.  Returns (logits (B, V), cache)."""
+    returned.  Returns (logits (B, V), cache).
+
+    On a sharded model (under ``sharding_context``, the reference's
+    ``DECODE_RULES``) ``tokens`` and per-slot positions are the rank's rows
+    of the batch, the cache is laid out by ``partition.shard_cache`` (its
+    blocks written in place: slots split over "model" go to their owner)
+    and the logits are the rank's rows and vocabulary columns."""
     with torch.no_grad():
-        x = params.embed[_on(params, tokens).long()]
+        sh = sharded_ops()
+        top = sh.top(params)
+        x = sh.embed(top[0].embed, _on(params, tokens).long(), top[1])
+        blocks = sh.local_tree(cache)
         if cfg.family == "ssm":
             for i, layer in enumerate(params.layers):
-                x = _step_state(layer, x, cache["state"], i)
+                x = _step_state(layer, x, blocks["state"], i)
         elif cfg.family == "hybrid":
-            x = _decode_hybrid(cfg, params, cache, x, position)
+            x = _decode_hybrid(cfg, params, cache, blocks, x, position)
         elif cfg.family == "encdec":
+            slots, frames = sh.slots_tp(cache["k"]), sh.slots_tp(cache["xk"])
             for i, layer in enumerate(params.layers):
-                x = layer.decode(x, cache["k"][i], cache["v"][i], position,
-                                 cache["xk"][i], cache["xv"][i])
+                x = layer.decode(x, blocks["k"][i], blocks["v"][i], position,
+                                 blocks["xk"][i], blocks["xv"][i], slots, frames)
         else:
+            slots = sh.slots_tp(cache["k"])
             for i, layer in enumerate(params.layers):
-                x = layer.decode(x, cache["k"][i], cache["v"][i], position)
-        return params.logits(x)[:, 0, :], cache
+                x = layer.decode(x, blocks["k"][i], blocks["v"][i], position, slots)
+        return params.logits(x, top)[:, 0, :], cache
 
 
-def _decode_hybrid(cfg, params, cache, x, position):
+def _decode_hybrid(cfg, params, cache, blocks, x, position):
+    """The hybrid's layers, one step: ``blocks`` is ``cache``'s local
+    blocks, the ring's width ``w`` the cache's (global) slots."""
+    sh = sharded_ops()
     pat = cfg.pattern
-    blocks = cache["blocks"]
     attn_i = next(i for i, kind in enumerate(pat) if kind == "attn")
-    w = blocks[f"l{attn_i}_k"].shape[2]
+    ring = cache["blocks"][f"l{attn_i}_k"]
+    w, slots = ring.shape[2], sh.slots_tp(ring)
     for b, block in enumerate(params.blocks):
         for i, kind in enumerate(pat):
             layer = block[f"l{i}_{kind}"]
             if kind == "rec":
-                x = _step_state(layer, x, blocks[f"l{i}_state"], b)
+                x = _step_state(layer, x, blocks["blocks"][f"l{i}_state"], b)
             else:
-                x = layer.ring_decode(x, blocks[f"l{i}_k"][b], blocks[f"l{i}_v"][b],
-                                      position, w)
-    for layer, c in zip(params.tail, cache["tail"]):
+                x = layer.ring_decode(x, blocks["blocks"][f"l{i}_k"][b],
+                                      blocks["blocks"][f"l{i}_v"][b], position, w, slots)
+    for layer, c, whole_c in zip(params.tail, blocks["tail"], cache["tail"]):
         if isinstance(layer, RecurrentLayer):
-            x, c["state"] = layer.decode(x, c["state"])
+            x, new = layer.decode(x, c["state"])
+            for k, v in new.items():
+                c["state"][k].copy_(v)
         else:
-            x = layer.ring_decode(x, c["k"], c["v"], position, w)
+            x = layer.ring_decode(x, c["k"], c["v"], position, w, sh.slots_tp(whole_c["k"]))
     return x
 
 
 def prefill(cfg: ModelConfig, params: Model, batch, max_len: int):
     """Full forward + a decode cache, as the reference's ``prefill`` (which
-    returns a fresh cache).  Returns (logits, cache)."""
+    returns a fresh cache).  Returns (logits, cache).  On a sharded model
+    (under ``sharding_context``) the batch is the rank's rows, and the
+    fresh cache, of those rows times the batch shards, is laid out by
+    ``partition.shard_cache`` under the active rules."""
     logits = forward(cfg, params, batch)
-    return logits, init_cache(cfg, logits.shape[0], max_len, params.embed.device)
+    if not sharded_ops().sharded(params):
+        return logits, init_cache(cfg, logits.shape[0], max_len, params.embed.device)
+    from ..launch import sharding as S
+
+    mesh, rules = S._CTX.mesh, S._CTX.rules
+    rows = logits.shape[0] * S.mesh_batch_shards(mesh, rules)
+    return logits, init_cache(cfg, rows, max_len, mesh=mesh, rules=rules)

@@ -1,6 +1,8 @@
 """Parameter partitioning (the reference's ``models/partition.py``): logical
 axes per parameter, derived from the parameter's name and rank (t5x-style
-path rules) so the spec never drifts from the model's structure.
+path rules) so the spec never drifts from the model's structure; and the
+decode cache's layout (the reference's ``launch/cells._cache_logical_axes``,
+one definition for the dry run's cells and the live decode).
 
 Logical names used on params:
   "fsdp"      — dim sharded over the FSDP axes (pod, data) in training rules
@@ -148,5 +150,101 @@ def shard_opt_state(state: dict, model: nn.Module, mesh, rules) -> dict:
             for key in ("m", "v")} | {"step": state["step"]}
 
 
+# ----------------------------------------------------------------------------
+# the decode cache
+# ----------------------------------------------------------------------------
+
+# (a cache leaf's last key) -> its logical axes, without stacked layer axes
+_CACHE_AXES = {
+    "k": ("batch", "seq", "kv_heads", "head_dim"),
+    "v": ("batch", "seq", "kv_heads", "head_dim"),
+    "xk": ("batch", "frames", "kv_heads", "head_dim"),
+    "xv": ("batch", "frames", "kv_heads", "head_dim"),
+    "s": ("batch", "heads", None, None),
+    "last_time": ("batch", "embed"),
+    "last_chan": ("batch", "embed"),
+    "h": ("batch", "rnn"),
+    "conv": ("batch", None, "rnn"),
+    "window": (),
+}
+
+
+def _cache_leaf_axes(name: str, ndim: int) -> tuple:
+    if name.startswith("l") and name.endswith("_k"):
+        name = "k"
+    if name.startswith("l") and name.endswith("_v"):
+        name = "v"
+    base = _CACHE_AXES.get(name, (None,) * ndim)
+    extra = ndim - len(base)
+    if extra < 0:
+        base = base[-ndim:] if ndim else ()
+        extra = 0
+    return (None,) * extra + tuple(base)
+
+
+def _map_cache(fn, tree, name=""):
+    """``fn(last key, leaf)`` over a cache tree (dicts and lists)."""
+    if isinstance(tree, dict):
+        return {k: _map_cache(fn, v, k) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_cache(fn, v, name) for v in tree]
+    return fn(name, tree)
+
+
+def cache_logical_axes(cache) -> dict:
+    """The reference's logical axes of each cache leaf (its
+    ``launch/cells._cache_logical_axes``), by the leaf's last key
+    (``l{i}_k`` / ``l{i}_v`` as ``k`` / ``v``), left-padded with ``None``
+    for stacked layer axes."""
+    return _map_cache(lambda name, leaf: _cache_leaf_axes(name, getattr(leaf, "ndim", 0)),
+                      cache)
+
+
+def cache_shardings(cache, mesh, rules) -> dict:
+    """The cache tree of ``launch.sharding.NamedSharding``s on ``mesh``
+    under ``rules``: ``spec_for`` of each leaf's logical axes, so under
+    ``DECODE_RULES`` the slots (``seq``, ``frames``) split over "model"
+    and the kv heads stay whole (a mesh axis is used once); a dim that
+    does not divide stays whole."""
+    from ..launch.sharding import sharding_for
+
+    return _map_cache(lambda name, leaf: sharding_for(_cache_leaf_axes(name, leaf.ndim),
+                                                      tuple(leaf.shape), mesh, rules), cache)
+
+
+def shard_cache(cache, mesh, rules) -> dict:
+    """The whole cache ``cache`` (the same on every rank) laid out by
+    :func:`cache_shardings`: each leaf a DTensor of which the rank keeps
+    its block (:func:`distribute`), as :func:`shard_params` places the
+    parameters.  ``models.decode_step`` writes the blocks in place;
+    ``train.sharded.whole_tree`` gathers them back."""
+    return _zip_cache(distribute, cache, cache_shardings(cache, mesh, rules))
+
+
+def zeros_cache(cache, mesh, rules) -> dict:
+    """A zero cache of ``cache``'s shapes and types (meta tensors serve)
+    laid out as :func:`shard_cache` lays it out: each rank allocates only
+    its blocks, on the mesh's device."""
+    from torch.distributed.tensor import DTensor
+
+    from ..launch.sharding import local_block
+
+    def place(t, sh):
+        block = torch.zeros(local_block(t, sh).shape, dtype=t.dtype, device=sh.mesh.device)
+        return DTensor.from_local(block, sh.mesh.device_mesh, sh.placements, run_check=False,
+                                  shape=t.shape, stride=t.stride())
+
+    return _zip_cache(place, cache, cache_shardings(cache, mesh, rules))
+
+
+def _zip_cache(fn, cache, shardings):
+    if isinstance(cache, dict):
+        return {k: _zip_cache(fn, v, shardings[k]) for k, v in cache.items()}
+    if isinstance(cache, list):
+        return [_zip_cache(fn, v, s) for v, s in zip(cache, shardings)]
+    return fn(cache, shardings)
+
+
 __all__ = ["param_logical_axes", "param_shardings", "distribute", "shard_params",
-           "shard_opt_state"]
+           "shard_opt_state", "cache_logical_axes", "cache_shardings", "shard_cache",
+           "zeros_cache"]

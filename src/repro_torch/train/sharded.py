@@ -29,6 +29,17 @@ meets split weights, ``reduce`` (all-reduce forward, identity backward)
 after a row-parallel product; ``split``, ``gather`` and ``reduce_scatter``
 move a channel dim between whole and split.
 
+**Serving.**  The same prologue serves ``models.forward`` under
+``SERVE_RULES`` (the weights 2-D over "model" x "data": each layer gathers
+its "data" shards, nothing is reduced back) and ``models.decode_step``
+under ``DECODE_RULES``, whose KV cache (``models.partition.shard_cache``)
+splits its slots (``seq``, the encoder's ``frames``) over "model" and
+keeps its kv heads whole.  A decode attention over such a cache is
+sequence-parallel (:func:`split_softmax`): the rank that owns this step's
+slot writes its K/V there (:func:`write_slot`), every rank attends all
+heads over its own slots, and the partial max, sum of exponents and P.V
+are combined over the model ranks; the cache's slots are never gathered.
+
 Every collective is a plain ``torch.distributed`` call on the process
 groups of the active mesh (``launch.mesh.Mesh.group``), so the same code
 runs on gloo and NCCL worlds and on meta tensors over the dry run's fake
@@ -441,6 +452,78 @@ def vocab_parallel_nll(logits, targets, tp: Tp):
     return _VocabParallelNll.apply(logits, targets, tp.index * logits.shape[-1], tp.group)
 
 
+# ----------------------------------------------------------------------------
+# decode over a cache whose slots are split over "model"
+# ----------------------------------------------------------------------------
+
+def slots_tp(leaf) -> Tp:
+    """The model ranks that split the slots of a cache leaf (its dim -3:
+    the K/V rows by position, a ring's slots, the encoder's frames), as a
+    :class:`Tp`: the model axis where the leaf is a DTensor whose spec
+    splits that dim over "model", else :data:`NO_TP`."""
+    if not is_dtensor(leaf):
+        return NO_TP
+    axes = _split_axes(leaf).get(leaf.ndim - 3, ())
+    if not axes:
+        return NO_TP
+    if axes != ("model",):
+        raise ValueError(f"a cache's slots split over {axes}: only 'model' is supported")
+    return model_tp()
+
+
+def local_tree(tree):
+    """A cache tree (dicts, lists) with each DTensor leaf's local block: the
+    tensors the decode writes in place."""
+    if isinstance(tree, dict):
+        return {k: local_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [local_tree(v) for v in tree]
+    return local(tree)
+
+
+def whole_tree(tree):
+    """A tree of tensors with every DTensor leaf gathered whole
+    (:func:`whole`): a sharded cache on every rank."""
+    if isinstance(tree, dict):
+        return {k: whole_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [whole_tree(v) for v in tree]
+    return whole(tree)
+
+
+def write_slot(cache: torch.Tensor, slot: torch.Tensor, value: torch.Tensor, slots: Tp):
+    """``cache[r, slot[r]] = value[r]`` for every row ``r`` whose global slot
+    this rank owns: ``cache`` (B, T / n, ...) holds slots ``index * T / n``
+    onward of ``slots``' ``n`` ranks, so slot ``s`` belongs to rank ``s //
+    (T / n)`` at local index ``s % (T / n)``.  Rows owned elsewhere write
+    their own value back (no data-dependent indexing: the same ops on a
+    meta trace)."""
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    tl = cache.shape[1]
+    at = slot % tl
+    mine = (slot // tl) == slots.index
+    mine = mine.reshape(mine.shape + (1,) * (value.ndim - 1))
+    cache[rows, at] = torch.where(mine, value.to(cache.dtype), cache[rows, at])
+
+
+def split_softmax(scores: torch.Tensor, v: torch.Tensor, slots: Tp) -> torch.Tensor:
+    """Softmax attention over slots split across ``slots``' ranks.  scores:
+    (B, nkv, G, 1, T / n) f32 over this rank's slots, masked with -1e30; v:
+    (B, T / n, nkv, hd).  The masked partial max is all-reduced (MAX) over
+    the ranks; each rank's sum of exponents and unnormalised P.V (f32) are
+    summed over them and divided.  A rank whose slots are all masked adds
+    exactly 0.  Returns (B, 1, nkv * G, hd) in ``v``'s type."""
+    m = scores.amax(-1, keepdim=True)
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=slots.group)
+    e = torch.exp(scores - m)
+    part = torch.cat([e.sum(-1, keepdim=True),
+                      torch.einsum("bngst,btnh->bngsh", e, v.float())], dim=-1)
+    dist.all_reduce(part, group=slots.group)
+    out = part[..., 1:] / part[..., :1]                  # (B, nkv, G, 1, hd)
+    b, nkv, g, s, hd = out.shape
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, nkv * g, hd).to(v.dtype)
+
+
 def batch_total(count: torch.Tensor) -> torch.Tensor:
     """``count`` summed over the batch axes' ranks (no gradient): a loss
     over the global (micro)batch divides by it."""
@@ -454,4 +537,5 @@ def batch_total(count: torch.Tensor) -> torch.Tensor:
 __all__ = ["Tp", "NO_TP", "View", "is_dtensor", "local", "whole", "gather_dim", "scatter_dim",
            "all_reduce", "gather_param", "view", "sharded", "model_tp", "spec_of",
            "attention", "mlp", "moe", "rglru", "time_mix", "channel_mix", "top", "embed",
-           "vocab_parallel_nll", "batch_total"]
+           "vocab_parallel_nll", "batch_total", "slots_tp", "local_tree", "whole_tree",
+           "write_slot", "split_softmax"]

@@ -149,6 +149,13 @@ with tempfile.TemporaryDirectory() as d:
         sp, so, sm = make_train_step(mcfg, OptimizerConfig(warmup_steps=1), 2)(
             sp, init_opt_state(sp), {"tokens": [[1, 2, 3, 4, 5], [6, 7, 8, 9, 10]]})
     assert float(sm["loss"]) > 0 and int(so["step"]) == 1
+    from repro_torch.launch.sharding import DECODE_RULES
+
+    m2 = make_mesh((1, 1), ("data", "model"), device="cpu")
+    sp = shard_params(init_params(mcfg, device="cpu"), m2, DECODE_RULES)
+    with sharding_context(m2, DECODE_RULES):
+        decode_step(mcfg, sp, init_cache(mcfg, 2, 8, mesh=m2, rules=DECODE_RULES),
+                    [[1], [2]], 0)
     dist.destroy_process_group()
 PairScorer(mcfg, tp, tok_pair, tok.YES, tok.NO, max_len=48, batch_size=16,
            mesh=make_host_mesh(device="cpu"), device="cpu").score([[1, 2], [3, 4]])

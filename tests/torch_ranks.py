@@ -80,13 +80,13 @@ def finish(proc, timeout: float = 300.0) -> str:
     return out
 
 
-def unflatten_paths(flat: dict) -> dict:
+def unflatten_paths(flat: dict, sep: str = "/") -> dict:
     """A nested dict from ``{"a/b/c": leaf}`` (a reference tree saved with
-    ``np.savez`` under its key paths)."""
+    ``np.savez`` under its key paths joined by ``sep``)."""
     tree = {}
     for path, leaf in flat.items():
         node = tree
-        *head, last = path.split("/")
+        *head, last = path.split(sep)
         for k in head:
             node = node.setdefault(k, {})
         node[last] = leaf
