@@ -28,12 +28,12 @@ array fits under ``BASConfig.max_dense_weight_bytes``.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Callable, Optional
 
 import numpy as np
 
 from ..device import resolve_device
+from ..obs.telemetry import span, traced_query
 from . import allocate as alloc_mod
 from .bootstrap import bootstrap_t_ci
 from .estimators import (
@@ -178,118 +178,111 @@ def run_stratified_pipeline(
     rng: np.random.Generator,
     space: StratifiedSpace,
     detail: dict,
-    timings: dict,
-    t_start: float,
 ) -> QueryResult:
     """Alg. 4 lines 6-17 on an abstract stratified space (shared by the dense
-    and streaming BAS paths)."""
+    and streaming BAS paths).  Each stage is a span of the active query."""
     sizes, weight_sums = space.sizes, space.weight_sums
     k = len(sizes) - 1
     b = query.budget
     b1 = max(int(round(cfg.pilot_fraction * b)), 8)
 
     # ---- stage 1: pilot ---------------------------------------------------
-    t0 = time.perf_counter()
-    shares = weight_sums / max(weight_sums.sum(), 1e-300)
-    n_pilot = np.maximum((shares * b1).astype(np.int64), 2)
-    while n_pilot.sum() > b1 and n_pilot.max() > 2:
-        n_pilot[np.argmax(n_pilot)] -= 1
+    with span("joinml.pilot"):
+        shares = weight_sums / max(weight_sums.sum(), 1e-300)
+        n_pilot = np.maximum((shares * b1).astype(np.int64), 2)
+        while n_pilot.sum() > b1 and n_pilot.max() > 2:
+            n_pilot[np.argmax(n_pilot)] -= 1
 
-    pilot_draws: list[Optional[StratumDraw]] = [None] * (k + 1)
-    for i in range(k + 1):
-        if sizes[i] > 0:
-            pilot_draws[i] = space.sample_stratum(i, int(n_pilot[i]))
-    samples: list[Optional[StratumSample]] = _label_draws(query, pilot_draws)
+        pilot_draws: list[Optional[StratumDraw]] = [None] * (k + 1)
+        for i in range(k + 1):
+            if sizes[i] > 0:
+                pilot_draws[i] = space.sample_stratum(i, int(n_pilot[i]))
+        samples: list[Optional[StratumSample]] = _label_draws(query, pilot_draws)
 
-    live = [s for s in samples if s is not None]
-    c_hat, _ = combined_count(live, BlockedRegime(np.zeros(0), np.zeros(0)))
-    s_hat, _ = combined_sum(live, BlockedRegime(np.zeros(0), np.zeros(0)))
-    ratio = s_hat / c_hat if c_hat > 0 else 0.0
-    sigma2 = np.zeros(k + 1, np.float64)
-    for i in range(k + 1):
-        if samples[i] is not None:
-            sigma2[i] = _linearised_variance(samples[i], query.agg, ratio, c_hat)
-    timings["pilot_s"] = time.perf_counter() - t0
+        live = [s for s in samples if s is not None]
+        c_hat, _ = combined_count(live, BlockedRegime(np.zeros(0), np.zeros(0)))
+        s_hat, _ = combined_sum(live, BlockedRegime(np.zeros(0), np.zeros(0)))
+        ratio = s_hat / c_hat if c_hat > 0 else 0.0
+        sigma2 = np.zeros(k + 1, np.float64)
+        for i in range(k + 1):
+            if samples[i] is not None:
+                sigma2[i] = _linearised_variance(samples[i], query.agg, ratio, c_hat)
 
     # ---- allocation -------------------------------------------------------
-    t0 = time.perf_counter()
-    b2_eff = query.budget - query.oracle.calls
-    if query.agg in (Agg.MIN, Agg.MAX):
-        allocation = _allocate_extreme(samples, sizes, weight_sums, b2_eff, query.agg)
-    else:
-        allocation = alloc_mod.argmin_beta(
-            sigma2, weight_sums, sizes, b2_eff, cfg.exact_beta_max_k
-        )
-    beta = set(int(i) for i in allocation.beta)
-    timings["allocate_s"] = time.perf_counter() - t0
+    with span("joinml.allocate"):
+        b2_eff = query.budget - query.oracle.calls
+        if query.agg in (Agg.MIN, Agg.MAX):
+            allocation = _allocate_extreme(samples, sizes, weight_sums, b2_eff, query.agg)
+        else:
+            allocation = alloc_mod.argmin_beta(
+                sigma2, weight_sums, sizes, b2_eff, cfg.exact_beta_max_k
+            )
+        beta = set(int(i) for i in allocation.beta)
 
     # ---- stage 2: blocking + sampling -------------------------------------
-    t0 = time.perf_counter()
-    # submit-then-await: one flush labels the blocking regime, then g(.) is
-    # evaluated for the same tuples
-    block_batch = OracleBatch(query.oracle)
-    beta_tuples = [(i, space.stratum_tuples(i)) for i in sorted(beta)]
-    beta_handles = [block_batch.submit(tup) for _, tup in beta_tuples]
-    block_fut = block_batch.flush_async()
-    g_fn = query.attr()
-    blocked_g = [g_fn(tup) for _, tup in beta_tuples]
-    block_fut.result()
-    blocked_o = [h.labels for h in beta_handles]
-    blocked = BlockedRegime(
-        o=np.concatenate(blocked_o) if blocked_o else np.zeros(0),
-        g=np.concatenate(blocked_g) if blocked_g else np.zeros(0),
-    )
+    with span("joinml.execute"):
+        # submit-then-await: one flush labels the blocking regime, then g(.) is
+        # evaluated for the same tuples
+        block_batch = OracleBatch(query.oracle)
+        beta_tuples = [(i, space.stratum_tuples(i)) for i in sorted(beta)]
+        beta_handles = [block_batch.submit(tup) for _, tup in beta_tuples]
+        block_fut = block_batch.flush_async()
+        g_fn = query.attr()
+        blocked_g = [g_fn(tup) for _, tup in beta_tuples]
+        block_fut.result()
+        blocked_o = [h.labels for h in beta_handles]
+        blocked = BlockedRegime(
+            o=np.concatenate(blocked_o) if blocked_o else np.zeros(0),
+            g=np.concatenate(blocked_g) if blocked_g else np.zeros(0),
+        )
 
-    sampled_ids = [i for i in range(k + 1) if i not in beta and sizes[i] > 0]
-    rounds = 0
-    while rounds < 4:
-        remaining = query.budget - query.oracle.calls
-        if remaining < 2 * max(len(sampled_ids), 1):
-            break
-        w_s = np.array([weight_sums[i] for i in sampled_ids])
-        share = w_s / max(w_s.sum(), 1e-300)
-        n_main = np.maximum((share * remaining).astype(np.int64), 1)
-        while n_main.sum() > remaining:
-            n_main[np.argmax(n_main)] -= 1
-        before = query.oracle.calls
-        round_draws: list[Optional[StratumDraw]] = [None] * (k + 1)
-        for j, i in enumerate(sampled_ids):
-            if n_main[j] <= 0:
-                continue
-            round_draws[i] = space.sample_stratum(i, int(n_main[j]))
-        round_samples = _label_draws(query, round_draws)
-        for i in sampled_ids:
-            new = round_samples[i]
-            if new is not None:
-                samples[i] = new if samples[i] is None else samples[i].merge(new)
-        rounds += 1
-        if query.oracle.calls == before:  # everything cached; budget cannot move
-            break
-    timings["execute_s"] = time.perf_counter() - t0
+        sampled_ids = [i for i in range(k + 1) if i not in beta and sizes[i] > 0]
+        rounds = 0
+        while rounds < 4:
+            remaining = query.budget - query.oracle.calls
+            if remaining < 2 * max(len(sampled_ids), 1):
+                break
+            w_s = np.array([weight_sums[i] for i in sampled_ids])
+            share = w_s / max(w_s.sum(), 1e-300)
+            n_main = np.maximum((share * remaining).astype(np.int64), 1)
+            while n_main.sum() > remaining:
+                n_main[np.argmax(n_main)] -= 1
+            before = query.oracle.calls
+            round_draws: list[Optional[StratumDraw]] = [None] * (k + 1)
+            for j, i in enumerate(sampled_ids):
+                if n_main[j] <= 0:
+                    continue
+                round_draws[i] = space.sample_stratum(i, int(n_main[j]))
+            round_samples = _label_draws(query, round_draws)
+            for i in sampled_ids:
+                new = round_samples[i]
+                if new is not None:
+                    samples[i] = new if samples[i] is None else samples[i].merge(new)
+            rounds += 1
+            if query.oracle.calls == before:  # everything cached; budget cannot move
+                break
 
     # ---- estimate + CI ----------------------------------------------------
-    t0 = time.perf_counter()
-    live = [samples[i] for i in range(k + 1) if i not in beta and samples[i] is not None]
-    if query.agg in (Agg.COUNT, Agg.SUM, Agg.AVG):
-        est, ci = bootstrap_t_ci(
-            live, blocked, query.agg, query.confidence, cfg.n_bootstrap, rng
-        )
-    elif query.agg in (Agg.MIN, Agg.MAX):
-        est = combined_extreme(live, blocked, query.agg.value)
-        gb = query.g_bounds
-        if query.agg is Agg.MAX:
-            hi = gb[1] if gb else est
-            ci = ConfidenceInterval(est, hi, query.confidence)
+    with span("joinml.ci"):
+        live = [samples[i] for i in range(k + 1) if i not in beta and samples[i] is not None]
+        if query.agg in (Agg.COUNT, Agg.SUM, Agg.AVG):
+            est, ci = bootstrap_t_ci(
+                live, blocked, query.agg, query.confidence, cfg.n_bootstrap, rng
+            )
+        elif query.agg in (Agg.MIN, Agg.MAX):
+            est = combined_extreme(live, blocked, query.agg.value)
+            gb = query.g_bounds
+            if query.agg is Agg.MAX:
+                hi = gb[1] if gb else est
+                ci = ConfidenceInterval(est, hi, query.confidence)
+            else:
+                lo = gb[0] if gb else est
+                ci = ConfidenceInterval(lo, est, query.confidence)
+        elif query.agg is Agg.MEDIAN:
+            est = combined_cdf_median(live, blocked)
+            ci = _bootstrap_median_ci(live, blocked, query.confidence, cfg.n_bootstrap, rng)
         else:
-            lo = gb[0] if gb else est
-            ci = ConfidenceInterval(lo, est, query.confidence)
-    elif query.agg is Agg.MEDIAN:
-        est = combined_cdf_median(live, blocked)
-        ci = _bootstrap_median_ci(live, blocked, query.confidence, cfg.n_bootstrap, rng)
-    else:
-        raise ValueError(query.agg)
-    timings["ci_s"] = time.perf_counter() - t0
-    timings["total_s"] = time.perf_counter() - t_start
+            raise ValueError(query.agg)
 
     return QueryResult(
         estimate=float(est),
@@ -303,7 +296,6 @@ def run_stratified_pipeline(
             "stratum_sizes": sizes.tolist(),
             "pilot_n": n_pilot.tolist(),
             "est_mse": allocation.est_mse,
-            "timings": timings,
             "oracle": query.oracle.stats(),
         },
     )
@@ -313,7 +305,6 @@ def build_dense_space(
     query: Query,
     cfg: BASConfig,
     rng: np.random.Generator,
-    timings: dict,
     weights: Optional[np.ndarray] = None,
     device="cuda",
 ) -> StratifiedSpace:
@@ -323,29 +314,27 @@ def build_dense_space(
     both regimes stratify identically and differ only in how the pipeline
     spends the Oracle budget."""
     # ---- similarity + stratification -------------------------------------
-    t0 = time.perf_counter()
-    if weights is None:
-        weights = chain_weights(
-            query.spec.embeddings, cfg.weight_exponent, cfg.weight_floor,
-            device=device,
-        )
-    timings["similarity_s"] = time.perf_counter() - t0
+    with span("joinml.similarity"):
+        if weights is None:
+            weights = chain_weights(
+                query.spec.embeddings, cfg.weight_exponent, cfg.weight_floor,
+                device=device,
+            )
 
-    t0 = time.perf_counter()
-    strat = stratify_dense(weights, cfg.alpha, query.budget, cfg)
-    k = strat.num_strata
-    sizes = strat.stratum_sizes()
-    per_idx = _stratum_flat_indices(strat, weights)
-    top_sum = float(weights[strat.order].sum())
-    total_sum = float(weights.sum())
-    weight_sums = np.empty(k + 1, np.float64)
-    weight_sums[0] = max(total_sum - top_sum, 0.0)
-    for i in range(1, k + 1):
-        weight_sums[i] = float(weights[per_idx[i]].sum())
-    # D_0 sampling weights: zero out the blocking regime
-    w0 = np.array(weights, np.float64, copy=True)
-    w0[strat.order] = 0.0
-    timings["stratify_s"] = time.perf_counter() - t0
+    with span("joinml.stratify"):
+        strat = stratify_dense(weights, cfg.alpha, query.budget, cfg)
+        k = strat.num_strata
+        sizes = strat.stratum_sizes()
+        per_idx = _stratum_flat_indices(strat, weights)
+        top_sum = float(weights[strat.order].sum())
+        total_sum = float(weights.sum())
+        weight_sums = np.empty(k + 1, np.float64)
+        weight_sums[0] = max(total_sum - top_sum, 0.0)
+        for i in range(1, k + 1):
+            weight_sums[i] = float(weights[per_idx[i]].sum())
+        # D_0 sampling weights: zero out the blocking regime
+        w0 = np.array(weights, np.float64, copy=True)
+        w0[strat.order] = 0.0
 
     def sample_stratum(i: int, n: int) -> StratumDraw:
         if i == 0:
@@ -363,6 +352,7 @@ def build_dense_space(
     )
 
 
+@traced_query
 def run_bas(
     query: Query,
     cfg: Optional[BASConfig] = None,
@@ -375,8 +365,6 @@ def run_bas(
     resolve_device(device)
     cfg = cfg or BASConfig()
     rng = np.random.default_rng(seed)
-    t_start = time.perf_counter()
-    timings: dict = {}
 
     query.oracle.set_budget(query.budget)
     query.oracle.bind_sizes(query.spec.sizes)
@@ -384,10 +372,8 @@ def run_bas(
     if query.budget >= n_total:
         return run_exact(query)
 
-    space = build_dense_space(query, cfg, rng, timings, weights, device)
-    return run_stratified_pipeline(
-        query, cfg, rng, space, {"mode": "bas"}, timings, t_start
-    )
+    space = build_dense_space(query, cfg, rng, weights, device)
+    return run_stratified_pipeline(query, cfg, rng, space, {"mode": "bas"})
 
 
 def _bootstrap_median_ci(samples, blocked, p, n_boot, rng):

@@ -39,12 +39,12 @@ exceeds ``BASConfig.max_dense_weight_bytes`` (see ``dispatch.run_auto``).
 """
 from __future__ import annotations
 
-import time
 from typing import Optional
 
 import numpy as np
 
 from ..device import resolve_device
+from ..obs.telemetry import span, traced_query
 from .bas import StratifiedSpace, StratumDraw, run_exact, run_stratified_pipeline
 from .similarity import (
     aligned_pair_weights,
@@ -96,7 +96,6 @@ def build_streaming_space(
     query: Query,
     cfg: BASConfig,
     rng: np.random.Generator,
-    timings: dict,
     n_bins: int = 4096,
     use_kernel: Optional[bool] = None,
     use_sweep: Optional[bool] = None,
@@ -127,27 +126,28 @@ def build_streaming_space(
     exp, floor = cfg.weight_exponent, cfg.weight_floor
 
     # ---- streaming stratification (single fused sweep) -------------------
-    t0 = time.perf_counter()
-    index_hit = None
-    index_build_ms = None
-    if artifact is None and index_store is not None:
-        artifact, index_hit = index_store.get_or_build(
-            embeddings, n_bins=n_bins, exponent=exp, floor=floor,
-            precision=precision, use_kernel=use_kernel,
+    with span("joinml.stratify"):
+        index_hit = None
+        index_build_ms = None
+        if artifact is None and index_store is not None:
+            # the store's resolve: a lookup on a hit, the sweep on a miss
+            with span("joinml.index.build") as build:
+                artifact, index_hit = index_store.get_or_build(
+                    embeddings, n_bins=n_bins, exponent=exp, floor=floor,
+                    precision=precision, use_kernel=use_kernel,
+                )
+            if not index_hit:
+                index_build_ms = build.seconds * 1e3
+        elif artifact is not None:
+            index_hit = True
+        strat = stratify_streaming_chain(
+            embeddings, cfg.alpha, query.budget, cfg, n_bins=n_bins,
+            use_kernel=use_kernel, use_sweep=use_sweep, precision=precision,
+            artifact=artifact, device=device,
         )
-        if not index_hit:
-            index_build_ms = (time.perf_counter() - t0) * 1e3
-    elif artifact is not None:
-        index_hit = True
-    strat = stratify_streaming_chain(
-        embeddings, cfg.alpha, query.budget, cfg, n_bins=n_bins,
-        use_kernel=use_kernel, use_sweep=use_sweep, precision=precision,
-        artifact=artifact, device=device,
-    )
-    k = strat.num_strata
-    sizes = strat.stratum_sizes()
-    top_set = set(strat.order.tolist())
-    timings["stratify_s"] = time.perf_counter() - t0
+        k = strat.num_strata
+        sizes = strat.stratum_sizes()
+        top_set = set(strat.order.tolist())
     # the opt-in low-precision sweep also hands its collected weights to the
     # samplers (HT stays exact: q is computed from the weights actually
     # sampled with); the fp32 default recomputes them in f64 so estimates
@@ -164,45 +164,44 @@ def build_streaming_space(
     # product is ever launched here.  Only the two-pass baseline
     # (use_sweep=False) and low-precision sweeps (which withhold their sums,
     # see stratify.SweepInfo) fall back to the standalone recomputation.
-    t0 = time.perf_counter()
-    fused = strat.sweep is not None and strat.sweep.row_sums is not None
-    if fused:
-        row_sums = strat.sweep.row_sums
-        total_weight = strat.sweep.total_weight
-    else:
-        row_sums = edge_row_sums(embeddings, exp, floor, device=device)
-        total_weight = chain_total_weight(embeddings, exp, floor,
-                                          device=device)
-    timings["walk_setup_s"] = time.perf_counter() - t0
-    tup_top = flat_to_tuples(strat.order, sizes_spec)
-    # one pass over the edges gives both the top-set chain weights and the
-    # full-space walk probabilities p(t) = (1/N1) prod_j w_j / r_j
-    top_w = np.ones(len(tup_top), np.float64)
-    p = np.full(len(tup_top), 1.0 / sizes_spec[0], np.float64)
-    for j in range(len(embeddings) - 1):
-        w_j = aligned_pair_weights(
-            embeddings[j], embeddings[j + 1], tup_top[:, j], tup_top[:, j + 1],
-            exp, floor,
-        )
-        top_w *= w_j
-        p *= w_j / row_sums[j][tup_top[:, j]]
-    p_top = float(p.sum())
+    with span("joinml.similarity"):
+        with span("joinml.walk_setup"):
+            fused = strat.sweep is not None and strat.sweep.row_sums is not None
+            if fused:
+                row_sums = strat.sweep.row_sums
+                total_weight = strat.sweep.total_weight
+            else:
+                row_sums = edge_row_sums(embeddings, exp, floor, device=device)
+                total_weight = chain_total_weight(embeddings, exp, floor,
+                                                  device=device)
+        tup_top = flat_to_tuples(strat.order, sizes_spec)
+        # one pass over the edges gives both the top-set chain weights and the
+        # full-space walk probabilities p(t) = (1/N1) prod_j w_j / r_j
+        top_w = np.ones(len(tup_top), np.float64)
+        p = np.full(len(tup_top), 1.0 / sizes_spec[0], np.float64)
+        for j in range(len(embeddings) - 1):
+            w_j = aligned_pair_weights(
+                embeddings[j], embeddings[j + 1], tup_top[:, j], tup_top[:, j + 1],
+                exp, floor,
+            )
+            top_w *= w_j
+            p *= w_j / row_sums[j][tup_top[:, j]]
+        p_top = float(p.sum())
 
-    per_tup = [None] + [
-        flat_to_tuples(strat.stratum_indices(i), sizes_spec)
-        for i in range(1, k + 1)
-    ]
-    if lowp:
-        per_w = [None] + [strat.stratum_weights(i) for i in range(1, k + 1)]
-    else:
-        per_w = [None] + [
-            chain_tuple_weights(embeddings, t, exp, floor) for t in per_tup[1:]
+        per_tup = [None] + [
+            flat_to_tuples(strat.stratum_indices(i), sizes_spec)
+            for i in range(1, k + 1)
         ]
-    weight_sums = np.zeros(k + 1, np.float64)
-    weight_sums[0] = max(total_weight - float(top_w.sum()), 0.0)
-    for i in range(1, k + 1):
-        weight_sums[i] = float(per_w[i].sum())
-    timings["similarity_s"] = time.perf_counter() - t0
+        if lowp:
+            per_w = [None] + [strat.stratum_weights(i) for i in range(1, k + 1)]
+        else:
+            per_w = [None] + [
+                chain_tuple_weights(embeddings, t, exp, floor) for t in per_tup[1:]
+            ]
+        weight_sums = np.zeros(k + 1, np.float64)
+        weight_sums[0] = max(total_weight - float(top_w.sum()), 0.0)
+        for i in range(1, k + 1):
+            weight_sums[i] = float(per_w[i].sum())
 
     def sample_stratum(i: int, n: int) -> StratumDraw:
         if i == 0:
@@ -239,6 +238,7 @@ def build_streaming_space(
     return space, {"p_top": p_top, "use_kernel": use_kernel}
 
 
+@traced_query
 def run_bas_streaming(
     query: Query,
     cfg: Optional[BASConfig] = None,
@@ -264,8 +264,6 @@ def run_bas_streaming(
     resolve_device(device)
     cfg = cfg or BASConfig()
     rng = np.random.default_rng(seed)
-    t_start = time.perf_counter()
-    timings: dict = {}
 
     query.oracle.set_budget(query.budget)
     query.oracle.bind_sizes(query.spec.sizes)
@@ -273,11 +271,10 @@ def run_bas_streaming(
         return run_exact(query)
 
     space, extra = build_streaming_space(
-        query, cfg, rng, timings, n_bins=n_bins, use_kernel=use_kernel,
+        query, cfg, rng, n_bins=n_bins, use_kernel=use_kernel,
         use_sweep=use_sweep, precision=precision, artifact=artifact,
         index_store=index_store, device=device,
     )
     return run_stratified_pipeline(
         query, cfg, rng, space, {"mode": "bas_streaming", **extra},
-        timings, t_start,
     )

@@ -72,12 +72,12 @@ order.
 """
 from __future__ import annotations
 
-import time
 from typing import Optional
 
 import numpy as np
 
 from ..device import resolve_device
+from ..obs.telemetry import span, traced_query
 from . import allocate as alloc_mod
 from .bas import (
     StratifiedSpace,
@@ -202,8 +202,6 @@ def run_cascade_pipeline(
     rng: np.random.Generator,
     space: StratifiedSpace,
     detail: dict,
-    timings: dict,
-    t_start: float,
 ) -> QueryResult:
     """Stages 2-5 of the cascade on an abstract stratified space (dense and
     streaming regimes share this code exactly like plain BAS shares
@@ -214,116 +212,111 @@ def run_cascade_pipeline(
     b1 = max(int(round(cfg.pilot_fraction * b)), 8)
 
     # ---- stage 1: pilot (both fidelities on the same draws) ---------------
-    t0 = time.perf_counter()
-    shares = weight_sums / max(weight_sums.sum(), 1e-300)
-    n_pilot = _split_budget(b1, shares, floor_n=2)
-    pilot_draws: list[Optional[StratumDraw]] = [None] * (k + 1)
-    for i in range(k + 1):
-        if sizes[i] > 0:
-            pilot_draws[i] = space.sample_stratum(i, int(n_pilot[i]))
-    corr, o_list, p_list = _label_both(query, proxy, pilot_draws)
+    with span("joinml.pilot"):
+        shares = weight_sums / max(weight_sums.sum(), 1e-300)
+        n_pilot = _split_budget(b1, shares, floor_n=2)
+        pilot_draws: list[Optional[StratumDraw]] = [None] * (k + 1)
+        for i in range(k + 1):
+            if sizes[i] > 0:
+                pilot_draws[i] = space.sample_stratum(i, int(n_pilot[i]))
+        corr, o_list, p_list = _label_both(query, proxy, pilot_draws)
 
-    # linearisation constants (AVG influence function) from the pilot's
-    # expensive labels; the pilot's proxy labels feed the disagreement stats
-    pilot_plain = [
-        StratumSample(o=o, g=corr[i].g, q=corr[i].q, size=corr[i].size)
-        for i, o in enumerate(o_list) if o is not None
-    ]
-    zero = BlockedRegime(np.zeros(0), np.zeros(0))
-    c_hat, _ = combined_count(pilot_plain, zero)
-    s_hat, _ = combined_sum(pilot_plain, zero)
-    ratio = s_hat / c_hat if c_hat > 0 else 0.0
-    sigma2 = np.zeros(k + 1, np.float64)
-    for i in range(k + 1):
-        if corr[i] is not None:
-            sigma2[i] = _linearised_variance(corr[i], query.agg, ratio, c_hat)
-    n_dis = sum(len(o) for o in o_list if o is not None)
-    disagree = sum(
-        float(np.abs(o - p).sum())
-        for o, p in zip(o_list, p_list) if o is not None
-    ) / max(n_dis, 1)
-    timings["pilot_s"] = time.perf_counter() - t0
+        # linearisation constants (AVG influence function) from the pilot's
+        # expensive labels; the pilot's proxy labels feed the disagreement stats
+        pilot_plain = [
+            StratumSample(o=o, g=corr[i].g, q=corr[i].q, size=corr[i].size)
+            for i, o in enumerate(o_list) if o is not None
+        ]
+        zero = BlockedRegime(np.zeros(0), np.zeros(0))
+        c_hat, _ = combined_count(pilot_plain, zero)
+        s_hat, _ = combined_sum(pilot_plain, zero)
+        ratio = s_hat / c_hat if c_hat > 0 else 0.0
+        sigma2 = np.zeros(k + 1, np.float64)
+        for i in range(k + 1):
+            if corr[i] is not None:
+                sigma2[i] = _linearised_variance(corr[i], query.agg, ratio, c_hat)
+        n_dis = sum(len(o) for o in o_list if o is not None)
+        disagree = sum(
+            float(np.abs(o - p).sum())
+            for o, p in zip(o_list, p_list) if o is not None
+        ) / max(n_dis, 1)
 
     # ---- allocation on the correction variances ---------------------------
-    t0 = time.perf_counter()
-    b2_eff = b - query.oracle.calls
-    allocation = alloc_mod.argmin_beta(
-        sigma2, weight_sums, sizes, b2_eff, cfg.exact_beta_max_k
-    )
-    beta = set(int(i) for i in allocation.beta)
-    timings["allocate_s"] = time.perf_counter() - t0
+    with span("joinml.allocate"):
+        b2_eff = b - query.oracle.calls
+        allocation = alloc_mod.argmin_beta(
+            sigma2, weight_sums, sizes, b2_eff, cfg.exact_beta_max_k
+        )
+        beta = set(int(i) for i in allocation.beta)
 
     # ---- stage 2: blocking + proxy sample + correction rounds -------------
-    t0 = time.perf_counter()
-    block_batch = OracleBatch(query.oracle)
-    beta_tuples = [(i, space.stratum_tuples(i)) for i in sorted(beta)]
-    beta_handles = [block_batch.submit(tup) for _, tup in beta_tuples]
-    block_fut = block_batch.flush_async()
-    g_fn = query.attr()
-    blocked_g = [g_fn(tup) for _, tup in beta_tuples]
-    block_fut.result()
-    blocked = BlockedRegime(
-        o=np.concatenate([h.labels for h in beta_handles])
-        if beta_handles else np.zeros(0),
-        g=np.concatenate(blocked_g) if blocked_g else np.zeros(0),
-    )
+    with span("joinml.execute"):
+        block_batch = OracleBatch(query.oracle)
+        beta_tuples = [(i, space.stratum_tuples(i)) for i in sorted(beta)]
+        beta_handles = [block_batch.submit(tup) for _, tup in beta_tuples]
+        block_fut = block_batch.flush_async()
+        g_fn = query.attr()
+        blocked_g = [g_fn(tup) for _, tup in beta_tuples]
+        block_fut.result()
+        blocked = BlockedRegime(
+            o=np.concatenate([h.labels for h in beta_handles])
+            if beta_handles else np.zeros(0),
+            g=np.concatenate(blocked_g) if blocked_g else np.zeros(0),
+        )
 
-    sampled_ids = [i for i in range(k + 1) if i not in beta and sizes[i] > 0]
-    w_s = np.array([weight_sums[i] for i in sampled_ids])
-    w_share = w_s / max(w_s.sum(), 1e-300)
+        sampled_ids = [i for i in range(k + 1) if i not in beta and sizes[i] > 0]
+        w_s = np.array([weight_sums[i] for i in sampled_ids])
+        w_share = w_s / max(w_s.sum(), 1e-300)
 
-    # proxy regime: a large cheap sample, split ∝ weight mass (disjoint from
-    # the correction sample — the two pseudo-strata must stay independent)
-    proxy_samples: list[Optional[StratumSample]] = [None] * (k + 1)
-    n_proxy_total = int(cfg.cascade_proxy_factor * b)
-    if sampled_ids and n_proxy_total > 0:
-        n_proxy = _split_budget(n_proxy_total, w_share, floor_n=2)
-        proxy_draws: list[Optional[StratumDraw]] = [None] * (k + 1)
-        for j, i in enumerate(sampled_ids):
-            proxy_draws[i] = space.sample_stratum(i, int(n_proxy[j]))
-        proxy_samples = _label_proxy(proxy, query, proxy_draws)
+        # proxy regime: a large cheap sample, split ∝ weight mass (disjoint from
+        # the correction sample — the two pseudo-strata must stay independent)
+        proxy_samples: list[Optional[StratumSample]] = [None] * (k + 1)
+        n_proxy_total = int(cfg.cascade_proxy_factor * b)
+        if sampled_ids and n_proxy_total > 0:
+            n_proxy = _split_budget(n_proxy_total, w_share, floor_n=2)
+            proxy_draws: list[Optional[StratumDraw]] = [None] * (k + 1)
+            for j, i in enumerate(sampled_ids):
+                proxy_draws[i] = space.sample_stratum(i, int(n_proxy[j]))
+            proxy_samples = _label_proxy(proxy, query, proxy_draws)
 
-    # correction regime: defensive Neyman split on the pilot disagreement
-    # variances — n_i ∝ sqrt(sigma2_i), mixed with the weight share so a
-    # stratum whose pilot saw no disagreement still gets a trickle (the
-    # pilot variance estimate is noisy, not a certificate)
-    root = np.array([np.sqrt(max(sigma2[i], 0.0)) for i in sampled_ids])
-    if root.sum() > 0:
-        c_share = 0.8 * root / root.sum() + 0.2 * w_share
-    else:
-        c_share = w_share
-    rounds = 0
-    while rounds < 4 and sampled_ids:
-        remaining = b - query.oracle.calls
-        if remaining < 2 * len(sampled_ids):
-            break
-        n_main = _split_budget(remaining, c_share, floor_n=1)
-        before = query.oracle.calls
-        round_draws: list[Optional[StratumDraw]] = [None] * (k + 1)
-        for j, i in enumerate(sampled_ids):
-            if n_main[j] > 0:
-                round_draws[i] = space.sample_stratum(i, int(n_main[j]))
-        round_corr, _, _ = _label_both(query, proxy, round_draws)
-        for i in sampled_ids:
-            new = round_corr[i]
-            if new is not None:
-                corr[i] = new if corr[i] is None else corr[i].merge(new)
-        rounds += 1
-        if query.oracle.calls == before:   # fully cached; budget cannot move
-            break
-    timings["execute_s"] = time.perf_counter() - t0
+        # correction regime: defensive Neyman split on the pilot disagreement
+        # variances — n_i ∝ sqrt(sigma2_i), mixed with the weight share so a
+        # stratum whose pilot saw no disagreement still gets a trickle (the
+        # pilot variance estimate is noisy, not a certificate)
+        root = np.array([np.sqrt(max(sigma2[i], 0.0)) for i in sampled_ids])
+        if root.sum() > 0:
+            c_share = 0.8 * root / root.sum() + 0.2 * w_share
+        else:
+            c_share = w_share
+        rounds = 0
+        while rounds < 4 and sampled_ids:
+            remaining = b - query.oracle.calls
+            if remaining < 2 * len(sampled_ids):
+                break
+            n_main = _split_budget(remaining, c_share, floor_n=1)
+            before = query.oracle.calls
+            round_draws: list[Optional[StratumDraw]] = [None] * (k + 1)
+            for j, i in enumerate(sampled_ids):
+                if n_main[j] > 0:
+                    round_draws[i] = space.sample_stratum(i, int(n_main[j]))
+            round_corr, _, _ = _label_both(query, proxy, round_draws)
+            for i in sampled_ids:
+                new = round_corr[i]
+                if new is not None:
+                    corr[i] = new if corr[i] is None else corr[i].merge(new)
+            rounds += 1
+            if query.oracle.calls == before:   # fully cached; budget cannot move
+                break
 
     # ---- estimate + CI: proxy + correction pseudo-strata ------------------
-    t0 = time.perf_counter()
-    live = [proxy_samples[i] for i in sampled_ids
-            if proxy_samples[i] is not None]
-    corr_live = [corr[i] for i in sampled_ids if corr[i] is not None]
-    live += corr_live
-    est, ci = bootstrap_t_ci(
-        live, blocked, query.agg, query.confidence, cfg.n_bootstrap, rng
-    )
-    timings["ci_s"] = time.perf_counter() - t0
-    timings["total_s"] = time.perf_counter() - t_start
+    with span("joinml.ci"):
+        live = [proxy_samples[i] for i in sampled_ids
+                if proxy_samples[i] is not None]
+        corr_live = [corr[i] for i in sampled_ids if corr[i] is not None]
+        live += corr_live
+        est, ci = bootstrap_t_ci(
+            live, blocked, query.agg, query.confidence, cfg.n_bootstrap, rng
+        )
 
     proxy_rows = sum(
         s.n for s in (proxy_samples[i] for i in sampled_ids) if s is not None
@@ -340,7 +333,6 @@ def run_cascade_pipeline(
             "stratum_sizes": sizes.tolist(),
             "pilot_n": n_pilot.tolist(),
             "est_mse": allocation.est_mse,
-            "timings": timings,
             "oracle": query.oracle.stats(),
             "cascade": {
                 "proxy_calls": proxy.calls,
@@ -356,6 +348,7 @@ def run_cascade_pipeline(
     )
 
 
+@traced_query
 def run_bas_cascade(
     query: Query,
     cfg: Optional[BASConfig] = None,
@@ -379,8 +372,6 @@ def run_bas_cascade(
     resolve_device(device)
     cfg = cfg or BASConfig()
     rng = np.random.default_rng(seed)
-    t_start = time.perf_counter()
-    timings: dict = {}
 
     query.oracle.set_budget(query.budget)
     query.oracle.bind_sizes(query.spec.sizes)
@@ -418,20 +409,17 @@ def run_bas_cascade(
 
     try:
         if path == "dense":
-            space = build_dense_space(query, cfg, rng, timings, weights,
-                                      device)
+            space = build_dense_space(query, cfg, rng, weights, device)
             detail = {"mode": "bas-cascade"}
         else:
             from .bas_streaming import build_streaming_space
 
             space, extra = build_streaming_space(
-                query, cfg, rng, timings, n_bins=n_bins, artifact=artifact,
+                query, cfg, rng, n_bins=n_bins, artifact=artifact,
                 index_store=index_store, device=device,
             )
             detail = {"mode": "bas-cascade", **extra}
-        return run_cascade_pipeline(
-            query, proxy, cfg, rng, space, detail, timings, t_start
-        )
+        return run_cascade_pipeline(query, proxy, cfg, rng, space, detail)
     finally:
         if attached:
             svc.detach(proxy)

@@ -24,6 +24,7 @@ import numpy as np
 
 from ..device import resolve_device
 from ..obs import DispatchTelemetry
+from ..obs.telemetry import traced_query
 from .bas import run_bas
 from .bas_streaming import run_bas_streaming
 from .types import Agg, BASConfig, JoinSpec, Query, QueryResult
@@ -45,6 +46,7 @@ def choose_path(spec: JoinSpec, cfg: Optional[BASConfig] = None) -> str:
     )
 
 
+@traced_query
 def run_auto(
     query: Query,
     cfg: Optional[BASConfig] = None,

@@ -20,6 +20,7 @@ from typing import Callable, Optional, Union
 import numpy as np
 
 from ..device import resolve_device
+from ..obs.telemetry import traced_query
 from . import baselines, bas, bas_streaming, dispatch
 from .oracle import Oracle
 from .types import Agg, AttrFn, BASConfig, JoinSpec, Query, QueryResult
@@ -203,13 +204,18 @@ class JoinMLEngine:
                    if self.proxy_factory is not None else None),
         )
 
+    @traced_query
     def execute(self, sql: str, method: str = "auto", seed: int = 0,
                 budget: Optional[int] = None,
                 confidence: Optional[float] = None) -> QueryResult:
         """Execute a JoinML query.  ``method="auto"`` (default) routes BAS
         through the memory-aware dispatcher: dense when the flat chain-weight
         array fits under ``cfg.max_dense_weight_bytes``, streaming otherwise.
-        ``"bas"`` / ``"bas-streaming"`` force a path explicitly."""
+        ``"bas"`` / ``"bas-streaming"`` force a path explicitly.
+
+        The query is active for the call (``repro_torch.obs.telemetry``):
+        its root span ``joinml.query`` and every span under it land in
+        ``result.telemetry.spans`` and ``timings``."""
         q = self.build(sql, budget, confidence)
         if method == "auto":
             return dispatch.run_auto(q, self.cfg, seed=seed,

@@ -43,6 +43,7 @@ from typing import Optional
 import numpy as np
 
 from ..device import resolve_device
+from ..obs.telemetry import span
 from .types import BASConfig
 
 
@@ -440,7 +441,8 @@ def sweep_pass_chain(
     total = 0.0
     right = None  # right table padded/quantised once, swept per prefix block
     if use_kernel:
-        right = prepare_right(e_last, precision=precision, device=device)
+        with span("joinml.sweep.upload"):
+            right = prepare_right(e_last, precision=precision, device=device)
     elif precision != "fp32":
         _warn_lowp_unavailable(precision)
     for s in range(0, n_prefix, block):
@@ -841,12 +843,13 @@ def stratify_streaming_chain(
             embeddings, n_bins, cfg.weight_exponent, cfg.weight_floor,
             use_kernel=use_kernel, device=device,
         )
-    thr = threshold_for_top_m(counts, edges, m)
-    order, order_w = collect_top_chain(
-        embeddings, thr, m, cfg.weight_exponent, cfg.weight_floor,
-        use_kernel=use_kernel, sweep=sweep, return_weights=True,
-        device=device,
-    )
+    with span("joinml.collect"):
+        thr = threshold_for_top_m(counts, edges, m)
+        order, order_w = collect_top_chain(
+            embeddings, thr, m, cfg.weight_exponent, cfg.weight_floor,
+            use_kernel=use_kernel, sweep=sweep, return_weights=True,
+            device=device,
+        )
     m_eff = len(order)
     k = max(1, min(k, m_eff))
     bounds = np.round(np.linspace(0, m_eff, k + 1)).astype(np.int64)

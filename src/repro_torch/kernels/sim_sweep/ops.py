@@ -26,6 +26,10 @@ Chain callers sweep many left blocks against one fixed right table: build a
 once, not per prefix block; the padded table stays resident on the device.
 
 Block shapes are the reference's power-of-two defaults (``block=256``).
+
+Spans (``repro_torch.obs.telemetry``): ``joinml.sweep.upload`` (padding and
+copying both tables to the device), ``joinml.sweep.kernel`` (the launch) and
+``joinml.sweep.readback`` (the copies back, which wait for the kernel).
 """
 from typing import NamedTuple, Optional
 
@@ -33,6 +37,7 @@ import numpy as np
 import torch
 
 from ...device import host_f32, resolve_device
+from ...obs.telemetry import span
 from ..padding import pad_rows, remove_pad_counts
 from .kernel import kernel_operand, sim_sweep_cuda
 from .ref import sim_sweep_ref
@@ -102,55 +107,58 @@ def sim_sweep(e1, e2=None, n_bins=4096, exponent=1.0, floor=1e-3, k=8,
     need the raw full-exponent edge weight in the walk sums).  With
     ``right=`` the sweep runs on the prepared table's device."""
     assert precision in PRECISIONS, precision
-    e1 = host_f32(e1)
-    n1 = e1.shape[0]
-    if right is None:
-        assert e2 is not None, "pass e2 or a PreparedRight"
-        right = prepare_right(e2, block, precision, device=device)
-    assert right.precision == precision, (right.precision, precision)
-    dev = right.device
-    n2 = right.n2
-    bm = _pow2_block(block, n1)
-    bn = right.bn
-    e1p, p1 = pad_rows(e1, bm)
-    s = np.ones(n1, np.float32) if scale is None else np.asarray(scale, np.float32)
-    sp = np.concatenate([s, np.zeros(p1, np.float32)]) if p1 else s
-    # backward vector, zero-padded so padded right columns drop out of the
-    # walk sums with no host-side correction
-    vp = np.zeros(right.e2p.shape[0], np.float32)
-    vp[:n2] = 1.0 if back_v is None else np.asarray(back_v, np.float32)
-    kk = min(k, bn)
+    with span("joinml.sweep.upload"):
+        e1 = host_f32(e1)
+        n1 = e1.shape[0]
+        if right is None:
+            assert e2 is not None, "pass e2 or a PreparedRight"
+            right = prepare_right(e2, block, precision, device=device)
+        assert right.precision == precision, (right.precision, precision)
+        dev = right.device
+        n2 = right.n2
+        bm = _pow2_block(block, n1)
+        e1p, p1 = pad_rows(e1, bm)
+        s = np.ones(n1, np.float32) if scale is None else np.asarray(scale, np.float32)
+        sp = np.concatenate([s, np.zeros(p1, np.float32)]) if p1 else s
+        # backward vector, zero-padded so padded right columns drop out of the
+        # walk sums with no host-side correction
+        vp = np.zeros(right.e2p.shape[0], np.float32)
+        vp[:n2] = 1.0 if back_v is None else np.asarray(back_v, np.float32)
+        sp_t = torch.from_numpy(sp).to(dev)
+        vp_t = torch.from_numpy(vp).to(dev)
+        rs1 = None
+        if precision == "int8":
+            from ...core.similarity import quantize_rows_int8
+
+            q1np, rs1np = quantize_rows_int8(e1p)
+            a = torch.from_numpy(q1np).to(dev)
+            rs1 = torch.from_numpy(rs1np.reshape(-1)).to(dev)
+            b = right.q2
+        else:
+            a = torch.from_numpy(e1p).to(dev)
+            b = right.e2p
+    kk = min(k, right.bn)
     common = dict(n_bins=n_bins, exponent=exponent, rs_exponent=rs_exponent,
                   floor=floor, k=kk, bm=bm, precision=precision)
-    sp_t = torch.from_numpy(sp).to(dev)
-    vp_t = torch.from_numpy(vp).to(dev)
-    rs1 = None
-    if precision == "int8":
-        from ...core.similarity import quantize_rows_int8
-
-        q1np, rs1np = quantize_rows_int8(e1p)
-        a = torch.from_numpy(q1np).to(dev)
-        rs1 = torch.from_numpy(rs1np.reshape(-1)).to(dev)
-        b = right.q2
-    else:
-        a = torch.from_numpy(e1p).to(dev)
-        b = right.e2p
-    if dev.type == "cuda":
-        bc, vals, idx, rs = sim_sweep_cuda(
-            kernel_operand(a, precision), right.e2k, sp_t, vp_t, rs1=rs1,
-            rs2=right.rs2, **common,
-        )
-    else:
-        bc, vals, idx, rs = sim_sweep_ref(a, b, sp_t, vp_t, rs1=rs1,
-                                          rs2=right.rs2, **common)
-    bc = bc.cpu().numpy().astype(np.int64)
+    with span("joinml.sweep.kernel"):
+        if dev.type == "cuda":
+            bc, vals, idx, rs = sim_sweep_cuda(
+                kernel_operand(a, precision), right.e2k, sp_t, vp_t, rs1=rs1,
+                rs2=right.rs2, **common,
+            )
+        else:
+            bc, vals, idx, rs = sim_sweep_ref(a, b, sp_t, vp_t, rs1=rs1,
+                                              rs2=right.rs2, **common)
+    with span("joinml.sweep.readback"):
+        bc, vals, idx, rs = bc.cpu(), vals.cpu(), idx.cpu(), rs.cpu()
+    bc = bc.numpy().astype(np.int64)
     remove_pad_counts(bc, s, p1, right.p2, right.e2p.shape[0], n_bins,
                       exponent, floor, bm)
     counts = bc.sum(axis=0)
     edges = np.linspace(0.0, 1.0, n_bins + 1)
-    vals = vals.cpu().numpy()[:n1]
-    idx = idx.cpu().numpy()[:n1]
-    row_sums = rs.cpu().numpy()[:n1].astype(np.float64)
+    vals = vals.numpy()[:n1]
+    idx = idx.numpy()[:n1]
+    row_sums = rs.numpy()[:n1].astype(np.float64)
     return SweepOut(
         counts=counts, edges=edges, block_counts=bc, block_rows=bm,
         vals=vals, idx=idx, valid=idx < n2, row_sums=row_sums,

@@ -36,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.flash_attention import flash_attention
+from ..obs import telemetry
 from .config import ModelConfig
 
 
@@ -476,7 +477,11 @@ def moe_mlp(p: MoE, cfg: ModelConfig, x):
     model ranks.  The expert products are batched matmuls over every
     group's slots.  A token's k contributions are put back in (token,
     choice) order and summed over k, so the same batch gives the same bits
-    on every run (no atomic scatter-add)."""
+    on every run (no atomic scatter-add).
+
+    While a profiler session records (``obs.telemetry.recording``), the
+    window log counts ``moe.kept`` (summed on the device, no copy to the
+    host) and ``moe.slots`` (G * E * cap)."""
     b, s, d = x.shape
     p, tp, e0, g = sharded_ops().moe(p)
     el = p.w_gate.shape[0]                               # the rank's experts
@@ -495,6 +500,9 @@ def moe_mlp(p: MoE, cfg: ModelConfig, x):
     base = (torch.arange(g, device=x.device) * (el * cap))[:, None, None]
     slot = at.clamp(0, el * cap - 1) + base
     k = top_w.shape[2]
+    if telemetry.recording():
+        telemetry.log_count("moe.kept", keep.sum())
+        telemetry.log_count("moe.slots", g * el * cap)
     tok = torch.arange(g * t, device=x.device).reshape(g, t, 1).expand(-1, -1, k)
     # a dropped pair writes the scratch row past the buffer (the reference's
     # ``e * cap``), so the dispatch has the same shapes whatever is dropped

@@ -13,13 +13,36 @@ Variable-shape producer payloads (per-kernel sweep statistics, baseline-mode
 extras) land in ``extra`` dicts on the owning section rather than being lost,
 so the round trip ``QueryTelemetry.from_detail(d).as_detail() == d`` holds for
 every dict the pipelines emit.
+
+Spans and counters (:func:`span`, :func:`count`) time the port's layers.
+``JoinMLEngine.execute`` makes a query active (:func:`query`) and opens its
+root span ``joinml.query`` (key ``query_wall_s``); each span inside it adds its duration to the
+query's ``timings`` under its key (``joinml.sweep.upload`` ->
+``sweep_upload_s``, repeated spans summed) and lands in
+``QueryTelemetry.spans`` with its parent and the query's id.  While a
+``torch.profiler`` session records, and only then, a span also opens a
+``record_function`` of its name on the profiler's host timeline, and every
+span and counter goes to the process's bounded :func:`window_log`, on the
+profiler's clock (Unix-epoch ns).  With no profiler a span costs two clock
+reads and a dict update.  The legacy dict view carries neither spans nor
+counters.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
+import contextvars
 import dataclasses
+import functools
+import itertools
+import threading
+import time
 import warnings
 from collections.abc import MutableMapping
-from typing import Any, Optional
+from typing import Any, NamedTuple, Optional, Union
+
+import torch
+from torch.autograd import profiler as _autograd_profiler
 
 
 @dataclasses.dataclass
@@ -121,6 +144,11 @@ class QueryTelemetry:
     est_mse: Optional[float] = None
     timings: dict[str, float] = dataclasses.field(default_factory=dict)
     extra: dict[str, Any] = dataclasses.field(default_factory=dict)
+    # the query's spans and counters (:func:`span`, :func:`count`); not part
+    # of the legacy dict view
+    query_id: Optional[int] = None
+    spans: list = dataclasses.field(default_factory=list)
+    counters: dict[str, int] = dataclasses.field(default_factory=dict)
 
     # ------------------------------------------------------------------ parse
     @classmethod
@@ -306,3 +334,300 @@ class TelemetryView(MutableMapping):
 
     def __repr__(self) -> str:
         return f"TelemetryView({self._t.as_detail()!r})"
+
+
+# ----------------------------------------------------------------------------
+# Spans and counters
+# ----------------------------------------------------------------------------
+
+class Span(NamedTuple):
+    """One timed interval.  In ``QueryTelemetry.spans`` its ends are
+    ``time.perf_counter_ns`` readings; in :func:`window_log` they are Unix-epoch
+    ns, the profiler's clock.  ``query_id`` is None outside a query, and a
+    tuple of ids for a service window that holds several queries' rows."""
+
+    name: str
+    start: int
+    end: int
+    span_id: int
+    parent_id: Optional[int]
+    query_id: Union[int, tuple, None]
+
+    @property
+    def seconds(self) -> float:
+        return (self.end - self.start) / 1e9
+
+
+_SPAN_IDS = itertools.count(1)
+_QUERY_IDS = itertools.count(1)
+_PREFIX = "joinml."
+
+
+_ROOT = "joinml.query"
+
+
+@functools.lru_cache(maxsize=None)
+def timing_key(name: str) -> str:
+    """``joinml.sweep.upload`` -> ``sweep_upload_s``: a span's key in a
+    query's ``timings``.  The root ``joinml.query`` is ``query_wall_s``, the
+    query's own wall time."""
+    if name == _ROOT:
+        return "query_wall_s"
+    if name.startswith(_PREFIX):
+        name = name[len(_PREFIX):]
+    return name.replace(".", "_") + "_s"
+
+
+class ActiveQuery:
+    """The timings, spans and counters of one executing query.  Spans may
+    close on another thread (a service window), hence the lock."""
+
+    def __init__(self):
+        self.id = next(_QUERY_IDS)
+        self.timings: dict[str, float] = {}
+        self.spans: list[Span] = []
+        self.counters: dict[str, int] = {}
+        self._lock = threading.Lock()
+
+    def add(self, s: Span) -> None:
+        key = timing_key(s.name)
+        with self._lock:
+            self.timings[key] = self.timings.get(key, 0.0) + s.seconds
+            self.spans.append(s)
+
+    def count(self, name: str, n: int) -> None:
+        with self._lock:
+            self.counters[name] = self.counters.get(name, 0) + int(n)
+
+    def attach(self, res):
+        """Lay the query's timings, spans and counters on a result's
+        telemetry; returns the result."""
+        t = res.telemetry
+        with self._lock:
+            t.timings = dict(self.timings)
+            t.spans = list(self.spans)
+            t.counters = dict(self.counters)
+        t.query_id = self.id
+        return res
+
+
+_QUERY: contextvars.ContextVar[Optional[ActiveQuery]] = contextvars.ContextVar(
+    "joinml_query", default=None)
+_PARENT: contextvars.ContextVar[Optional[int]] = contextvars.ContextVar(
+    "joinml_span", default=None)
+
+
+def recording() -> bool:
+    """Whether a ``torch.profiler`` session records in this process.  The
+    profiler's own flag is per thread; this one holds for every thread, so
+    a service worker's spans and counters reach the log too.  A torch
+    without the flag reads as not recording."""
+    return getattr(_autograd_profiler, "_is_profiler_enabled", False)
+
+
+def current() -> tuple:
+    """``(active query or None, innermost open span id or None)`` of the
+    calling context: what a hand-off to another thread carries."""
+    return _QUERY.get(), _PARENT.get()
+
+
+class _Log:
+    """Spans and counter sums recorded while a profiler session records:
+    bounded, process-wide.  Device counters stay device tensors, summed on
+    their device, until the log is read."""
+
+    def __init__(self, max_spans: int = 1 << 16):
+        self._spans: collections.deque = collections.deque(maxlen=max_spans)
+        self._counters: dict[str, int] = {}
+        self._device: dict[tuple, torch.Tensor] = {}
+        self._lock = threading.Lock()
+        self._anchor: Optional[int] = None
+
+    def add(self, s: Span) -> None:
+        if self._anchor is None:
+            # one anchor per process from perf_counter to the Unix epoch
+            self._anchor = time.time_ns() - time.perf_counter_ns()
+        a = self._anchor
+        with self._lock:
+            self._spans.append(s._replace(start=s.start + a, end=s.end + a))
+
+    def count(self, name: str, n) -> None:
+        with self._lock:
+            if isinstance(n, torch.Tensor):
+                key = (name, n.device)
+                prev = self._device.get(key)
+                self._device[key] = n.detach() if prev is None else prev + n.detach()
+            else:
+                self._counters[name] = self._counters.get(name, 0) + int(n)
+
+    def read(self) -> "WindowLog":
+        with self._lock:
+            spans = list(self._spans)
+            counters = dict(self._counters)
+            device = list(self._device.items())
+        by_dev: dict = {}
+        for (name, dev), t in device:
+            by_dev.setdefault(dev, []).append((name, t))
+        for items in by_dev.values():
+            # one copy to the host a device
+            vals = torch.stack([t for _, t in items]).tolist()
+            for (name, _), v in zip(items, vals):
+                counters[name] = counters.get(name, 0) + int(v)
+        return WindowLog(spans, counters)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._spans.clear()
+            self._counters.clear()
+            self._device.clear()
+
+
+@dataclasses.dataclass
+class WindowLog:
+    """What :func:`window_log` returns: the logged spans (Unix-epoch ns) and
+    each counter's sum."""
+
+    spans: list
+    counters: dict
+
+
+_LOG = _Log()
+
+
+def window_log() -> WindowLog:
+    """The spans and counters recorded under ``torch.profiler`` since the
+    last :func:`clear_window_log` (the oldest spans drop past 65,536)."""
+    return _LOG.read()
+
+
+def clear_window_log() -> None:
+    _LOG.clear()
+
+
+@functools.lru_cache(maxsize=None)
+def _annotation_ops() -> tuple:
+    """The two ops behind ``torch.profiler.record_function`` (a user
+    annotation on the profiler's host timeline), called directly: the
+    Python wrapper's work would lie between a span's clock read and the
+    event's stamp."""
+    ops = torch.ops.profiler
+    return (ops._record_function_enter_new.default,
+            ops._record_function_exit._RecordFunction)
+
+
+class span:
+    """``with span("joinml.<layer>"):`` times a layer (see the module
+    docstring).  ``queries`` (ActiveQuery objects) makes the span theirs
+    instead of the calling context's query: a service window holding their
+    rows, opened on the service's thread.  After the block, ``seconds`` is
+    its duration."""
+
+    __slots__ = ("name", "queries", "start", "end", "span_id", "_parent", "_token",
+                 "_rf")
+
+    def __init__(self, name: str, queries: Optional[list] = None):
+        self.name = name
+        self.queries = queries
+        self.start = self.end = 0
+
+    def __enter__(self) -> "span":
+        if self.queries is None:
+            q = _QUERY.get()
+            self.queries = [q] if q is not None else []
+        self._parent = _PARENT.get()
+        self.span_id = next(_SPAN_IDS)
+        self._token = _PARENT.set(self.span_id)
+        self._rf = None
+        if recording() and torch._C._autograd._profiler_enabled():
+            # the clock is read just before the profiler's event opens and
+            # just before it closes, with nothing else between: the event
+            # stamps its ends inside the op, and a thread switched out
+            # between the two reads would part them
+            enter, _ = _annotation_ops()
+            self.start = time.perf_counter_ns()
+            self._rf = enter(self.name, None)
+        else:
+            self.start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self._rf is not None:
+            _, leave = _annotation_ops()
+            with torch._C.DisableTorchFunctionSubclass():
+                self.end = time.perf_counter_ns()
+                leave(self._rf)
+        else:
+            self.end = time.perf_counter_ns()
+        _PARENT.reset(self._token)
+        _finish(self.name, self.start, self.end, self.span_id, self._parent,
+                self.queries)
+
+    @property
+    def seconds(self) -> float:
+        return (self.end - self.start) / 1e9
+
+
+def _finish(name, start, end, span_id, parent, queries) -> Span:
+    qid = (None if not queries else queries[0].id if len(queries) == 1
+           else tuple(q.id for q in queries))
+    s = Span(name, start, end, span_id, parent, qid)
+    for q in queries:
+        q.add(s)
+    if recording():
+        _LOG.add(s)
+    return s
+
+
+def record(name: str, start: int, end: int, query: Optional[ActiveQuery] = None,
+           parent: Optional[int] = None) -> Span:
+    """A span whose ends (``perf_counter_ns``) were read elsewhere, such as
+    a flush's wait from its client's thread to the service's dispatch."""
+    return _finish(name, start, end, next(_SPAN_IDS), parent,
+                   [query] if query is not None else [])
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` to the active query's counter ``name`` and, while the log
+    records, to the log's."""
+    q = _QUERY.get()
+    if q is not None:
+        q.count(name, n)
+    if recording():
+        _LOG.count(name, n)
+
+
+def log_count(name: str, n) -> None:
+    """Add ``n`` (an int, or a tensor summed on its device with no copy to
+    the host) to the log's counter ``name`` alone, while the log records."""
+    if recording():
+        _LOG.count(name, n)
+
+
+@contextlib.contextmanager
+def query():
+    """Make a query active for the block, with its root span
+    ``joinml.query``; inside an active query, the active one."""
+    q = _QUERY.get()
+    if q is not None:
+        yield q
+        return
+    q = ActiveQuery()
+    token = _QUERY.set(q)
+    try:
+        with span(_ROOT):
+            yield q
+    finally:
+        _QUERY.reset(token)
+
+
+def traced_query(fn):
+    """Run ``fn`` inside :func:`query` and lay the query's timings, spans and
+    counters on the ``QueryResult`` it returns."""
+
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        with query() as q:
+            res = fn(*args, **kwargs)
+        return q.attach(res)
+
+    return run

@@ -82,7 +82,10 @@ Architecture
   charged* with a retryable :class:`AdmissionRejected`.  Worker hosts are
   health-checked in the background — a failing host is unregistered (its
   shards fall back to local execution) and automatically
-  re-registered when its ping answers again.
+  re-registered when its ping answers again.  Each flush's wait from its
+  enqueue to its window's dispatch is its query's span ``joinml.queue_wait``
+  (and the tracker's ``service.window.assembly_ms``); each window is a span
+  ``joinml.service.window`` of every query whose rows it holds.
 
 The window/plan/commit machinery here is transport-agnostic, and
 ``repro_torch.serve.transport`` puts a network in front of it: remote client
@@ -97,6 +100,7 @@ docs/serving.md.
 """
 from __future__ import annotations
 
+import contextvars
 import dataclasses
 import threading
 import time
@@ -117,6 +121,7 @@ from ..obs import (
     NoopTracker,
     StreamingHistogram,
     merge_snapshots,
+    telemetry,
 )
 from .transport import ThroughputEWMA
 
@@ -167,9 +172,12 @@ class _Segment:
     fn: Optional[Callable] = None
     idx: Optional[np.ndarray] = None
     client_id: Optional[int] = None
-    # observability: enqueue time (window assembly latency) + deadline class
-    t_enqueue: float = 0.0
+    # observability: enqueue time (``perf_counter_ns``; the queue_wait span
+    # starts there) + deadline class, and the submitter's query and open span
+    t_enqueue: int = 0
     qclass: str = "default"
+    query: Optional[telemetry.ActiveQuery] = None
+    span_id: Optional[int] = None
 
     def group_key(self):
         return self.key if self.raw else self.oracle.service_group()
@@ -449,10 +457,12 @@ class OracleService:
                     raise AdmissionRejected(qclass, deadline_ms, predicted,
                                             queued)
             requests, batch._pending = batch._pending, []
+            query, parent = telemetry.current()
             seg = _Segment(
                 batch=batch, oracle=batch.oracle, requests=requests,
                 future=Future(), rows=rows,
-                t_enqueue=time.monotonic(), qclass=qclass,
+                t_enqueue=time.perf_counter_ns(), qclass=qclass,
+                query=query, span_id=parent,
             )
             self._queue.append(seg)
             self._queued_rows += rows
@@ -468,7 +478,7 @@ class OracleService:
 
         def done(_fut) -> None:
             self.tracker.observe(
-                name, (time.monotonic() - seg.t_enqueue) * 1e3
+                name, (time.perf_counter_ns() - seg.t_enqueue) / 1e6
             )
 
         seg.future.add_done_callback(done)
@@ -510,7 +520,7 @@ class OracleService:
             batch=None, oracle=None, requests=[], future=Future(),
             rows=int(len(idx)), raw=True, key=("wire", str(name)), fn=fn,
             idx=idx, client_id=client_id,
-            t_enqueue=time.monotonic(), qclass="remote",
+            t_enqueue=time.perf_counter_ns(), qclass="remote",
         )
         with self._cv:
             if self._closed:
@@ -778,16 +788,19 @@ class OracleService:
                 # queue behind it (admission control's backlog view)
                 self._queued_rows -= rows
                 self._inflight_rows = rows
-            if self._tracking:
-                t_dispatch = time.monotonic()
-                for seg in window:
-                    self.tracker.observe(
-                        "service.window.assembly_ms",
-                        (t_dispatch - seg.t_enqueue) * 1e3,
-                    )
+            t_dispatch = time.perf_counter_ns()
+            for seg in window:
+                wait = telemetry.record("joinml.queue_wait", seg.t_enqueue,
+                                        t_dispatch, seg.query, seg.span_id)
+                if self._tracking:
+                    self.tracker.observe("service.window.assembly_ms",
+                                         wait.seconds * 1e3)
+            queries = list({id(seg.query): seg.query for seg in window
+                            if seg.query is not None}.values())
             t_proc = time.perf_counter()
             try:
-                self._process(window)
+                with telemetry.span("joinml.service.window", queries=queries):
+                    self._process(window)
             except BaseException as e:  # noqa: BLE001 — dispatcher must survive
                 for seg in window:
                     if not seg.future.done():
@@ -1039,11 +1052,15 @@ class OracleService:
         labels += ["local"] * (n_shards - n_remote)
         shards = self._capacity_split(idx, labels)
         self.backend_calls += n_shards
+        # each shard runs in a copy of the window's context: its spans nest
+        # under the window's
         futs = [
-            self._pool.submit(self._execute_remote, w, key[1], fn, s)
+            self._pool.submit(contextvars.copy_context().run,
+                              self._execute_remote, w, key[1], fn, s)
             for w, s in zip(remotes, shards[:n_remote])
         ]
-        futs += [self._pool.submit(self._execute_local, fn, s)
+        futs += [self._pool.submit(contextvars.copy_context().run,
+                                   self._execute_local, fn, s)
                  for s in shards[n_remote:]]
         return np.concatenate(
             [np.asarray(f.result(), np.float64) for f in futs]

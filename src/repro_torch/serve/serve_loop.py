@@ -27,6 +27,7 @@ import torch
 
 from ..device import resolve_device
 from ..launch.sharding import data_parallel, mesh_batch_shards
+from ..obs.telemetry import count, span
 from ..models import Model, decode_step, forward, init_cache
 from ..models.config import ModelConfig
 
@@ -59,6 +60,13 @@ class PairScorer:
     ``forward_batches`` counts forward invocations of the whole batch —
     the unit the ceil(unique / batch_size) bound is stated in — and
     ``pairs_scored`` the pairs scored.
+
+    ``score`` is the span ``joinml.score``, split into ``score.tokenize``
+    (tokens and each batch's padding), ``score.forward`` (the upload and the
+    forward's launches) and ``score.readback`` (the copy to the host, which
+    waits for the device); it counts ``scorer.tokens_useful`` (each pair's
+    unpadded length) and ``scorer.tokens_forwarded`` (rows, padding rows
+    included, times padded length).
     """
 
     def __init__(self, cfg: ModelConfig, params: Model, tokenize_pair: Callable,
@@ -116,31 +124,41 @@ class PairScorer:
         n = len(pairs)
         if n == 0:
             return np.zeros(0, np.float64)
-        seqs = self._tokenize(pairs)
-        lens = np.fromiter((len(s) for s in seqs), np.int64, n)
-        pad_of = self._buckets[np.searchsorted(self._buckets, lens)]
-        out = np.empty(n, np.float64)
-        bs = self.batch_size
-        rows = torch.arange(bs, device=self.device)
-        cols = torch.tensor([self.yes_id, self.no_id], device=self.device)
-        for pad_len in np.unique(pad_of):
-            sel = np.nonzero(pad_of == pad_len)[0]
-            for s in range(0, len(sel), bs):
-                idxs = sel[s : s + bs]
-                toks, last = self._pad_block([seqs[i] for i in idxs], int(pad_len))
-                pad_rows = bs - len(idxs)
-                if pad_rows:
-                    toks = np.concatenate(
-                        [toks, np.zeros((pad_rows, int(pad_len)), np.int32)]
-                    )
-                    last = np.concatenate([last, np.zeros(pad_rows, np.int32)])
-                logits = self._fwd(self.params, {
-                    "tokens": torch.from_numpy(toks).to(self.device)}).to(self.device)
-                self.forward_batches += 1
-                last_t = torch.from_numpy(last).to(self.device).long()
-                lg = logits[rows, last_t][:, cols].double().cpu().numpy()
-                out[idxs] = _stable_yes_no_prob(lg)[: len(idxs)]
+        with span("joinml.score"):
+            with span("joinml.score.tokenize"):
+                seqs = self._tokenize(pairs)
+            lens = np.fromiter((len(s) for s in seqs), np.int64, n)
+            pad_of = self._buckets[np.searchsorted(self._buckets, lens)]
+            out = np.empty(n, np.float64)
+            bs = self.batch_size
+            rows = torch.arange(bs, device=self.device)
+            cols = torch.tensor([self.yes_id, self.no_id], device=self.device)
+            forwarded = 0
+            for pad_len in np.unique(pad_of):
+                sel = np.nonzero(pad_of == pad_len)[0]
+                for s in range(0, len(sel), bs):
+                    idxs = sel[s : s + bs]
+                    with span("joinml.score.tokenize"):
+                        toks, last = self._pad_block([seqs[i] for i in idxs], int(pad_len))
+                        pad_rows = bs - len(idxs)
+                        if pad_rows:
+                            toks = np.concatenate(
+                                [toks, np.zeros((pad_rows, int(pad_len)), np.int32)]
+                            )
+                            last = np.concatenate([last, np.zeros(pad_rows, np.int32)])
+                    with span("joinml.score.forward"):
+                        logits = self._fwd(self.params, {
+                            "tokens": torch.from_numpy(toks).to(self.device)}).to(self.device)
+                        last_t = torch.from_numpy(last).to(self.device).long()
+                        lg = logits[rows, last_t][:, cols].double()
+                    with span("joinml.score.readback"):
+                        lg = lg.cpu().numpy()
+                    self.forward_batches += 1
+                    forwarded += bs * int(pad_len)
+                    out[idxs] = _stable_yes_no_prob(lg)[: len(idxs)]
         self.pairs_scored += n
+        count("scorer.tokens_useful", int(lens.sum()))
+        count("scorer.tokens_forwarded", forwarded)
         return out
 
 
