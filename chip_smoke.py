@@ -23,6 +23,10 @@ shape (bf16 and f32) and at the other families' attention shapes
 (recurrentgemma's training MQA among them), beside SDPA's forward and
 backward; K6's at rwkv6-1.6b's training shape (bf16 r, k, v in the model's
 layout) and K7's at recurrentgemma-9b's, under ``checks.*_scan_grad_bound``;
+(3d) K8, the bootstrap-t's resampling, against its plain NumPy version at
+the labels cell's shape (16 strata x 1,000 samples, 1,000 resamples; COUNT
+and AVG): the same draws, the Generator's state after, the moments within
+1e-10, bit for bit twice; its kernels' device time and the whole call's;
 (4) the query path:
 ``JoinMLEngine.execute`` on 32,768 x 32,768 records at d = 384 (COUNT, SUM,
 AVG; COUNT at bf16, at int8 and on the two-pass schedule; a catalog with
@@ -2541,6 +2545,86 @@ def scan_backwards():
 
 
 # ---------------------------------------------------------------------------
+# phase 3d: K8, the bootstrap-t's resampling
+# ---------------------------------------------------------------------------
+
+BOOT_SOURCE = "src/repro_torch/csrc/bootstrap_kernels.cu"
+BOOT_REPLACES = ("none: the reference draws its resamples with numpy's Generator and "
+                 "reduces them on the host (src/repro/core/bootstrap.py:56-80)")
+BOOT_KERNELS = ("bootstrap_detect", "bootstrap_moments", "bootstrap_reduce")
+# the labels cell's bootstrap: 16 strata of 1,000 sampled pairs, 1,000 resamples
+BOOT_STRATA, BOOT_SAMPLES, BOOT_RESAMPLES = 16, 1000, 1000
+
+
+def bootstrap_kernels():
+    """Phase 3d: K8 against its plain NumPy version (``kernels/plain.py``)
+    at the labels cell's shape, COUNT and AVG: the Generator's state after
+    and the rejections equal, the moments within 1e-10 of each row's
+    largest, the card's twice bit for bit.  Then its kernels' device time a
+    call (torch.profiler: the three kernels summed), the whole call's wall
+    time (host clock: copies and the host's rejection walk included), the
+    plain version's, and the bound of ``kernel_work.bootstrap``.  Returns
+    [COUNT's row, AVG's row]."""
+    from repro_torch.kernels import plain
+    from repro_torch.kernels.bootstrap_t.kernel import resample_moments_cuda
+    from repro_torch.roofline import kernel_work
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    st, ct = [], []
+    for _ in range(BOOT_STRATA):
+        n = BOOT_SAMPLES
+        o = (rng.random(n) < 0.4).astype(float)
+        q = rng.dirichlet(np.ones(n)) + 1e-6
+        s_t, c_t = rng.lognormal(1.0, 0.7, n) * o / q, o / q
+        st.append(s_t - s_t.mean())
+        ct.append(c_t - c_t.mean())
+    state = np.random.default_rng(SEED + 1).bit_generator.state
+    draws = BOOT_STRATA * BOOT_SAMPLES * BOOT_RESAMPLES
+    rows = []
+    for agg, flags, arrays in (("COUNT", plain.MOMENT_COUNT, 1), ("AVG", 7, 2)):
+        terms = (st if flags & plain.MOMENT_SUM else None,
+                 ct if flags & plain.MOMENT_COUNT else None)
+
+        def card(terms=terms, flags=flags):
+            return resample_moments_cuda(*terms, BOOT_RESAMPLES, state, flags, dev)
+
+        t0 = time.perf_counter()
+        want, want_state, want_rej = plain.resample_moments_plain(*terms, BOOT_RESAMPLES,
+                                                                  state, flags)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        got, got_state, got_rej = card()
+        again = card()[0]
+        if got_state != want_state or got_rej != want_rej:
+            fail(f"bootstrap {agg}: the card's draws are not the Generator's")
+        if not np.array_equal(got, again):
+            fail(f"bootstrap {agg}: two runs on the card differ")
+        scale = np.abs(want).max(axis=1, keepdims=True)
+        err = float((np.abs(got - want) / np.where(scale > 0, scale, 1.0)).max())
+        if err > 1e-10:
+            fail(f"bootstrap {agg}: moments {err:.3g} from the plain version's")
+        by_kernel = device_ms_by_kernel(card, 5)
+        kernel_ms = sum(v for k, v in by_kernel.items() if "boot_" in k)
+        walls = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            card()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        flops, byts, peak = kernel_work.work("bootstrap", draws=draws,
+                                             samples=BOOT_STRATA * BOOT_SAMPLES,
+                                             n_boot=BOOT_RESAMPLES, arrays=arrays)
+        row = _row(kernel_ms, plain_ms, flops, byts, peak)
+        row.update(shape=f"{agg}: {BOOT_STRATA} strata x {BOOT_SAMPLES} samples, n_boot "
+                         f"{BOOT_RESAMPLES}", call_ms=float(np.median(walls)),
+                   call_ms_range=[min(walls), max(walls)], rejections=got_rej,
+                   max_rel_err=err, by_kernel_ms=by_kernel,
+                   library_note="no PyTorch call replays numpy's Generator")
+        log(json.dumps({"check": "bootstrap", **row}))
+        rows.append(row)
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phase 11: training joinml-oracle at full width
 # ---------------------------------------------------------------------------
 
@@ -4518,6 +4602,8 @@ def main():
     # phase 3c: the backward kernels (K5's, K6's, K7's)
     bwd_rows = flash_backward()
     scan_bwd_rows = scan_backwards()
+    # phase 3d: the bootstrap-t's resampling (K8)
+    boot_rows = bootstrap_kernels()
 
     # phase 4: the main path, counts read around the whole phase
     cuda_lib.reset_launches()
@@ -4643,6 +4729,14 @@ def main():
                      "replaces": SCAN_BWD_REPLACES[name],
                      "launches": recurrent_launches[arch].get(name, 0), **scan_bwd_rows[name],
                      "launches_by_path": {p: n.get(name, 0) for p, n in training.items()}})
+    boot_row, *other_boot = boot_rows
+    rows.append({"name": "bootstrap", "route": "cuda", "source": BOOT_SOURCE,
+                 "replaces": BOOT_REPLACES,
+                 "launches": {k: launches.get(k, 0) for k in BOOT_KERNELS}, **boot_row,
+                 "launches_by_path": {"query path (4)": {k: launches.get(k, 0)
+                                                         for k in BOOT_KERNELS}} | {
+                     p: {k: n.get(k, 0) for k in BOOT_KERNELS} for p, n in paths_4b.items()},
+                 "other_shapes": other_boot})
     log(json.dumps({"kernels": rows}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

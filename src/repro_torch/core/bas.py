@@ -178,9 +178,11 @@ def run_stratified_pipeline(
     rng: np.random.Generator,
     space: StratifiedSpace,
     detail: dict,
+    device="cuda",
 ) -> QueryResult:
     """Alg. 4 lines 6-17 on an abstract stratified space (shared by the dense
-    and streaming BAS paths).  Each stage is a span of the active query."""
+    and streaming BAS paths).  Each stage is a span of the active query;
+    the bootstrap-t runs where the query runs (``device``)."""
     sizes, weight_sums = space.sizes, space.weight_sums
     k = len(sizes) - 1
     b = query.budget
@@ -267,7 +269,8 @@ def run_stratified_pipeline(
         live = [samples[i] for i in range(k + 1) if i not in beta and samples[i] is not None]
         if query.agg in (Agg.COUNT, Agg.SUM, Agg.AVG):
             est, ci = bootstrap_t_ci(
-                live, blocked, query.agg, query.confidence, cfg.n_bootstrap, rng
+                live, blocked, query.agg, query.confidence, cfg.n_bootstrap, rng,
+                device=device,
             )
         elif query.agg in (Agg.MIN, Agg.MAX):
             est = combined_extreme(live, blocked, query.agg.value)
@@ -373,7 +376,7 @@ def run_bas(
         return run_exact(query)
 
     space = build_dense_space(query, cfg, rng, weights, device)
-    return run_stratified_pipeline(query, cfg, rng, space, {"mode": "bas"})
+    return run_stratified_pipeline(query, cfg, rng, space, {"mode": "bas"}, device)
 
 
 def _bootstrap_median_ci(samples, blocked, p, n_boot, rng):

@@ -276,5 +276,5 @@ def run_bas_streaming(
         index_store=index_store, device=device,
     )
     return run_stratified_pipeline(
-        query, cfg, rng, space, {"mode": "bas_streaming", **extra},
+        query, cfg, rng, space, {"mode": "bas_streaming", **extra}, device,
     )

@@ -202,10 +202,11 @@ def run_cascade_pipeline(
     rng: np.random.Generator,
     space: StratifiedSpace,
     detail: dict,
+    device="cuda",
 ) -> QueryResult:
     """Stages 2-5 of the cascade on an abstract stratified space (dense and
     streaming regimes share this code exactly like plain BAS shares
-    ``run_stratified_pipeline``)."""
+    ``run_stratified_pipeline``); the bootstrap-t runs on ``device``."""
     sizes, weight_sums = space.sizes, space.weight_sums
     k = len(sizes) - 1
     b = query.budget
@@ -315,7 +316,8 @@ def run_cascade_pipeline(
         corr_live = [corr[i] for i in sampled_ids if corr[i] is not None]
         live += corr_live
         est, ci = bootstrap_t_ci(
-            live, blocked, query.agg, query.confidence, cfg.n_bootstrap, rng
+            live, blocked, query.agg, query.confidence, cfg.n_bootstrap, rng,
+            device=device,
         )
 
     proxy_rows = sum(
@@ -419,7 +421,7 @@ def run_bas_cascade(
                 index_store=index_store, device=device,
             )
             detail = {"mode": "bas-cascade", **extra}
-        return run_cascade_pipeline(query, proxy, cfg, rng, space, detail)
+        return run_cascade_pipeline(query, proxy, cfg, rng, space, detail, device)
     finally:
         if attached:
             svc.detach(proxy)

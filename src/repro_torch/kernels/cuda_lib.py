@@ -166,6 +166,16 @@ def lib() -> ctypes.CDLL:
             so.repro_rglru_scan.restype = ci
             so.repro_rglru_scan_bwd.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
             so.repro_rglru_scan_bwd.restype = ci
+            u64, cu, ll = ctypes.c_uint64, ctypes.c_uint, ctypes.c_longlong
+            gen = [vp, u64, u64, u64, u64, ci, cu]  # jump table, state, inc, half-word
+            so.repro_boot_detect.argtypes = [
+                *gen, ci, vp, vp, vp, vp, vp, ll, ci, vp, vp, vp, vp,
+            ]
+            so.repro_boot_detect.restype = ci
+            so.repro_boot_moments.argtypes = [
+                *gen, ci, ci, vp, vp, vp, vp, vp, ci, vp, ci, ci, vp, vp, vp,
+            ]
+            so.repro_boot_moments.restype = ci
             _lib = so
         return _lib
 

@@ -13,6 +13,9 @@ InfiniBand port a card between nodes.
 PEAK_FLOPS_F32 = 67e12
 PEAK_FLOPS_BF16 = 989e12
 PEAK_OPS_INT8 = 1979e12
+# the same datasheet: FP64 on the CUDA cores 34 TFLOP/s (67 on the tensor
+# cores, which no kernel of the port uses for f64)
+PEAK_FLOPS_F64 = 34e12
 # the same datasheet: HBM3, 3.35 TB/s
 HBM_BW = 3.35e12
 # ``torch.cuda.get_device_properties(0).total_memory`` of an NVIDIA H100 80GB

@@ -27,6 +27,15 @@ Kernels and their shapes:
 * ``rglru_scan`` / ``rglru_scan_bwd`` (K7): an FMA an element and step; a,
   g read and h written in f32 (the backward reads a, h, dh and writes da,
   dg: 20 bytes an element).
+* ``bootstrap`` (K8): the bootstrap-t's ``draws`` resample draws over
+  ``samples`` sampled pairs, ``n_boot`` resamples, the SUM or COUNT terms
+  (``arrays`` 1) or both with their cross term (AVG, ``arrays`` 2): a
+  draw's term added to its resample's sum and its deviation squared and
+  added (an add, a subtraction and an FMA: 4 f64 operations an array),
+  the cross term an FMA more; each term read once, the moments the
+  aggregate reads (2 rows of n_boot f64 an array, 1 more for the cross
+  term) written once, against the FP64 peak.  The integer work of the
+  draws themselves is not counted.
 """
 from __future__ import annotations
 
@@ -104,9 +113,16 @@ def rglru_scan_bwd(b, t, r):
     return 2.0 * b * t * r, 20 * b * t * r, hw.PEAK_FLOPS_F32
 
 
+def bootstrap(draws, samples, n_boot, arrays=1):
+    cross = arrays == 2
+    flops = draws * (4.0 * arrays + (2.0 if cross else 0.0))
+    byts = 8 * samples * arrays + 8 * n_boot * (2 * arrays + int(cross))
+    return flops, byts, hw.PEAK_FLOPS_F64
+
+
 KERNELS = {f.__name__: f for f in (sim_sweep, sim_topk, sim_hist, flash_attention,
                                    flash_attention_bwd, rwkv6_scan, rwkv6_scan_bwd,
-                                   rglru_scan, rglru_scan_bwd)}
+                                   rglru_scan, rglru_scan_bwd, bootstrap)}
 
 
 def work(kernel: str, **shape) -> tuple:

@@ -1,7 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions, on the card
 (marker ``cuda``; run with ``pytest -m cuda tests/test_torch_cuda.py``): the
 similarity kernels K1-K4, then the model-stack kernels K5-K7 and the models
-that run them.
+that run them, and the bootstrap-t's resampling K8 against the numpy path.
 
 Whether a card is present is decided inside the ``card`` fixture, so every
 worker collects the same tests; without a card they skip.
@@ -412,6 +412,155 @@ def test_query_on_card_matches_cpu(card):
     assert b.estimate == pytest.approx(a.estimate, rel=1e-6)
     assert b.ci.lo == pytest.approx(a.ci.lo, rel=1e-6)
     assert b.ci.hi == pytest.approx(a.ci.hi, rel=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# K8: the bootstrap-t's resamples on the card
+# ---------------------------------------------------------------------------
+
+# strata of 2, 1,000 and 20,000 samples (AVG's 20,000 x 16 B exceed a
+# CTA's shared memory and are read from L2; COUNT's and SUM's 160 KB fit)
+BOOT_SIZES = (2, 1000, 20000, 2, 37)
+BOOT_ROWS = {"SUM": [0, 2], "COUNT": [1, 3], "AVG": [0, 1, 2, 3, 4]}
+
+
+def _boot_strata(sizes, seed=3):
+    from repro_torch.core.estimators import StratumSample
+
+    rng = np.random.default_rng(seed)
+    return [StratumSample(o=(rng.random(n) < 0.4).astype(float), g=rng.lognormal(1.0, 0.7, n),
+                          q=rng.dirichlet(np.ones(n)) + 1e-6, size=20 * n) for n in sizes]
+
+
+def _boot_terms(samples):
+    usable = [s for s in samples if s.n > 1]
+    return ([s.sum_terms() - s.sum_terms().mean() for s in usable],
+            [s.count_terms() - s.count_terms().mean() for s in usable])
+
+
+def _card_moments(card, st, ct, agg, n_boot, rng):
+    from repro_torch.core import bootstrap
+    from repro_torch.core.types import Agg
+
+    return np.array(bootstrap._moments_card(st, ct, Agg[agg], n_boot, rng, card))
+
+
+def _assert_moments_close(got, want, rows):
+    """The rows the aggregate reads within 1e-10 of each row's largest
+    (the card sums in another order than numpy); the rest 0."""
+    scale = np.abs(want[rows]).max(axis=1, keepdims=True)
+    assert (np.abs(got[rows] - want[rows]) <= 1e-10 * scale).all()
+    assert not got[[r for r in range(5) if r not in rows]].any()
+
+
+@pytest.mark.parametrize("agg", ["COUNT", "SUM", "AVG"])
+def test_bootstrap_kernel_matches_numpy(card, agg):
+    """The card's draws are the Generator's: its moments match the numpy
+    path's from the same seed, the Generator ends where numpy leaves it,
+    a second run is bit for bit, and the CI is the numpy path's within
+    1e-9 relative."""
+    from repro_torch.core import bootstrap
+    from repro_torch.core.estimators import BlockedRegime
+    from repro_torch.core.types import Agg
+
+    samples = _boot_strata(BOOT_SIZES)
+    st, ct = _boot_terms(samples)
+    host_rng, card_rng = np.random.default_rng(9), np.random.default_rng(9)
+    for r in (host_rng, card_rng):
+        r.integers(0, 5, 1)  # a half-word buffered on entry
+    want = np.array(bootstrap._moments_host(st, ct, 1000, host_rng))
+    before = card_rng.bit_generator.state
+    got = _card_moments(card, st, ct, agg, 1000, card_rng)
+    assert card_rng.bit_generator.state == host_rng.bit_generator.state
+    _assert_moments_close(got, want, BOOT_ROWS[agg])
+    again = np.random.default_rng()
+    again.bit_generator.state = before
+    np.testing.assert_array_equal(_card_moments(card, st, ct, agg, 1000, again), got)
+    blocked = BlockedRegime(o=np.ones(4), g=np.full(4, 2.0))
+    est_h, ci_h = bootstrap.bootstrap_t_ci(samples, blocked, Agg[agg], 0.95, 1000,
+                                           np.random.default_rng(21))
+    est_c, ci_c = bootstrap.bootstrap_t_ci(samples, blocked, Agg[agg], 0.95, 1000,
+                                           np.random.default_rng(21), device=card)
+    assert est_c == est_h
+    assert abs(ci_c.lo - ci_h.lo) <= 1e-9 * abs(ci_h.lo)
+    assert abs(ci_c.hi - ci_h.hi) <= 1e-9 * abs(ci_h.hi)
+
+
+@pytest.mark.parametrize("slack", [None, 0])
+def test_bootstrap_kernel_resolves_many_rejections(card, monkeypatch, slack):
+    """A stratum of 1.5e6 samples rejects about 1e-4 of its words: some
+    1,600 rejections in 10 resamples.  With no slack, the detecting kernel's
+    list and word range both run short and are raised."""
+    from repro_torch.core import bootstrap
+    from repro_torch.kernels import plain
+
+    if slack is not None:
+        monkeypatch.setattr(plain, "rejection_slack", lambda highs, counts: slack)
+    samples = _boot_strata((1_500_000, 3))
+    st, ct = _boot_terms(samples)
+    host_rng, card_rng = np.random.default_rng(5), np.random.default_rng(5)
+    want = np.array(bootstrap._moments_host(st, ct, 10, host_rng))
+    cuda_lib.reset_launches()
+    got = _card_moments(card, st, ct, "COUNT", 10, card_rng)
+    assert card_rng.bit_generator.state == host_rng.bit_generator.state
+    _assert_moments_close(got, want, BOOT_ROWS["COUNT"])
+    assert cuda_lib.LAUNCHES["bootstrap_detect"] == (1 if slack is None else 3)
+    assert cuda_lib.LAUNCHES["bootstrap_moments"] == 1
+
+
+def test_bootstrap_threads_do_not_wait_on_the_default_stream(card):
+    """Two threads' bootstraps, each on its own stream, finish while a long
+    kernel still holds the default stream, with the results of a serial
+    run."""
+    import threading
+
+    samples = _boot_strata((1000, 500, 2000))
+    st, ct = _boot_terms(samples)
+    serial = [_card_moments(card, st, ct, "AVG", 1000, np.random.default_rng(s))
+              for s in (1, 2)]
+    got, errors = {}, []
+    start = threading.Barrier(3)
+
+    def client(seed):
+        try:
+            _card_moments(card, st, ct, "AVG", 1000, np.random.default_rng(seed))  # warm
+            start.wait(timeout=60)
+            start.wait(timeout=60)
+            got[seed] = _card_moments(card, st, ct, "AVG", 1000, np.random.default_rng(seed))
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+            start.abort()
+
+    threads = [threading.Thread(target=client, args=(s,)) for s in (1, 2)]
+    for t in threads:
+        t.start()
+    start.wait(timeout=60)      # both warm
+    torch.cuda._sleep(4_000_000_000)  # about 2 s of the default stream
+    held = torch.cuda.Event()
+    held.record()
+    start.wait(timeout=60)
+    for t in threads:
+        t.join(timeout=60)
+        assert not t.is_alive()
+    still_held = not held.query()
+    torch.cuda.synchronize()
+    assert not errors, errors
+    assert still_held
+    for i, s in enumerate((1, 2)):
+        np.testing.assert_array_equal(got[s], serial[i])
+
+
+def test_query_on_card_counts_its_bootstrap_draws(card):
+    from repro_torch.core import Agg, Query, run_bas_streaming
+    from repro_torch.data import make_clustered_tables
+
+    ds = make_clustered_tables(300, 280, n_entities=120, noise=0.4, seed=5)
+    cuda_lib.reset_launches()
+    res = run_bas_streaming(Query(spec=ds.spec(), agg=Agg.AVG, oracle=ds.oracle(), budget=1500),
+                            seed=0, device=card)
+    c = res.telemetry.counters
+    assert c["ci.draws_device"] > 0 and "ci.draws_host" not in c
+    assert cuda_lib.LAUNCHES["bootstrap_moments"] == 1
 
 
 # ---------------------------------------------------------------------------

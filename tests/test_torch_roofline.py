@@ -113,6 +113,10 @@ PERF_BOUNDS = [
     ("rwkv6_scan_bwd", dict(b=1, h=32, t=4096, hd=64), "0.1122", "operations"),
     ("rglru_scan", dict(b=256, t=48, r=4096), "0.180", "bytes"),
     ("rglru_scan_bwd", dict(b=8, t=128, r=4096), "0.0250", "bytes"),
+    ("bootstrap", dict(draws=16 * 1000 * 1000, samples=16000, n_boot=1000), "0.00188",
+     "operations"),
+    ("bootstrap", dict(draws=16 * 1000 * 1000, samples=16000, n_boot=1000, arrays=2),
+     "0.00471", "operations"),
 ]
 
 

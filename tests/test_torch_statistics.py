@@ -1,7 +1,11 @@
 """The port's host statistics are numpy copies of the reference's, so on the
 same seeded inputs they must give the same numbers bit for bit: allocation,
 the combined estimators, the bootstrap-t CI, the flat and per-row
-categorical samplers, and the Oracle ledger with its batched flushes."""
+categorical samplers, and the Oracle ledger with its batched flushes.
+
+The card's bootstrap (K8) replays the Generator's resample draws: its plain
+NumPy version (``kernels/plain.py``) is held here to ``Generator.integers``
+draw for draw, state after included, and its moments to the numpy path's."""
 import numpy as np
 import pytest
 
@@ -13,6 +17,9 @@ from repro.core import wander as r_wander
 from repro.core.types import Agg as RAgg
 from repro_torch.core import allocate, bootstrap, estimators, oracle, wander
 from repro_torch.core.types import Agg
+from repro_torch.kernels import plain
+from repro_torch.kernels.bootstrap_t import resample_moments
+from repro_torch.obs import telemetry
 
 
 def _strata(mod, seed, k=5):
@@ -75,6 +82,81 @@ def test_bootstrap_bit_equal(agg, seed):
                               np.random.default_rng(seed))
     assert a[0] == b[0]
     assert (a[1].lo, a[1].hi, a[1].p) == (b[1].lo, b[1].hi, b[1].p)
+
+
+def _generator(seed, buffered):
+    """A PCG64 Generator, holding a half-word on entry where ``buffered``."""
+    rng = np.random.default_rng(seed)
+    if buffered:
+        rng.integers(0, 10, 1)
+    assert rng.bit_generator.state["has_uint32"] == int(buffered)
+    return rng
+
+
+@pytest.mark.parametrize("highs,n_boot,buffered", [
+    ([5, 7, 1000], 4, True),           # a half-word buffered on entry
+    ([2, 2, 3, 2], 101, False),        # strata of 2, an odd n_boot
+    ([17, 1000, 2, 40], 999, True),    # several strata, an odd n_boot
+])
+def test_replayed_resamples_equal_generator(highs, n_boot, buffered):
+    """The card's draw scheme gives each stratum's
+    ``integers(0, n_i, size=(n_boot, n_i))`` in order, and the state
+    after them."""
+    rng = _generator(7, buffered)
+    highs = np.array(highs)
+    draws, after, _ = plain.replay_integers(rng.bit_generator.state, highs, n_boot * highs)
+    for n, got in zip(highs, draws, strict=True):
+        np.testing.assert_array_equal(got.reshape(n_boot, n),
+                                      rng.integers(0, n, size=(n_boot, n)))
+    assert after == rng.bit_generator.state
+
+
+@pytest.mark.parametrize("buffered", [False, True])
+def test_replay_resolves_rejections(buffered):
+    """Ranges just over 2**31 and at 3e9 reject about half and a third of
+    their words: thousands of rejections, runs of them at one draw, and
+    strata boundaries crossed with a large word offset."""
+    rng = _generator(8, buffered)
+    highs, counts = [2**31 + 12_345, 3 * 10**9, 7], [2000, 2000, 5]
+    draws, after, n_rej = plain.replay_integers(rng.bit_generator.state, highs, counts)
+    assert n_rej > 1000
+    for n, c, got in zip(highs, counts, draws, strict=True):
+        np.testing.assert_array_equal(got, rng.integers(0, n, size=c))
+    assert after == rng.bit_generator.state
+
+
+def _centred(samples):
+    usable = [s for s in samples if s.n > 1]
+    st = [s.sum_terms() - s.sum_terms().mean() for s in usable]
+    ct = [s.count_terms() - s.count_terms().mean() for s in usable]
+    return st, ct
+
+
+@pytest.mark.parametrize("flags,rows", [(plain.MOMENT_SUM, [0, 2]),
+                                        (plain.MOMENT_COUNT, [1, 3]),
+                                        (7, [0, 1, 2, 3, 4])])
+def test_plain_resample_moments_equal_numpy(flags, rows):
+    """The moments the card computes, by its draw scheme, against the numpy
+    path's (``rng.integers`` and the reference's reductions): the rows the
+    aggregate reads within 1e-12 of each row's largest, the rest 0, the
+    Generator left where numpy leaves it."""
+    st, ct = _centred(_strata(estimators, 5, k=7)[0])
+    host_rng, plain_rng = _generator(4, True), _generator(4, True)
+    want = np.array(bootstrap._moments_host(st, ct, 301, host_rng))
+    got, _ = resample_moments(st if flags & plain.MOMENT_SUM else None,
+                              ct if flags & plain.MOMENT_COUNT else None,
+                              301, plain_rng, flags, device="cpu")
+    assert plain_rng.bit_generator.state == host_rng.bit_generator.state
+    scale = np.abs(want[rows]).max(axis=1, keepdims=True)
+    assert (np.abs(got[rows] - want[rows]) <= 1e-12 * scale).all()
+    assert not got[[r for r in range(5) if r not in rows]].any()
+
+
+def test_bootstrap_counts_its_draws_on_the_host():
+    mine, mb = _strata(estimators, 1)
+    with telemetry.query() as q:
+        bootstrap.bootstrap_t_ci(mine, mb, Agg.AVG, 0.95, 300, np.random.default_rng(1))
+    assert q.counters == {"ci.draws_host": 300 * sum(s.n for s in mine if s.n > 1)}
 
 
 @pytest.mark.parametrize("mix", [0.0, 0.2])
