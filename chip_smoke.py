@@ -77,8 +77,10 @@ every token of a batch), and 4 requests through ``ContinuousBatcher``;
 ``pixtral-12b`` scoring 2,048 pairs each; pixtral's forward over 256
 seeded patches before a 48-token prompt, batch 4; and the full
 ``whisper-medium``'s forward over (4, 1,500) seeded frames and a 48-token
-prompt, then 16 decode steps.  Flash attention is also checked and timed at
-those models' shapes (phase 3); (10) the serving plane: (10a) eight
+prompt, then 16 decode steps; and (9e) the full ``moonlight-16b-a3b``
+(latent attention through K5 at q/k 192 against v 128, dropless experts)
+scoring 2,048 pairs.  Flash attention is also checked and timed at those
+models' shapes (phase 3), the latent widths in a row of their own; (10) the serving plane: (10a) eight
 concurrent BaS COUNT queries (seeds 0-7) whose Oracle is phase 6's
 (``ModelOracle(..., name="joinml-oracle")``) through one ``OracleService``
 with a ``LabelStore``, each equal to its serial run bit for bit, the summed
@@ -191,9 +193,16 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:21",
     "rwkv6_scan": "src/repro/kernels/rwkv6_scan/kernel.py:26",
     "rglru_scan": "src/repro/kernels/rglru_scan/kernel.py:24",
+    # K5 at latent attention's widths: the same kernel (the reference has no
+    # latent attention), launched as flash_attention_bf16_kernel<192, 128>
+    "flash_attention_192_128": "src/repro/kernels/flash_attention/kernel.py:21",
 }
 SIM_KERNELS = tuple(REPLACES)[:6]
 MODEL_KERNELS = tuple(REPLACES)[6:]
+LATENT = "flash_attention_192_128"
+# the path whose launches a model kernel's row counts
+MAIN_PATH = {"flash_attention": "Oracle COUNT", "rwkv6_scan": "rwkv6-1.6b",
+             "rglru_scan": "recurrentgemma-9b", LATENT: "moonlight-16b-a3b (9)"}
 # K5's backward has no Pallas counterpart: the reference differentiates its
 # jnp attention
 BWD_REPLACES = ("src/repro/models/layers.py:157 (jax.grad of chunked_attention; "
@@ -2051,10 +2060,11 @@ def moe_oracle_path(size, device):
     return launches
 
 
-def family_scoring(name, size, device, **over):
-    """Phase 9b/9c: ``name`` (cut by ``over``) scores ``family_pairs``
-    pairs, with launch counts set to 0 just before and read just after;
-    also returns the parameters for a forward of its own."""
+def family_scoring(name, size, device, needs=("flash_attention",), **over):
+    """Phase 9b/9c/9e: ``name`` (cut by ``over``) scores ``family_pairs``
+    pairs, with launch counts set to 0 just before and read just after
+    (each of ``needs`` launched at least once); also returns the
+    parameters for a forward of its own."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import cuda_lib
     from repro_torch.models import init_params
@@ -2079,7 +2089,7 @@ def family_scoring(name, size, device, **over):
         "pairs": len(pairs), "forward_batches": scorer.forward_batches, "wall_s": wall,
         "pairs_per_s": len(pairs) / wall, "launches": launches,
         "p_range": [float(p.min()), float(p.max())]}))
-    _path_launches(name, launches, device)
+    _path_launches(name, launches, device, needs)
     del scorer
     return cfg, params, launches
 
@@ -2177,16 +2187,32 @@ def family_paths(size, device):
     _free()
     paths["whisper-medium (9)"] = encdec_path(size, device)
     _free()
+    paths["moonlight-16b-a3b (9)"] = moonlight_path(size, device)
     return paths
 
 
-# (B, Hq, Hkv, Sq, Skv, d, causal, window), bf16 as the models run it.  The
+def moonlight_path(size, device):
+    """Phase 9e: moonlight-16b-a3b whole (latent attention through K5 at q/k
+    192 against v 128, the sigmoid router with its bias, shared experts,
+    the dropless dispatch; reduced on the CPU) scores ``family_pairs``
+    pairs.  Returns its launch counts."""
+    _, params, launches = family_scoring("moonlight-16b-a3b", size, device, needs=(LATENT,),
+                                         moe_capacity_factor=0.0)
+    del params
+    _free()
+    return launches
+
+
+# (B, Hq, Hkv, Sq, Skv, d, causal, window[, dv]), bf16 as the models run it;
+# dv, v's and the output's width, where it differs from q's and k's d (the
+# latent attention's (192, 128), counted as ``flash_attention_192_128``).  The
 # rows named "path" are shapes the main paths give the kernel (the entity
 # pairs are 35-45 tokens, so every batch is padded to the 48-token bucket);
 # phase 9's forwards follow (pixtral's 256 patches before a 48-token prompt,
 # whisper's encoder over its 1,500 frames and the decoder's cross-attention
-# over them, neither causal), then the scorer's 16-token bucket and the long
-# shapes.  The first row is the Oracle path's.
+# over them, neither causal), then the scorer's 16-token bucket, the long
+# shapes, and Moonlight's latent widths at its scorer's 64-, 32- and 16-token
+# buckets (phase 9e).  The first row is the Oracle path's.
 FLASH_SHAPES = {
     "joinml-oracle path": (256, 12, 12, 48, 48, 64, True, 0),
     "recurrentgemma-9b path": (256, 16, 1, 48, 48, 256, True, 2048),
@@ -2198,11 +2224,19 @@ FLASH_SHAPES = {
     "joinml-oracle, 16-token bucket": (256, 12, 12, 16, 16, 64, True, 0),
     "llama3.2-1b heads, S 4096": (1, 32, 8, 4096, 4096, 64, True, 0),
     "recurrentgemma heads, S 4096, window 2048": (1, 16, 1, 4096, 4096, 256, True, 2048),
+    "moonlight-16b-a3b path": (256, 16, 16, 64, 64, 192, True, 0, 128),
+    "moonlight-16b-a3b, 32-token bucket": (256, 16, 16, 32, 32, 192, True, 0, 128),
+    "moonlight-16b-a3b, 16-token bucket": (256, 16, 16, 16, 16, 192, True, 0, 128),
 }
 # (B, H, T, hd); K6 runs them on bf16 (B, T, H, hd) projections as the model
 # holds them, then on f32 (B, H, T, hd) operands
 RWKV_SHAPES = {"rwkv6-1.6b path": (256, 32, 48, 64), "T 4096": (1, 32, 4096, 64)}
 RGLRU_SHAPES = {"recurrentgemma-9b path": (256, 48, 4096), "T 4096": (1, 4096, 4096)}
+
+
+def _flash_widths(shape):
+    """(d, dv) of a ``FLASH_SHAPES`` entry."""
+    return shape[5], shape[8] if len(shape) > 8 else shape[5]
 
 
 def _flash_case(gen, shape, dtype=torch.bfloat16):
@@ -2213,10 +2247,11 @@ def _flash_case(gen, shape, dtype=torch.bfloat16):
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.roofline import kernel_work
 
-    b, hq, hkv, sq, skv, d, causal, window = shape
+    b, hq, hkv, sq, skv, d, causal, window = shape[:8]
+    dv = _flash_widths(shape)[1]
     q = torch.randn((b, hq, sq, d), generator=gen, device="cuda").to(dtype)
     k = torch.randn((b, hkv, skv, d), generator=gen, device="cuda").to(dtype)
-    v = torch.randn((b, hkv, skv, d), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((b, hkv, skv, dv), generator=gen, device="cuda").to(dtype)
     if window:
         qp = torch.arange(sq, device="cuda")[:, None]
         kp = torch.arange(skv, device="cuda")[None, :]
@@ -2230,7 +2265,8 @@ def _flash_case(gen, shape, dtype=torch.bfloat16):
             lambda: flash_attention_ref(q, k, v, causal=causal, window=window),
             lambda: checks.flash_attention_bound(q, k, v, causal=causal, window=window),
             library, *kernel_work.work("flash_attention", b=b, hq=hq, hkv=hkv, sq=sq, skv=skv,
-                                       d=d, causal=causal, window=window, dtype=dtype))
+                                       d=d, causal=causal, window=window, dtype=dtype,
+                                       dv=dv))
 
 
 def _flash_f32_case(gen, shape):
@@ -2283,31 +2319,63 @@ def _rglru_case(gen, shape):
             None, *kernel_work.work("rglru_scan", b=b, t=t, r=r))
 
 
-def model_kernels():
+def model_kernel_row(name, model_rows, paths):
+    """A model kernel's row of the final ``kernels`` line: its first shape's
+    times and check (:func:`model_kernels`), its launches on its main path
+    (``MAIN_PATH``) and on each of ``paths``, its other shapes."""
+    path_row, *other_rows = model_rows[name]
+    return {"name": name, "route": "cuda", "source": MODEL_SOURCE,
+            "replaces": REPLACES[name], "launches": paths[MAIN_PATH[name]].get(name, 0),
+            **path_row, "launches_by_path": {p: n.get(name, 0) for p, n in paths.items()},
+            "other_shapes": other_rows}
+
+
+def latent_kernels():
+    """K5 at latent attention's widths alone (``flash_attention_192_128``):
+    its phase-3b rows, Moonlight's phase-9e path, then its row of the final
+    ``kernels`` line.  ``python -c 'import chip_smoke as c;
+    c.latent_kernels()'`` on a card."""
+    from repro_torch.kernels import cuda_lib
+
+    cuda_lib.build()
+    rows = model_kernels(kernels=(LATENT,))
+    paths = {MAIN_PATH[LATENT]: moonlight_path(FULL_MODEL, "cuda")}
+    row = model_kernel_row(LATENT, rows, paths)
+    log(json.dumps({"kernels": [row]}))
+    return row
+
+
+def model_kernels(kernels=None):
     """Phase 3b: K5-K7 against their plain versions under
     ``checks.check_model_kernel`` (twice the f32 error bound of the
     function, plus half a bf16 ulp on each side) at each shape, then their
     times (CUDA events), beside the bound and, for attention, the yardstick
     ``scaled_dot_product_attention`` (timed here only; the port never calls
     it).  K5 runs at every shape in bf16 (the tensor-core kernel, as the
-    models run it) and then in f32 (the SIMT kernel).  Returns {kernel: [row
-    per shape]}, the first path shape first."""
+    models run it) and then at the equal widths in f32 (the SIMT kernel).
+    Returns {kernel: [row per shape]}, the first path shape first, K5's
+    rows under their launch names (``kernel.launch_name``: the latent
+    widths apart); ``kernels``: only the rows of these names."""
     from repro_torch.kernels import checks
+    from repro_torch.kernels.flash_attention.kernel import launch_name
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = {}
     def cases(shapes, case):
         return {label: (shape, case) for label, shape in shapes.items()}
 
-    f32_shapes = {f"{label}, f32": shape for label, shape in FLASH_SHAPES.items()}
+    f32_shapes = {f"{label}, f32": shape for label, shape in FLASH_SHAPES.items()
+                  if len(set(_flash_widths(shape))) == 1}
     rwkv_f32 = {f"{label}, f32 (B, H, T, hd)": shape for label, shape in RWKV_SHAPES.items()}
     for name, shape_cases in (
             ("flash_attention", cases(FLASH_SHAPES, _flash_case)
              | cases(f32_shapes, _flash_f32_case)),
             ("rwkv6_scan", cases(RWKV_SHAPES, _rwkv_case) | cases(rwkv_f32, _rwkv_f32_case)),
             ("rglru_scan", cases(RGLRU_SHAPES, _rglru_case))):
-        rows[name] = []
         for label, (shape, case) in shape_cases.items():
+            key = launch_name(*_flash_widths(shape)) if name == "flash_attention" else name
+            if kernels is not None and key not in kernels:
+                continue
             kern, plain, bound, library, flops, byts, peak = case(gen, shape)
             got = kern()
             torch.cuda.synchronize()
@@ -2321,8 +2389,8 @@ def model_kernels():
             if library is None:
                 row["library_note"] = "no one PyTorch call computes the recurrence"
             row.update(shape=label, dims=list(shape), **rule)
-            log(json.dumps({"check": name, **row}))
-            rows[name].append(row)
+            log(json.dumps({"check": key, **row}))
+            rows.setdefault(key, []).append(row)
             torch.cuda.empty_cache()
     return rows
 
@@ -4571,8 +4639,8 @@ def main():
             cuda_lib.lib().repro_topk_few_rows_smem_bytes(0),
         f"sim_topk, few-row kernels (<= {cuda_lib.FEW_ROWS} rows), selection":
             cuda_lib.lib().repro_topk_few_rows_smem_bytes(1)} | {
-        f"flash_attention f32 d={d}": fsmem(0, d, 1, 1, 1, 1) for d in (64, 256)} | {
-        f"flash_attention bf16 {label}": fsmem(1, sh[5], sh[1], sh[2], sh[3], sh[4])
+        f"flash_attention f32 d={d}": fsmem(0, d, d, 1, 1, 1, 1) for d in (64, 256)} | {
+        f"flash_attention bf16 {label}": fsmem(1, *_flash_widths(sh), sh[1], sh[2], sh[3], sh[4])
         for label, sh in FLASH_SHAPES.items()} | {
         f"flash_attention_bwd bf16 {part} d={d}":
             cuda_lib.lib().repro_flash_bwd_smem_bytes(which, d)
@@ -4695,8 +4763,6 @@ def main():
                     "phase12_s": phase12_s, "phase13_s": phase13_s,
                     "phase14_s": phase14_s, "phase15_s": time.perf_counter() - t15,
                     "script_s": time.perf_counter() - t_script}))
-    main_path = {"flash_attention": "Oracle COUNT", "rwkv6_scan": "rwkv6-1.6b",
-                 "rglru_scan": "recurrentgemma-9b"}
 
     rows = []
     for name in SIM_KERNELS:
@@ -4708,13 +4774,7 @@ def main():
                          "index (4c)": index_launches.get(name, 0),
                          "index via the service (10c)": index_served.get(name, 0)}})
     for name in MODEL_KERNELS:
-        path_row, *other_rows = model_rows[name]
-        rows.append({"name": name, "route": "cuda", "source": MODEL_SOURCE,
-                     "replaces": REPLACES[name],
-                     "launches": paths[main_path[name]].get(name, 0), **path_row,
-                     "launches_by_path": {p: n.get(name, 0) for p, n in
-                                          (paths | paths_4b).items()},
-                     "other_shapes": other_rows})
+        rows.append(model_kernel_row(name, model_rows, paths | paths_4b))
     train_row, *other_bwd = bwd_rows
     training = {p: n for p, n in paths.items() if "training" in p}
     rows.append({"name": "flash_attention_bwd", "route": "cuda", "source": MODEL_SOURCE,

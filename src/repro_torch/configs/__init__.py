@@ -1,5 +1,7 @@
 """Architecture config registry: the 10 assigned architectures + the paper's
-own small Oracle/embedder models, as in the reference's ``repro.configs``.
+own small Oracle/embedder models, as in the reference's ``repro.configs``,
+and Moonlight-16B-A3B, which only the port runs (so it is not in ``ARCHS``,
+which tests walk against the reference's configs).
 ``get_config(name)`` returns the full config; ``get_smoke_config(name)`` the
 reduced CPU-testable variant.  The embedder module also carries the
 precision table of the similarity kernels.
@@ -34,6 +36,7 @@ _MODULES = {
     "rwkv6-1.6b": "rwkv6_1_6b",
     "pixtral-12b": "pixtral_12b",
     "recurrentgemma-9b": "recurrentgemma_9b",
+    "moonlight-16b-a3b": "moonlight_16b_a3b",
     "joinml-oracle": "joinml_oracle",
     "joinml-embedder": "joinml_embedder",
 }

@@ -49,6 +49,11 @@
 //   beyond the bf16 rule wherever outputs cancel.  Where a CTA's KV slots
 //   would not fit (d 256, one unit per group), each (batch, KV head) group
 //   takes CTAs of its own and spare warps idle.
+//   Latent attention (MLA: q and k 192 wide, 128 of them without RoPE and
+//   64 with; v and the output 128) is the same kernel at two widths,
+//   flash_attention_bf16_kernel<192, 128>: Q and K tiles 192 wide, V tiles
+//   and the 16 x 128 accumulator 128 wide, none padded (padding both to 256
+//   would add a third to S's products and double P.V's and V's bytes).
 //   f32 (flash_attention_kernel, SIMT; TF32 is not allowed on an f32
 //   path): one CTA per (batch * q head, 64-row q tile), 256 threads as 16 x
 //   16; a thread owns 4 rows (ty + 16 i) and 4 score columns (tx + 16 j) of
@@ -441,9 +446,11 @@ __device__ __forceinline__ void fb_range(int q0, int Sq, int Skv, int causal,
   }
 }
 
-size_t fb_smem_bytes(int d, int slots, int nbuf) {
-  const size_t ld = (size_t)d + 8;
-  return 2 * ld * ((size_t)FB_WARPS * FB_BQ + (size_t)nbuf * slots * 2 * FA_BKV);
+// Q tiles of the 4 units, then per buffer and slot a K tile (q/k width d)
+// and a V tile (width dv), rows padded by 16 bytes
+size_t fb_smem_bytes(int d, int dv, int slots, int nbuf) {
+  const size_t ldk = (size_t)d + 8, ldv = (size_t)dv + 8;
+  return 2 * (ldk * FB_WARPS * FB_BQ + (size_t)nbuf * slots * FA_BKV * (ldk + ldv));
 }
 
 // Units: (batch, KV head, q head of the group, 16-row q tile), in that order,
@@ -451,20 +458,22 @@ size_t fb_smem_bytes(int d, int slots, int nbuf) {
 // cpg == 0 CTA c takes units 4c .. 4c + 3 of the whole order and loads one
 // K/V slot per group they span; with cpg > 0 (where those slots would not
 // fit) a group owns cpg CTAs of its own and the last one's spare warps idle.
-template <int D>
-__global__ void __launch_bounds__(FB_NT)
-flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                            const __nv_bfloat16* __restrict__ k,
-                            const __nv_bfloat16* __restrict__ v,
-                            __nv_bfloat16* __restrict__ o,
-                            float* __restrict__ lse, int Hq, int Hkv, int Sq,
-                            int Skv, int causal, int window, float scale,
-                            int n_units, int cpg, int slots, int nbuf) {
-  constexpr int LD = D + 8;  // smem row stride (bf16): rows 16 B apart in banks
+// q and k are D wide, v and the output DV (latent attention: 192 and 128);
+// the kernels below instantiate it at D = DV and at (D, DV) pairs.
+template <int D, int DV>
+__device__ __forceinline__ void fb_forward(const __nv_bfloat16* __restrict__ q,
+                                           const __nv_bfloat16* __restrict__ k,
+                                           const __nv_bfloat16* __restrict__ v,
+                                           __nv_bfloat16* __restrict__ o,
+                                           float* __restrict__ lse, int Hq, int Hkv, int Sq,
+                                           int Skv, int causal, int window, float scale,
+                                           int n_units, int cpg, int slots, int nbuf) {
+  constexpr int LD = D + 8;    // smem row stride (bf16) of Q and K: rows 16 B apart in banks
+  constexpr int LDV = DV + 8;  // of V
   constexpr int KD = D / 16;
   extern __shared__ __align__(16) unsigned char fb_smem[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(fb_smem);
-  // buffer b, slot s: K at 2 (b slots + s), V after it
+  // buffer b, slot s: K at (b slots + s) (LD + LDV) keys, V after it
   __nv_bfloat16* KVs = Qs + FB_WARPS * FB_BQ * LD;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -518,15 +527,16 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 
   const int g4 = lane >> 2, t4 = lane & 3;
   float m[2] = {FA_NEG, FA_NEG}, l[2] = {0.f, 0.f};
-  float acc[D / 8][4];
+  float acc[DV / 8][4];
 #pragma unroll
-  for (int nb = 0; nb < D / 8; ++nb)
+  for (int nb = 0; nb < DV / 8; ++nb)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[nb][e] = 0.f;
-  // Q's A fragments in registers where they fit (d <= 128); at d = 256 they
-  // are read again from shared memory each tile, so that the 16 x 256 f32
+  // Q's A fragments in registers where they fit with the accumulator (D /
+  // 4 + DV / 2 registers: d <= 128, and (192, 128)); at d = 256 they are read
+  // again from shared memory each tile, so that the 16 x 256 f32
   // accumulator does not spill
-  constexpr bool QREG = D <= 128;
+  constexpr bool QREG = D / 4 + DV / 2 <= 112;
   uint32_t qf[QREG ? KD : 1][4];
   const int a_row = lane & 15, a_col = (lane >> 4) * 8;  // ldmatrix of A
   bool q_ready = false;
@@ -536,14 +546,28 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   auto load_kv = [&](int kv0, int buf) {
     for (int s = 0; s < n_slots; ++s) {
       const size_t base = (size_t)(grp0 + s) * Skv * D;  // batch * Hkv + KV head
-      __nv_bfloat16* Ks = KVs + (2 * (buf * slots + s)) * FA_BKV * LD;
+      __nv_bfloat16* Ks = KVs + (buf * slots + s) * FA_BKV * (LD + LDV);
       __nv_bfloat16* Vs = Ks + FA_BKV * LD;
-      for (int e = tid; e < FA_BKV * D / 8; e += FB_NT) {
-        const int r = e / (D / 8), c = (e % (D / 8)) * 8;
-        const bool in = kv0 + r < Skv;
-        const size_t off = base + (size_t)(kv0 + r) * D + c;
-        cp_async16(Ks + r * LD + c, in ? k + off : k, in);
-        cp_async16(Vs + r * LD + c, in ? v + off : v, in);
+      if constexpr (D == DV) {
+        for (int e = tid; e < FA_BKV * D / 8; e += FB_NT) {
+          const int r = e / (D / 8), c = (e % (D / 8)) * 8;
+          const bool in = kv0 + r < Skv;
+          const size_t off = base + (size_t)(kv0 + r) * D + c;
+          cp_async16(Ks + r * LD + c, in ? k + off : k, in);
+          cp_async16(Vs + r * LD + c, in ? v + off : v, in);
+        }
+      } else {
+        for (int e = tid; e < FA_BKV * D / 8; e += FB_NT) {
+          const int r = e / (D / 8), c = (e % (D / 8)) * 8;
+          const bool in = kv0 + r < Skv;
+          cp_async16(Ks + r * LD + c, in ? k + base + (size_t)(kv0 + r) * D + c : k, in);
+        }
+        const size_t vbase = (size_t)(grp0 + s) * Skv * DV;
+        for (int e = tid; e < FA_BKV * DV / 8; e += FB_NT) {
+          const int r = e / (DV / 8), c = (e % (DV / 8)) * 8;
+          const bool in = kv0 + r < Skv;
+          cp_async16(Vs + r * LDV + c, in ? v + vbase + (size_t)(kv0 + r) * DV + c : v, in);
+        }
       }
     }
   };
@@ -573,7 +597,7 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
         ldmatrix_x4(qf[ks], Qw + a_row * LD + ks * 16 + a_col);
       q_ready = true;
     }
-    const __nv_bfloat16* Ks = KVs + (2 * (buf * slots + slot)) * FA_BKV * LD;
+    const __nv_bfloat16* Ks = KVs + (buf * slots + slot) * FA_BKV * (LD + LDV);
     const __nv_bfloat16* Vs = Ks + FA_BKV * LD;
 
     // S = Q K^T: 16 rows x 64 keys, 8 blocks of 8 keys
@@ -648,7 +672,7 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       l[r] = l[r] * alpha[r] + sum[r];
     }
 #pragma unroll
-    for (int nb = 0; nb < D / 8; ++nb)
+    for (int nb = 0; nb < DV / 8; ++nb)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[nb][e] *= alpha[e >> 1];
 
@@ -669,10 +693,10 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
         pl[f] = pack_bf16(l0, l1);
       }
 #pragma unroll
-      for (int n2 = 0; n2 < D / 16; ++n2) {
+      for (int n2 = 0; n2 < DV / 16; ++n2) {
         uint32_t b[4];
         const int key = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-        ldmatrix_x4_trans(b, Vs + key * LD + n2 * 16 + (lane >> 4) * 8);
+        ldmatrix_x4_trans(b, Vs + key * LDV + n2 * 16 + (lane >> 4) * 8);
         mma_bf16(acc[2 * n2], pl, b[0], b[1]);
         mma_bf16(acc[2 * n2], pm, b[0], b[1]);
         mma_bf16(acc[2 * n2], ph, b[0], b[1]);
@@ -684,19 +708,43 @@ flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   }
 
   if (loc < 0) return;
-  __nv_bfloat16* ob = o + bh * Sq * D;
+  __nv_bfloat16* ob = o + bh * Sq * DV;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int qp = q0 + g4 + 8 * r;
     if (qp >= Sq) continue;
     const float den = fmaxf(l[r], 1e-30f);
 #pragma unroll
-    for (int nb = 0; nb < D / 8; ++nb)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)qp * D + nb * 8 + 2 * t4) =
+    for (int nb = 0; nb < DV / 8; ++nb)
+      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)qp * DV + nb * 8 + 2 * t4) =
           __floats2bfloat162_rn(acc[nb][2 * r] / den, acc[nb][2 * r + 1] / den);
     if (lse != nullptr && t4 == 0) lse[bh * Sq + qp] = m[r] + logf(l[r]);
   }
 }
+
+#define FB_PARAMS                                                                  \
+  const __nv_bfloat16 *__restrict__ q, const __nv_bfloat16 *__restrict__ k,        \
+      const __nv_bfloat16 *__restrict__ v, __nv_bfloat16 *__restrict__ o,         \
+      float *__restrict__ lse, int Hq, int Hkv, int Sq, int Skv, int causal,       \
+      int window, float scale, int n_units, int cpg, int slots, int nbuf
+#define FB_ARGS q, k, v, o, lse, Hq, Hkv, Sq, Skv, causal, window, scale, n_units, cpg, slots, nbuf
+
+// equal widths: flash_attention_bf16_kernel<D>
+template <int D>
+__global__ void __launch_bounds__(FB_NT) flash_attention_bf16_kernel(FB_PARAMS) {
+  fb_forward<D, D>(FB_ARGS);
+}
+
+// q/k width D against v width DV: flash_attention_bf16_kernel<D, DV>, so a
+// device trace tells its launches apart
+template <int D, int DV>
+__global__ void __launch_bounds__(FB_NT) flash_attention_bf16_kernel(FB_PARAMS) {
+  fb_forward<D, DV>(FB_ARGS);
+}
+
+using FbKernel = void (*)(const __nv_bfloat16*, const __nv_bfloat16*,
+                          const __nv_bfloat16*, __nv_bfloat16*, float*, int, int, int,
+                          int, int, int, float, int, int, int, int);
 
 // K/V slots a CTA of the flat order needs, for U units a group: 4
 // consecutive units span one group (U a multiple of 4), at most two (U >= 2),
@@ -706,50 +754,60 @@ int fb_slots(int U) { return U % FB_WARPS == 0 ? 1 : (U >= 2 ? 2 : FB_WARPS); }
 // (cpg, slots, nbuf, bytes) of a bf16 launch: the flat order where its
 // slots fit; two KV buffers where there is more than one KV tile and two
 // CTAs still fit an SM (228 KB, 1 KB reserved a CTA)
-void fb_plan(int d, int Hq, int Hkv, int Sq, int Skv, int& cpg, int& slots,
+void fb_plan(int d, int dv, int Hq, int Hkv, int Sq, int Skv, int& cpg, int& slots,
              int& nbuf, size_t& bytes) {
   const int U = (Hq / Hkv) * ((Sq + FB_BQ - 1) / FB_BQ);
   slots = fb_slots(U);
   cpg = 0;
   nbuf = 1;
-  bytes = fb_smem_bytes(d, slots, 1);
+  bytes = fb_smem_bytes(d, dv, slots, 1);
   if (bytes > FA_MAX_SMEM) {
     cpg = (U + FB_WARPS - 1) / FB_WARPS;
     slots = 1;
-    bytes = fb_smem_bytes(d, 1, 1);
+    bytes = fb_smem_bytes(d, dv, 1, 1);
   }
-  if (Skv > FA_BKV && 2 * (fb_smem_bytes(d, slots, 2) + 1024) <= 233472) {
+  if (Skv > FA_BKV && 2 * (fb_smem_bytes(d, dv, slots, 2) + 1024) <= 233472) {
     nbuf = 2;
-    bytes = fb_smem_bytes(d, slots, 2);
+    bytes = fb_smem_bytes(d, dv, slots, 2);
   }
 }
 
-template <int D>
+template <int D, int DV = D>
 cudaError_t fb_launch(const void* q, const void* k, const void* v, void* o,
                       float* lse, int B, int Hq, int Hkv, int Sq, int Skv, int causal,
                       int window, float scale, cudaStream_t s) {
   int cpg, slots, nbuf;
   size_t smem;
-  fb_plan(D, Hq, Hkv, Sq, Skv, cpg, slots, nbuf, smem);
+  fb_plan(D, DV, Hq, Hkv, Sq, Skv, cpg, slots, nbuf, smem);
   const long long U = (long long)(Hq / Hkv) * ((Sq + FB_BQ - 1) / FB_BQ);
   const long long n_units = (long long)B * Hkv * U;
   const long long ctas = cpg > 0 ? (long long)B * Hkv * cpg
                                  : (n_units + FB_WARPS - 1) / FB_WARPS;
   if (n_units > 0x7fffffffLL || ctas > 0x7fffffffLL) return cudaErrorInvalidValue;
+  FbKernel kernel;
+  if constexpr (D == DV)
+    kernel = flash_attention_bf16_kernel<D>;
+  else
+    kernel = flash_attention_bf16_kernel<D, DV>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  flash_attention_bf16_kernel<D><<<(unsigned)ctas, FB_NT, smem, s>>>(
+  kernel<<<(unsigned)ctas, FB_NT, smem, s>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse,
       Hq, Hkv, Sq, Skv, causal, window, scale, (int)n_units, cpg, slots, nbuf);
   return cudaGetLastError();
 }
 
-cudaError_t fb_dispatch(int d, const void* q, const void* k, const void* v,
+cudaError_t fb_dispatch(int d, int dv, const void* q, const void* k, const void* v,
                         void* o, float* lse, int B, int Hq, int Hkv, int Sq, int Skv,
                         int causal, int window, float scale, cudaStream_t s) {
+  if (dv != d) {
+    if (d == 192 && dv == 128)
+      return fb_launch<192, 128>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, causal, window,
+                                 scale, s);
+    return cudaErrorInvalidValue;
+  }
   switch (d) {
     case 16: return fb_launch<16>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, causal, window, scale, s);
     case 32: return fb_launch<32>(q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, causal, window, scale, s);
@@ -2449,31 +2507,34 @@ rglru_scan_bwd_kernel(const float* __restrict__ a, const float* __restrict__ h,
 extern "C" {
 
 // Dynamic shared memory of one flash-attention CTA in bytes: dtype 0 (f32)
-// at head width d, dtype 1 (bf16) for Hq / Hkv heads, Sq and Skv too.
-size_t repro_flash_smem_bytes(int dtype, int d, int Hq, int Hkv, int Sq, int Skv) {
+// at head width d, dtype 1 (bf16) at q/k width d and v width dv for Hq / Hkv
+// heads, Sq and Skv too.
+size_t repro_flash_smem_bytes(int dtype, int d, int dv, int Hq, int Hkv, int Sq, int Skv) {
   if (dtype == 0) return fa_smem_bytes(d);
   int cpg, slots, nbuf;
   size_t bytes;
-  fb_plan(d, Hq, Hkv, Sq, Skv, cpg, slots, nbuf, bytes);
+  fb_plan(d, dv, Hq, Hkv, Sq, Skv, cpg, slots, nbuf, bytes);
   return bytes;
 }
 
 // K5.  dtype: 0 float32 (the SIMT kernel), 1 bfloat16 (the tensor-core
-// kernel); q, k, v and o alike.  q, o: (B, Hq, Sq, d); k, v: (B, Hkv, Skv,
-// d); Hq a multiple of Hkv; d in {16, 32, 64, 128, 256}; window 0 for none.
+// kernel); q, k, v and o alike.  q: (B, Hq, Sq, d); k: (B, Hkv, Skv, d); v:
+// (B, Hkv, Skv, dv); o: (B, Hq, Sq, dv); Hq a multiple of Hkv; d = dv in {16,
+// 32, 64, 128, 256}, or at bf16 (d, dv) = (192, 128); window 0 for none.
 int repro_flash_attention(int dtype, const void* q, const void* k,
                           const void* v, void* o, float* lse, int B, int Hq, int Hkv,
-                          int Sq, int Skv, int d, int causal, int window,
+                          int Sq, int Skv, int d, int dv, int causal, int window,
                           float scale, void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv || Sq <= 0 || Skv <= 0 ||
       window < 0 || (long long)B * Hq > 0x7fffffffLL ||
       (Sq + FA_BQ - 1) / FA_BQ > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
+  if (dtype == 0 && dv == d)
     return (int)fa_dispatch(d, q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, causal, window, scale, s);
   if (dtype == 1)
-    return (int)fb_dispatch(d, q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, causal, window, scale, s);
+    return (int)fb_dispatch(d, dv, q, k, v, o, lse, B, Hq, Hkv, Sq, Skv, causal, window,
+                            scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -276,10 +276,11 @@ FA_TILE = 64   # the CUDA kernel's KV tile: each tile rescales the running sums
 
 
 def flash_attention_bound(q, k, v, causal=True, window=0):
-    """(B, Hq, Sq, d) bound on |an f32 evaluation of softmax attention -
+    """(B, Hq, Sq, dv) bound on |an f32 evaluation of softmax attention -
     exact|, for the online softmax over KV tiles of ``FA_TILE`` keys as
-    well as for one softmax over the whole row.  A row whose keys are all
-    masked averages every value (all its scores are the same -1e30)."""
+    well as for one softmax over the whole row (q and k ``d`` wide, v
+    ``dv``).  A row whose keys are all masked averages every value (all its
+    scores are the same -1e30)."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     tiles = -(-skv // FA_TILE)
@@ -295,7 +296,7 @@ def flash_attention_bound(q, k, v, causal=True, window=0):
         mask = mask & (qp - kp < window)
     empty = ~mask.any(-1, keepdim=True)
     use = mask | empty
-    out = torch.empty((b, hq, sq, d), dtype=torch.float64, device=q.device)
+    out = torch.empty((b, hq, sq, v.shape[-1]), dtype=torch.float64, device=q.device)
     for h in range(hq):   # one q head at a time: (B, Sq, Skv) temporaries
         qh = q[:, h].double()
         kh, vh = k[:, h // (hq // hkv)].double(), v[:, h // (hq // hkv)].double()

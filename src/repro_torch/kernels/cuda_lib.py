@@ -138,10 +138,10 @@ def lib() -> ctypes.CDLL:
             so.repro_topk_few_rows_smem_bytes.argtypes = [ci]
             so.repro_topk_few_rows_smem_bytes.restype = ctypes.c_size_t
             so.repro_flash_attention.argtypes = [
-                ci, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, cf, vp,
+                ci, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, ci, cf, vp,
             ]
             so.repro_flash_attention.restype = ci
-            so.repro_flash_smem_bytes.argtypes = [ci, ci, ci, ci, ci, ci]
+            so.repro_flash_smem_bytes.argtypes = [ci, ci, ci, ci, ci, ci, ci]
             so.repro_flash_smem_bytes.restype = ctypes.c_size_t
             so.repro_flash_attention_bwd.argtypes = [
                 ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,

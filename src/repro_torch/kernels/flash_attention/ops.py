@@ -1,7 +1,8 @@
 """Public op: GQA flash attention in the reference kernel's layout, q (B,
-Hq, Sq, d), k and v (B, Hkv, Skv, d).  On CUDA tensors it launches the
-kernel or raises; on CPU tensors it runs the plain PyTorch version, which
-autograd differentiates.
+Hq, Sq, d), k and v (B, Hkv, Skv, d); v and the output may be narrower
+than q and k (latent attention), where no gradient is taken on a card.  On
+CUDA tensors it launches the kernel or raises; on CPU tensors it runs the
+plain PyTorch version, which autograd differentiates.
 
 On CUDA tensors under autograd (grad mode on and an input that requires
 grad) the op is :class:`FlashAttention`: its forward launches K5 with the
@@ -32,10 +33,13 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
-def _shape(q, k, causal, window):
+def _shape(q, k, v, causal, window):
     b, hq, sq, d = q.shape
-    return dict(b=b, hq=hq, hkv=k.shape[1], sq=sq, skv=k.shape[2], d=d, causal=causal,
-                window=window, dtype=q.dtype)
+    out = dict(b=b, hq=hq, hkv=k.shape[1], sq=sq, skv=k.shape[2], d=d, causal=causal,
+               window=window, dtype=q.dtype)
+    if v.shape[-1] != d:
+        out["dv"] = v.shape[-1]
+    return out
 
 
 class MetaFlashAttention(torch.autograd.Function):
@@ -44,7 +48,7 @@ class MetaFlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
-        charge("flash_attention", **_shape(q, k, causal, window))
+        charge("flash_attention", **_shape(q, k, v, causal, window))
         o = q.new_empty(q.shape)
         ctx.save_for_backward(q, k, v, o, q.new_empty(q.shape[:3], dtype=torch.float32))
         ctx.causal, ctx.window = causal, window
@@ -53,21 +57,22 @@ class MetaFlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, _, _ = ctx.saved_tensors
-        charge("flash_attention_bwd", **_shape(q, k, ctx.causal, ctx.window))
+        charge("flash_attention_bwd", **_shape(q, k, v, ctx.causal, ctx.window))
         return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape), None, None
 
 
 def flash_attention(q, k, v, causal=True, window=0):
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
+    if grad and (q.is_meta or q.is_cuda) and v.shape[-1] != q.shape[-1]:
+        raise ValueError("K5's backward takes equal q/k and v widths")
     if q.is_meta:
-        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                        or v.requires_grad):
+        if grad:
             return MetaFlashAttention.apply(q, k, v, causal, window)
-        charge("flash_attention", **_shape(q, k, causal, window))
-        return q.new_empty(q.shape)
+        charge("flash_attention", **_shape(q, k, v, causal, window))
+        return q.new_empty(q.shape[:-1] + (v.shape[-1],))
     if q.is_cuda:
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                        or v.requires_grad):
+        if grad:
             return FlashAttention.apply(q, k, v, causal, window)
         return flash_attention_cuda(q, k, v, causal=causal, window=window)
     return flash_attention_ref(q, k, v, causal=causal, window=window)

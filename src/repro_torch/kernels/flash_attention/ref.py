@@ -1,7 +1,9 @@
 """Plain PyTorch version of flash attention (the reference's
 ``flash_attention_ref``): exact softmax attention with causal and window
 masks, in f32 (in f64 for f64 inputs, which the gradient checks
-differentiate), output in q's type."""
+differentiate), output in q's type.  v may be narrower than q and k (latent
+attention: q and k 192 wide, v 128); the scale is q's width**-0.5 and the
+output v's width."""
 import torch
 
 
@@ -23,4 +25,4 @@ def flash_attention_ref(q, k, v, causal=True, window=0):
     p = torch.exp(s - s.amax(-1, keepdim=True))
     p = p / p.sum(-1, keepdim=True)
     o = torch.einsum("bngst,bntd->bngsd", p, v.to(ct))
-    return o.reshape(b, hq, sq, d).to(q.dtype)
+    return o.reshape(b, hq, sq, v.shape[-1]).to(q.dtype)

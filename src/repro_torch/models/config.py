@@ -31,10 +31,25 @@ class ModelConfig:
     window: int = 0                 # >0: sliding-window (local) attention
     causal: bool = True
 
+    # latent attention (MLA, DeepSeek-V2/V3): on when kv_lora_rank > 0; q
+    # and k are qk_nope_head_dim + qk_rope_head_dim wide, v v_head_dim
+    kv_lora_rank: int = 0
+    q_lora_rank: int = 0            # q's LoRA: only 0 (q a plain projection) is built
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+
     # MoE
     num_experts: int = 0
     num_experts_per_tok: int = 0
-    moe_capacity_factor: float = 1.25
+    moe_capacity_factor: float = 1.25   # 0 -> dropless
+    moe_d_ff: int = 0               # an expert's width (0 -> d_ff)
+    shared_experts: int = 0         # one SwiGLU of shared_experts * moe_d_ff every token passes
+    first_dense_layers: int = 0     # leading layers with a dense MLP of d_ff
+    router: str = "softmax"         # softmax | sigmoid
+    router_bias: bool = False       # a correction bias added for selection only (noaux_tc)
+    norm_topk_prob: bool = True     # the top-k weights renormalised to sum 1
+    routed_scaling_factor: float = 1.0
 
     # encoder-decoder (whisper)
     encoder_layers: int = 0
@@ -72,6 +87,27 @@ class ModelConfig:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
         if self.family == "hybrid" and self.rnn_width == 0:
             object.__setattr__(self, "rnn_width", self.d_model)
+        if self.router not in ("softmax", "sigmoid"):
+            raise ValueError(f"unknown router {self.router!r}")
+        if self.q_lora_rank:
+            raise ValueError("latent attention with a q LoRA is not built: q_lora_rank 0 only")
+
+    @property
+    def is_mla(self) -> bool:
+        return self.kv_lora_rank > 0
+
+    @property
+    def qk_head_dim(self) -> int:
+        """Width of a q and a k head: MLA's nope + rope, else head_dim."""
+        return self.qk_nope_head_dim + self.qk_rope_head_dim if self.is_mla else self.head_dim
+
+    @property
+    def expert_d_ff(self) -> int:
+        return self.moe_d_ff or self.d_ff
+
+    @property
+    def dropless(self) -> bool:
+        return self.moe_capacity_factor == 0
 
     @property
     def is_attention_free(self) -> bool:
@@ -101,23 +137,39 @@ class ModelConfig:
         return ("dense",)
 
     def layer_types(self) -> list:
-        """Concrete per-layer block types of the decoder stack."""
+        """Concrete per-layer block types of the decoder stack: an MoE's
+        ``first_dense_layers`` are ``dense``."""
         pat = self.pattern
-        return [pat[i % len(pat)] for i in range(self.num_layers)]
+        return ["dense" if i < self.first_dense_layers else pat[i % len(pat)]
+                for i in range(self.num_layers)]
+
+    def attention_param_count(self) -> int:
+        d, hd, nq, nkv = self.d_model, self.head_dim, self.num_heads, self.num_kv_heads
+        if not self.is_mla:
+            return d * hd * (nq + 2 * nkv) + nq * hd * d
+        q = d * nq * self.qk_head_dim
+        kv = (d * (self.kv_lora_rank + self.qk_rope_head_dim) + self.kv_lora_rank
+              + self.kv_lora_rank * nq * (self.qk_nope_head_dim + self.v_head_dim))
+        return q + kv + nq * self.v_head_dim * d
+
+    def moe_param_count(self) -> int:
+        """One MoE block: the router (and its bias), the experts and the
+        shared expert."""
+        d, e, ff = self.d_model, self.num_experts, self.expert_d_ff
+        return (e * 3 * d * ff + d * e + (e if self.router_bias else 0)
+                + 3 * d * ff * self.shared_experts)
 
     def param_count(self) -> int:
         """Analytic parameter count (used for roofline MODEL_FLOPS = 6ND)."""
         d, ff, v = self.d_model, self.d_ff, self.vocab_size
-        hd = self.head_dim
-        nq, nkv = self.num_heads, self.num_kv_heads
-        attn = d * hd * (nq + 2 * nkv) + nq * hd * d
+        attn = self.attention_param_count()
         dense_mlp = 3 * d * ff if self.act == "silu" or self.act == "geglu" else 2 * d * ff
         total = 0
         for t in self.layer_types():
             if t == "dense":
                 total += attn + dense_mlp + 2 * d
             elif t == "moe":
-                total += attn + self.num_experts * 3 * d * ff + d * self.num_experts + 2 * d
+                total += attn + self.moe_param_count() + 2 * d
             elif t == "attn":  # hybrid local-attention block
                 total += attn + 3 * d * ff + 2 * d
             elif t == "rec":   # RG-LRU block
@@ -138,9 +190,8 @@ class ModelConfig:
         """Active params per token (MoE: top-k experts only)."""
         if self.family != "moe":
             return self.param_count()
-        d, ff = self.d_model, self.d_ff
-        inactive = (self.num_experts - self.num_experts_per_tok) * 3 * d * ff
-        return int(self.param_count() - self.num_layers * inactive)
+        inactive = (self.num_experts - self.num_experts_per_tok) * 3 * self.d_model * self.expert_d_ff
+        return int(self.param_count() - self.layer_types().count("moe") * inactive)
 
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:

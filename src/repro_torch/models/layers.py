@@ -1,6 +1,8 @@
 """Model building blocks: norms, RoPE, GQA self- and cross-attention through
 the flash attention op, SwiGLU/GeGLU MLPs, and the MoE MLP with sort-based
-capacity dispatch (the reference's ``models/layers.py``).
+capacity dispatch (the reference's ``models/layers.py``); beyond the
+reference, DeepSeek-V3's latent attention (:class:`MLA`), its sigmoid
+router with a selection bias, shared experts, and a dropless dispatch.
 
 Parameters live in :class:`torch.nn.Module` holders whose attribute names are
 the reference's parameter keys (``wq``, ``w_gate``, ...), so a reference
@@ -138,6 +140,16 @@ def apply_rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
+def apply_rope_interleaved(x, positions, theta: float):
+    """RoPE over pairs of adjacent dims (2i, 2i + 1), as DeepSeek-V3's
+    published code pairs them: the pairs' first and second members are
+    gathered into two halves, which :func:`apply_rope` rotates (the
+    output stays in that order; q and k share it, so q . k is the
+    interleaved rotation's)."""
+    x = x.unflatten(-1, (-1, 2)).transpose(-1, -2).flatten(-2)
+    return apply_rope(x, positions, theta)
+
+
 # ----------------------------------------------------------------------------
 # attention
 # ----------------------------------------------------------------------------
@@ -224,6 +236,67 @@ def chunked_attention(p: Attention, cfg: ModelConfig, x, positions,
         q, k, v = (grad_cast(t, x.dtype) for t in (q, k, v))
     out = flash_attention(q, k, v, causal=causal, window=window)
     return tp.reduce(out.transpose(1, 2).reshape(b, s, -1) @ p.wo)
+
+
+class MLA(nn.Module):
+    """Latent attention (DeepSeek-V2/V3) without a q LoRA: ``wq``; ``wkv_a``
+    to the KV latent and the one RoPE key all heads share, ``kv_norm``,
+    ``wkv_b`` to each head's k_nope and v; ``wo`` from the heads' v width."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator):
+        super().__init__()
+        dt = dtype_of(cfg)
+        d, nq = cfg.d_model, cfg.num_heads
+        self.wq = param(dense_init(gen, (d, nq * cfg.qk_head_dim), dt))
+        self.wkv_a = param(dense_init(gen, (d, cfg.kv_lora_rank + cfg.qk_rope_head_dim), dt))
+        self.kv_norm = param(full(gen, (cfg.kv_lora_rank,), 0.0, torch.float32))
+        self.wkv_b = param(dense_init(
+            gen, (cfg.kv_lora_rank, nq * (cfg.qk_nope_head_dim + cfg.v_head_dim)), dt))
+        self.wo = param(dense_init(gen, (nq * cfg.v_head_dim, d), dt))
+
+
+def attention_params(cfg: ModelConfig, gen: torch.Generator):
+    """A decoder layer's self-attention holder: :class:`MLA` where the
+    config has a KV latent, else :class:`Attention`."""
+    return MLA(cfg, gen) if cfg.is_mla else Attention(cfg, gen)
+
+
+def mla_attention(p: MLA, cfg: ModelConfig, x, positions, causal: bool = True,
+                  window: int = 0):
+    """Full-sequence latent attention, the latent expanded to every head's
+    k and v (no latent cache: the port only prefills MLA):
+
+        q = x W_q                           -> (B, H, S, nope + rope)
+        [c | k_pe] = x W_kv_a,  c = RMS(c; kv_norm)
+        [k_nope | v] = c W_kv_b             -> (B, H, S, nope + v)
+        q_pe, k_pe rotated (interleaved pairs), k_pe shared by every head
+        out = softmax([q_nope | q_pe] [k_nope | k_pe]^T (nope + rope)^-0.5) v W_o
+
+    through K5 at its two widths (q and k nope + rope, v and the output
+    v_head_dim), none padded."""
+    if sharded_ops().sharded(p):
+        raise NotImplementedError("latent attention has no sharding rules")
+    b, s, _ = x.shape
+    nq, nope, rope = cfg.num_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    q_nope, q_pe = (x @ p.wq).reshape(b, s, nq, nope + rope).transpose(1, 2).split([nope, rope], -1)
+    c_kv, k_pe = (x @ p.wkv_a).split([cfg.kv_lora_rank, rope], -1)
+    kv = rms_norm(c_kv, p.kv_norm, cfg.norm_eps) @ p.wkv_b
+    k_nope, v = kv.reshape(b, s, nq, nope + cfg.v_head_dim).transpose(1, 2).split(
+        [nope, cfg.v_head_dim], -1)
+    pos = positions[:, None, :]
+    q_pe = apply_rope_interleaved(q_pe, pos, cfg.rope_theta)
+    k_pe = apply_rope_interleaved(k_pe[:, None], pos, cfg.rope_theta)
+    q = torch.cat([q_nope, q_pe], -1)
+    k = torch.cat([k_nope, k_pe.expand(b, nq, s, rope)], -1)
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    return out.transpose(1, 2).reshape(b, s, -1) @ p.wo
+
+
+def self_attention(p, cfg: ModelConfig, x, positions, causal: bool = True, window: int = 0):
+    """A decoder layer's full-sequence self-attention, by its holder's kind."""
+    if isinstance(p, MLA):
+        return mla_attention(p, cfg, x, positions, causal=causal, window=window)
+    return chunked_attention(p, cfg, x, positions, causal=causal, window=window)
 
 
 def _decode_qkv(p, cfg: ModelConfig, x, tp, kv_head, all_heads: bool):
@@ -412,20 +485,28 @@ def mlp(p: MLP, cfg: ModelConfig, x):
 
 
 # ----------------------------------------------------------------------------
-# MoE: top-k routing + sort-based capacity dispatch, one group per batch shard
+# MoE: top-k routing + sort-based capacity dispatch, one group per batch
+# shard; or dropless (``moe_capacity_factor`` 0), every routed pair run
 # ----------------------------------------------------------------------------
 
 class MoE(nn.Module):
-    """``moe_params``: an f32 router and stacked expert matrices."""
+    """``moe_params``: an f32 router and stacked expert matrices of width
+    ``cfg.expert_d_ff``; with ``cfg.router_bias`` the f32 selection bias
+    ``router_bias`` (DeepSeek-V3's ``e_score_correction_bias``), with
+    ``cfg.shared_experts`` the MLP ``shared`` of their summed width."""
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator):
         super().__init__()
         dt = dtype_of(cfg)
-        d, ff, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+        d, ff, e = cfg.d_model, cfg.expert_d_ff, cfg.num_experts
         self.router = param(dense_init(gen, (d, e), torch.float32))
         self.w_gate = param(dense_init(gen, (e, d, ff), dt))
         self.w_up = param(dense_init(gen, (e, d, ff), dt))
         self.w_down = param(dense_init(gen, (e, ff, d), dt))
+        if cfg.router_bias:
+            self.router_bias = param(full(gen, (e,), 0.0, torch.float32))
+        if cfg.shared_experts:
+            self.shared = MLP(cfg, gen, d_ff=cfg.shared_experts * ff)
 
 
 def moe_capacity(cfg: ModelConfig, tokens: int) -> int:
@@ -435,20 +516,46 @@ def moe_capacity(cfg: ModelConfig, tokens: int) -> int:
     return max(int(np.ceil(tokens * k / e * cfg.moe_capacity_factor)), 1)
 
 
+def moe_select(p: MoE, cfg: ModelConfig, xt):
+    """Each of (T, d) tokens' experts and their weights, from the f32
+    router's scores: its softmax (``cfg.router``), or its sigmoid, whose
+    top k are chosen by score plus ``router_bias`` where the holder has one
+    while the weights are the scores alone (DeepSeek-V3's noaux_tc with one
+    group); the weights renormalised to sum 1 (``cfg.norm_topk_prob``, the
+    sum held at 1e-9 or more) and times ``cfg.routed_scaling_factor``.
+    Returns (top_e (T, k), top_w (T, k) f32), the choices by descending
+    selection score."""
+    k = cfg.num_experts_per_tok
+    logits = xt.float() @ p.router
+    if cfg.router == "sigmoid":
+        scores = torch.sigmoid(logits)
+    else:
+        scores = torch.softmax(logits, dim=-1)
+    bias = getattr(p, "router_bias", None)
+    if bias is None:
+        top_w, top_e = torch.topk(scores, k, dim=-1)
+    else:
+        top_e = torch.topk(scores + bias, k, dim=-1).indices
+        top_w = scores.gather(-1, top_e)
+    if cfg.norm_topk_prob:
+        top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
+    if cfg.routed_scaling_factor != 1.0:
+        top_w = top_w * cfg.routed_scaling_factor
+    return top_e, top_w
+
+
 def moe_route(p: MoE, cfg: ModelConfig, xt):
-    """Routing of (T, d) tokens: the f32 router's softmax, its top k with
-    the weights normalised, and which (token, choice) pairs keep a slot.
-    Returns (top_e (T, k), top_w (T, k) f32, keep (T, k) bool, slot (T, k):
-    the row of the (E * cap) capacity buffer a kept pair takes).
+    """Routing of (T, d) tokens (:func:`moe_select`) and which (token,
+    choice) pairs keep a slot.  Returns (top_e (T, k), top_w (T, k) f32,
+    keep (T, k) bool, slot (T, k): the row of the (E * cap) capacity buffer
+    a kept pair takes).
 
     Pairs are grouped by expert in the order of a stable argsort of the
     flattened (T * k) choices, as ``jnp.argsort`` orders them; an expert's
     pairs past its capacity are dropped in that order."""
     t = xt.shape[0]
     e, k = cfg.num_experts, cfg.num_experts_per_tok
-    probs = torch.softmax(xt.float() @ p.router, dim=-1)
-    top_w, top_e = torch.topk(probs, k, dim=-1)
-    top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
+    top_e, top_w = moe_select(p, cfg, xt)
     cap = moe_capacity(cfg, t)
     flat_e = top_e.reshape(t * k)
     order = torch.argsort(flat_e, stable=True)
@@ -464,6 +571,78 @@ def moe_route(p: MoE, cfg: ModelConfig, xt):
 
 
 def moe_mlp(p: MoE, cfg: ModelConfig, x):
+    """x: (B, S, d).  The routed experts, by the capacity dispatch
+    (:func:`moe_capacity_mlp`) or, with ``cfg.moe_capacity_factor`` 0, the
+    dropless one (:func:`moe_dropless_mlp`), plus the shared expert where
+    the holder has one."""
+    out = moe_dropless_mlp(p, cfg, x) if cfg.dropless else moe_capacity_mlp(p, cfg, x)
+    if hasattr(p, "shared"):
+        out = out + mlp(p.shared, cfg, x)
+    return out
+
+
+def expert_matmul(x, w, counts, offs, grouped: Optional[bool] = None):
+    """(N, d_in) rows grouped by expert, ``counts`` (E,) rows an expert and
+    their running sums ``offs`` (int32), through each one's (d_in, d_out)
+    matrix of ``w`` (E, d_in, d_out).  ``grouped`` (default: on a card) is
+    one ``torch._grouped_mm`` over the device offsets, with no copy to the
+    host; else one product an expert, over the counts read on the host."""
+    if x.is_cuda if grouped is None else grouped:
+        return torch._grouped_mm(x, w, offs=offs)
+    out = x.new_empty((x.shape[0], w.shape[2]))
+    at = 0
+    for ex, n in enumerate(counts.tolist()):
+        if n:
+            out[at:at + n] = x[at:at + n] @ w[ex]
+            at += n
+    return out
+
+
+def moe_dropless_mlp(p: MoE, cfg: ModelConfig, x, grouped: Optional[bool] = None):
+    """x: (B, S, d).  Every (token, choice) pair runs its expert: the pairs
+    sorted by expert by a stable argsort of the flattened (T * k) choices
+    (token-major within an expert, as :func:`moe_route` orders them), each
+    expert's SwiGLU over exactly its own rows (:func:`expert_matmul`), the
+    results put back in (token, choice) order and summed over k, so the same
+    batch gives the same bits on every run (no atomic scatter-add).  No
+    capacity, so a row's routing does not depend on its batch-mates
+    (padding rows route too, and take rows of their experts).
+
+    While a profiler session records, the window log counts ``moe.routed``
+    (T * k) and ``moe.routed_peak`` (E times the largest expert's rows,
+    summed on the device): their ratio is 1 when every expert takes as many
+    rows as any other.  Inside ``telemetry.tapping("moe.routes")`` each
+    call hands over its (T, k) experts, so a check can hold a replay to
+    the routes the program chose, and under ``"moe.router_in"`` the (T, d)
+    tokens its router read, so a check can hold the router to its own
+    input."""
+    if sharded_ops().sharded(p):
+        raise NotImplementedError("the dropless dispatch has no sharding rules")
+    b, s, d = x.shape
+    t, e, k = b * s, cfg.num_experts, cfg.num_experts_per_tok
+    xt = x.reshape(t, d)
+    telemetry.tap("moe.router_in", xt)
+    top_e, top_w = moe_select(p, cfg, xt)
+    telemetry.tap("moe.routes", top_e)
+    flat = top_e.reshape(t * k)
+    order = torch.argsort(flat, stable=True)
+    counts = torch.bincount(flat, minlength=e)
+    offs = torch.cumsum(counts, 0, dtype=torch.int32)
+    if telemetry.recording():
+        telemetry.log_count("moe.routed", t * k)
+        telemetry.log_count("moe.routed_peak", counts.max() * e)
+    rows = xt[order // k]
+    act = F.silu if cfg.act in ("silu", "geglu") else gelu
+    h = act(expert_matmul(rows, p.w_gate, counts, offs, grouped)) * \
+        expert_matmul(rows, p.w_up, counts, offs, grouped)
+    y = expert_matmul(h, p.w_down, counts, offs, grouped)
+    out = torch.empty_like(y)
+    out[order] = y                                       # (token, choice) order
+    contrib = out.reshape(t, k, d) * top_w[..., None].to(x.dtype)
+    return contrib.sum(dim=1).reshape(b, s, d)
+
+
+def moe_capacity_mlp(p: MoE, cfg: ModelConfig, x):
     """x: (B, S, d).  Tokens go to their top-k experts through a (G, E,
     cap, d) capacity buffer; overflow is dropped per group (Switch
     behaviour).  G is the number of batch shards under an active sharding

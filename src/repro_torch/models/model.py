@@ -58,6 +58,7 @@ from .layers import (
     Attention,
     MetaGenerator,
     MoE,
+    attention_params,
     chunked_attention,
     cross_decode_attention,
     decode_attention,
@@ -70,6 +71,7 @@ from .layers import (
     param,
     ring_decode_attention,
     rms_norm,
+    self_attention,
 )
 from .recurrent import (
     RGLRU,
@@ -103,11 +105,12 @@ class _Layer(nn.Module):
 
 class AttentionLayer(_Layer):
     """Kinds ``dense`` and ``attn`` (the hybrid's local attention, windowed
-    by ``cfg.window``): attention + MLP."""
+    by ``cfg.window``): attention (latent where the config has a KV latent)
+    + MLP."""
 
     def __init__(self, cfg, gen):
         super().__init__(cfg, gen)
-        self.attn = Attention(cfg, gen)
+        self.attn = attention_params(cfg, gen)
         self.mlp = MLP(cfg, gen)
 
     def ffn(self, h):
@@ -116,8 +119,8 @@ class AttentionLayer(_Layer):
     def forward(self, x, positions):
         cfg, own = self.cfg, sharded_ops().view(self)
         h = rms_norm(x, own.ln1, cfg.norm_eps)
-        x = x + chunked_attention(self.attn, cfg, h, positions,
-                                  causal=cfg.causal, window=cfg.window)
+        x = x + self_attention(self.attn, cfg, h, positions,
+                               causal=cfg.causal, window=cfg.window)
         return x + self.ffn(rms_norm(x, own.ln2, cfg.norm_eps))
 
     def decode(self, x, k_cache, v_cache, position, slots=None):
@@ -144,7 +147,7 @@ class MoeLayer(AttentionLayer):
 
     def __init__(self, cfg, gen):
         _Layer.__init__(self, cfg, gen)
-        self.attn = Attention(cfg, gen)
+        self.attn = attention_params(cfg, gen)
         self.moe = MoE(cfg, gen)
 
     def ffn(self, h):
@@ -324,8 +327,7 @@ class Model(nn.Module):
             self.layers = nn.ModuleList(DecLayer(cfg, gen) for _ in range(cfg.num_layers))
             self.ln_enc = param(full(gen, (cfg.d_model,), 0.0, torch.float32))
         else:
-            self.layers = nn.ModuleList(LAYERS[types[0]](cfg, gen)
-                                        for _ in range(cfg.num_layers))
+            self.layers = nn.ModuleList(LAYERS[kind](cfg, gen) for kind in types)
         if cfg.num_patches:
             self.patch_proj = param(dense_init(gen, (cfg.d_model, cfg.d_model), dt))
 
@@ -503,6 +505,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda", mesh=N
     slots for its ``blocks`` and ``tail``.  With a multi-process ``mesh``
     and ``rules``, zeros laid out as ``partition.shard_cache`` lays out a
     cache (each rank allocates only its blocks, on the mesh's device)."""
+    if cfg.is_mla:
+        raise NotImplementedError("latent attention has no decode cache: the port only "
+                                  "prefills it (forward)")
     if mesh is not None:
         from .partition import zeros_cache
 
@@ -567,6 +572,9 @@ def decode_step(cfg: ModelConfig, params: Model, cache: dict, tokens, position):
     of the batch, the cache is laid out by ``partition.shard_cache`` (its
     blocks written in place: slots split over "model" go to their owner)
     and the logits are the rank's rows and vocabulary columns."""
+    if cfg.is_mla:
+        raise NotImplementedError("latent attention has no decode step: the port only "
+                                  "prefills it (forward)")
     with torch.no_grad():
         sh = sharded_ops()
         top = sh.top(params)

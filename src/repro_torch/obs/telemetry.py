@@ -596,6 +596,34 @@ def count(name: str, n: int) -> None:
         _LOG.count(name, n)
 
 
+_TAPS: contextvars.ContextVar[Optional[dict]] = contextvars.ContextVar(
+    "repro_torch_taps", default=None)
+
+
+@contextlib.contextmanager
+def tapping(*names: str):
+    """Collect, in the calling context, what the program hands to
+    :func:`tap` under ``names`` (values as they are, on their device, in
+    the order handed): yields ``{name: [value, ...]}``.  What a check
+    replays to see the program's own intermediate decisions, such as the
+    dropless MoE's ``moe.routes``; outside such a block :func:`tap` costs
+    one context lookup."""
+    taps = {n: [] for n in names}
+    token = _TAPS.set(taps)
+    try:
+        yield taps
+    finally:
+        _TAPS.reset(token)
+
+
+def tap(name: str, value) -> None:
+    """Hand ``value`` to the enclosing :func:`tapping` block that collects
+    ``name``, if any."""
+    taps = _TAPS.get()
+    if taps is not None and name in taps:
+        taps[name].append(value)
+
+
 def log_count(name: str, n) -> None:
     """Add ``n`` (an int, or a tensor summed on its device with no copy to
     the host) to the log's counter ``name`` alone, while the log records."""

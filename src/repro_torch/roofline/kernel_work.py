@@ -18,7 +18,8 @@ Kernels and their shapes:
 * ``sim_topk`` (K3): the product and the top ``k`` a row, f32;
 * ``sim_hist`` (K4): the product, a row scale, the ``n_bins`` histogram;
 * ``flash_attention`` / ``flash_attention_bwd`` (K5): 4 operations a
-  (query, key) pair and head dim that the masks leave (two products); the
+  (query, key) pair and head dim that the masks leave (two products; 2 (d +
+  dv) where v is ``dv`` wide, as in latent attention); the
   backward 2.5 times as many (five products: the scores again, dP, dV, dQ,
   dK); bytes q, k, v and o (and dO, dQ, dK, dV, the lse in the backward);
 * ``rwkv6_scan`` / ``rwkv6_scan_bwd`` (K6): 5 f32 operations a state
@@ -81,10 +82,13 @@ def sim_hist(m, n, d, n_bins=4096):
     return 2.0 * m * n * d, (m + n) * d * 4 + m * 4 + n_bins * 4, hw.PEAK_FLOPS_F32
 
 
-def flash_attention(b, hq, hkv, sq, skv, d, causal=True, window=0, dtype="bfloat16"):
-    el = _el(dtype)
-    flops = 4.0 * b * hq * d * attention_pairs(sq, skv, causal, window)
-    return flops, el * (2 * b * hq * sq * d + 2 * b * hkv * skv * d), _peak_of(dtype)
+def flash_attention(b, hq, hkv, sq, skv, d, causal=True, window=0, dtype="bfloat16",
+                    dv=None):
+    """``dv``: v's and the output's width where it differs from q's and k's
+    ``d`` (latent attention): 2 d operations a pair for q k^T, 2 dv for P v."""
+    el, dv = _el(dtype), d if dv is None else dv
+    flops = 2.0 * b * hq * (d + dv) * attention_pairs(sq, skv, causal, window)
+    return flops, el * (b * hq * sq * (d + dv) + b * hkv * skv * (d + dv)), _peak_of(dtype)
 
 
 def flash_attention_bwd(b, hq, hkv, sq, skv, d, causal=True, window=0, dtype="bfloat16"):

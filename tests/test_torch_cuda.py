@@ -753,6 +753,27 @@ def test_flash_attention_bf16_short_sequences(card, sq, skv, d, hq, hkv, causal,
         checks.flash_attention_bound(q, k, v, causal=causal, window=window))
 
 
+@pytest.mark.parametrize("sq", [16, 32, 64, 45])
+def test_flash_attention_bf16_latent_widths(card, sq):
+    """Latent attention's (192, 128): q and k 192 wide, v and the output
+    128, causal, bf16, at the scorer's batch of 256 and its buckets (and a
+    ragged 45), 16 heads, against the plain version; counted apart."""
+    rng = np.random.default_rng(sq + 192)
+    q = _normal(card, rng, (256, 16, sq, 192), torch.bfloat16)
+    k = _normal(card, rng, (256, 16, sq, 192), torch.bfloat16)
+    v = _normal(card, rng, (256, 16, sq, 128), torch.bfloat16)
+    cuda_lib.reset_launches()
+    got = flash_attention_cuda(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (256, 16, sq, 128)
+    assert dict(cuda_lib.LAUNCHES) == {"flash_attention_192_128": 1}
+    checks.check_model_kernel(
+        got, flash_attention_ref(q, k, v, causal=True),
+        checks.flash_attention_bound(q, k, v, causal=True))
+    with pytest.raises(ValueError):
+        flash_attention_cuda(q.float(), k.float(), v.float())
+
+
 @pytest.mark.parametrize("b,h,t,hd", [(2, 3, 48, 64), (1, 2, 300, 64),
                                       (2, 2, 333, 16), (1, 1, 70, 128),
                                       (1, 4, 9, 32)])
